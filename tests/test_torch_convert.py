@@ -1,0 +1,73 @@
+"""The weight bridge (``unified_audio_tpu_torch.utils.convert``) against the
+JAX package's own exporters and converters, key for key.
+"""
+import jax
+import numpy as np
+import pytest
+
+from test_torch_common import (jax_sft, random_variables, tiny_lm_config,
+                               to_torch)
+from unified_audio_tpu.models.bicodec.bicodec import BiCodec, BiCodecConfig
+from unified_audio_tpu.models.ssl import wav2vec2 as j_ssl
+from unified_audio_tpu.utils.convert import (convert_hf_wav2vec2,
+                                             export_custom_llama_state_dict)
+from unified_audio_tpu.utils.convert_bicodec import export_bicodec_state_dict
+from unified_audio_tpu_torch.models.bicodec import bicodec as t_bicodec
+from unified_audio_tpu_torch.utils import convert as t_convert
+
+
+def _assert_same(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_llmsft_matches_reference_exporter():
+    cfg = tiny_lm_config()
+    _, variables = jax_sft(cfg, feats_dim=12)
+    _assert_same(t_convert.llmsft_state_dict(variables, cfg),
+                 export_custom_llama_state_dict(variables, cfg))
+
+
+def test_bicodec_decoder_matches_reference_exporter():
+    """Every key the port's decoder loads is exported identically by
+    export_bicodec_state_dict, and the port's module takes exactly them."""
+    cfg = BiCodecConfig(
+        ref_segment_duration=0.2, feat_dim=32, vocos_dim=32,
+        vocos_intermediate_dim=64, vocos_num_layers=2, latent_dim=32,
+        codebook_size=64, codebook_dim=8, spk_out_dim=32, spk_latent_dim=16,
+        token_num=4, fsq_levels=(4, 4, 4), num_mels=32, mel_n_fft=256,
+        mel_win=160, mel_hop=80, wave_channels=32,
+        wave_rates=(8, 5, 4, 2), wave_kernels=(16, 11, 8, 4))
+    variables = random_variables(BiCodec(cfg), np.zeros((1, 10, 32),
+                                                        np.float32),
+                                 np.zeros((1, 3200), np.float32))
+    ours = t_convert.bicodec_decoder_state_dict(variables, cfg)
+    ref = export_bicodec_state_dict(variables, cfg)
+    _assert_same(ours, {k: ref[k] for k in ours})
+    module = t_bicodec.BiCodec(t_bicodec.BiCodecConfig(
+        **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
+    assert sorted(module.state_dict()) == sorted(ours)
+    module.load_state_dict(to_torch(ours))
+
+
+@pytest.mark.parametrize("rel_pos", [True, False])
+def test_wavlm_inverts_hf_converter(rel_pos):
+    """convert_hf_wav2vec2 maps the port's HF-layout state dict back to the
+    JAX variables, leaf for leaf."""
+    cfg = j_ssl.SSLConfig(
+        hidden_size=24, num_layers=3, num_heads=4, intermediate_size=32,
+        conv_dim=(16,) * 7, num_conv_pos_embeddings=16,
+        num_conv_pos_embedding_groups=4, use_rel_pos_bias=rel_pos,
+        num_buckets=32, max_distance=80)
+    variables = random_variables(j_ssl.Wav2Vec2Model(cfg),
+                                 np.zeros((1, 3200), np.float32))
+    sd = t_convert.wavlm_state_dict(variables, cfg)
+    back = convert_hf_wav2vec2(to_torch(sd), cfg)
+    want = jax.tree_util.tree_leaves_with_path(variables)
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(np.asarray(got[path]), np.asarray(leaf),
+                                      err_msg=jax.tree_util.keystr(path))

@@ -1,0 +1,269 @@
+"""Llama-style AR-LM over the codec vocabulary, with a dense KV cache and
+top-k/top-p sampling.
+
+Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig``,
+``init_cache``, ``range_mask``, the decoder stack with prefill and one-token
+decode over a dense cache, ``CodecLM``, ``sample_logits`` (the reference's
+first-crossing top-p rule) and the per-row ``sample_logits_vec``.
+
+Parameters use the reference torch layout (``codec_embedding.weight``,
+``layers.{i}.self_attn.q_proj.weight``, ..., ``norm.weight``,
+``output_head.weight``), the layout ``export_custom_llama_state_dict``
+writes, so a reference state dict loads with ``load_state_dict``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...nn.transformer import RMSNorm, apply_rope, rope_cos_sin
+
+NEG_INF = -1e9
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    global_size: int = 4096
+    semantic_size: int = 8192
+    hidden_size: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    max_position_embeddings: int = 4096
+    label_smoothing: float = 0.1
+    rope_theta: float = 10000.0
+    dropout_p: float = 0.0
+
+    @property
+    def vocab_size(self) -> int:
+        return 3 + self.global_size + self.semantic_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    # special token layout: [global_sos, semantic_sos, semantic_eos, ...]
+    @property
+    def global_sos(self) -> int:
+        return 0
+
+    @property
+    def semantic_sos(self) -> int:
+        return 1
+
+    @property
+    def semantic_eos(self) -> int:
+        return 2
+
+    @property
+    def global_offset(self) -> int:
+        return 3
+
+    @property
+    def semantic_offset(self) -> int:
+        return 3 + self.global_size
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None):
+    """Dense KV cache {k, v: (L, B, max_len, H, hd), index: next position}."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": 0}
+
+
+def range_mask(cfg: LlamaConfig, offset: int, size: int,
+               device=None) -> torch.Tensor:
+    """Additive (V,) fp32 mask: 0 inside [offset, offset+size), NEG_INF
+    outside (the per-phase vocabulary restriction)."""
+    idx = torch.arange(cfg.vocab_size, device=device)
+    inside = (idx >= offset) & (idx < offset + size)
+    return torch.where(inside, 0.0, NEG_INF)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.cfg = cfg
+        self.q_proj = nn.Linear(d, d, bias=False)
+        self.k_proj = nn.Linear(d, d, bias=False)
+        self.v_proj = nn.Linear(d, d, bias=False)
+        self.o_proj = nn.Linear(d, d, bias=False)
+
+    def forward(self, x, mask, cos, sin, cache, li: int):
+        """x (B, S, D). The new K/V rows are written into ``cache`` at its
+        index IN PLACE (the cache is one preallocated buffer, so no copy of
+        it is made per step) and the attention reads the whole buffer."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, hd = cfg.num_heads, cfg.head_dim
+        q = self.q_proj(x).view(b, s, h, hd)
+        k = self.k_proj(x).view(b, s, h, hd)
+        v = self.v_proj(x).view(b, s, h, hd)
+        q, k = apply_rope(q, k, cos, sin)
+        idx = cache["index"]
+        cache["k"][li, :, idx:idx + s] = k.to(cache["k"].dtype)
+        cache["v"][li, :, idx:idx + s] = v.to(cache["v"].dtype)
+        k, v = cache["k"][li], cache["v"][li]
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
+        probs = torch.softmax(logits + mask, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, -1)
+        return self.o_proj(out)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        d, inter = cfg.hidden_size, cfg.hidden_size * 4
+        self.gate_proj = nn.Linear(d, inter, bias=False)
+        self.up_proj = nn.Linear(d, inter, bias=False)
+        self.down_proj = nn.Linear(inter, d, bias=False)
+
+    def forward(self, x):
+        return self.down_proj(
+            nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.self_attn = LlamaAttention(cfg)
+        self.mlp = LlamaMLP(cfg)
+        self.input_layernorm = RMSNorm(cfg.hidden_size)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size)
+
+    def forward(self, x, mask, cos, sin, cache, li: int):
+        x = x + self.self_attn(self.input_layernorm(x), mask, cos, sin,
+                               cache, li)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class CodecLM(nn.Module):
+    """Codec embedding + decoder stack + output head over the
+    3 + global + semantic vocabulary."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.codec_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.layers = nn.ModuleList(
+            [LlamaLayer(cfg) for _ in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size)
+        self.output_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False)
+
+    def cached_forward(self, embeds, cache):
+        """Write S new positions at cache["index"]; returns the normed
+        hidden states (B, S, D) and the cache with its index advanced."""
+        cfg = self.cfg
+        s = embeds.shape[1]
+        max_len = cache["k"].shape[2]
+        idx = cache["index"]
+        dev = embeds.device
+        positions = idx + torch.arange(s, device=dev)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        # key j is visible to query i iff j <= idx + i
+        key_pos = torch.arange(max_len, device=dev)[None]
+        mask = torch.where(key_pos <= positions[:, None], 0.0, NEG_INF)
+        x = embeds
+        for li, layer in enumerate(self.layers):
+            x = layer(x, mask, cos, sin, cache, li)
+        cache["index"] = idx + s
+        return self.norm(x), cache
+
+    def prefill(self, embeds, cache):
+        hidden, cache = self.cached_forward(embeds, cache)
+        return self.output_head(hidden[:, -1]), cache
+
+    def decode_ids(self, ids, cache):
+        """ids (B,) -> (logits (B, V), cache): one decode step."""
+        hidden, cache = self.cached_forward(self.codec_embedding(ids[:, None]),
+                                            cache)
+        return self.output_head(hidden[:, -1]), cache
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+def filter_logits(logits, top_k: int = 50, top_p: float = 0.95):
+    """Top-k then top-p filter of (B, V) logits; filtered entries become
+    NEG_INF. Keeps the first token whose cumulative probability crosses
+    ``top_p``."""
+    if top_k > 0:
+        k = min(top_k, logits.shape[-1])
+        vals = torch.topk(logits, k, dim=-1).values  # sorted descending
+        logits = torch.where(logits < vals[..., -1:], NEG_INF, logits)
+        if top_p < 1.0:
+            cum = torch.cumsum(torch.softmax(vals, dim=-1), dim=-1)
+            remove_sorted = torch.cat(
+                [torch.zeros_like(cum[..., :1], dtype=torch.bool),
+                 (cum > top_p)[..., :-1]], dim=-1)
+            kept_min = torch.where(remove_sorted, torch.inf, vals).amin(
+                dim=-1, keepdim=True)
+            logits = torch.where(logits < kept_min, NEG_INF, logits)
+    elif top_p < 1.0:
+        # descending order with ties in reverse index order, as a reversed
+        # stable ascending sort gives
+        order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+        sorted_logits = torch.gather(logits, -1, order)
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        remove_sorted = torch.cat(
+            [torch.zeros_like(cum[..., :1], dtype=torch.bool),
+             (cum > top_p)[..., :-1]], dim=-1)
+        remove = torch.empty_like(remove_sorted).scatter_(-1, order,
+                                                          remove_sorted)
+        logits = torch.where(remove, NEG_INF, logits)
+    return logits
+
+
+def _categorical(logits, generator: Optional[torch.Generator]):
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].int()
+
+
+def sample_logits(generator, logits, temperature: float = 0.8,
+                  top_k: int = 50, top_p: float = 0.95,
+                  do_sample: bool = True) -> torch.Tensor:
+    """(B, V) range-masked logits -> (B,) int32 tokens: argmax, or top-k,
+    top-p, temperature and a draw from ``generator``."""
+    if not do_sample:
+        return torch.argmax(logits, dim=-1).int()
+    return _categorical(filter_logits(logits, top_k, top_p) / temperature,
+                        generator)
+
+
+def filter_logits_vec(logits, top_k, top_p, max_top_k: int = 256):
+    """Per-row top-k (B,) and top-p (B,) filter: one topk with a static
+    ``max_top_k`` covers every row's k through a per-row threshold; the
+    top-p cumsum runs over each row's own top-k entries."""
+    b, v = logits.shape
+    kmax = min(max_top_k, v)
+    vals = torch.topk(logits, kmax, dim=-1).values
+    col = torch.arange(kmax, device=logits.device)[None]
+    k = top_k.long().clamp(1, kmax)
+    kth = torch.gather(vals, -1, (k - 1)[:, None])
+    filt = torch.where(logits < kth, NEG_INF, logits)
+    vals_k = torch.where(col < k[:, None], vals, NEG_INF)
+    cum = torch.cumsum(torch.softmax(vals_k, dim=-1), dim=-1)
+    remove_sorted = torch.cat(
+        [torch.zeros((b, 1), dtype=torch.bool, device=logits.device),
+         (cum > top_p[:, None])[:, :-1]], dim=-1)
+    kept_min = torch.where(remove_sorted, torch.inf, vals_k).amin(
+        dim=-1, keepdim=True)
+    return torch.where(filt < kept_min, NEG_INF, filt)
+
+
+def sample_logits_vec(generator, logits, temperature, top_k, top_p,
+                      do_sample, max_top_k: int = 256) -> torch.Tensor:
+    """Per-row sampling parameters (each (B,)): same semantics as
+    :func:`sample_logits`; rows with ``do_sample`` False take the argmax.
+    Returns (B,) int32."""
+    greedy = torch.argmax(logits, dim=-1).int()
+    filt = filter_logits_vec(logits, top_k, top_p, max_top_k)
+    sampled = _categorical(filt / temperature[:, None], generator)
+    return torch.where(do_sample, sampled, greedy)

@@ -1,0 +1,242 @@
+"""WavLM frontend (the wav2vec2-family SSL encoder on the serving path).
+
+Port of the WavLM path of ``unified_audio_tpu/models/ssl/wav2vec2.py``:
+``SSLConfig``, the 7-layer conv feature extractor (GroupNorm on layer 0,
+exact GELU), the grouped positional conv (the trailing element dropped for
+an even kernel), the T5-style relative-position buckets and the gated
+relative-position bias, the post-LN encoder layers, ``Wav2Vec2Model`` and
+``wavlm_features``. Parameter names follow the HF layout
+(``feature_extractor.conv_layers.{i}.conv.weight``,
+``encoder.layers.{i}.attention.q_proj.weight``, ...), with the positional
+conv's weight norm folded into ``encoder.pos_conv_embed.conv.weight``.
+Hidden states are (B, T, C).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+@dataclass(frozen=True)
+class SSLConfig:
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # the serving path uses "group"
+    do_stable_layer_norm: bool = False
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    # WavLM relative position bias
+    use_rel_pos_bias: bool = False
+    num_buckets: int = 320
+    max_distance: int = 800
+
+
+def wavlm_base_plus_config() -> SSLConfig:
+    return SSLConfig(use_rel_pos_bias=True)
+
+
+def conv_frames(cfg: SSLConfig, n_samples: int) -> int:
+    """Frames the conv feature extractor makes from ``n_samples``."""
+    n = n_samples
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+    return n
+
+
+class _ConvLayer(nn.Module):
+    def __init__(self, cin: int, cout: int, k: int, stride: int, bias: bool,
+                 group_norm: bool):
+        super().__init__()
+        self.conv = nn.Conv1d(cin, cout, k, stride=stride, bias=bias)
+        self.layer_norm = (nn.GroupNorm(cout, cout, eps=1e-5) if group_norm
+                           else None)
+
+    def forward(self, x):  # (B, C, T)
+        x = self.conv(x)
+        if self.layer_norm is not None:
+            x = self.layer_norm(x)
+        return F.gelu(x)
+
+
+class FeatureExtractor(nn.Module):
+    """7-layer strided conv frontend, 320x downsample: (B, N) -> (B, T, C)."""
+
+    def __init__(self, cfg: SSLConfig):
+        super().__init__()
+        if cfg.feat_extract_norm != "group" or cfg.do_stable_layer_norm:
+            raise NotImplementedError(
+                "only the post-LN, group-norm frontend (HuBERT/WavLM base) "
+                "is ported")
+        cin, layers = 1, []
+        for i, (dim, k, s) in enumerate(
+                zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)):
+            layers.append(_ConvLayer(cin, dim, k, s, cfg.conv_bias, i == 0))
+            cin = dim
+        self.conv_layers = nn.ModuleList(layers)
+
+    def forward(self, wav):
+        h = wav[:, None]
+        for layer in self.conv_layers:
+            h = layer(h)
+        return h.transpose(1, 2)
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, cfg: SSLConfig):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=1e-5)
+        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+
+    def forward(self, x):
+        return self.projection(self.layer_norm(x))
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv, same-padded; an even kernel drops the last frame."""
+
+    def __init__(self, cfg: SSLConfig):
+        super().__init__()
+        k = cfg.num_conv_pos_embeddings
+        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k,
+                              padding=k // 2,
+                              groups=cfg.num_conv_pos_embedding_groups)
+
+    def forward(self, x):
+        h = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        if self.conv.kernel_size[0] % 2 == 0:
+            h = h[:, :-1]
+        return F.gelu(h)
+
+
+def relative_position_buckets(qlen: int, klen: int, num_buckets: int,
+                              max_distance: int) -> np.ndarray:
+    """WavLM T5-style bidirectional relative position buckets (numpy)."""
+    relative = np.arange(klen)[None, :] - np.arange(qlen)[:, None]
+    nb = num_buckets // 2
+    buckets = (relative > 0).astype(np.int64) * nb
+    rel = np.abs(relative)
+    max_exact = nb // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel, 1) / max_exact)
+        / np.log(max_distance / max_exact)
+        * (nb - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, nb - 1)
+    return buckets + np.where(is_small, rel, large)
+
+
+class SSLSelfAttention(nn.Module):
+    def __init__(self, cfg: SSLConfig, has_relative_position_bias: bool):
+        super().__init__()
+        d, h = cfg.hidden_size, cfg.num_heads
+        self.cfg = cfg
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+        if cfg.use_rel_pos_bias:
+            self.gru_rel_pos_linear = nn.Linear(d // h, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, h, 1, 1))
+            if has_relative_position_bias:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, h)
+
+    def forward(self, x, position_bias=None):
+        cfg = self.cfg
+        b, t, d = x.shape
+        h = cfg.num_heads
+        hd = d // h
+        if cfg.use_rel_pos_bias and position_bias is None:
+            buckets = torch.as_tensor(relative_position_buckets(
+                t, t, cfg.num_buckets, cfg.max_distance), device=x.device)
+            position_bias = self.rel_attn_embed(buckets).permute(2, 0, 1)
+        q = self.q_proj(x).view(b, t, h, hd)
+        k = self.k_proj(x).view(b, t, h, hd)
+        v = self.v_proj(x).view(b, t, h, hd)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5
+        if cfg.use_rel_pos_bias:
+            # gated relative position bias, gates from the per-head query
+            proj = self.gru_rel_pos_linear(q.transpose(1, 2))  # (B, H, T, 8)
+            gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1))
+            gate_a, gate_b = gates[..., 0:1], gates[..., 1:2]
+            gate_out = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+            logits = logits + gate_out * position_bias[None]
+        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
+        return self.out_proj(out), position_bias
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: SSLConfig):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(cfg.hidden_size,
+                                            cfg.intermediate_size)
+        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+
+
+class SSLEncoderLayer(nn.Module):
+    """Post-LN encoder layer (base models)."""
+
+    def __init__(self, cfg: SSLConfig, has_relative_position_bias: bool):
+        super().__init__()
+        self.attention = SSLSelfAttention(cfg, has_relative_position_bias)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.feed_forward = FeedForward(cfg)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+    def forward(self, x, position_bias=None):
+        h, position_bias = self.attention(x, position_bias)
+        x = self.layer_norm(x + h)
+        x = self.final_layer_norm(x + self.feed_forward(x))
+        return x, position_bias
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: SSLConfig):
+        super().__init__()
+        self.pos_conv_embed = PositionalConvEmbedding(cfg)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.layers = nn.ModuleList(
+            [SSLEncoderLayer(cfg, i == 0) for i in range(cfg.num_layers)])
+
+
+class Wav2Vec2Model(nn.Module):
+    """Frozen SSL encoder: wav (B, N) -> tuple of num_layers + 1 hidden
+    states (B, T, C), embeddings first (the HF layout)."""
+
+    def __init__(self, cfg: SSLConfig):
+        super().__init__()
+        self.config = cfg
+        self.feature_extractor = FeatureExtractor(cfg)
+        self.feature_projection = FeatureProjection(cfg)
+        self.encoder = Encoder(cfg)
+
+    def forward(self, wav):
+        enc = self.encoder
+        h = self.feature_projection(self.feature_extractor(wav))
+        h = enc.layer_norm(h + enc.pos_conv_embed(h))
+        hidden_states = [h]
+        position_bias = None
+        for layer in enc.layers:
+            h, position_bias = layer(h, position_bias)
+            hidden_states.append(h)
+        return tuple(hidden_states)
+
+
+def wavlm_features(hidden_states) -> torch.Tensor:
+    """All-layer mean, no compression (the UniSE conditioning features)."""
+    return torch.stack(hidden_states, dim=0).mean(dim=0)

@@ -1,0 +1,272 @@
+"""Owner-mode paged flash-decode attention: CUDA kernels and plain versions.
+
+Port of ``unified_audio_tpu/ops/pallas/paged_attention.py``:
+
+* K1 :func:`paged_flash_decode_owner` (TPU kernel ``_owner_kernel_flat``),
+  bf16 or fp32 pool;
+* K2 :func:`paged_flash_decode_owner_q8` (``_owner_kernel_flat_q8``), int8
+  pool with fp32 per-token scales.
+
+The kernels are CUDA C++ for sm_90a in ``csrc/paged_attention.cu``, built
+with ``nvcc`` on first use (``ops/cuda/build.py``). Each wrapper launches its
+kernel for CUDA tensors and uses the plain PyTorch version beside it only for
+tensors on the CPU; there is no fallback from a failed launch. Each wrapper
+counts its launches in a plain integer attribute, ``<wrapper>.launches``.
+
+Semantics (both kernels): q (S, H, hd); pools flat (L, NB, BS, H*hd);
+``start_block`` (S,) int32, the first physical block of each slot's
+contiguous region; ``index`` (S,) int32, the last visible slot-local
+position, -1 for an inactive slot (its output is zeros); ``li`` the layer.
+Slot s's position p sits in block ``start_block[s] + p // BS`` at offset
+``p % BS``. The result is softmax(q . K / sqrt(hd)) V over positions
+``0..index[s]`` in fp32, returned in q's dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e9  # the additive mask value of the plain attention paths
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path and the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def _owned_rows(pool, start_block, index, block_size):
+    """(S, P) ids of each slot's own token rows inside a layer (block *
+    BS + offset) for positions 0..max(index), and their (S, P) visibility."""
+    nb = pool.shape[1]
+    n_pos = max(int(index.max()) + 1, 1)
+    n_blk = -(-n_pos // block_size)
+    blocks = start_block.long()[:, None] + torch.arange(
+        n_blk, device=pool.device)[None]
+    # slots whose region is shorter than the longest live prefix read
+    # clamped in-pool blocks; those positions are masked below
+    blocks = blocks.clamp_(max=nb - 1)
+    tok = (blocks[:, :, None] * block_size + torch.arange(
+        block_size, device=pool.device)).reshape(len(index), -1)
+    pos = torch.arange(n_blk * block_size, device=pool.device)
+    visible = pos[None] <= index.long()[:, None]
+    return tok, visible
+
+
+def paged_flash_decode_owner_ref(q, kpool, vpool, start_block, index, li):
+    """Plain K1, with the rounding order of the plain paged attention
+    (``serve/paged.py`` mode ``""``): logits in fp32 after the q.k product in
+    the inputs' dtype, softmax in fp32, probabilities cast back to q's dtype
+    before the p.v product."""
+    s_slots, h, hd = q.shape
+    _, _, bs, _ = kpool.shape
+    tok, visible = _owned_rows(kpool, start_block, index, bs)
+    k = kpool[li].reshape(-1, h, hd)[tok]  # (S, P, H, hd)
+    v = vpool[li].reshape(-1, h, hd)[tok]
+    mask = torch.where(visible, 0.0, NEG_INF)[:, None]  # (S, 1, P)
+    logits = torch.einsum("shd,sphd->shp", q, k).float()
+    logits = logits * hd ** -0.5 + mask
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("shp,sphd->shd", probs, v.to(probs.dtype))
+    return torch.where(index[:, None, None] >= 0, out, torch.zeros_like(out))
+
+
+def paged_flash_decode_owner_q8_ref(q, kpool, vpool, k_scale, v_scale,
+                                    start_block, index, li):
+    """Plain K2: the int8 rows dequantize by row, folding the k scale into
+    the logits and the v scale into the probabilities (same order as the
+    plain int8 path of ``serve/paged.py``). ``k_scale``/``v_scale`` are the
+    layer's (NB, BS) scales."""
+    s_slots, h, hd = q.shape
+    _, _, bs, _ = kpool.shape
+    tok, visible = _owned_rows(kpool, start_block, index, bs)
+    k = kpool[li].reshape(-1, h, hd)[tok].float()
+    v = vpool[li].reshape(-1, h, hd)[tok].float()
+    ksc = k_scale.reshape(-1)[tok]  # (S, P)
+    vsc = v_scale.reshape(-1)[tok]
+    mask = torch.where(visible, 0.0, NEG_INF)[:, None]
+    logits = torch.einsum("shd,sphd->shp", q.float(), k)
+    logits = logits * (ksc * hd ** -0.5)[:, None] + mask
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = probs * vsc[:, None].to(probs.dtype)
+    out = torch.einsum("shp,sphd->shd", probs, v.to(probs.dtype))
+    return torch.where(index[:, None, None] >= 0, out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_K1_ARGS = [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _PTR]
+_K2_ARGS = [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR]
+
+
+def _library():
+    from .build import load_library
+
+    lib = load_library("paged_attention.cu")
+    if not getattr(lib, "_typed", False):
+        for name, args in (("owner_decode_f32", _K1_ARGS),
+                           ("owner_decode_bf16", _K1_ARGS),
+                           ("owner_decode_q8_f32", _K2_ARGS),
+                           ("owner_decode_q8_bf16", _K2_ARGS)):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _require(cond: bool, what: str):
+    if not cond:
+        raise ValueError(f"paged flash-decode kernel: {what}")
+
+
+def _check_common(q, kpool, vpool, start_block, index, li, pool_dtypes):
+    dev = q.device
+    _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
+    _require(q.dim() == 3, f"q must be (S, H, hd), got {tuple(q.shape)}")
+    s_slots, h, hd = q.shape
+    _require(hd == 64, f"head dim {hd} unsupported (kernel is built for 64)")
+    _require(kpool.dim() == 4 and kpool.shape == vpool.shape,
+             f"pools must be equal (L, NB, BS, H*hd), got "
+             f"{tuple(kpool.shape)} / {tuple(vpool.shape)}")
+    _require(kpool.shape[3] == h * hd,
+             f"pool row width {kpool.shape[3]} != H*hd = {h * hd}")
+    _require(0 <= int(li) < kpool.shape[0], f"layer {li} out of range")
+    _require(kpool.dtype in pool_dtypes and vpool.dtype == kpool.dtype,
+             f"pool dtype {kpool.dtype} not in {pool_dtypes}")
+    for name, t in (("start_block", start_block), ("index", index)):
+        _require(t.dtype == torch.int32 and t.shape == (s_slots,),
+                 f"{name} must be int32 ({s_slots},), got {t.dtype} "
+                 f"{tuple(t.shape)}")
+    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool),
+                    ("start_block", start_block), ("index", index)):
+        _require(t.device == dev, f"{name} on {t.device}, q on {dev}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
+        # the kernel reads rows with 16-byte vector loads
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def paged_flash_decode_owner(q, kpool, vpool, start_block, index, li):
+    """K1: owner-mode flash decode over a bf16 (or fp32) pool; q's dtype
+    must match the pool's. Returns (S, H, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_owner_ref(q, kpool, vpool, start_block,
+                                            index, li)
+    _check_common(q, kpool, vpool, start_block, index, li,
+                  (torch.bfloat16, torch.float32))
+    _require(q.dtype == kpool.dtype,
+             f"q dtype {q.dtype} != pool dtype {kpool.dtype}")
+    lib = _library()
+    fn = lib.owner_decode_bf16 if q.dtype == torch.bfloat16 \
+        else lib.owner_decode_f32
+    s_slots, h, hd = q.shape
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            start_block.data_ptr(), index.data_ptr(), out.data_ptr(),
+            s_slots, h, kpool.shape[1], kpool.shape[2], int(li),
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_flash_decode_owner")
+    paged_flash_decode_owner.launches += 1
+    return out
+
+
+def paged_flash_decode_owner_q8(q, kpool, vpool, k_scale, v_scale,
+                                start_block, index, li):
+    """K2: owner-mode flash decode over an int8 pool; ``k_scale``/
+    ``v_scale`` are the layer's (NB, BS) fp32 scales. q is bf16 or fp32.
+    Returns (S, H, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_owner_q8_ref(q, kpool, vpool, k_scale,
+                                               v_scale, start_block, index,
+                                               li)
+    _check_common(q, kpool, vpool, start_block, index, li, (torch.int8,))
+    _require(q.dtype in (torch.bfloat16, torch.float32),
+             f"q dtype {q.dtype} not bf16/fp32")
+    nb, bs = kpool.shape[1], kpool.shape[2]
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _require(t.dtype == torch.float32 and t.shape == (nb, bs),
+                 f"{name} must be fp32 ({nb}, {bs}), got {t.dtype} "
+                 f"{tuple(t.shape)}")
+        _require(t.device == q.device and t.is_contiguous(),
+                 f"{name} must be contiguous on {q.device}")
+    lib = _library()
+    fn = lib.owner_decode_q8_bf16 if q.dtype == torch.bfloat16 \
+        else lib.owner_decode_q8_f32
+    s_slots, h, hd = q.shape
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), start_block.data_ptr(),
+            index.data_ptr(), out.data_ptr(), s_slots, h, nb, bs, int(li),
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_flash_decode_owner_q8")
+    paged_flash_decode_owner_q8.launches += 1
+    return out
+
+
+paged_flash_decode_owner.launches = 0
+paged_flash_decode_owner_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# A kernel against its plain version (card tests and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+def serving_case(quant: bool, dtype, device, seed: int = 0):
+    """Arguments of one K2 (``quant``) or K1 call at the serving shapes:
+    16 slots, a 12-layer pool of 256 64-token blocks with rows of 8 heads of
+    64, each slot owning a 14-block region, layer 7. Live prefixes are drawn
+    up to a region's end; slot 0 fills its region, slots 2 and 3 end on a
+    block boundary and at position 0, slots 1 and 9 are inactive."""
+    s, n_layers, h, hd, bs, nb, region = 16, 12, 8, 64, 64, 256, 14
+    g = torch.Generator().manual_seed(seed)
+    start = torch.tensor([(i + 1) * region for i in range(s)],
+                         dtype=torch.int32)
+    index = torch.randint(0, region * bs, (s,), generator=g,
+                          dtype=torch.int32)
+    index[:4] = torch.tensor([region * bs - 1, -1, 63, 0])
+    index[9] = -1
+    q = torch.randn(s, h, hd, generator=g).to(dtype)
+    shape = (n_layers, nb, bs, h * hd)
+    if quant:
+        k = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        ks = 0.02 * torch.rand(nb, bs, generator=g)
+        vs = 0.02 * torch.rand(nb, bs, generator=g)
+        args = [q, k, v, ks, vs, start, index]
+    else:
+        args = [q, torch.randn(shape, generator=g).to(dtype),
+                torch.randn(shape, generator=g).to(dtype), start, index]
+    return [a.to(device) for a in args] + [7]
+
+
+def compare_with_plain(kernel, ref, args):
+    """Run ``kernel(*args)`` and ``ref`` on the same values in fp32.
+
+    Returns (max abs error, within tolerance). Tolerance: fp32 q within
+    1e-5 abs + 1e-5 rel (another summation order); bf16 q within 2 bf16 ulps
+    of the fp32 plain result (ulp floored at that of 2**-8), since the
+    kernel rounds its output, and the probabilities before the p.v product,
+    to bf16. Inactive slots (``index < 0``) must be exact zeros."""
+    q, index = args[0], args[-2]
+    out = kernel(*args).float()
+    up = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+          for a in args]
+    want = ref(*up)
+    err = (out - want).abs()
+    if q.dtype == torch.float32:
+        ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+            torch.log2(want.abs().clamp(min=2.0 ** -8))))
+        ok = bool((err <= 2 * ulp).all())
+    ok = ok and bool(torch.isfinite(out).all()) \
+        and bool((out[index < 0] == 0).all())
+    return err.max().item(), ok

@@ -1,0 +1,177 @@
+"""Where a serving run's time goes, on one CUDA card.
+
+    python -m unified_audio_tpu_torch.serve.profile_step [--out PROFILE.json]
+
+Builds the full-width UniSE stack as ``cli serve`` does (random weights,
+LM bf16, WavLM and BiCodec fp32) and, for each KV pool format in turn
+(int8, bf16, int8, bf16: the two alternate), admits 16 five-second
+segments (8 SE, 8 TSE with 5-s enrolls, half of them sampled) into a
+16-slot engine and measures:
+
+* admission (WavLM frontend + prompt + prefill + scatter) of the wave;
+* the decode step at two points of the 283-step decode, early (after 70
+  steps) and late (after 240), with the cached tokens per slot: wall
+  time per step over 20 unprofiled steps, then the same number of
+  steps under ``torch.profiler`` for device kernel time per step, the
+  device-busy share of the unprofiled step, kernel launches per step, the
+  owner attention kernel's time per call, and the kernels by device time;
+* the WavLM frontend alone and ``BiCodec`` detokenize alone on the 16
+  segments (warm, synchronized wall time).
+
+Prints one JSON object per measurement and writes them all to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+POOLS = ("int8", "bf16") * 2  # alternated: host time drifts between runs
+SLOTS = 16  # the serving default
+WINDOW = 20  # decode steps per timed and per profiled window
+SEED = 0
+
+
+def _wall(fn):
+    """-> (seconds, fn()), the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _steps(eng, gen, n):
+    for _ in range(n):
+        eng.step(gen)
+
+
+def _window(eng, gen, n_steps):
+    """Unprofiled then profiled decode steps -> one measurement dict."""
+    from torch.profiler import ProfilerActivity, profile
+
+    index = eng.state["index"][eng.state["phase"] != 2]
+    wall_s, _ = _wall(lambda: _steps(eng, gen, n_steps))
+    step_ms = 1e3 * wall_s / n_steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _steps(eng, gen, n_steps)
+        torch.cuda.synchronize()
+    by_kernel = defaultdict(lambda: [0.0, 0])  # name -> [us, calls]
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_kernel[ev.name]
+            rec[0] += ev.time_range.elapsed_us()
+            rec[1] += 1
+        elif ev.name in LAUNCH_CALLS:
+            launches += 1
+    device_us = sum(us for us, _ in by_kernel.values())
+    attn = [(us, n) for name, (us, n) in by_kernel.items()
+            if "owner_decode_kernel" in name]
+    attn_us = sum(us for us, _ in attn)
+    attn_calls = sum(n for _, n in attn)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "cached_tokens_min": int(index.min()) + 1,
+        "cached_tokens_max": int(index.max()) + 1,
+        "step_ms": step_ms,
+        # None: the profiler saw no device activity (not measured)
+        "device_ms_per_step": (1e-3 * device_us / n_steps) if by_kernel
+        else None,
+        "device_busy_share": (1e-3 * device_us / n_steps / step_ms)
+        if by_kernel else None,
+        "launches_per_step": launches / n_steps,
+        "owner_kernel_us_per_call": attn_us / attn_calls if attn_calls
+        else None,
+        "owner_kernel_share_of_device": attn_us / device_us if device_us
+        else None,
+        "top_kernels": [{"name": name[:90], "us_per_step": us / n_steps,
+                         "calls_per_step": n / n_steps,
+                         "share": us / device_us}
+                        for name, (us, n) in top],
+    }
+
+
+def _requests(n, seg_len, sem_len, seed):
+    from ..serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        mix = (0.3 * rng.standard_normal(seg_len)).astype(np.float32)
+        enroll = ((0.3 * rng.standard_normal(seg_len)).astype(np.float32)
+                  if i % 2 else None)
+        reqs.append(Request(task_id=i % 2, mix_wav=mix, enroll_wav=enroll,
+                            semantic_length=sem_len, do_sample=i % 4 >= 2,
+                            uid=i))
+    return reqs
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="profile_step")
+    p.add_argument("--out", default=None, help="write the results as JSON")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_step: needs a CUDA card")
+    from ..cli import _build_unise, make_engine
+
+    unise = _build_unise(device="cuda")
+    unise.sft.to(torch.bfloat16)
+    cfg = unise.config
+    sem_len = unise._semantic_len()
+    reqs = _requests(SLOTS, cfg.segment_len, sem_len, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results = []
+
+    def emit(rec):
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    wavs = torch.as_tensor(np.stack([r.mix_wav for r in reqs]),
+                           device="cuda")
+    with torch.no_grad():
+        t = [_wall(lambda: unise.wavlm_feats(wavs))[0] for _ in range(3)]
+    emit({"phase": "wavlm", "segments": len(reqs), "s_first": t[0],
+          "s_warm": t[-1]})
+
+    for run, pool in enumerate(POOLS):
+        eng = make_engine(unise, SLOTS, "int8" if pool == "int8" else None)
+        admit_s, admitted = _wall(lambda: eng.admit_many(reqs))
+        if len(admitted) != len(reqs):
+            sys.exit(f"profile_step: admitted {len(admitted)} of {len(reqs)}")
+        emit({"phase": "admission", "pool": pool, "run": run,
+              "segments": len(admitted), "s": admit_s})
+        done = 0
+        for at in (70, 240):
+            _steps(eng, gen, at - done)
+            emit({"phase": "decode_step", "pool": pool, "run": run,
+                  "after_steps": at, **_window(eng, gen, WINDOW)})
+            done = at + 2 * WINDOW
+        out = {}
+        while len(out) < len(reqs):
+            eng.step(gen)
+            out.update({r.uid: r for r in eng.harvest()})
+    g = np.stack([out[r.uid].global_ids for r in reqs])
+    s = np.stack([out[r.uid].semantic_ids for r in reqs])
+    with torch.no_grad():
+        t = [_wall(lambda: unise._decode_tokens(
+            g, s, len(reqs) * cfg.segment_len))[0] for _ in range(3)]
+    emit({"phase": "detokenize", "segments": len(reqs), "s_first": t[0],
+          "s_warm": t[-1]})
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return results
+
+
+if __name__ == "__main__":
+    main()

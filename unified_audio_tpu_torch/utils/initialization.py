@@ -1,0 +1,33 @@
+"""Seeded random initialization of the port's modules.
+
+No checkpoint of the released weights is reachable, so serving runs on
+random weights made from a seed through an explicit ``torch.Generator``:
+fan-in scaled uniform weights for linear and conv layers, zero biases,
+unit-normal embeddings; norms, Snake ``alpha`` and layer scales keep their
+constructor values.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..nn.conv import Conv1d, ConvTranspose1d
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialize ``module``'s weights in place from ``generator`` (which
+    must live on the parameters' device)."""
+    fan_in_types = (nn.Linear, nn.Conv1d, Conv1d, ConvTranspose1d)
+    for m in module.modules():
+        if isinstance(m, fan_in_types):
+            w = m.weight
+            bound = 1.0 / math.sqrt(w[0].numel())
+            w.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+    return module
