@@ -9,6 +9,7 @@ Tolerances, unless a test states otherwise: floats within atol/rtol 1e-4
 greedy decoding.
 """
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -196,32 +197,44 @@ def port_unise(unise):
 class TestPortImportsNoJax:
     def test_cli_imports_without_jax(self):
         """With jax and flax made unimportable, the port's CLI (and through
-        it the whole serving path) still imports, and of the JAX package it
-        loads only the numpy-only ``data.audio_io``."""
+        it the serving path and the HCodec round trip) still imports, and no
+        module of the JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
                 "import unified_audio_tpu_torch.cli, "
                 "unified_audio_tpu_torch.serve.engine, "
                 "unified_audio_tpu_torch.models.unise.model, "
+                "unified_audio_tpu_torch.models.hcodec.tokenizer, "
                 "unified_audio_tpu_torch.utils.convert, "
                 "unified_audio_tpu_torch.utils.initialization; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
-                "assert shared == {'unified_audio_tpu', "
-                "'unified_audio_tpu.data', "
-                "'unified_audio_tpu.data.audio_io'}, shared")
+                "assert not shared, shared")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
 
+    @staticmethod
+    def _port_sources():
+        files = list((REPO / "unified_audio_tpu_torch").rglob("*.py"))
+        return files + [REPO / "chip_smoke.py"]
+
     def test_no_jax_import_lines(self):
         """No module of the port, nor chip_smoke.py, has an import line
         naming jax or flax."""
-        files = list((REPO / "unified_audio_tpu_torch").rglob("*.py"))
-        files.append(REPO / "chip_smoke.py")
-        for f in files:
+        for f in self._port_sources():
             for line in f.read_text().splitlines():
                 s = line.strip()
                 assert not (s.startswith(("import jax", "from jax",
                                           "import flax", "from flax"))), \
                     f"{f}: {line}"
+
+    def test_no_jax_package_import_lines(self):
+        """No module of the port, nor chip_smoke.py, imports the JAX
+        package (``unified_audio_tpu`` not followed by ``_torch``), not even
+        a numpy-only module of it."""
+        pattern = re.compile(
+            r"^\s*(import|from)\s+unified_audio_tpu(?!_torch)\b")
+        for f in self._port_sources():
+            for line in f.read_text().splitlines():
+                assert not pattern.match(line), f"{f}: {line}"

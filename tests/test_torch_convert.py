@@ -12,7 +12,9 @@ from unified_audio_tpu.models.ssl import wav2vec2 as j_ssl
 from unified_audio_tpu.utils.convert import (convert_hf_wav2vec2,
                                              export_custom_llama_state_dict)
 from unified_audio_tpu.utils.convert_bicodec import export_bicodec_state_dict
+from unified_audio_tpu.utils.convert_hcodec import export_hcodec10_state_dict
 from unified_audio_tpu_torch.models.bicodec import bicodec as t_bicodec
+from unified_audio_tpu_torch.models.hcodec import codec as t_codec
 from unified_audio_tpu_torch.utils import convert as t_convert
 
 
@@ -71,3 +73,41 @@ def test_wavlm_inverts_hf_converter(rel_pos):
     for path, leaf in want:
         np.testing.assert_array_equal(np.asarray(got[path]), np.asarray(leaf),
                                       err_msg=jax.tree_util.keystr(path))
+
+
+def test_hcodec10_matches_reference_exporter():
+    """hcodec10_state_dict == export_hcodec10_state_dict key for key and
+    value for value (codebooks from the ``codebook`` collection, the
+    ConvNeXt stack unstacked per block), and the port's HCodec takes
+    exactly its inference keys with strict loading."""
+    from unified_audio_tpu.models.hcodec.codec import HCodec, hcodec10_config
+
+    cfg = hcodec10_config(
+        latent_dim=64, seanet_filters=4, codebook_size=32, num_quantizers=2,
+        decoder_dim=64, decoder_intermediate_dim=128,
+        decoder_convnext_layers=3, semantic_encode_channels=64, feat_dim=32)
+    variables = jax.device_get(random_variables(
+        HCodec(cfg), np.zeros((1, 640 * 4, 1), np.float32),
+        np.zeros((1, 8, 32), np.float32)))
+    ours = t_convert.hcodec10_state_dict(variables, cfg)
+    _assert_same(ours, export_hcodec10_state_dict(variables, cfg))
+    keys = t_convert.hcodec10_inference_keys(ours)
+    assert not any(k.startswith("semantic_decoder.") or "embed_avg" in k
+                   for k in keys)
+    module = t_codec.HCodec(t_codec.HCodecConfig(
+        **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
+    assert sorted(module.state_dict()) == sorted(keys)
+    module.load_state_dict(to_torch(keys))
+
+
+def test_hubert_state_dict_has_no_rel_pos_keys():
+    cfg = j_ssl.SSLConfig(
+        hidden_size=24, num_layers=2, num_heads=4, intermediate_size=32,
+        conv_dim=(16,) * 7, num_conv_pos_embeddings=16,
+        num_conv_pos_embedding_groups=4)
+    variables = random_variables(j_ssl.Wav2Vec2Model(cfg),
+                                 np.zeros((1, 3200), np.float32))
+    sd = t_convert.hubert_state_dict(variables, cfg)
+    assert not any("rel" in k for k in sd)
+    with pytest.raises(ValueError):
+        t_convert.hubert_state_dict(variables, j_ssl.wavlm_base_plus_config())

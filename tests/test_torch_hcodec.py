@@ -1,0 +1,276 @@
+"""The HCodec-1.0 round trip of the port (``unified_audio_tpu_torch``)
+against the JAX package on the CPU, at the tiny ``small10()`` config of
+tests/test_hcodec.py with a tiny HuBERT frontend.
+
+The same numpy-seeded weights (carried over by ``hcodec10_state_dict`` and
+``hubert_state_dict``) and inputs go through both. Modules within atol/rtol
+1e-4; tokenize codes exact; detokenize within 1e-4 of the waveform's peak.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import TOL, random_variables, to_torch
+from unified_audio_tpu.models.hcodec import codec as j_codec
+from unified_audio_tpu.models.hcodec.tokenizer import HCodecTokenizer
+from unified_audio_tpu.models.ssl import wav2vec2 as j_ssl
+from unified_audio_tpu.nn import blocks as j_blocks
+from unified_audio_tpu.nn.transformer import Transformer as JTransformer
+from unified_audio_tpu.ops import dsp as j_dsp
+from unified_audio_tpu_torch import cli
+from unified_audio_tpu_torch.data.audio_io import read_wav, write_wav
+from unified_audio_tpu_torch.models.hcodec import codec as t_codec
+from unified_audio_tpu_torch.models.hcodec.tokenizer import (
+    HCodecTokenizer as THCodecTokenizer)
+from unified_audio_tpu_torch.models.ssl import wav2vec2 as t_ssl
+from unified_audio_tpu_torch.ops import dsp as t_dsp
+from unified_audio_tpu_torch.utils import convert as t_convert
+
+L = 640 * 8  # 8 tokens at 25 Hz
+
+
+def small10():
+    return j_codec.hcodec10_config(
+        latent_dim=64, seanet_filters=4, codebook_size=32, num_quantizers=2,
+        decoder_dim=64, decoder_intermediate_dim=128,
+        decoder_convnext_layers=2, semantic_encode_channels=64, feat_dim=32)
+
+
+def tiny_hubert(hidden=32):
+    return j_ssl.SSLConfig(
+        hidden_size=hidden, num_layers=2, num_heads=4, intermediate_size=32,
+        conv_dim=(16,) * 7, num_conv_pos_embeddings=16,
+        num_conv_pos_embedding_groups=4)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Seeded JAX variables, the JAX tokenizer, and the port's tokenizer
+    with the same weights. The codebooks are unit normal scaled to each
+    stream's latent spread, so the codes vary from frame to frame."""
+    cfg, ssl_cfg = small10(), tiny_hubert()
+    wav = np.zeros((1, L, 1), np.float32)
+    feat = np.zeros((1, L // 320, cfg.feat_dim), np.float32)
+    variables = jax.device_get(random_variables(
+        j_codec.HCodec(cfg), wav, feat, seed=4))
+    ssl_vars = jax.device_get(random_variables(
+        j_ssl.Wav2Vec2Model(ssl_cfg), np.zeros((1, 3200), np.float32),
+        seed=5))
+    jtok = HCodecTokenizer(cfg, variables, ssl_cfg, ssl_vars)
+    emb, sem = jtok.codec.apply(
+        variables, jnp.asarray(_wav(0))[..., None],
+        jtok.extract_features(jnp.asarray(_wav(0))),
+        method=j_codec.HCodec._encode_latents)
+    rng = np.random.default_rng(6)
+    for name, lat in (("quantizer", emb), ("semantic_quantizer", sem)):
+        for layer in variables["codebook"][name].values():
+            layer["embed"] = (float(np.std(lat)) * rng.standard_normal(
+                layer["embed"].shape)).astype(np.float32)
+    jtok = HCodecTokenizer(cfg, variables, ssl_cfg, ssl_vars)
+    return cfg, ssl_cfg, variables, ssl_vars, jtok, port_tokenizer(
+        cfg, variables, ssl_cfg, ssl_vars)
+
+
+def port_tokenizer(cfg, variables, ssl_cfg, ssl_vars):
+    codec = t_codec.HCodec(t_codec.HCodecConfig(**dataclasses.asdict(cfg)))
+    codec.load_state_dict(to_torch(t_convert.hcodec10_inference_keys(
+        t_convert.hcodec10_state_dict(variables, cfg))))
+    ssl = t_ssl.Wav2Vec2Model(t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg)))
+    ssl.load_state_dict(to_torch(t_convert.hubert_state_dict(ssl_vars,
+                                                             ssl_cfg)))
+    return THCodecTokenizer(codec, ssl)
+
+
+def _wav(seed, n=L):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    x = 0.4 * np.sin(2 * np.pi * 180 * t) + 0.1 * rng.standard_normal(n)
+    return x[None].astype(np.float32)
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **(tol or TOL))
+
+
+class TestModules:
+    def test_seanet_encoder(self, models):
+        cfg, _, variables, _, _, tok = models
+        x = _wav(1)[..., None]
+        want = j_blocks.SEANetEncoder(
+            dimension=cfg.latent_dim, n_filters=cfg.seanet_filters,
+            ratios=cfg.seanet_ratios).apply(
+                {"params": variables["params"]["encoder"]}, x)
+        with torch.no_grad():
+            got = tok.codec.encoder(torch.as_tensor(x))
+        assert got.shape == (1, L // 640, cfg.latent_dim)
+        _close(got, want)
+
+    def test_semantic_encoder(self, models):
+        cfg, _, variables, _, _, tok = models
+        feat = np.random.default_rng(2).standard_normal(
+            (1, 16, cfg.feat_dim)).astype(np.float32)
+        want = j_codec.SemanticEncoder(
+            cfg.feat_dim, cfg.semantic_encode_channels, cfg.latent_dim,
+            cfg.semantic_ratios, cfg.semantic_strides).apply(
+                {"params": variables["params"]["semantic_encoder"]}, feat)
+        with torch.no_grad():
+            got = tok.codec.semantic_encoder(torch.as_tensor(feat))
+        assert got.shape == (1, 8, cfg.latent_dim)
+        _close(got, want)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_hybrid_transformer(self, models, causal):
+        """The encoder's 2-layer LSTM-attention transformer, with full
+        attention (as HCodec-1.0 runs it) and under the causal mask."""
+        cfg, _, variables, _, _, tok = models
+        x = np.random.default_rng(3).standard_normal(
+            (2, 11, cfg.latent_dim)).astype(np.float32)
+        want = JTransformer(hidden_size=cfg.latent_dim,
+                            intermediate_size=4 * cfg.latent_dim, num_heads=8,
+                            num_layers=2, causal=causal).apply(
+            {"params": variables["params"]["encoder"]["transformer"]}, x)
+        port = tok.codec.encoder.model[14]
+        port.causal = causal
+        try:
+            with torch.no_grad():
+                got = port(torch.as_tensor(x))
+        finally:
+            port.causal = False
+        _close(got, want)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_constant_pad_conv(self, causal):
+        """CausalConv1d: zeros (K - 1, 0) causal, (K // 2, K // 2) not."""
+        from unified_audio_tpu.nn.conv import CausalConv1d as JConv
+        from unified_audio_tpu_torch.nn.conv import CausalConv1d as TConv
+
+        rng = np.random.default_rng(10)
+        x = rng.standard_normal((2, 9, 6)).astype(np.float32)
+        kernel = rng.standard_normal((5, 6, 4)).astype(np.float32)
+        bias = rng.standard_normal(4).astype(np.float32)
+        want = JConv(4, 5, causal=causal).apply(
+            {"params": {"kernel": kernel, "bias": bias}}, x)
+        port = TConv(6, 4, 5, causal=causal)
+        port.load_state_dict({
+            "conv.weight": torch.as_tensor(kernel.transpose(2, 1, 0).copy()),
+            "conv.bias": torch.as_tensor(bias)})
+        with torch.no_grad():
+            _close(port(torch.as_tensor(x)), want)
+
+    @pytest.mark.parametrize("length,pads", [(9, (3, 4)), (2, (3, 4)),
+                                             (3, (3, 0))])
+    def test_reflect_pad_of_short_input(self, length, pads):
+        """pad1d's reflect mode equals the JAX package's, also for an input
+        no longer than the pad (zero-extended first, where F.pad raises)."""
+        from unified_audio_tpu.nn.conv import pad1d as j_pad1d
+        from unified_audio_tpu_torch.nn.conv import pad1d as t_pad1d
+
+        x = np.random.default_rng(11).standard_normal(
+            (2, length, 3)).astype(np.float32)
+        _close(t_pad1d(torch.as_tensor(x), pads),
+               j_pad1d(jnp.asarray(x), pads, mode="reflect"), atol=0, rtol=0)
+
+    def test_prior_net(self, models):
+        cfg, _, variables, _, _, tok = models
+        x = np.random.default_rng(4).standard_normal(
+            (1, 12, cfg.decoder_dim)).astype(np.float32)
+        want = j_codec.PriorNet(cfg.decoder_dim).apply(
+            {"params": variables["params"]["decoder"]["prior_net"]}, x)
+        with torch.no_grad():
+            got = tok.codec.decoder.prior_net(torch.as_tensor(x))
+        _close(got, want)
+
+    def test_codec_decoder(self, models):
+        cfg, _, variables, _, _, tok = models
+        x = np.random.default_rng(5).standard_normal(
+            (1, 8, 2 * cfg.latent_dim)).astype(np.float32)
+        want = j_codec.CodecDecoder10(
+            dim=cfg.decoder_dim, intermediate_dim=cfg.decoder_intermediate_dim,
+            convnext_layers=cfg.decoder_convnext_layers, n_fft=cfg.n_fft,
+            hop_length=cfg.istft_hop).apply(
+                {"params": variables["params"]["decoder"]}, x)
+        with torch.no_grad():
+            got = tok.codec.decoder(torch.as_tensor(x))
+        assert got.shape == (1, 8 * 640)
+        _close(got, want)
+
+    def test_istft_same(self):
+        rng = np.random.default_rng(6)
+        spec = (rng.standard_normal((2, 641, 9))
+                + 1j * rng.standard_normal((2, 641, 9))).astype(np.complex64)
+        want = j_dsp.istft_same(jnp.asarray(spec), 1280, 320)
+        got = t_dsp.istft_same(torch.as_tensor(spec), 1280, 320)
+        assert got.shape == (2, 9 * 320)
+        _close(got, want)
+
+    def test_hubert_features(self, models):
+        _, ssl_cfg, _, ssl_vars, _, tok = models
+        wav = _wav(7, 3520)
+        want = j_ssl.hubert_features(j_ssl.Wav2Vec2Model(ssl_cfg).apply(
+            ssl_vars, wav))
+        with torch.no_grad():
+            got = t_ssl.hubert_features(tok.ssl(torch.as_tensor(wav)))
+        _close(got, want)
+
+
+class TestRoundTrip:
+    def test_tokenize_exact_detokenize_close(self, models):
+        """Codes equal the JAX package's exactly, and the waveform of those
+        codes agrees within 1e-4 of its peak (the ISTFT's exp can amplify
+        rounding, so the bound is relative to the peak, not per sample)."""
+        cfg, _, _, _, jtok, tok = models
+        wav = _wav(8, L - 200)  # padded to the hop inside tokenize
+        jac, jsem = jtok.tokenize(jnp.asarray(wav))
+        ac, sem = tok.tokenize(torch.as_tensor(wav))
+        assert ac.shape == sem.shape == (1, cfg.num_quantizers, L // 640)
+        np.testing.assert_array_equal(ac.numpy(), np.asarray(jac))
+        np.testing.assert_array_equal(sem.numpy(), np.asarray(jsem))
+        assert len(np.unique(np.asarray(jac))) > 3, "degenerate codes"
+        want = np.asarray(jtok.detokenize(jac, jsem))
+        got = tok.detokenize(ac, sem).numpy()
+        assert got.shape == want.shape == (1, L)
+        peak = np.abs(want).max()
+        assert np.abs(got - want).max() <= 1e-4 * peak
+
+    def test_cli_codec_end_to_end(self, models, tmp_path, monkeypatch):
+        """``main(["codec", ..., "--device", "cpu"])`` at the tiny config:
+        random weights from the seed, then again from a checkpoint in the
+        layout of ``hcodec10_state_dict`` (semantic decoder and EMA keys
+        included, which the loader drops)."""
+        cfg, ssl_cfg, variables, _, jtok, _ = models
+        monkeypatch.setattr(cli, "_build_hcodec10", functools.partial(
+            cli._build_hcodec10, cfg=t_codec.HCodecConfig(
+                **dataclasses.asdict(cfg)),
+            ssl_cfg=t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg))))
+        n = L - 300
+        write_wav(tmp_path / "in.wav", _wav(9, n)[0], 16000)
+        ckpt = tmp_path / "hcodec10.pt"
+        torch.save(to_torch(t_convert.hcodec10_state_dict(variables, cfg)),
+                   ckpt)
+        for extra in ([], ["--ckpt", str(ckpt)]):
+            out = tmp_path / f"out{len(extra)}.wav"
+            summary = cli.main(["codec", "--model", "hcodec10", "--input",
+                                str(tmp_path / "in.wav"), "--output",
+                                str(out), "--device", "cpu", *extra])
+            assert summary["acoustic_shape"] == [1, cfg.num_quantizers,
+                                                 L // 640]
+            assert summary["tokens_per_sec"] == round(
+                (L // 640) / (n / 16000), 2)
+            rec, fs = read_wav(out)
+            assert fs == 16000 and rec.shape == (1, L)
+            assert np.isfinite(rec).all()
+
+
+@pytest.mark.parametrize("build", [
+    lambda: t_codec.HCodec(t_codec.HCodecConfig(version="2.0")),
+    lambda: t_codec.HCodec(t_codec.HCodecConfig(causal=True)),
+    lambda: t_codec.Transformer(64, 128, 1, 1, use_moe=True)])
+def test_parts_not_ported_raise(build):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build()

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from test_torch_common import TOL, port_unise, tiny_unise_jax
-from unified_audio_tpu.data.audio_io import read_wav, write_wav
 from unified_audio_tpu_torch import cli
+from unified_audio_tpu_torch.data.audio_io import read_wav, write_wav
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +98,8 @@ def test_cli_serve_bf16_end_to_end(stacks, tmp_path, monkeypatch):
               "output": str(tmp_path / "b.wav"), "do_sample": False}]
     summary = cli.main(["serve", "--requests",
                         str(_write_requests(tmp_path, lines)),
-                        "--slots", "2", "--kv-quant", "int8"])
+                        "--slots", "2", "--kv-quant", "int8",
+                        "--device", "cpu"])
     assert summary["engine_stats"]["requests_completed"] == 4
     for name in ("a.wav", "b.wav"):
         out, fs = read_wav(tmp_path / name)
@@ -117,9 +118,32 @@ def test_serve_rejects_bad_requests(tmp_path, line):
             for k, v in line.items()}
     with pytest.raises(SystemExit):
         cli.main(["serve", "--requests",
-                  str(_write_requests(tmp_path, [line]))])
+                  str(_write_requests(tmp_path, [line])), "--device", "cpu"])
 
 
 def test_serve_missing_request_file(tmp_path):
     with pytest.raises(SystemExit):
-        cli.main(["serve", "--requests", str(tmp_path / "nope.jsonl")])
+        cli.main(["serve", "--requests", str(tmp_path / "nope.jsonl"),
+                  "--device", "cpu"])
+
+
+@pytest.mark.parametrize("cmd", ["serve", "codec"])
+def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path, monkeypatch,
+                                                       cmd):
+    """Without a card and without ``--device cpu``, ``serve`` and ``codec``
+    exit non-zero before building a model, naming the flag."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_wav(tmp_path / "mix.wav", np.zeros(1600, np.float32), 16000)
+    built = []
+    monkeypatch.setattr(cli, "_build_unise", lambda **kw: built.append(kw))
+    monkeypatch.setattr(cli, "_build_hcodec10", lambda **kw: built.append(kw))
+    argv = (["serve", "--requests", str(_write_requests(tmp_path, [
+        {"task": "se", "mix": str(tmp_path / "mix.wav"),
+         "output": str(tmp_path / "o.wav")}]))] if cmd == "serve" else
+            ["codec", "--input", str(tmp_path / "mix.wav"), "--output",
+             str(tmp_path / "o.wav")])
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(argv)
+    assert exit_info.value.code not in (0, None)
+    assert "--device cpu" in str(exit_info.value.code)
+    assert not built

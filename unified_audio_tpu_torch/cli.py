@@ -1,19 +1,30 @@
-"""Command-line entry point of the port: the ``serve`` subcommand.
+"""Command-line entry points of the port: ``serve`` and ``codec``.
 
     python -m unified_audio_tpu_torch.cli serve --requests R.jsonl \
-        [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0]
+        [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0] \
+        [--device cuda|cpu]
+    python -m unified_audio_tpu_torch.cli codec --model hcodec10 \
+        --input X.wav --output Y.wav [--ckpt SD.pt] [--seed 0] \
+        [--device cuda|cpu]
 
-Port of ``cmd_serve`` in ``unified_audio_tpu/cli.py`` for the tasks se, tse
-and rtse: a JSONL request file streams through the paged-KV engine. Each
-line: {"uid": int, "task": "se"|"tse"|"rtse", "mix": "path.wav",
+``serve`` ports ``cmd_serve`` in ``unified_audio_tpu/cli.py`` for the tasks
+se, tse and rtse: a JSONL request file streams through the paged-KV engine.
+Each line: {"uid": int, "task": "se"|"tse"|"rtse", "mix": "path.wav",
 "enroll": "path.wav" (tse/rtse), "output": "out.wav",
 "temperature"/"top_k"/"top_p"/"do_sample" optional}. The separation cascade
-(task "ss") is not ported yet and is rejected.
+(task "ss") is not ported yet and is rejected. The stack runs at full UniSE
+width: the LM in bf16, the WavLM frontend and the BiCodec decoder in fp32.
+Weights are random unless ``--ckpt`` gives an LM state dict.
 
-The stack runs at full UniSE width on CUDA when a card is present (else on
-the CPU): the LM in bf16, the WavLM frontend and the BiCodec decoder in
-fp32, with TF32 off. Weights are random from ``--seed`` unless ``--ckpt``
-gives an LM state dict.
+``codec`` ports ``cmd_codec`` for ``--model hcodec10``: a 16 kHz wav goes
+through the HCodec-1.0 tokenize -> detokenize round trip at full width in
+fp32 (HuBERT-base frontend), and the command prints the JAX package's JSON
+line. Weights are random from ``--seed`` unless ``--ckpt`` gives a codec
+state dict in the layout of ``utils/convert.py hcodec10_state_dict``.
+
+Both run on the CUDA card and exit with an error without one, unless
+``--device cpu`` asks for the CPU. fp32 means fp32 on the card: TF32 is off
+for matmuls and for cuDNN (convolutions and the LSTMs).
 """
 from __future__ import annotations
 
@@ -26,12 +37,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# the one module shared with the JAX package: numpy and the stdlib only
-from unified_audio_tpu.data.audio_io import read_wav, write_wav
+from .data.audio_io import read_wav, write_wav
 
-TARGET_SR = 16000  # UniSE operates on 16 kHz mono
+TARGET_SR = 16000  # UniSE and HCodec-1.0 operate on 16 kHz mono
 TASK_MAP = {"se": 0, "tse": 1, "rtse": 2}
 WEIGHT_SEED = 3407  # random weights (no checkpoint given)
+
+
+def _fp32_without_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _device(name: str) -> str:
+    """The device an entry point runs on: the card unless the caller asked
+    for the CPU. No silent fallback."""
+    if name == "cuda" and not torch.cuda.is_available():
+        sys.exit("error: no CUDA device is available; this command runs on "
+                 "an NVIDIA card. Pass --device cpu to run it on the CPU.")
+    return name
 
 
 def _build_unise(ckpt=None, device="cpu"):
@@ -46,8 +70,7 @@ def _build_unise(ckpt=None, device="cpu"):
     from .utils.initialization import init_random_
 
     # fp32 means fp32: no TF32 in the frontend's and decoder's matmuls/convs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _fp32_without_tf32()
     cfg = UniSEConfig()
     gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
     with torch.device(device):
@@ -178,10 +201,66 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
 
 def cmd_serve(args):
     _read_requests(args.requests)  # fail fast, before the model build
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    unise = _build_unise(ckpt=args.ckpt, device=device)
+    unise = _build_unise(ckpt=args.ckpt, device=_device(args.device))
     return serve(args.requests, unise, slots=args.slots,
                  kv_quant=args.kv_quant, seed=args.seed)
+
+
+def _build_hcodec10(ckpt=None, seed: int = 0, device="cpu", cfg=None,
+                    ssl_cfg=None):
+    """HCodec-1.0 (``cfg``, default the shipped config) with a HuBERT
+    frontend (``ssl_cfg``, default HuBERT-base) on ``device``, fp32, TF32
+    off. Random weights from ``seed`` through an explicit generator, with a
+    loud warning; ``ckpt`` replaces the codec's weights (the HuBERT
+    frontend stays random)."""
+    from .models.hcodec.codec import HCodec, hcodec10_config
+    from .models.hcodec.tokenizer import HCodecTokenizer
+    from .models.ssl.wav2vec2 import Wav2Vec2Model, hubert_base_config
+    from .utils.convert import hcodec10_inference_keys
+    from .utils.initialization import init_random_
+
+    _fp32_without_tf32()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        codec = HCodec(cfg or hcodec10_config())
+        ssl = Wav2Vec2Model(ssl_cfg or hubert_base_config())
+    for module in (codec, ssl):
+        init_random_(module, gen)
+    if ckpt:
+        blob = torch.load(ckpt, map_location=device, weights_only=True)
+        codec.load_state_dict(hcodec10_inference_keys(
+            blob.get("state_dict", blob)))
+        print(f"loaded HCodec-1.0 state dict {ckpt} (the HuBERT frontend "
+              "stays random)", file=sys.stderr)
+    else:
+        print("WARNING: no --ckpt given: HCodec-1.0 and HuBERT are RANDOMLY "
+              "initialized and the reconstruction is not meaningful "
+              "(smoke/benchmark use only)", file=sys.stderr)
+    return HCodecTokenizer(codec, ssl)
+
+
+def cmd_codec(args):
+    """tokenize -> detokenize one wav; prints and returns the JSON line of
+    the JAX package's ``cmd_codec``."""
+    if not Path(args.input).exists():
+        sys.exit(f"error: input file not found: {args.input}")
+    if args.ckpt and not Path(args.ckpt).exists():
+        sys.exit(f"error: checkpoint not found: {args.ckpt}")
+    device = _device(args.device)
+    wav, fs = read_wav(args.input)
+    wav = _prepare_wav(wav, fs)
+    tok = _build_hcodec10(ckpt=args.ckpt, seed=args.seed, device=device)
+    acoustic, semantic = tok.tokenize(torch.as_tensor(wav, device=device))
+    rec = tok.detokenize(acoustic, semantic)[0].cpu().numpy()
+    write_wav(args.output, rec, TARGET_SR)
+    summary = {"model": args.model,
+               # codes per second of audio per quantizer layer (25 Hz)
+               "tokens_per_sec": round(acoustic.shape[-1]
+                                       / (wav.shape[-1] / TARGET_SR), 2),
+               "acoustic_shape": list(acoustic.shape),
+               "out": str(args.output)}
+    print(json.dumps(summary))
+    return summary
 
 
 def main(argv=None):
@@ -199,7 +278,21 @@ def main(argv=None):
     t.add_argument("--kv-quant", choices=["", "int8"], default="",
                    help="int8 KV block pool (half the pool bytes)")
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     t.set_defaults(fn=cmd_serve)
+    c = sub.add_parser("codec")
+    c.add_argument("--model", choices=["hcodec10"], default="hcodec10",
+                   help="HCodec-1.0 (hcodec15, hcodec20 and flexicodec are "
+                        "not ported yet)")
+    c.add_argument("--input", required=True, help="16 kHz wav")
+    c.add_argument("--output", required=True)
+    c.add_argument("--ckpt", default=None,
+                   help="codec state dict (.pt) in the layout that "
+                        "utils/convert.py hcodec10_state_dict writes")
+    c.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights (no --ckpt)")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    c.set_defaults(fn=cmd_codec)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -1,0 +1,76 @@
+"""Semantic encoder of HCodec: conv residual stacks mapping SSL features to
+the codec's latent rate, channels-last.
+
+Port of ``ResidualUnit``, ``EncoderBlock`` and ``SemanticEncoder`` in
+``unified_audio_tpu/models/hcodec/semantic.py``. Parameter names follow the
+reference layout (``conv.conv.weight``, ``conv_blocks.{i}.res_units.{j}``,
+``conv2.conv.weight``). ``SemanticDecoder`` only produces the training target
+``pred_feat`` and is not ported yet; the weight loader skips its keys.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+from torch import nn
+from torch.nn import functional as F
+
+from ...nn.conv import Conv1d, Wrapped
+
+
+class ResidualUnit(nn.Module):
+    """ELU -> conv k3 dilated -> ELU -> 1x1, residual; no biases."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: int = 1):
+        super().__init__()
+        self.conv1 = Wrapped("conv", Conv1d(channels, channels, kernel_size,
+                                            dilation=dilation, bias=False))
+        self.conv2 = Conv1d(channels, channels, 1, padding=0, bias=False)
+
+    def forward(self, x):
+        return x + self.conv2(F.elu(self.conv1(F.elu(x))))
+
+
+class EncoderBlock(nn.Module):
+    """Residual units, then a strided conv (kernel 2 * stride, or 3 for
+    stride 1) to ``out_channels``."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 dilations: Sequence[int] = (1, 1), unit_kernel_size: int = 3):
+        super().__init__()
+        self.res_units = nn.ModuleList([
+            ResidualUnit(in_channels, unit_kernel_size, d) for d in dilations])
+        k = 3 if stride == 1 else 2 * stride
+        self.conv = Wrapped("conv", Conv1d(in_channels, out_channels, k,
+                                           stride=stride))
+
+    def forward(self, x):
+        for unit in self.res_units:
+            x = unit(x)
+        return self.conv(x)
+
+
+class SemanticEncoder(nn.Module):
+    """SSL features (B, T, input_channels) -> (B, T / prod(strides),
+    out_channels)."""
+
+    def __init__(self, input_channels: int, encode_channels: int,
+                 out_channels: int, channel_ratios: Sequence[float] = (1, 1),
+                 strides: Sequence[int] = (2, 1), kernel_size: int = 3):
+        super().__init__()
+        self.conv = Wrapped("conv", Conv1d(input_channels, encode_channels,
+                                           kernel_size, bias=False))
+        blocks, cin = [], encode_channels
+        for ratio, stride in zip(channel_ratios, strides):
+            cout = int(encode_channels * ratio)
+            blocks.append(EncoderBlock(cin, cout, stride))
+            cin = cout
+        self.conv_blocks = nn.ModuleList(blocks)
+        self.conv2 = Wrapped("conv", Conv1d(cin, out_channels, kernel_size,
+                                            bias=False))
+
+    def forward(self, x):
+        x = self.conv(x)
+        for block in self.conv_blocks:
+            x = block(x)
+        return self.conv2(x)

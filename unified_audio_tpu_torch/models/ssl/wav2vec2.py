@@ -1,11 +1,12 @@
-"""WavLM frontend (the wav2vec2-family SSL encoder on the serving path).
+"""WavLM and HuBERT frontends (the base-size wav2vec2-family SSL encoders).
 
-Port of the WavLM path of ``unified_audio_tpu/models/ssl/wav2vec2.py``:
-``SSLConfig``, the 7-layer conv feature extractor (GroupNorm on layer 0,
-exact GELU), the grouped positional conv (the trailing element dropped for
-an even kernel), the T5-style relative-position buckets and the gated
-relative-position bias, the post-LN encoder layers, ``Wav2Vec2Model`` and
-``wavlm_features``. Parameter names follow the HF layout
+Port of the WavLM and HuBERT paths of
+``unified_audio_tpu/models/ssl/wav2vec2.py``: ``SSLConfig``, the 7-layer
+conv feature extractor (GroupNorm on layer 0, exact GELU), the grouped
+positional conv (the trailing element dropped for an even kernel), the
+T5-style relative-position buckets and the gated relative-position bias
+(WavLM only), the post-LN encoder layers, ``Wav2Vec2Model``,
+``wavlm_features`` (UniSE) and ``hubert_features`` (HCodec). Parameter names follow the HF layout
 (``feature_extractor.conv_layers.{i}.conv.weight``,
 ``encoder.layers.{i}.attention.q_proj.weight``, ...), with the positional
 conv's weight norm folded into ``encoder.pos_conv_embed.conv.weight``.
@@ -40,6 +41,12 @@ class SSLConfig:
     use_rel_pos_bias: bool = False
     num_buckets: int = 320
     max_distance: int = 800
+
+
+def hubert_base_config() -> SSLConfig:
+    """HuBERT-base: the group-norm, post-LN base config, no relative
+    position bias."""
+    return SSLConfig()
 
 
 def wavlm_base_plus_config() -> SSLConfig:
@@ -240,3 +247,9 @@ class Wav2Vec2Model(nn.Module):
 def wavlm_features(hidden_states) -> torch.Tensor:
     """All-layer mean, no compression (the UniSE conditioning features)."""
     return torch.stack(hidden_states, dim=0).mean(dim=0)
+
+
+def hubert_features(hidden_states) -> torch.Tensor:
+    """All-layer mean, then signed |x|^0.3 (HCodec's SSL features)."""
+    mix = torch.stack(hidden_states, dim=0).mean(dim=0)
+    return torch.where(mix > 0, 1.0, -1.0) * mix.abs() ** 0.3

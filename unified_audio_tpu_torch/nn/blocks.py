@@ -1,22 +1,29 @@
-"""Codec decoder blocks on channels-last (B, T, C) tensors.
+"""Codec blocks on channels-last (B, T, C) tensors.
 
 Port of the blocks of ``unified_audio_tpu/nn/blocks.py`` that BiCodec's
-detokenize path runs: ``AdaLayerNorm``, ``ConvNeXtBlock`` (stacked as
-``VocosBackbone.convnext``), ``VocosBackbone``, ``SamplingBlock`` (ratio-1
-path), ``Snake1d``, ``DACResidualUnit``, ``WaveDecoderBlock`` and
-``WaveGenerator``. Submodule names follow the reference torch layout
-(``convnext.{i}.dwconv``, ``model.{i}.block.{j}``, Snake ``alpha`` (1, C,
-1)), the layout ``export_bicodec_state_dict`` writes.
+detokenize path and the HCodec-1.0 round trip run: ``AdaLayerNorm``,
+``ConvNeXtBlock`` and ``ConvNeXtStack``, ``VocosBackbone``, ``SamplingBlock``
+(ratio-1 path), ``Snake1d``, ``DACResidualUnit``, ``WaveDecoderBlock``,
+``WaveGenerator``, ``swish``, ``ResnetBlock``, ``SEANetResnetBlock`` and
+``SEANetEncoder``. Submodule names follow the reference torch layouts
+(``convnext.{i}.dwconv``, ``model.{i}.block.{j}``, Snake ``alpha`` (1, C, 1),
+``post_net.{i}.pwconv1.linear``), the layouts ``export_bicodec_state_dict``
+and ``export_hcodec10_state_dict`` write.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .conv import Conv1d, ConvTranspose1d
+from .conv import CausalConv1d, Conv1d, ConvTranspose1d, SConv1d, Wrapped
+from .transformer import Transformer
+
+
+def swish(x):
+    return x * torch.sigmoid(x)
 
 
 class AdaLayerNorm(nn.Module):
@@ -36,17 +43,23 @@ class AdaLayerNorm(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     """Depthwise k7 conv -> LN (or AdaLN) -> pointwise MLP -> gamma,
-    residual."""
+    residual. ``wrapped`` puts the weights where HCodec's reference keeps
+    them (``dwconv.conv``, ``pwconv1.linear``, ``pwconv2.linear``); the
+    non-causal k7 zero pad (3, 3) is HCodec's constant-pad conv."""
 
     def __init__(self, dim: int, intermediate_dim: int,
                  layer_scale_init_value: float,
-                 condition_dim: Optional[int] = None):
+                 condition_dim: Optional[int] = None, wrapped: bool = False):
         super().__init__()
         self.dwconv = Conv1d(dim, dim, 7, groups=dim, padding=3)
         self.norm = (AdaLayerNorm(condition_dim, dim) if condition_dim
                      else nn.LayerNorm(dim, eps=1e-6))
         self.pwconv1 = nn.Linear(dim, intermediate_dim)
         self.pwconv2 = nn.Linear(intermediate_dim, dim)
+        if wrapped:
+            self.dwconv = Wrapped("conv", self.dwconv)
+            self.pwconv1 = Wrapped("linear", self.pwconv1)
+            self.pwconv2 = Wrapped("linear", self.pwconv2)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init_value))
 
     def forward(self, x, cond=None):
@@ -165,3 +178,93 @@ class WaveGenerator(nn.Module):
         for m in self.model:
             x = m(x)
         return torch.tanh(x)
+
+
+class ConvNeXtStack(nn.ModuleList):
+    """HCodec's stack of ConvNeXt blocks (``post_net.{i}``), gamma =
+    1 / num_layers. The JAX package scans over stacked parameters; here the
+    blocks are a list."""
+
+    def __init__(self, dim: int, intermediate_dim: int, num_layers: int):
+        super().__init__([
+            ConvNeXtBlock(dim, intermediate_dim, 1.0 / num_layers,
+                          wrapped=True) for _ in range(num_layers)])
+
+    def forward(self, x):
+        for block in self:
+            x = block(x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm Resnet block, SEANet encoder (HCodec-1.0)
+# ---------------------------------------------------------------------------
+
+class GroupNorm(nn.GroupNorm):
+    """``torch.nn.GroupNorm`` over channels-last (B, T, C) input."""
+
+    def forward(self, x):
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class ResnetBlock(nn.Module):
+    """GroupNorm(32, eps 1e-6) -> swish -> conv k3, twice, residual (the
+    width is kept, so no ``nin_shortcut``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm1 = GroupNorm(32, channels, eps=1e-6)
+        self.conv1 = CausalConv1d(channels, channels, 3)
+        self.norm2 = GroupNorm(32, channels, eps=1e-6)
+        self.conv2 = CausalConv1d(channels, channels, 3)
+
+    def forward(self, x):
+        h = self.conv1(swish(self.norm1(x)))
+        return x + self.conv2(swish(self.norm2(h)))  # dropout: training only
+
+
+class SEANetResnetBlock(nn.Module):
+    """ELU -> SConv k3 (dim -> dim / 2) -> ELU -> SConv k1 (back to dim),
+    plus a 1x1 SConv shortcut (``true_skip=False``). Convs at ``block.1``,
+    ``block.3`` and ``shortcut``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.block = nn.Sequential(
+            nn.ELU(), SConv1d(dim, dim // 2, 3),
+            nn.ELU(), SConv1d(dim // 2, dim, 1))
+        self.shortcut = SConv1d(dim, dim, 1)
+
+    def forward(self, x):
+        return self.shortcut(x) + self.block(x)
+
+
+class SEANetEncoder(nn.Module):
+    """EnCodec-style strided encoder as HCodec-1.0 configures it (one input
+    channel, k7 conv_in, one resnet block per ratio, a 2-layer 8-head
+    hybrid transformer, non-causal reflect padding): conv_in, then per
+    ratio (applied reversed) a resnet block, ELU and a strided SConv that
+    doubles the width; the transformer; ELU and a stride-2 SConv. Hop
+    prod(ratios) * 2 (640 for (8, 5, 4, 2)). (B, L, 1) -> (B, L / hop,
+    dimension).
+
+    The layers sit at the reference's ``model.{i}`` indices; the
+    reference's layout transposes around the transformer (13, 15) have no
+    work to do channels-last and are ``Identity``."""
+
+    def __init__(self, dimension: int = 512, n_filters: int = 32,
+                 ratios: Tuple[int, ...] = (8, 5, 4, 2)):
+        super().__init__()
+        width = n_filters
+        layers = [SConv1d(1, width, 7)]
+        for ratio in reversed(ratios):
+            layers += [SEANetResnetBlock(width), nn.ELU(),
+                       SConv1d(width, width * 2, ratio * 2, stride=ratio)]
+            width *= 2
+        layers += [nn.Identity(), Transformer(dimension, dimension * 4, 8, 2),
+                   nn.Identity(), nn.ELU(),
+                   SConv1d(width, dimension, 4, stride=2)]
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.model(x)

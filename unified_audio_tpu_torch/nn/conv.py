@@ -1,16 +1,20 @@
 """1-D convolution primitives on channels-last (B, T, C) tensors.
 
-Port of the parts of ``unified_audio_tpu/nn/conv.py`` that the serving path
-uses: ``conv1d``, ``Conv1d`` (torch-style symmetric padding, dilation,
-groups) and ``ConvTranspose1d`` (torch padding/output_padding trim), with the
-padding arithmetic unchanged. Public functions keep the JAX package's
-channels-last layout; weights use torch's layouts (Conv1d (out, in/groups,
-K), ConvTranspose1d (in, out, K)). Weight norm is folded into
-``weight`` when the weights are loaded, as the reference does for inference.
+Port of ``unified_audio_tpu/nn/conv.py``: ``conv1d``, ``Conv1d`` (torch-style
+symmetric padding, dilation, groups), ``ConvTranspose1d`` (torch
+padding/output_padding trim) and, for HCodec, the EnCodec padding math
+(``get_extra_padding_for_conv1d``, ``pad1d``), ``SConv1d``, ``CausalConv1d``
+and ``SubPixelConvTranspose1d``, with the padding arithmetic unchanged.
+Public functions keep the JAX package's channels-last layout; weights use
+torch's layouts (Conv1d (out, in/groups, K), ConvTranspose1d (in, out, K)).
+Weight norm is folded into ``weight`` when the weights are loaded
+(``utils/convert.py``: ``g * v / sqrt(sum v^2 + 1e-12)`` over (K, Cin) per
+output channel, the JAX epsilon), as the reference does for inference.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -75,3 +79,106 @@ class ConvTranspose1d(nn.Module):
                                stride=self.stride)
         end = y.shape[-1] - (self.padding - self.output_padding)
         return y[..., self.padding:end].transpose(1, 2)
+
+
+class Wrapped(nn.Module):
+    """``module`` one name level down, at ``<this>.<attr>``: the reference
+    layouts wrap convs and linears (``dwconv.conv.weight``,
+    ``pwconv1.linear.weight``)."""
+
+    def __init__(self, attr: str, module: nn.Module):
+        super().__init__()
+        self.attr = attr
+        setattr(self, attr, module)
+
+    def forward(self, x):
+        return getattr(self, self.attr)(x)
+
+
+# ---------------------------------------------------------------------------
+# EnCodec padding math
+# ---------------------------------------------------------------------------
+
+def get_extra_padding_for_conv1d(length: int, kernel_size: int, stride: int,
+                                 padding_total: int = 0) -> int:
+    """Extra right padding so that the last conv window is full."""
+    n_frames = (length - kernel_size + padding_total) / stride + 1
+    ideal_length = (math.ceil(n_frames) - 1) * stride + (
+        kernel_size - padding_total)
+    return ideal_length - length
+
+
+def pad1d(x, paddings: Tuple[int, int]):
+    """Reflect-pad the time axis of (B, T, C) (the mode of the EnCodec
+    convs). An input no longer than the pad is zero-extended first and
+    that is trimmed afterwards (``F.pad`` refuses such an input)."""
+    left, right = paddings
+    if left < 0 or right < 0:
+        raise ValueError(f"negative padding {paddings}")
+    y = x.transpose(1, 2)
+    extra = max(max(left, right) - y.shape[-1] + 1, 0)
+    if extra:
+        y = F.pad(y, (0, extra))
+    y = F.pad(y, (left, right), mode="reflect")
+    if extra:
+        y = y[..., :y.shape[-1] - extra]
+    return y.transpose(1, 2)
+
+
+class SConv1d(nn.Module):
+    """EnCodec conv, non-causal: asymmetric reflect pad of kernel - stride
+    (the larger half on the left) plus the extra right pad for a full last
+    window. Weight at ``conv.conv``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.conv = Wrapped("conv", Conv1d(in_channels, out_channels,
+                                           kernel_size, stride=stride,
+                                           padding=0))
+
+    def forward(self, x):
+        total = self.kernel_size - self.stride
+        extra = get_extra_padding_for_conv1d(x.shape[1], self.kernel_size,
+                                             self.stride, total)
+        right = total // 2
+        return self.conv(pad1d(x, (total - right, right + extra)))
+
+
+class CausalConv1d(nn.Module):
+    """HCodec constant-pad conv: odd kernel, stride 1; zeros (K - 1, 0) when
+    causal, else (K // 2, K // 2). Weight at ``conv``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 causal: bool = False):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError(f"kernel_size must be odd, got {kernel_size}")
+        self.pads = ((kernel_size - 1, 0) if causal
+                     else (kernel_size // 2, kernel_size // 2))
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=0)
+
+    def forward(self, x):
+        return conv1d(x, self.conv.weight, self.conv.bias, padding=self.pads)
+
+
+class SubPixelConvTranspose1d(nn.Module):
+    """HCodec upsampler, non-causal: 1x1 conv to stride * C channels,
+    channels to time ((B, T, stride * C) -> (B, T * stride, C), the stride
+    index major in the channel axis), zero pad (K // 2, K // 2), depthwise
+    conv. Weights at ``up`` and ``dw``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError(f"kernel_size must be odd, got {kernel_size}")
+        self.stride, self.channels = stride, out_channels
+        self.up = Conv1d(in_channels, out_channels * stride, 1, padding=0)
+        self.dw = Conv1d(out_channels, out_channels, kernel_size,
+                         groups=out_channels)
+
+    def forward(self, x):
+        b, t, _ = x.shape
+        return self.dw(self.up(x).reshape(b, t * self.stride, self.channels))

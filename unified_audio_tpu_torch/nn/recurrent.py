@@ -1,0 +1,26 @@
+"""LSTM on channels-last (B, T, C) tensors.
+
+Port of ``LSTM`` in ``unified_audio_tpu/nn/recurrent.py``. The JAX package
+scans the recurrence by hand; here ``torch.nn.LSTM`` runs it (cuDNN on the
+card), with the same parameters: gate order i, f, g, o, separate ``b_ih`` and
+``b_hh``, zero initial state, batch first. Parameter names are
+``torch.nn.LSTM``'s (``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``,
+``bias_hh_l0``), the reference layout. cuDNN computes fp32 LSTMs in TF32
+unless ``torch.backends.cudnn.allow_tf32`` is False: the callers that run
+fp32 (``cli.py``) turn it off before the first forward. ``SLSTM`` serves the
+SEANet decoder only, which HCodec-1.0 does not build; it is not ported yet.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+
+class LSTM(nn.LSTM):
+    """Unidirectional multi-layer LSTM, batch first: (B, T, C) -> (B, T, H)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1):
+        super().__init__(input_size, hidden_size, num_layers=num_layers,
+                         batch_first=True)
+
+    def forward(self, x):
+        return super().forward(x)[0]

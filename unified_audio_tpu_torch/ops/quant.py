@@ -1,11 +1,16 @@
-"""Quantizer decode paths used by BiCodec's detokenize.
+"""Quantizers at inference: BiCodec's decode paths and HCodec's residual VQ.
 
-Port of the decode halves of ``unified_audio_tpu/ops/quant.py``:
+Port of parts of ``unified_audio_tpu/ops/quant.py``:
 ``FactorizedVectorQuantize.detokenize`` (codebook lookup plus the 1x1
-``out_project``), ``FSQ.indices_to_codes`` and
-``ResidualFSQ.get_output_from_indices``. The encode and training halves are
-not on the serving path. Parameter names follow the reference layout
-(``codebook.weight``, ``out_project.weight``, ``project_out.weight``).
+``out_project``), ``FSQ.indices_to_codes``,
+``ResidualFSQ.get_output_from_indices``, ``nearest_code``, and the encode and
+decode of ``VectorQuantization`` and ``ResidualVQ``. On a CUDA tensor the
+nearest-code search runs the hand-written kernels of ``ops/cuda/vq.py``
+(K5 for one codebook, K6 for all residual layers in one launch); on the CPU
+their plain versions. The EMA codebook updates, k-means and quantizer
+dropout serve training and are not ported. Parameter names follow the
+reference layouts (``codebook.weight``, ``out_project.weight``,
+``project_out.weight``, ``layers.{i}._codebook.embed`` of shape (1, N, D)).
 """
 from __future__ import annotations
 
@@ -16,6 +21,72 @@ import torch
 from torch import nn
 
 from ..nn.conv import Conv1d
+from .cuda import vq
+
+
+def nearest_code(x, codebook):
+    """argmin_j |x_i - e_j|^2 for x (..., D), codebook (N, D) -> (...,)
+    int32, ties to the lowest j, fp32."""
+    flat = x.reshape(-1, x.shape[-1]).float().contiguous()
+    return vq.nearest_code(flat, codebook.contiguous()).reshape(x.shape[:-1])
+
+
+class _Codebook(nn.Module):
+    def __init__(self, codebook_size: int, dim: int):
+        super().__init__()
+        self.register_buffer("embed", torch.zeros(1, codebook_size, dim))
+
+
+class VectorQuantization(nn.Module):
+    """One Euclidean codebook (N, D), kept as the reference stores it."""
+
+    def __init__(self, dim: int, codebook_size: int):
+        super().__init__()
+        self._codebook = _Codebook(codebook_size, dim)
+
+    @property
+    def embed(self):
+        return self._codebook.embed[0]
+
+    def encode(self, x):
+        """(..., D) -> codes (...,) int32 (K5 on a CUDA tensor)."""
+        return nearest_code(x, self.embed)
+
+    def decode(self, indices):
+        """codes (...) -> (..., D), an exact row gather."""
+        return self.embed[indices.long()]
+
+
+class ResidualVQ(nn.Module):
+    """Residual VQ stack at inference: ``encode`` (B, T, D) -> codes
+    (B, T, nq), ``decode`` codes -> (B, T, D)."""
+
+    def __init__(self, dim: int, codebook_size: int, num_quantizers: int):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            VectorQuantization(dim, codebook_size)
+            for _ in range(num_quantizers)])
+
+    def codebooks(self):
+        """(nq, N, D), contiguous."""
+        return torch.stack([layer.embed for layer in self.layers])
+
+    def encode(self, x):
+        """All layers in one K6 launch on a CUDA tensor: each layer codes
+        the residual left by the ones before it."""
+        flat = x.reshape(-1, x.shape[-1]).float().contiguous()
+        codes = vq.rvq_encode_fused(flat, self.codebooks())
+        return codes.reshape(*x.shape[:-1], len(self.layers))
+
+    def decode(self, codes):
+        """codes (..., nq) -> (..., D); a code of -1 (quantizer dropout)
+        contributes zero."""
+        out = 0.0
+        for i, layer in enumerate(self.layers):
+            idx = codes[..., i]
+            q = layer.decode(idx.clamp(min=0))
+            out = out + q * (idx >= 0)[..., None]
+        return out
 
 
 class FactorizedVectorQuantize(nn.Module):

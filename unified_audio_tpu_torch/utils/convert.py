@@ -8,12 +8,17 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
 * :func:`llmsft_state_dict`: ``LLMSFT`` variables -> the reference torch
   layout (split q/k/v and gate/up, Linear weights (out, in)), key for key
   what ``utils/convert.py export_custom_llama_state_dict`` writes.
-* :func:`wavlm_state_dict`: ``Wav2Vec2Model`` (WavLM) variables -> the HF
-  layout, which ``utils/convert.py convert_hf_wav2vec2`` maps back.
+* :func:`wavlm_state_dict` and :func:`hubert_state_dict`:
+  ``Wav2Vec2Model`` (WavLM, HuBERT) variables -> the HF layout, which
+  ``utils/convert.py convert_hf_wav2vec2`` maps back.
 * :func:`bicodec_decoder_state_dict`: the detokenize subset of
   ``BiCodec`` variables -> the reference layout, key for key what
   ``utils/convert_bicodec.py export_bicodec_state_dict`` writes for those
   modules (weight norm folded).
+* :func:`hcodec10_state_dict`: ``HCodec`` (1.0) variables -> the reference
+  layout, key for key what ``utils/convert_hcodec.py
+  export_hcodec10_state_dict`` writes (codebooks from the ``codebook``
+  collection).
 
 ``nn.scan``-stacked layers are unstacked by indexing their leading axis.
 """
@@ -162,6 +167,15 @@ def wavlm_state_dict(variables, cfg) -> StateDict:
     return out
 
 
+def hubert_state_dict(variables, cfg) -> StateDict:
+    """HuBERT-base variables -> HF-layout state dict: the WavLM layout
+    without the relative-position keys."""
+    if cfg.use_rel_pos_bias:
+        raise ValueError("HuBERT has no relative position bias; use "
+                         "wavlm_state_dict")
+    return wavlm_state_dict(variables, cfg)
+
+
 # ---------------------------------------------------------------------------
 # BiCodec decoder (reference layout)
 # ---------------------------------------------------------------------------
@@ -235,3 +249,126 @@ def bicodec_decoder_state_dict(variables, cfg) -> StateDict:
     _snake(w["snake_post"], f"decoder.model.{n + 1}.alpha", out)
     _conv(w["conv_post"], f"decoder.model.{n + 2}", out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# HCodec-1.0 (reference layout)
+# ---------------------------------------------------------------------------
+
+def _sconv(p, prefix: str, out: StateDict):
+    _conv(p, f"{prefix}.conv.conv", out)
+
+
+def _hconv(p, prefix: str, out: StateDict):
+    _conv(p, f"{prefix}.conv", out)
+
+
+def _lstm(p, prefix: str, out: StateDict):
+    for name, v in p.items():
+        if name.startswith("w_"):
+            out[f"{prefix}.{name.replace('w_', 'weight_')}"] = _a(v).T
+        else:
+            out[f"{prefix}.{name.replace('b_', 'bias_')}"] = _a(v)
+
+
+def _hybrid_transformer(p, prefix: str, out: StateDict):
+    for name, layer in p.items():
+        lp = f"{prefix}.layers.{name.split('_')[1]}"
+        attn = layer["self_attn"]
+        _lstm(attn["rnn"], f"{lp}.self_attn.rnn", out)
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(attn[proj], f"{lp}.self_attn.{proj}", out)
+        for w in ("w1", "w2", "w3"):
+            _linear(layer["mlp"][w], f"{lp}.mlp.{w}", out)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{lp}.{norm}.weight"] = _a(layer[norm]["weight"])
+
+
+def _semantic_branch(p, name: str, strides, out: StateDict):
+    first = "conv" if name == "semantic_encoder" else "conv1"
+    _hconv(p[first], f"{name}.{first}", out)
+    for i, stride in enumerate(strides):
+        bp = f"{name}.conv_blocks.{i}"
+        block = p[f"block_{i}"]
+        if name == "semantic_decoder" and stride > 1:
+            _convtr(block["conv"], f"{bp}.conv.deconv", out)
+        else:
+            _hconv(block["conv"], f"{bp}.conv", out)
+        for j in range(2):
+            unit, up = block[f"res_{j}"], f"{bp}.res_units.{j}"
+            _hconv(unit["conv1"], f"{up}.conv1", out)
+            _conv(unit["conv2"], f"{up}.conv2", out)
+    _hconv(p["conv2"], f"{name}.conv2", out)
+
+
+def _rvq(codebooks, prefix: str, out: StateDict):
+    for name, layer in codebooks.items():
+        pre = f"{prefix}.layers.{name.split('_')[1]}._codebook"
+        out[f"{pre}.embed"] = _a(layer["embed"])[None]
+        out[f"{pre}.embed_avg"] = _a(layer["embed_avg"])[None]
+        out[f"{pre}.cluster_size"] = _a(layer["cluster_size"])[None]
+        out[f"{pre}.initted"] = _a(layer["inited"]).reshape(1)
+
+
+def _resnet_block(p, prefix: str, out: StateDict):
+    for norm in ("norm1", "norm2"):
+        _layernorm(p[norm], f"{prefix}.{norm}", out)
+    for conv in ("conv1", "conv2"):
+        _hconv(p[conv], f"{prefix}.{conv}", out)
+
+
+def _codec_decoder10(p, prefix: str, out: StateDict):
+    emb = p["embed"]
+    out[f"{prefix}.embed.up.weight"] = _a(emb["up_kernel"]).transpose(2, 1, 0)
+    out[f"{prefix}.embed.up.bias"] = _a(emb["up_bias"])
+    out[f"{prefix}.embed.dw.weight"] = _a(emb["dw_kernel"]).transpose(2, 1, 0)
+    out[f"{prefix}.embed.dw.bias"] = _a(emb["bias"])
+    pn = p["prior_net"]
+    for ours, theirs in (("res0", 0), ("res1", 1), ("res2", 5), ("res3", 6)):
+        _resnet_block(pn[ours], f"{prefix}.prior_net.{theirs}", out)
+    _hybrid_transformer(pn["transformer"], f"{prefix}.prior_net.3", out)
+    _layernorm(pn["norm_out"], f"{prefix}.prior_net.7", out)
+    _layernorm(p["norm"], f"{prefix}.norm", out)
+    _layernorm(p["final_layer_norm"], f"{prefix}.final_layer_norm", out)
+    _linear(p["head"]["out"], f"{prefix}.head.out", out)
+    stacked = p["post_net"]["stack"]["block"]
+    for i in range(_a(stacked["gamma"]).shape[0]):
+        block, bp = _index(stacked, i), f"{prefix}.post_net.{i}"
+        _hconv(block["dwconv"], f"{bp}.dwconv", out)
+        _layernorm(block["norm"], f"{bp}.norm", out)
+        _linear(block["pwconv1"], f"{bp}.pwconv1.linear", out)
+        _linear(block["pwconv2"], f"{bp}.pwconv2.linear", out)
+        out[f"{bp}.gamma"] = _a(block["gamma"])
+
+
+def hcodec10_state_dict(variables, cfg) -> StateDict:
+    """HCodec-1.0 variables ({"params", "codebook"}) -> the reference
+    layout. The port's ``HCodec`` loads it with ``strict=True`` after
+    :func:`hcodec10_inference_keys` drops what inference does not use."""
+    p, out = variables["params"], {}
+    enc = p["encoder"]
+    _sconv(enc["conv_in"], "encoder.model.0", out)
+    n = len(cfg.seanet_ratios)
+    for i in range(n):
+        res = enc[f"res_{i}_0"]
+        for ours, theirs in (("block_0", "block.1"), ("block_1", "block.3"),
+                             ("shortcut", "shortcut")):
+            _sconv(res[ours], f"encoder.model.{1 + 3 * i}.{theirs}", out)
+        _sconv(enc[f"down_{i}"], f"encoder.model.{3 + 3 * i}", out)
+    _hybrid_transformer(enc["transformer"], f"encoder.model.{2 + 3 * n}",
+                        out)
+    _sconv(enc["conv_out"], f"encoder.model.{5 + 3 * n}", out)
+    for name in ("quantizer", "semantic_quantizer"):
+        _rvq(variables["codebook"][name], name, out)
+    for name in ("semantic_encoder", "semantic_decoder"):
+        _semantic_branch(p[name], name, cfg.semantic_strides, out)
+    _codec_decoder10(p["decoder"], "decoder", out)
+    return out
+
+
+def hcodec10_inference_keys(sd: StateDict) -> StateDict:
+    """Drop the keys inference does not load: the semantic decoder (the
+    training target) and the codebooks' EMA statistics."""
+    drop = (".embed_avg", ".cluster_size", ".initted")
+    return {k: v for k, v in sd.items()
+            if not k.startswith("semantic_decoder.") and not k.endswith(drop)}

@@ -2,9 +2,10 @@
 
 No checkpoint of the released weights is reachable, so serving runs on
 random weights made from a seed through an explicit ``torch.Generator``:
-fan-in scaled uniform weights for linear and conv layers, zero biases,
-unit-normal embeddings; norms, Snake ``alpha`` and layer scales keep their
-constructor values.
+fan-in scaled uniform weights for linear and conv layers, LSTM weights
+uniform in +-1/sqrt(hidden), zero biases, unit-normal embeddings and VQ
+codebooks; norms, Snake ``alpha`` and layer scales keep their constructor
+values.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ..nn.conv import Conv1d, ConvTranspose1d
+from ..ops.quant import VectorQuantization
 
 
 @torch.no_grad()
@@ -30,4 +32,13 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, VectorQuantization):
+            m._codebook.embed.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, nn.LSTM):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for name, w in m.named_parameters():
+                if name.startswith("weight"):
+                    w.uniform_(-bound, bound, generator=generator)
+                else:
+                    w.zero_()
     return module
