@@ -8,11 +8,21 @@ prints no result. Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi).
 2. kernels: builds ``csrc/paged_attention.cu`` and ``csrc/vq.cu`` (one nvcc
    each, started together), then holds each kernel against its plain
-   PyTorch version, both timed with CUDA events, plain and kernel in turns.
+   PyTorch version, plain and kernel in turns, each timed twice: its device
+   time (the kernels one call launches, summed from torch.profiler's CUPTI
+   records; this is the ``ms`` of the kernels line) and its wall time per
+   call with the host's dispatch (CUDA events around back-to-back calls).
    The owner flash-decode kernels K1 (bf16/fp32 pool) and K2 (int8 pool) run
    at the serving shapes (16 slots, 12 layers, 8 heads of 64, 64-token
    blocks, 14-block regions in a 256-block pool, inactive slots, positions
-   up to a region's end). Tolerances: fp32 within 1e-5 (abs and rel); bf16
+   up to a region's end). The stream flash-decode kernels K3 (bf16/fp32
+   pool) and K4 (int8 pool) run at the UniTok serving shapes (16 slots, a
+   12-layer pool of 320 64-token blocks, the bound at 320, tables scattered
+   as a ``BlockAllocator`` hands them out, inactive slots, a slot whose only
+   keys lie in the last chunk, a row with no visible key, which must come
+   out as finite zeros); K3 is also timed against one
+   ``scaled_dot_product_attention`` call on the same function. Tolerances:
+   fp32 within 1e-5 (abs and rel); bf16
    output within 2 bf16 ulps of the fp32 plain result on the same
    bf16-valued inputs (ulp floored at that of 2**-8). The VQ kernels K5
    (nearest code) and K6 (fused 4-layer residual encode) run on random fp32
@@ -39,13 +49,29 @@ prints no result. Phases, each fatal on failure:
    against K6 under the near-tie rule; and the round trip with the plain
    VQ: codes equal in >= 99.9% of places and, where all are equal, the
    waveforms within 1e-5.
-5. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+5. UniTok-audio at full width (``UniTokConfig``: 8 codebooks of 1024, LM
+   512 x 12 layers, 8 heads of 64; bf16) over phase 4's HCodec-1.0, the
+   plain attention paths made to raise. (a) ``UniTokEngine.run`` in the
+   stream mode over an int8 pool (K4): 24 requests over the 7 tasks on 5-s
+   synthetic inputs (250 HuBERT frames, 125 codec frames), VC/TSE with a
+   2-s reference, LASS with 20 random caption frames, half sampled; codes
+   (125, 8) in [0, 1024), through ``UniTokPipeline.codes_to_audio`` to
+   finite 80,000-sample wavs, K4 launched 12 times per decode step, every
+   bound a 64-block bucket within the pool. (b) One bf16 pool and one
+   ``BlockAllocator`` shared by a UniSE engine (phase 3's LM) and a UniTok
+   engine, both in the stream mode, stepped in turn (K3): disjoint blocks,
+   outputs in range, K3 launched 12 times per step of each engine, no block
+   left held. (c) Teacher-forced fp32 decode through K3 (fp32 pool) and K4
+   (int8 pool) against the plain attention: max |logit difference| within
+   1e-4. Prints UniTok codes per second of engine wall time.
+6. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
 above, each kernel's time, its plain version's and its bound), and as its
 last line the device JSON object.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +87,8 @@ REPO = Path(__file__).resolve().parent
 L = 12  # LM layers: each decode step launches K1 or K2 once per layer
 K1_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:602"
 K2_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:540"
+K3_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:668"
+K4_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:295"
 K5_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:45"
 K6_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:148"
 SOURCE = "unified_audio_tpu_torch/csrc/paged_attention.cu"
@@ -88,7 +116,14 @@ def gpu_line():
 # kernels
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, iters=200):
+def time_ms(torch, fn, iters):
+    """-> (device ms, wall ms) per call of ``fn``. Device: the time of the
+    kernels the call launches, summed from torch.profiler's CUPTI records.
+    Wall: CUDA events around ``iters`` back-to-back calls; it holds the
+    host's dispatch too wherever the host is slower than the card, as it is
+    for a small decode kernel behind its wrapper's Python checks."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
@@ -99,21 +134,56 @@ def time_ms(torch, fn, iters=200):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not us > 0:
+        fail("torch.profiler recorded no device time")
+    return 1e-3 * us / iters, a.elapsed_time(b) / iters
+
+
+def in_turns(torch, fns, iters=100):
+    """Times each of ``fns`` twice, in the order f0, f1, ..., f1, f0 (the
+    versions alternate) -> [{"ms": device ms, "wall_ms": wall ms}], the
+    two timings of each averaged."""
+    n = len(fns)
+    t = [time_ms(torch, fns[i], iters)
+         for i in list(range(n)) + list(range(n))[::-1]]
+    return [{"ms": (t[i][0] + t[2 * n - 1 - i][0]) / 2,
+             "wall_ms": (t[i][1] + t[2 * n - 1 - i][1]) / 2}
+            for i in range(n)]
 
 
 def check_kernel(torch, pa, kernel, ref, dtype, quant):
-    """-> (max abs error vs the fp32 plain result, kernel ms, plain ms,
-    (bound ms, bound by))."""
+    """K1 (float pool) or K2 (int8 pool) against its plain version at the
+    UniSE serving shapes -> {"err": max abs error vs the fp32 plain result,
+    "ms"/"wall_ms": the kernel's, "plain_ms"/"plain_wall_ms": the plain
+    version's, "bound": (ms, bound by)}."""
     args = pa.serving_case(quant, dtype, "cuda")
     err, ok = pa.compare_with_plain(kernel, ref, args)
     if not ok:
         fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
              "tolerance, or inactive slots not zero")
-    # plain, kernel, kernel, plain: the two versions alternate
-    t = [time_ms(torch, lambda f=f: f(*args)) for f in (ref, kernel, kernel,
-                                                         ref)]
-    return err, (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, owner_bound(args, quant)
+    plain, kern = in_turns(torch, [lambda: ref(*args), lambda: kernel(*args)])
+    return {"err": err, **kern, "plain_ms": plain["ms"],
+            "plain_wall_ms": plain["wall_ms"],
+            "bound": owner_bound(args, quant)}
+
+
+def report(name, kernel, dtype, r, gpu):
+    lib = ("" if r.get("library_ms") is None else
+           f"; scaled_dot_product_attention {r['library_ms'] * 1e3:.1f} us "
+           f"(max abs err {r['library_err']:.3e} vs plain)")
+    print(f"{name} {kernel.__name__} q {str(dtype)[6:]}: max abs err "
+          f"{r['err']:.3e} vs fp32 plain; device time per layer call: kernel "
+          f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us{lib}, "
+          f"bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}); wall per "
+          f"call with dispatch: kernel {r['wall_ms'] * 1e3:.1f} us, plain "
+          f"{r['plain_wall_ms'] * 1e3:.1f} us | {gpu}", flush=True)
 
 
 def bound(bytes_moved, ops, ops_type):
@@ -141,6 +211,67 @@ def owner_bound(args, quant):
                  "fp32" if q.element_size() == 4 else "bf16")
 
 
+def stream_bound(args, quant):
+    """Bound of one K3 or K4 call on ``args``: the K and V rows any slot
+    sees read once (and, for the int8 pool, their scales), the visibility
+    mask, q and the output; two dot products of the head dim per visible
+    (slot, key) pair and head, at the rate of q's type."""
+    q, seen = args[0], args[-3] != 0
+    keys = int(seen.any(0).sum())
+    h, hd = q.shape[1], q.shape[2]
+    moved = (2 * keys * h * hd * args[1].element_size() + seen.numel()
+             + 2 * q.numel() * q.element_size())
+    if quant:
+        moved += 2 * keys * 4
+    return bound(moved, 4 * int(seen.sum()) * h * hd,
+                 "fp32" if q.element_size() == 4 else "bf16")
+
+
+def sdpa_call(torch, args):
+    """K3's function as one library call: scaled_dot_product_attention of
+    q (1, H, S, hd) against the prefix as (1, H, nb*BS, hd) under the
+    boolean visibility mask, inputs permuted beforehand."""
+    q, kpool, vpool, vis, li, nb = args
+    s, h, hd = q.shape
+
+    def heads_first(pool):
+        return pool[li, :nb].reshape(-1, h, hd).transpose(0, 1)[None] \
+            .contiguous()
+
+    qh = q.transpose(0, 1)[None].contiguous()
+    k, v = heads_first(kpool), heads_first(vpool)
+    mask = (vis != 0)[None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, k, v, attn_mask=mask)
+
+
+def check_stream(torch, pa, kernel, ref, dtype, quant):
+    """K3 (float pool) or K4 (int8 pool) against its plain version at the
+    UniTok serving shapes -> the dict of ``check_kernel``, with K3's
+    library call ("library_ms", and "library_err" against the plain
+    version on the rows with a visible key)."""
+    args = pa.stream_serving_case(quant, dtype, "cuda")
+    empty = ~(args[-3] != 0).any(1)
+    err, ok = pa.compare_with_plain(kernel, ref, args, empty=empty)
+    if not (ok and bool(empty.any())):
+        fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
+             "tolerance, or rows with no visible key not finite zeros")
+    fns = [lambda: ref(*args), lambda: kernel(*args)]
+    out = {"err": err, "bound": stream_bound(args, quant),
+           "library_ms": None}
+    if not quant:
+        lib = sdpa_call(torch, args)
+        fns.append(lib)
+        want = ref(*args)[~empty].float()
+        got = lib()[0].transpose(0, 1)[~empty].float()
+        out["library_err"] = (got - want).abs().max().item()
+    t = in_turns(torch, fns)
+    out.update(t[1], plain_ms=t[0]["ms"], plain_wall_ms=t[0]["wall_ms"])
+    if not quant:
+        out["library_ms"] = t[2]["ms"]
+    return out
+
+
 def vq_bound(m, n, d, nq):
     """Bound of an nq-layer search of M rows: x and the codebooks read
     once, the codes written once; 2 M N D operations per layer, fp32."""
@@ -166,8 +297,8 @@ def check_vq(torch, vq, m):
         if not (share >= 0.999 and ok):
             fail(f"{name} at M={m}: {share:.5f} of codes equal to the plain "
                  f"search, worst distance excess {worst:.3e}")
-        t = [time_ms(torch, f, iters=50) for f in (ref, kernel, kernel, ref)]
-        out[name] = (share, worst, (t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+        plain, kern = in_turns(torch, [ref, kernel], iters=50)
+        out[name] = (share, worst, kern["ms"], plain["ms"])
     return out
 
 
@@ -382,7 +513,217 @@ def roundtrip_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
              f"max |diff| {diff:.3e}")
     print(f"round trip with plain VQ: {same:.5f} of codes equal, waveform "
           f"max |diff| {diff:.3e}", flush=True)
-    return k5_launches, k6_launches, rtfx
+    return k5_launches, k6_launches, rtfx, tok
+
+
+# ---------------------------------------------------------------------------
+# UniTok-audio served from the paged pool in the stream mode
+# ---------------------------------------------------------------------------
+
+def unitok_requests(torch, tok, rng, n):
+    """``n`` requests cycling through the 7 tasks on 5-s synthetic inputs
+    (250 HuBERT frames, 125 codec frames): VC and TSE carry a 2-s
+    reference's features, LASS 20 frames of random caption features (there
+    is no text encoder); odd ones are sampled."""
+    from unified_audio_tpu_torch.models.unitok.model import UNITOK_TASKS
+    from unified_audio_tpu_torch.serve.unitok_engine import UniTokRequest
+
+    def clips(secs, level):
+        m = int(secs * SR)
+        x = np.stack([level * synth_speech(rng, m)
+                      + 0.05 * rng.standard_normal(m) for _ in range(n)])
+        return torch.as_tensor(x.astype(np.float32), device="cuda")
+
+    wavs, refs = clips(5.0, 0.5), clips(2.0, 0.4)
+    feats = tok.extract_features(tok.pad_wav(wavs)).cpu().numpy()
+    ref_feats = tok.extract_features(refs).cpu().numpy()
+    frames = wavs.shape[1] // tok.hop_length
+    tasks = list(UNITOK_TASKS)
+    reqs = []
+    for i in range(n):
+        task = tasks[i % len(tasks)]
+        reqs.append(UniTokRequest(
+            task_id=UNITOK_TASKS[task], num_frames=frames,
+            input_feats=feats[i],
+            ref_feats=ref_feats[i] if task in ("tse", "vc") else None,
+            caption_feats=(rng.standard_normal((20, 768)).astype(np.float32)
+                           if task == "lass" else None),
+            do_sample=i % 2 == 1, uid=i))
+    return reqs
+
+
+def check_codes(results, reqs, k):
+    for r in reqs:
+        c = results[r.uid].codes
+        if c.shape != (r.num_frames, k) or not (0 <= c.min()
+                                                and c.max() < 1024):
+            fail(f"UniTok request {r.uid}: codes of shape {c.shape} in "
+                 f"[{c.min()}, {c.max()}]")
+
+
+def unitok_agreement(torch, lm, reqs, quant, steps=24):
+    """Teacher-forced decode of two same-signature UniTok requests in fp32
+    through the stream kernels and through the plain attention: max
+    |logit diff| over ``steps`` steps."""
+    from unified_audio_tpu_torch.models.unitok.model import delay_window_masks
+    from unified_audio_tpu_torch.serve.unitok_engine import UniTokEngine
+
+    engines = {mode: UniTokEngine(lm, num_slots=2, use_kernel=mode,
+                                  kv_quant=quant) for mode in ("stream", "")}
+    for eng in engines.values():
+        eng.admit_wave(reqs)
+    code_mask, _ = delay_window_masks(lm.cfg, "cuda")
+    ids = torch.full((2, lm.cfg.num_codebooks), lm.cfg.bos, dtype=torch.int32,
+                     device="cuda")
+    worst = 0.0
+    for _ in range(steps):
+        logits = {}
+        for mode, eng in engines.items():
+            logits[mode] = eng.decode_logits(ids)
+            eng.state["index"] += 1
+        worst = max(worst, (logits["stream"] - logits[""]).abs().max().item())
+        ids = (logits[""] + code_mask).argmax(-1).int()
+    return worst
+
+
+def unitok_phase(torch, cli, pa, paged, tok, unise, gpu):
+    """Phase 5 -> (K3 launches, K4 launches) on their serving passes."""
+    from unified_audio_tpu_torch.models.unitok.model import UniTokConfig, UniTokLM
+    from unified_audio_tpu_torch.models.unitok.pipeline import UniTokPipeline
+    from unified_audio_tpu_torch.serve.engine import Request
+    from unified_audio_tpu_torch.serve.unitok_engine import UniTokEngine
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    cfg = UniTokConfig()
+    with torch.device("cuda"):
+        lm = UniTokLM(cfg)
+    init_random_(lm, torch.Generator(device="cuda").manual_seed(3)).eval()
+    pipe = UniTokPipeline(tok, lm.to(torch.bfloat16))
+    k = cfg.num_codebooks
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain attention path ran during serving")
+
+    guards = [(paged, "_plain_attention", forbidden),
+              (pa, "paged_flash_decode_stream_flat_ref", forbidden),
+              (pa, "paged_flash_decode_stream_flat_q8_ref", forbidden)]
+
+    # int8 pool, K4: 24 requests over the 7 tasks through 16 slots
+    reqs = unitok_requests(torch, tok, rng, 24)
+    eng = UniTokEngine(lm, num_slots=16, use_kernel="stream", kv_quant="int8")
+    bounds = []
+    block_bound = eng._block_bound
+
+    def recorded_bound():
+        bounds.append(block_bound())
+        return bounds[-1]
+
+    with patched(guards + [(eng, "_block_bound", recorded_bound)]):
+        pa.paged_flash_decode_stream_flat_q8.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.run(reqs, gen)
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        k4 = pa.paged_flash_decode_stream_flat_q8.launches
+    st = eng.stats()
+    if k4 != L * st["decode_steps"] or st["decode_steps"] == 0:
+        fail(f"K4 launched {k4} times for {st['decode_steps']} decode steps "
+             f"of {L} layers")
+    if not all(b % 64 == 0 and 64 <= b <= eng.num_blocks for b in bounds):
+        fail(f"decode bounds {sorted(set(bounds))} not 64-block buckets "
+             f"within the pool's {eng.num_blocks} blocks")
+    check_codes(results, reqs, k)
+    codes = torch.as_tensor(np.stack([results[r.uid].codes for r in reqs]),
+                            device="cuda").long()
+    wav = pipe.codes_to_audio(codes)
+    n_out = reqs[0].num_frames * tok.hop_length
+    if wav.shape != (len(reqs), n_out) or not bool(torch.isfinite(wav).all()):
+        fail(f"UniTok waveforms of shape {tuple(wav.shape)}, finite "
+             f"{bool(torch.isfinite(wav).all())}")
+    n_codes = k * sum(r.num_frames for r in reqs)
+    print(f"unitok int8 pool (stream, K4): {len(reqs)} requests over 7 tasks,"
+          f" codes {tuple(results[0].codes.shape)} each, {st['decode_steps']}"
+          f" decode steps, {st['prefill_waves']} prefill waves, bounds "
+          f"{min(bounds)}-{max(bounds)} of {eng.num_blocks} blocks; engine "
+          f"{engine_s:.2f} s = {n_codes / engine_s:.0f} codes/s "
+          f"({n_codes / k / engine_s:.0f} frames/s); K4 launches {k4}; "
+          f"waveforms {tuple(wav.shape)} finite | {gpu}", flush=True)
+
+    # one bf16 pool and one allocator shared by UniSE and UniTok, K3
+    unise.sft.to(torch.bfloat16)
+    nb = 320
+    pool_ref = paged.PoolRef(paged.init_pool(cfg.llama_config, nb, 64,
+                                             dtype=torch.bfloat16,
+                                             device="cuda"))
+    alloc = paged.BlockAllocator(nb)
+    eng_u = cli.make_engine(unise, 4, use_kernel="stream", pool_ref=pool_ref,
+                            allocator=alloc)
+    eng_t = UniTokEngine(lm, num_slots=4, use_kernel="stream",
+                         pool_ref=pool_ref, allocator=alloc)
+    seg = unise.config.segment_len
+    sem_len = unise._semantic_len()
+    u_reqs = [Request(task_id=i % 2, mix_wav=(0.5 * synth_speech(rng, seg)
+                                              ).astype(np.float32),
+                      enroll_wav=((0.4 * synth_speech(rng, seg)).astype(
+                          np.float32) if i % 2 else None),
+                      semantic_length=sem_len, do_sample=i >= 2, uid=100 + i)
+              for i in range(4)]
+    # the pass-1 requests without a reference or caption: one signature
+    t_reqs = [dataclasses.replace(r, uid=200 + r.uid) for r in reqs
+              if r.ref_feats is None and r.caption_feats is None][:4]
+    with patched(guards):
+        if len(eng_u.admit_many(u_reqs)) != 4 or \
+                len(eng_t.admit_wave(t_reqs)) != 4:
+            fail("the shared pool did not admit 4 + 4 requests")
+        held_u = {b for bl in eng_u._slot_blocks for b in bl}
+        held_t = {b for bl in eng_t._slot_blocks for b in bl}
+        if not held_u or not held_t or held_u & held_t:
+            fail(f"shared pool blocks overlap: {sorted(held_u & held_t)}")
+        pa.paged_flash_decode_stream_flat.launches = 0
+        res_u, res_t = {}, {}
+        t0 = time.perf_counter()
+        while len(res_u) < len(u_reqs) or len(res_t) < len(t_reqs):
+            for e, res, n in ((eng_u, res_u, len(u_reqs)),
+                              (eng_t, res_t, len(t_reqs))):
+                if len(res) < n:
+                    e.step(gen)
+                    res.update({r.uid: r for r in e.harvest()})
+        shared_s = time.perf_counter() - t0
+        k3 = pa.paged_flash_decode_stream_flat.launches
+    steps_u = eng_u.stats()["decode_steps"]
+    steps_t = eng_t.stats()["decode_steps"]
+    if k3 != L * (steps_u + steps_t):
+        fail(f"K3 launched {k3} times for {steps_u} + {steps_t} decode "
+             f"steps of {L} layers")
+    for r in res_u.values():
+        if r.global_ids.shape != (32,) or r.semantic_ids.shape != (sem_len,) \
+                or not (0 <= r.global_ids.min() and r.global_ids.max() < 4096
+                        and 0 <= r.semantic_ids.min()
+                        and r.semantic_ids.max() < 8192):
+            fail(f"shared pool UniSE result {r.uid} out of range")
+    check_codes(res_t, t_reqs, k)
+    if len(alloc.free) != nb - 1:
+        fail(f"shared pool leaked blocks: {nb - 1 - len(alloc.free)} held")
+    print(f"shared bf16 pool (stream, K3): UniSE {len(u_reqs)} segments in "
+          f"{steps_u} steps and UniTok {len(t_reqs)} requests in {steps_t} "
+          f"steps, stepped in turn, {len(held_u)} + {len(held_t)} disjoint "
+          f"blocks; {shared_s:.2f} s; K3 launches {k3} | {gpu}", flush=True)
+
+    # teacher-forced fp32: the stream kernels against the plain attention
+    lm.float()
+    two = [r for r in reqs if r.task_id == 0][:2]
+    for quant in (None, "int8"):
+        worst = unitok_agreement(torch, lm, two, quant)
+        print(f"teacher-forced fp32 UniTok decode, {quant or 'fp32'} pool: "
+              f"stream kernels vs plain attention max |logit diff| "
+              f"{worst:.2e}", flush=True)
+        if not worst <= 1e-4:
+            fail(f"stream-kernel decode disagrees with the plain path: "
+                 f"{worst}")
+    return k3, k4
 
 
 def main():
@@ -416,19 +757,19 @@ def main():
         list(pool.map(load_library, ("paged_attention.cu", "vq.cu")))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     results = {}
-    for name, kernel, ref, quant in (
+    for name, kernel, ref, quant, check in (
             ("K1", pa.paged_flash_decode_owner,
-             pa.paged_flash_decode_owner_ref, False),
+             pa.paged_flash_decode_owner_ref, False, check_kernel),
             ("K2", pa.paged_flash_decode_owner_q8,
-             pa.paged_flash_decode_owner_q8_ref, True)):
+             pa.paged_flash_decode_owner_q8_ref, True, check_kernel),
+            ("K3", pa.paged_flash_decode_stream_flat,
+             pa.paged_flash_decode_stream_flat_ref, False, check_stream),
+            ("K4", pa.paged_flash_decode_stream_flat_q8,
+             pa.paged_flash_decode_stream_flat_q8_ref, True, check_stream)):
         for dtype in (torch.float32, torch.bfloat16):
-            err, ms, plain_ms, b = check_kernel(torch, pa, kernel, ref,
-                                                 dtype, quant)
-            results[name, dtype] = (err, ms, plain_ms, b)
-            print(f"{name} {kernel.__name__} q {str(dtype)[6:]}: max abs err "
-                  f"{err:.3e} vs fp32 plain; kernel {ms * 1e3:.1f} us, plain "
-                  f"{plain_ms * 1e3:.1f} us per layer call, bound "
-                  f"{b[0] * 1e3:.1f} us ({b[1]}) | {gpu}", flush=True)
+            r = check(torch, pa, kernel, ref, dtype, quant)
+            results[name, dtype] = r
+            report(name, kernel, dtype, r, gpu)
     vq_results = {}
     for m in (250, 2000):
         for name, (share, worst, ms, plain_ms) in check_vq(torch, vq,
@@ -503,28 +844,40 @@ def main():
 
     # 4. HCodec-1.0 round trip
     with tempfile.TemporaryDirectory() as tmp:
-        k5_launches, k6_launches, _ = roundtrip_phase(
+        k5_launches, k6_launches, _, tok = roundtrip_phase(
             torch, cli, vq, gpu, Path(tmp), write_wav, read_wav)
 
-    # 5. nothing of JAX or the JAX package was loaded
+    # 5. UniTok-audio in the stream mode
+    k3_launches, k4_launches = unitok_phase(torch, cli, pa, paged, tok, unise,
+                                            gpu)
+
+    # 6. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
         fail(f"the port loaded JAX-side modules: {sorted(jax_side)}")
 
-    # the kernels at the main path's shapes: K1/K2 bf16 at the serving
-    # shapes, K5/K6 at one 10-s clip (M = 250); no single PyTorch call
-    # computes any of them (a paged decode; a product and an argmin)
+    # the kernels at the main path's shapes: K1-K4 bf16 at the serving
+    # shapes, K5/K6 at one 10-s clip (M = 250); K3's function is one
+    # scaled_dot_product_attention call; no single PyTorch call computes
+    # the others (an owner or int8 paged decode; a product and an argmin)
     kernels = []
+    launches.update({pa.paged_flash_decode_stream_flat.__name__: k3_launches,
+                     pa.paged_flash_decode_stream_flat_q8.__name__:
+                     k4_launches})
     for name, fn, tpu in (("K1", pa.paged_flash_decode_owner, K1_TPU),
-                          ("K2", pa.paged_flash_decode_owner_q8, K2_TPU)):
-        err, ms, plain_ms, (b_ms, b_by) = results[name, torch.bfloat16]
+                          ("K2", pa.paged_flash_decode_owner_q8, K2_TPU),
+                          ("K3", pa.paged_flash_decode_stream_flat, K3_TPU),
+                          ("K4", pa.paged_flash_decode_stream_flat_q8,
+                           K4_TPU)):
+        r = results[name, torch.bfloat16]
         kernels.append({"name": fn.__name__, "route": "cuda",
                         "source": SOURCE, "replaces": tpu,
                         "launches": launches[fn.__name__],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                        "bound_by": r["bound"][1],
+                        "library_ms": r.get("library_ms")})
     for name, fn, tpu, n_launch, nq in (
             ("K5", vq.nearest_code, K5_TPU, k5_launches, 1),
             ("K6", vq.rvq_encode_fused, K6_TPU, k6_launches, 4)):

@@ -197,14 +197,18 @@ def port_unise(unise):
 class TestPortImportsNoJax:
     def test_cli_imports_without_jax(self):
         """With jax and flax made unimportable, the port's CLI (and through
-        it the serving path and the HCodec round trip) still imports, and no
-        module of the JAX package is loaded."""
+        it the serving path and the HCodec round trip), the UniTok pipeline
+        and engine and the step profiler still import, and no module of the
+        JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
                 "import unified_audio_tpu_torch.cli, "
                 "unified_audio_tpu_torch.serve.engine, "
                 "unified_audio_tpu_torch.models.unise.model, "
                 "unified_audio_tpu_torch.models.hcodec.tokenizer, "
+                "unified_audio_tpu_torch.models.unitok.pipeline, "
+                "unified_audio_tpu_torch.serve.unitok_engine, "
+                "unified_audio_tpu_torch.serve.profile_step, "
                 "unified_audio_tpu_torch.utils.convert, "
                 "unified_audio_tpu_torch.utils.initialization; "
                 "shared = {m for m in sys.modules "

@@ -2,8 +2,10 @@
 JAX package's own exporters and converters, key for key.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from test_torch_common import (jax_sft, random_variables, tiny_lm_config,
                                to_torch)
@@ -111,3 +113,92 @@ def test_hubert_state_dict_has_no_rel_pos_keys():
     assert not any("rel" in k for k in sd)
     with pytest.raises(ValueError):
         t_convert.hubert_state_dict(variables, j_ssl.wavlm_base_plus_config())
+
+
+def _unitok():
+    from test_torch_unitok import tiny_cfg
+    from unified_audio_tpu.models.unitok.model import UniTokLM
+
+    cfg = tiny_cfg()
+    jlm = UniTokLM(cfg)
+    variables = jax.device_get(random_variables(
+        jlm, 0, np.zeros((1, 3, cfg.text_dim), np.float32),
+        np.zeros((1, 4, cfg.audio_dim), np.float32),
+        np.zeros((1, 4, cfg.audio_dim), np.float32),
+        np.zeros((1, 6, cfg.num_codebooks), np.int32), seed=7))
+    return cfg, jlm, variables
+
+
+def test_unitok_state_dict_key_for_key():
+    """The backbone's keys and values are what the JAX package's LM exporter
+    writes for the same decoder stack; every other key is its JAX leaf
+    (Linear kernels transposed); the port's UniTokLM takes exactly these
+    keys with strict loading."""
+    from test_torch_unitok import port_unitok
+
+    cfg, _, variables = _unitok()
+    p = variables["params"]
+    sd = t_convert.unitok_state_dict(variables, cfg)
+    d = cfg.hidden_size
+    as_lm = {"params": {"lm": {
+        "backbone": p["backbone"],
+        "codec_embedding": {"embedding": np.zeros((1, d), np.float32)},
+        "output_head": {"kernel": np.zeros((d, 1), np.float32)}}}}
+    ref = {f"backbone.{k}": v for k, v in export_custom_llama_state_dict(
+        as_lm, cfg.llama_config).items()
+        if k.startswith(("layers.", "norm."))}
+    for name in ("task_embedding", "sep_embedding"):
+        ref[f"{name}.weight"] = p[name]["embedding"]
+    for name in ("text_adapter", "audio_adapter"):
+        ref[f"{name}.weight"] = np.asarray(p[name]["kernel"]).T
+        ref[f"{name}.bias"] = p[name]["bias"]
+    for k in range(cfg.num_codebooks):
+        ref[f"code_embeddings.{k}.weight"] = p[f"code_embed_{k}"]["embedding"]
+        ref[f"heads.{k}.weight"] = np.asarray(p[f"head_{k}"]["kernel"]).T
+    _assert_same(sd, ref)
+    assert sorted(port_unitok(cfg, variables).state_dict()) == sorted(sd)
+
+
+def test_unitok_forward_matches_jax():
+    """Teacher-forced forward, as the JAX ``UniTokLM.__call__`` runs it
+    (prompt, BOS + delayed codes, backbone, K heads): the port's logits
+    within atol/rtol 1e-4 of JAX's, caption, reference and input present."""
+    from test_torch_unitok import port_unitok
+    from unified_audio_tpu.models.unitok.delay import apply_delay as j_delay
+    from unified_audio_tpu_torch.models.lm.llama import init_cache
+    from unified_audio_tpu_torch.models.unitok.delay import apply_delay
+
+    cfg, jlm, variables = _unitok()
+    tlm = port_unitok(cfg, variables)
+    rng = np.random.default_rng(8)
+    cap = rng.standard_normal((2, 3, cfg.text_dim)).astype(np.float32)
+    ref = rng.standard_normal((2, 5, cfg.audio_dim)).astype(np.float32)
+    inp = rng.standard_normal((2, 4, cfg.audio_dim)).astype(np.float32)
+    codes = rng.integers(0, cfg.codebook_size, (2, 6, cfg.num_codebooks))
+    k = cfg.num_codebooks
+
+    def j_logits(m, cap, ref, inp, codes):
+        delayed = j_delay(codes, cfg.pad)
+        bos = jnp.full((2, 1, k), cfg.bos, delayed.dtype)
+        inputs = jnp.concatenate([bos, delayed], axis=1)[:, :-1]
+        prompt = m.build_prompt(3, cap, ref, inp, 2)
+        embeds = jnp.concatenate([prompt, m.embed_codes(inputs)], 1)
+        hidden = m.backbone(embeds)[:, -inputs.shape[1]:]
+        return jnp.stack([m.heads[kk](hidden) for kk in range(k)], 2)
+
+    want = jlm.apply(variables, cap, ref, inp, codes.astype(np.int32),
+                     method=j_logits)
+    with torch.no_grad():
+        delayed = apply_delay(torch.as_tensor(codes), cfg.pad)
+        inputs = torch.cat([torch.full((2, 1, k), cfg.bos), delayed],
+                           1)[:, :-1]
+        prompt = tlm.build_prompt(3, *map(torch.as_tensor, (cap, ref, inp)),
+                                  2)
+        embeds = torch.cat([prompt, tlm.embed_codes(inputs)], 1)
+        cache = init_cache(tlm.lcfg, 2, embeds.shape[1])
+        hidden, _ = tlm.backbone.cached_forward(embeds, cache)
+        hidden = hidden[:, -inputs.shape[1]:]
+        got = torch.stack([h(hidden) for h in tlm.heads], 2)
+    assert got.shape == (2, 6 + k - 1, k, cfg.layer_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)

@@ -5,8 +5,8 @@ outnumber the slots, so slots and pool regions are recycled. With the float
 pool every result equals JAX ``LLMSFT.generate``'s greedy tokens exactly;
 with the int8 pool every result equals a JAX reference loop over the same
 int8 paged pool (JAX prefill, ``scatter_prefill``, ``paged_decode_ids``).
-The attention runs in the owner mode (the K1/K2 plain versions on the CPU)
-and in the plain mode.
+The attention runs in the owner mode (the K1/K2 plain versions on the CPU),
+the stream mode (the K3/K4 plain versions) and the plain mode.
 """
 import jax
 import jax.numpy as jnp
@@ -108,7 +108,7 @@ def int8_ref(lm):
             for r in _requests()[:3]}
 
 
-@pytest.mark.parametrize("mode", ["owner", ""])
+@pytest.mark.parametrize("mode", ["owner", "stream", ""])
 def test_greedy_float_pool_matches_generate(lm, float_ref, mode):
     reqs = _requests()
     eng = _engine(lm[3], use_kernel=mode)
@@ -124,7 +124,7 @@ def test_greedy_float_pool_matches_generate(lm, float_ref, mode):
     assert st["blocks_held"] == 0 and st["prefill_waves"] >= 3
 
 
-@pytest.mark.parametrize("mode", ["owner", ""])
+@pytest.mark.parametrize("mode", ["owner", "stream", ""])
 def test_greedy_int8_pool_matches_paged_reference(lm, int8_ref, mode):
     reqs = _requests()[:3]
     results = _engine(lm[3], use_kernel=mode, kv_quant="int8").run(reqs)

@@ -5,6 +5,7 @@ tests/test_hcodec.py with a tiny HuBERT frontend.
 The same numpy-seeded weights (carried over by ``hcodec10_state_dict`` and
 ``hubert_state_dict``) and inputs go through both. Modules within atol/rtol
 1e-4; tokenize codes exact; detokenize within 1e-4 of the waveform's peak.
+``UniTokPipeline`` runs a tiny UniTok LM over the same tokenizer.
 """
 import dataclasses
 import functools
@@ -274,3 +275,85 @@ class TestRoundTrip:
 def test_parts_not_ported_raise(build):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build()
+
+
+class TestUniTokPipeline:
+    """``UniTokPipeline`` (the UniTok LM between HCodec-1.0's features and
+    codes) against the JAX package's on the tiny codec above and a tiny
+    UniTok LM over its 2 x 2 codebooks of 32: codes exact, generated
+    waveforms within 1e-4 of the peak."""
+
+    @pytest.fixture(scope="class")
+    def pipes(self, models):
+        from test_torch_unitok import port_unitok
+        from unified_audio_tpu.models.unitok.model import (UniTokConfig,
+                                                           UniTokLM)
+        from unified_audio_tpu.models.unitok.pipeline import (
+            UniTokPipeline as JPipeline)
+        from unified_audio_tpu_torch.models.unitok.pipeline import (
+            UniTokPipeline)
+
+        cfg, ssl_cfg, _, _, jtok, tok = models
+        ucfg = UniTokConfig(codebook_size=cfg.codebook_size,
+                            num_quantizers=cfg.num_quantizers,
+                            hidden_size=32, num_layers=2, num_heads=4,
+                            text_dim=8, audio_dim=ssl_cfg.hidden_size,
+                            max_positions=256)
+        jlm = UniTokLM(ucfg)
+        lm_vars = jax.device_get(random_variables(
+            jlm, 0, np.zeros((1, 2, ucfg.text_dim), np.float32), None,
+            np.zeros((1, 4, ucfg.audio_dim), np.float32),
+            np.zeros((1, 4, ucfg.num_codebooks), np.int32), seed=9))
+        return (JPipeline(jtok, jlm, lm_vars),
+                UniTokPipeline(tok, port_unitok(ucfg, lm_vars)))
+
+    def test_audio_to_codes_exact(self, pipes):
+        jpipe, pipe = pipes
+        wav = _wav(10)
+        want = np.asarray(jpipe.audio_to_codes(jnp.asarray(wav)))
+        got = pipe.audio_to_codes(torch.as_tensor(wav))
+        assert got.shape == (1, L // 640, 4)
+        np.testing.assert_array_equal(got.numpy(), want)
+        back = pipe.codes_to_audio(got)
+        _close(back, jpipe.codes_to_audio(jnp.asarray(want)), atol=1e-4 * float(
+            np.abs(np.asarray(back)).max()), rtol=0)
+
+    def test_greedy_generate_matches_jax(self, pipes):
+        """A TSE request (reference clip and input clip), greedy: the LM's
+        codes and so the waveform equal JAX's."""
+        jpipe, pipe = pipes
+        wav, ref = _wav(11, L - 100), _wav(12, 640 * 3)
+        want = np.asarray(jpipe.generate("tse", jnp.asarray(wav),
+                                         jax.random.PRNGKey(0),
+                                         ref_wav=jnp.asarray(ref),
+                                         do_sample=False))
+        got = pipe.generate("tse", torch.as_tensor(wav),
+                            ref_wav=torch.as_tensor(ref), do_sample=False)
+        assert got.shape == want.shape == (1, (L - 100) // 640 * 640)
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+    def test_from_random_runs_on_the_card_unless_asked(self, models,
+                                                       monkeypatch):
+        """``from_random`` defaults to the card and raises without one;
+        with ``device="cpu"`` it builds and a sampled generate gives a
+        finite waveform of the requested frames."""
+        from unified_audio_tpu_torch.models.hcodec.codec import HCodecConfig
+        from unified_audio_tpu_torch.models.unitok import model as t_model
+        from unified_audio_tpu_torch.models.unitok.pipeline import (
+            UniTokPipeline)
+
+        cfg, ssl_cfg = models[:2]
+        kw = dict(codec_config=HCodecConfig(**dataclasses.asdict(cfg)),
+                  ssl_config=t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg)),
+                  lm_config=t_model.UniTokConfig(
+                      codebook_size=cfg.codebook_size,
+                      num_quantizers=cfg.num_quantizers, hidden_size=32,
+                      num_layers=2, num_heads=4, text_dim=8,
+                      audio_dim=ssl_cfg.hidden_size))
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            UniTokPipeline.from_random(**kw)
+        pipe = UniTokPipeline.from_random(device="cpu", **kw)
+        out = pipe.generate("sr", torch.as_tensor(_wav(13)), num_frames=3,
+                            generator=torch.Generator().manual_seed(0))
+        assert out.shape == (1, 3 * 640) and torch.isfinite(out).all()

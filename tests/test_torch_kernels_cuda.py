@@ -1,6 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions: the
-owner flash-decode K1/K2 at the serving shapes and the VQ nearest-code
-K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports no JAX, so it
+owner flash-decode K1/K2 and the stream flash-decode K3/K4 at the serving
+shapes and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports no JAX, so it
 also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
@@ -34,6 +34,26 @@ class TestKernelsOnCard:
                              t_pa.paged_flash_decode_owner_ref))
         err, ok = t_pa.compare_with_plain(
             kernel, ref, t_pa.serving_case(quant, dtype, card))
+        assert ok, f"max abs err {err}"
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("bound", [320, 64])
+    def test_stream_kernel_matches_plain(self, card, dtype, quant, bound):
+        """K3 (float pool) and K4 (int8 pool) at the UniTok serving shapes,
+        scattered tables, a slot whose only keys lie in the last chunk, and
+        rows with no visible key (zeros), within ``compare_with_plain``'s
+        tolerance; also under a bound of 64 blocks, the mask cut to it."""
+        kernel, ref = ((t_pa.paged_flash_decode_stream_flat_q8,
+                        t_pa.paged_flash_decode_stream_flat_q8_ref) if quant
+                       else (t_pa.paged_flash_decode_stream_flat,
+                             t_pa.paged_flash_decode_stream_flat_ref))
+        args = t_pa.stream_serving_case(quant, dtype, card)
+        vis = args[-3][:, :bound * 64].contiguous()
+        args[-3:] = [vis, args[-2], bound]
+        empty = ~(vis != 0).any(1)
+        assert 1 <= int(empty.sum()) < len(empty)
+        err, ok = t_pa.compare_with_plain(kernel, ref, args, empty=empty)
         assert ok, f"max abs err {err}"
 
     @pytest.mark.parametrize("m,n", [(250, 1024), (2000, 1024), (37, 300)])

@@ -1,8 +1,9 @@
 """Paged KV pool, port vs JAX: quantize_kv, the allocators, scatter_prefill
 and multi-step greedy decode trajectories through paged_decode_ids.
 
-The port's decode step runs in the plain mode ("") and in the owner mode
-(the K1/K2 plain versions on the CPU); the JAX side runs its plain path.
+The port's decode step runs in the plain mode (""), the owner mode (the
+K1/K2 plain versions on the CPU) and the stream mode (the K3/K4 plain
+versions); the JAX side runs its plain path.
 The float pool is fp32 here (bf16 on the card). Tolerances: floats within
 atol/rtol 1e-4; greedy tokens exact; int8 pool values exact except at most
 1 LSB where the float inputs sit at a rounding tie.
@@ -122,7 +123,7 @@ class TestPool:
 
 
 @pytest.mark.parametrize("quant", [None, "int8"])
-@pytest.mark.parametrize("mode", ["", "owner"])
+@pytest.mark.parametrize("mode", ["", "owner", "stream"])
 def test_greedy_trajectory(lm, quant, mode):
     """Six greedy steps, an inactive slot included: active rows' tokens
     equal JAX's plain path, first-step logits and the final pool close."""
@@ -162,4 +163,4 @@ def test_unknown_mode_raises(lm):
         t_paged.paged_decode_ids(
             port_config(cfg), tsft, pool, torch.zeros((1, 3), dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.bool),
-            torch.zeros(1, dtype=torch.int32), BS, use_kernel="stream")
+            torch.zeros(1, dtype=torch.int32), BS, use_kernel="bogus")

@@ -125,10 +125,11 @@ def _read_requests(path):
     return lines
 
 
-def make_engine(unise, slots: int = 16, kv_quant=None):
+def make_engine(unise, slots: int = 16, kv_quant=None, **engine_kw):
     """The serving engine over ``unise``'s LM (in its current dtype and
     device): one mix/enroll bucket of a 5-s segment's feature frames, WavLM
-    run on the device at admission."""
+    run on the device at admission. ``engine_kw`` go to the engine (the
+    attention mode, a shared ``pool_ref`` and ``allocator``)."""
     from .serve.engine import ContinuousBatchingEngine
 
     cfg = unise.config
@@ -137,7 +138,7 @@ def make_engine(unise, slots: int = 16, kv_quant=None):
         unise.sft, num_slots=slots, max_global=cfg.global_tokens,
         max_semantic=sem_len + 6, mix_buckets=(sem_len + 6,),
         kv_quant=kv_quant or None, feature_fn=unise.wavlm_feats,
-        frames_fn=unise.wavlm_frames)
+        frames_fn=unise.wavlm_frames, **engine_kw)
 
 
 def serve(requests_path, unise, slots: int = 16, kv_quant=None,

@@ -1,36 +1,56 @@
-// Owner-mode paged flash-decode attention for Hopper (sm_90a).
+// Paged flash-decode attention for Hopper (sm_90a): the owner and the
+// stream kernels.
 //
 // Replaces the TPU kernels in unified_audio_tpu/ops/pallas/paged_attention.py:
 //   K1  paged_flash_decode_owner     (_owner_kernel_flat):    bf16 / fp32 pool
 //   K2  paged_flash_decode_owner_q8  (_owner_kernel_flat_q8): int8 pool with
 //       fp32 per-token scales
+//   K3  paged_flash_decode_stream_flat     (_stream_kernel_flat): bf16 / fp32
+//   K4  paged_flash_decode_stream_flat_q8  (_stream_kernel_flat_q8): int8
 //
-// What it computes. One decode query per slot s and head h attends to the
-// slot's own keys at slot-local positions p <= index[s]. Position p lives in
-// physical block start_block[s] + p / BS at offset p % BS of the flat pool
-// (L, NB, BS, H*HD), columns [h*HD, (h+1)*HD). Softmax runs in fp32; an
-// inactive slot (index < 0) returns zeros. For the int8 pool the layer's
-// per-token scales fold in by row exactly as the TPU kernel and the plain
-// path do: logits = (q . k_int8) * (k_scale * 1/sqrt(HD)), and the
-// probabilities are multiplied by v_scale before the p.v product.
+// What they compute. One decode query per slot s and head h attends to keys
+// of the flat pool (L, NB, BS, H*HD), columns [h*HD, (h+1)*HD), softmax in
+// fp32, output in q's dtype. Which keys:
+//   owner (K1/K2): the slot's own positions p <= index[s]; position p lives
+//     in physical block start_block[s] + p / BS at offset p % BS. An
+//     inactive slot (index < 0) returns zeros.
+//   stream (K3/K4): every key of the pool prefix [0, bound * BS) whose byte
+//     in the slot's row of the (S, bound * BS) int8 visibility mask is
+//     non-zero. A row with no visible key returns zeros.
+// For the int8 pool the layer's per-token scales fold in by row exactly as
+// the TPU kernels and the plain paths do: logits = (q . k_int8) *
+// (k_scale * 1/sqrt(HD)) before the mask, and the probabilities are
+// multiplied by v_scale before the p.v product while the denominator sums
+// the unscaled probabilities.
 //
-// What bounds it on this card. Each call reads the owned KV prefix of every
-// slot once: 2 * sum_s (index[s] + 1) * HD * bytes per element for each head,
+// What bounds them on this card. Each call reads the K and V rows its slots
+// may see once: 2 * HD * bytes per element for each visible key and head,
 // about 17.6 MB per layer for 16 slots at 536 cached tokens in bf16 (half
-// that for int8). At 3.35 TB/s that is ~5 us per layer, so the kernel is
-// memory-bound and its time is set by how many bytes are in flight. The
-// arithmetic (two dot products of HD per key) is negligible.
+// that for int8). At 3.35 TB/s that is ~5 us per layer, so the kernels are
+// memory-bound and their time is set by how many bytes are in flight. The
+// arithmetic (two dot products of HD per visible key) is negligible. The
+// stream kernels also read the visibility mask (S * bound * BS bytes, 20 KB
+// per slot at a 320-block bound), once per head.
 //
-// Design. One thread block per (slot, head), 128 threads. Thread t takes
-// positions t, t+128, t+256, ... and keeps its own online-softmax state
-// (running max, denominator, HD accumulators) in registers, so the key loop
-// has no cross-thread reduction. Each thread reads whole K and V rows with
-// 16-byte (8-element) loads, all issued before they are used. At the end the
-// 128 partial states merge through shared memory. The TPU kernel's 128-lane
-// chunk rule, its block-diagonal head picker and its clamped chunk re-reads
-// were Mosaic constraints and have no counterpart here: the loop simply
-// stops at index[s]. Split-K over chunks, cp.async/TMA staging and several
-// slots per block are the levers for later work.
+// Design. One thread block per (slot, head), 128 threads. Thread t keeps
+// its own online-softmax state (running max, denominator, HD accumulators)
+// in registers, so the key loop has no cross-thread reduction; each thread
+// reads whole K and V rows with 16-byte (8-element) loads, all issued before
+// they are used; at the end the 128 partial states merge through shared
+// memory. The owner kernels walk positions t, t+128, ... up to index[s].
+// The TPU stream kernel walks the prefix in chunks with all slots at once
+// (one program, one core); a slot owns a few percent of a serving prefix,
+// so here each (slot, head) block first finds, 128 physical blocks at a
+// time, the blocks holding any visible key for its slot (16-byte mask
+// loads, a warp ballot and a block-wide compaction into shared memory),
+// then spreads those blocks' keys over its threads and skips the masked
+// ones. Fully masked blocks cost one mask read and no K/V traffic, and no
+// masked key enters the softmax state, so the running max starts at -inf
+// without the exp(-inf - -inf) hazard. The Mosaic chunk rules (chunk *
+// BS a multiple of 128, the bound divisible by the chunk) have no
+// counterpart: the bound is any block count up to the pool's. Split-K over
+// the prefix, cp.async/TMA staging and several slots per block are the
+// levers for later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,6 +60,7 @@ namespace {
 
 constexpr int kHeadDim = 64;   // head dim the kernels are built for (UniSE LM)
 constexpr int kThreads = 128;  // 4 warps per (slot, head) block
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -71,74 +92,55 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// QT: query/output type; KT: pool element type; kQ8: int8 pool with scales.
-template <typename QT, typename KT, bool kQ8>
-__global__ void __launch_bounds__(kThreads)
-owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
-                    const KT* __restrict__ vpool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ start_block,
-                    const int* __restrict__ index, QT* __restrict__ out,
-                    int num_heads, int num_blocks, int block_size, int layer,
-                    float scale) {
-  const int s = blockIdx.x / num_heads;
-  const int h = blockIdx.x % num_heads;
+// The query row of (slot, head) into shared memory (read as a broadcast),
+// which keeps the registers for the K/V rows and the accumulators.
+template <typename QT>
+__device__ __forceinline__ void load_query(const QT* q, int s, int h,
+                                           int num_heads, float* qs) {
+  const QT* qrow = q + (static_cast<long long>(s) * num_heads + h) * kHeadDim;
+  if (threadIdx.x < kHeadDim / 8) load8(qrow + 8 * threadIdx.x, qs + 8 * threadIdx.x);
+  __syncthreads();
+}
+
+// One key of the online softmax: m the running max (-inf before the first
+// key), l the denominator, acc the p-weighted V sum. k_sc/v_sc are the int8
+// pool's per-token scales (ignored for a float pool).
+template <typename KT, bool kQ8>
+__device__ __forceinline__ void attend_key(const float* qs, const KT* krow,
+                                           const KT* vrow, float k_sc,
+                                           float v_sc, float scale, float& m,
+                                           float& l, float* acc) {
+  float kf[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; d += 8) load8(krow + d, kf + d);
+  float vf[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; d += 8) load8(vrow + d, vf + d);
+  float dot = 0.f;
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) dot = fmaf(qs[d], kf[d], dot);
+  const float logit = kQ8 ? dot * (k_sc * scale) : dot * scale;
+  const float m_new = fmaxf(m, logit);
+  const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
+  const float prob = expf(logit - m_new);
+  l = l * alpha + prob;
+  const float pv = kQ8 ? prob * v_sc : prob;
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(acc[d], alpha, pv * vf[d]);
+  m = m_new;
+}
+
+// Merge the 128 threads' softmax states (global max, rescale, sum) and write
+// the (slot, head) output row; zeros where no thread saw a key.
+template <typename QT>
+__device__ __forceinline__ void merge_store(float m, float l, const float* acc,
+                                            QT* orow) {
+  __shared__ float warp_max[kWarps];
+  __shared__ float warp_den[kWarps];
+  __shared__ float partial[kThreads][kHeadDim + 1];  // +1: no bank conflicts
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int idx = index[s];
-  const long long start = start_block[s];
-  const long long row = static_cast<long long>(num_heads) * kHeadDim;
-  // the layer's pool slice, offset to this head's columns
-  const long long layer_off =
-      static_cast<long long>(layer) * num_blocks * block_size * row +
-      static_cast<long long>(h) * kHeadDim;
-  const KT* kbase = kpool + layer_off;
-  const KT* vbase = vpool + layer_off;
-
-  // the query row lives in shared memory (read as a broadcast), which keeps
-  // the registers for the K/V rows and the accumulators
-  __shared__ float qs[kHeadDim];
-  const QT* qrow = q + (static_cast<long long>(s) * num_heads + h) * kHeadDim;
-  if (t < kHeadDim / 8) load8(qrow + 8 * t, qs + 8 * t);
-  __syncthreads();
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[kHeadDim];
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-
-  for (int p = t; p <= idx; p += kThreads) {
-    // token slot of position p inside the layer: block * BS + offset
-    const long long tok = (start + p / block_size) * block_size + p % block_size;
-    const KT* krow = kbase + tok * row;
-    const KT* vrow = vbase + tok * row;
-    float kf[kHeadDim];
-#pragma unroll
-    for (int d = 0; d < kHeadDim; d += 8) load8(krow + d, kf + d);
-    float vf[kHeadDim];
-#pragma unroll
-    for (int d = 0; d < kHeadDim; d += 8) load8(vrow + d, vf + d);
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) dot = fmaf(qs[d], kf[d], dot);
-    const float logit = kQ8 ? dot * (k_scale[tok] * scale) : dot * scale;
-    const float m_new = fmaxf(m, logit);
-    const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
-    const float prob = expf(logit - m_new);
-    l = l * alpha + prob;
-    const float pv = kQ8 ? prob * v_scale[tok] : prob;
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(acc[d], alpha, pv * vf[d]);
-    m = m_new;
-  }
-
-  // merge the 128 partial softmax states: global max, rescale, sum
-  __shared__ float warp_max[kThreads / 32];
-  __shared__ float warp_den[kThreads / 32];
-  __shared__ float partial[kThreads][kHeadDim + 1];  // +1: no bank conflicts
 
   float wm = m;
 #pragma unroll
@@ -147,10 +149,9 @@ owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
   __syncthreads();
   float big = warp_max[0];
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) big = fmaxf(big, warp_max[w]);
+  for (int w = 1; w < kWarps; ++w) big = fmaxf(big, warp_max[w]);
 
-  QT* orow = out + (static_cast<long long>(s) * num_heads + h) * kHeadDim;
-  if (big == -INFINITY) {  // no visible key: an inactive slot
+  if (big == -INFINITY) {  // no visible key: an inactive or empty row
     if (t < kHeadDim) store(orow + t, 0.f);
     return;
   }
@@ -167,17 +168,136 @@ owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
     for (int r = 0; r < kThreads; ++r) total += partial[r][t];
     float denom = 0.f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) denom += warp_den[w];
+    for (int w = 0; w < kWarps; ++w) denom += warp_den[w];
     store(orow + t, total * (1.f / denom));
   }
 }
 
+// QT: query/output type; KT: pool element type; kQ8: int8 pool with scales.
 template <typename QT, typename KT, bool kQ8>
-int launch(const void* q, const void* kpool, const void* vpool,
-           const void* k_scale, const void* v_scale, const void* start_block,
-           const void* index, void* out, int num_slots, int num_heads,
-           int num_blocks, int block_size, int layer, float scale,
-           void* stream) {
+__global__ void __launch_bounds__(kThreads)
+owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
+                    const KT* __restrict__ vpool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ start_block,
+                    const int* __restrict__ index, QT* __restrict__ out,
+                    int num_heads, int num_blocks, int block_size, int layer,
+                    float scale) {
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const int idx = index[s];
+  const long long start = start_block[s];
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  // the layer's pool slice, offset to this head's columns
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  const KT* kbase = kpool + layer_off;
+  const KT* vbase = vpool + layer_off;
+
+  __shared__ float qs[kHeadDim];
+  load_query(q, s, h, num_heads, qs);
+
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+
+  for (int p = threadIdx.x; p <= idx; p += kThreads) {
+    // token slot of position p inside the layer: block * BS + offset
+    const long long tok = (start + p / block_size) * block_size + p % block_size;
+    attend_key<KT, kQ8>(qs, kbase + tok * row, vbase + tok * row,
+                        kQ8 ? k_scale[tok] : 1.f, kQ8 ? v_scale[tok] : 1.f,
+                        scale, m, l, acc);
+  }
+  merge_store(m, l, acc,
+              out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
+}
+
+template <typename QT, typename KT, bool kQ8>
+__global__ void __launch_bounds__(kThreads)
+stream_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
+                     const KT* __restrict__ vpool,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
+                     const int8_t* __restrict__ vis, QT* __restrict__ out,
+                     int num_heads, int num_blocks, int block_size, int bound,
+                     int layer, float scale) {
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  const KT* kbase = kpool + layer_off;
+  const KT* vbase = vpool + layer_off;
+  // the slot's row of the mask: one byte per key of the prefix
+  const int8_t* seen = vis + static_cast<long long>(s) * bound * block_size;
+
+  __shared__ float qs[kHeadDim];
+  load_query(q, s, h, num_heads, qs);
+  __shared__ int live[kThreads];      // this round's blocks with a visible key
+  __shared__ int warp_live[kWarps];
+
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+
+  for (int base = 0; base < bound; base += kThreads) {
+    // thread t checks physical block base + t: any visible key in its
+    // block_size mask bytes (16 at a time)
+    const int b = base + t;
+    bool any = false;
+    if (b < bound) {
+      const uint4* words = reinterpret_cast<const uint4*>(
+          seen + static_cast<long long>(b) * block_size);
+      for (int i = 0; i < block_size / 16; ++i) {
+        const uint4 w = words[i];
+        any |= (w.x | w.y | w.z | w.w) != 0u;
+      }
+    }
+    // compact the live blocks into live[0, n_live), in block order
+    const unsigned ballot = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int offset = 0;
+    int n_live = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      offset += (w < warp) ? warp_live[w] : 0;
+      n_live += warp_live[w];
+    }
+    if (any) live[offset + __popc(ballot & ((1u << lane) - 1u))] = b;
+    __syncthreads();
+    // the live blocks' keys, spread over the threads; masked keys skipped
+    for (int i = t; i < n_live * block_size; i += kThreads) {
+      const long long tok =
+          static_cast<long long>(live[i / block_size]) * block_size +
+          i % block_size;
+      if (seen[tok] == 0) continue;
+      attend_key<KT, kQ8>(qs, kbase + tok * row, vbase + tok * row,
+                          kQ8 ? k_scale[tok] : 1.f, kQ8 ? v_scale[tok] : 1.f,
+                          scale, m, l, acc);
+    }
+    __syncthreads();  // live[] and warp_live[] are rewritten next round
+  }
+  merge_store(m, l, acc,
+              out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
+}
+
+template <typename QT, typename KT, bool kQ8>
+int launch_owner(const void* q, const void* kpool, const void* vpool,
+                 const void* k_scale, const void* v_scale,
+                 const void* start_block, const void* index, void* out,
+                 int num_slots, int num_heads, int num_blocks, int block_size,
+                 int layer, float scale, void* stream) {
   const dim3 grid(num_slots * num_heads);
   owner_decode_kernel<QT, KT, kQ8><<<grid, kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
@@ -186,6 +306,23 @@ int launch(const void* q, const void* kpool, const void* vpool,
       static_cast<const float*>(v_scale), static_cast<const int*>(start_block),
       static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
       num_blocks, block_size, layer, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename KT, bool kQ8>
+int launch_stream(const void* q, const void* kpool, const void* vpool,
+                  const void* k_scale, const void* v_scale, const void* vis,
+                  void* out, int num_slots, int num_heads, int num_blocks,
+                  int block_size, int bound, int layer, float scale,
+                  void* stream) {
+  const dim3 grid(num_slots * num_heads);
+  stream_decode_kernel<QT, KT, kQ8><<<grid, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(kpool),
+      static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
+      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,17 +335,16 @@ int owner_decode_f32(const void* q, const void* kpool, const void* vpool,
                      const void* start_block, const void* index, void* out,
                      int num_slots, int num_heads, int num_blocks,
                      int block_size, int layer, float scale, void* stream) {
-  return launch<float, float, false>(q, kpool, vpool, nullptr, nullptr,
-                                     start_block, index, out, num_slots,
-                                     num_heads, num_blocks, block_size, layer,
-                                     scale, stream);
+  return launch_owner<float, float, false>(
+      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
+      num_heads, num_blocks, block_size, layer, scale, stream);
 }
 
 int owner_decode_bf16(const void* q, const void* kpool, const void* vpool,
                       const void* start_block, const void* index, void* out,
                       int num_slots, int num_heads, int num_blocks,
                       int block_size, int layer, float scale, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, false>(
+  return launch_owner<__nv_bfloat16, __nv_bfloat16, false>(
       q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
       num_heads, num_blocks, block_size, layer, scale, stream);
 }
@@ -218,10 +354,9 @@ int owner_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                         const void* start_block, const void* index, void* out,
                         int num_slots, int num_heads, int num_blocks,
                         int block_size, int layer, float scale, void* stream) {
-  return launch<float, int8_t, true>(q, kpool, vpool, k_scale, v_scale,
-                                     start_block, index, out, num_slots,
-                                     num_heads, num_blocks, block_size, layer,
-                                     scale, stream);
+  return launch_owner<float, int8_t, true>(
+      q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
+      num_heads, num_blocks, block_size, layer, scale, stream);
 }
 
 int owner_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
@@ -229,9 +364,47 @@ int owner_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                          const void* start_block, const void* index, void* out,
                          int num_slots, int num_heads, int num_blocks,
                          int block_size, int layer, float scale, void* stream) {
-  return launch<__nv_bfloat16, int8_t, true>(
+  return launch_owner<__nv_bfloat16, int8_t, true>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
       num_heads, num_blocks, block_size, layer, scale, stream);
+}
+
+int stream_decode_f32(const void* q, const void* kpool, const void* vpool,
+                      const void* vis, void* out, int num_slots, int num_heads,
+                      int num_blocks, int block_size, int bound, int layer,
+                      float scale, void* stream) {
+  return launch_stream<float, float, false>(
+      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
+}
+
+int stream_decode_bf16(const void* q, const void* kpool, const void* vpool,
+                       const void* vis, void* out, int num_slots,
+                       int num_heads, int num_blocks, int block_size,
+                       int bound, int layer, float scale, void* stream) {
+  return launch_stream<__nv_bfloat16, __nv_bfloat16, false>(
+      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
+}
+
+int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
+                         const void* k_scale, const void* v_scale,
+                         const void* vis, void* out, int num_slots,
+                         int num_heads, int num_blocks, int block_size,
+                         int bound, int layer, float scale, void* stream) {
+  return launch_stream<float, int8_t, true>(
+      q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
+}
+
+int stream_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
+                          const void* k_scale, const void* v_scale,
+                          const void* vis, void* out, int num_slots,
+                          int num_heads, int num_blocks, int block_size,
+                          int bound, int layer, float scale, void* stream) {
+  return launch_stream<__nv_bfloat16, int8_t, true>(
+      q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
 }
 
 }  // extern "C"

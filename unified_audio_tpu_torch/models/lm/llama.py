@@ -2,9 +2,10 @@
 top-k/top-p sampling.
 
 Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig``,
-``init_cache``, ``range_mask``, the decoder stack with prefill and one-token
-decode over a dense cache, ``CodecLM``, ``sample_logits`` (the reference's
-first-crossing top-p rule) and the per-row ``sample_logits_vec``.
+``init_cache``, ``range_mask``, ``LlamaBackbone`` (the decoder stack with
+prefill and one-token decode over embeddings and a dense cache),
+``CodecLM``, ``sample_logits`` (the reference's first-crossing top-p rule)
+and the per-row ``sample_logits_vec``.
 
 Parameters use the reference torch layout (``codec_embedding.weight``,
 ``layers.{i}.self_attn.q_proj.weight``, ..., ``norm.weight``,
@@ -142,19 +143,17 @@ class LlamaLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class CodecLM(nn.Module):
-    """Codec embedding + decoder stack + output head over the
-    3 + global + semantic vocabulary."""
+class LlamaBackbone(nn.Module):
+    """The decoder stack (``layers``, ``norm``) over input embeddings:
+    :meth:`cached_forward` is both the prefill of a prompt and a one-token
+    decode step over a dense cache."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
-        self.codec_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(
             [LlamaLayer(cfg) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size)
-        self.output_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False)
 
     def cached_forward(self, embeds, cache):
         """Write S new positions at cache["index"]; returns the normed
@@ -174,6 +173,18 @@ class CodecLM(nn.Module):
             x = layer(x, mask, cos, sin, cache, li)
         cache["index"] = idx + s
         return self.norm(x), cache
+
+
+class CodecLM(LlamaBackbone):
+    """Codec embedding + decoder stack + output head over the
+    3 + global + semantic vocabulary (the stack's keys stay at the top
+    level: ``layers.*``, ``norm.weight``)."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__(cfg)
+        self.codec_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.output_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False)
 
     def prefill(self, embeds, cache):
         hidden, cache = self.cached_forward(embeds, cache)

@@ -1,11 +1,15 @@
-"""Owner-mode paged flash-decode attention: CUDA kernels and plain versions.
+"""Paged flash-decode attention: CUDA kernels and plain versions.
 
 Port of ``unified_audio_tpu/ops/pallas/paged_attention.py``:
 
 * K1 :func:`paged_flash_decode_owner` (TPU kernel ``_owner_kernel_flat``),
   bf16 or fp32 pool;
 * K2 :func:`paged_flash_decode_owner_q8` (``_owner_kernel_flat_q8``), int8
-  pool with fp32 per-token scales.
+  pool with fp32 per-token scales;
+* K3 :func:`paged_flash_decode_stream_flat` (``_stream_kernel_flat``), bf16
+  or fp32 pool;
+* K4 :func:`paged_flash_decode_stream_flat_q8` (``_stream_kernel_flat_q8``),
+  int8 pool.
 
 The kernels are CUDA C++ for sm_90a in ``csrc/paged_attention.cu``, built
 with ``nvcc`` on first use (``ops/cuda/build.py``). Each wrapper launches its
@@ -13,18 +17,27 @@ kernel for CUDA tensors and uses the plain PyTorch version beside it only for
 tensors on the CPU; there is no fallback from a failed launch. Each wrapper
 counts its launches in a plain integer attribute, ``<wrapper>.launches``.
 
-Semantics (both kernels): q (S, H, hd); pools flat (L, NB, BS, H*hd);
+Owner semantics (K1/K2): q (S, H, hd); pools flat (L, NB, BS, H*hd);
 ``start_block`` (S,) int32, the first physical block of each slot's
 contiguous region; ``index`` (S,) int32, the last visible slot-local
 position, -1 for an inactive slot (its output is zeros); ``li`` the layer.
 Slot s's position p sits in block ``start_block[s] + p // BS`` at offset
 ``p % BS``. The result is softmax(q . K / sqrt(hd)) V over positions
 ``0..index[s]`` in fp32, returned in q's dtype.
+
+Stream semantics (K3/K4): every slot attends to the keys of the pool prefix
+``[0, nb * BS)`` (``nb`` = ``num_active_blocks``, the bound, at most the
+pool's blocks) that its row of ``vis`` (S, nb * BS) int8 marks visible
+(``serve/paged.py visibility_mask``). q, k and v are up-cast to fp32, the
+probabilities stay fp32 for the p.v product, and the output is cast to q's
+dtype at the end. A row with no visible key (an inactive slot, a table of
+trash only) returns zeros.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 NEG_INF = -1e9  # the additive mask value of the plain attention paths
@@ -92,6 +105,59 @@ def paged_flash_decode_owner_q8_ref(q, kpool, vpool, k_scale, v_scale,
     return torch.where(index[:, None, None] >= 0, out, torch.zeros_like(out))
 
 
+def _stream_bound(q, kpool, vis, num_active_blocks):
+    """The bound ``nb`` of a stream call, checked against the pool and the
+    mask as the TPU kernel checks it."""
+    nb_total, bs = kpool.shape[1], kpool.shape[2]
+    nb = nb_total if num_active_blocks is None else int(num_active_blocks)
+    if not 1 <= nb <= nb_total:
+        raise ValueError(f"num_active_blocks {nb} outside the pool's "
+                         f"[1, {nb_total}] blocks")
+    if tuple(vis.shape) != (q.shape[0], nb * bs):
+        raise ValueError(f"visibility shape {tuple(vis.shape)} != (slots, "
+                         f"bound*block_size) ({q.shape[0]}, {nb * bs})")
+    return nb
+
+
+def _stream_attend(logits, vis, v, v_scale, dtype):
+    """Masked softmax over the prefix keys in fp32, p.v in fp32 (p scaled by
+    the int8 pool's ``v_scale`` first); rows without a visible key -> 0."""
+    seen = vis != 0  # (S, P)
+    probs = torch.softmax(logits.masked_fill(~seen[:, None], -torch.inf), -1)
+    if v_scale is not None:
+        probs = probs * v_scale
+    out = torch.einsum("shp,phd->shd", probs, v)
+    return torch.where(seen.any(1)[:, None, None], out, 0.0).to(dtype)
+
+
+def paged_flash_decode_stream_flat_ref(q, kpool, vpool, vis, li,
+                                       num_active_blocks=None):
+    """Plain K3, in the kernel's rounding order: q, k and v in fp32, the
+    probabilities fp32 for the p.v product, the output cast to q's dtype."""
+    nb = _stream_bound(q, kpool, vis, num_active_blocks)
+    s_slots, h, hd = q.shape
+    k = kpool[li, :nb].reshape(-1, h, hd).float()  # (P, H, hd)
+    v = vpool[li, :nb].reshape(-1, h, hd).float()
+    logits = torch.einsum("shd,phd->shp", q.float(), k) * hd ** -0.5
+    return _stream_attend(logits, vis, v, None, q.dtype)
+
+
+def paged_flash_decode_stream_flat_q8_ref(q, kpool, vpool, k_scale, v_scale,
+                                          vis, li, num_active_blocks=None):
+    """Plain K4: the k scale folds into the logits after the q.k product and
+    before the mask, the v scale into the probabilities before the p.v
+    product (the softmax denominator sums the unscaled probabilities).
+    ``k_scale``/``v_scale`` are the layer's (NB, BS) scales."""
+    nb = _stream_bound(q, kpool, vis, num_active_blocks)
+    s_slots, h, hd = q.shape
+    k = kpool[li, :nb].reshape(-1, h, hd).float()
+    v = vpool[li, :nb].reshape(-1, h, hd).float()
+    ksc = k_scale[:nb].reshape(-1)  # (P,)
+    vsc = v_scale[:nb].reshape(-1)
+    logits = torch.einsum("shd,phd->shp", q.float(), k) * (ksc * hd ** -0.5)
+    return _stream_attend(logits, vis, v, vsc, q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -99,6 +165,8 @@ def paged_flash_decode_owner_q8_ref(q, kpool, vpool, k_scale, v_scale,
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _K1_ARGS = [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _PTR]
 _K2_ARGS = [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR]
+_K3_ARGS = [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR]
+_K4_ARGS = [_PTR] * 7 + [_INT] * 6 + [_FLOAT, _PTR]
 
 
 def _library():
@@ -109,7 +177,11 @@ def _library():
         for name, args in (("owner_decode_f32", _K1_ARGS),
                            ("owner_decode_bf16", _K1_ARGS),
                            ("owner_decode_q8_f32", _K2_ARGS),
-                           ("owner_decode_q8_bf16", _K2_ARGS)):
+                           ("owner_decode_q8_bf16", _K2_ARGS),
+                           ("stream_decode_f32", _K3_ARGS),
+                           ("stream_decode_bf16", _K3_ARGS),
+                           ("stream_decode_q8_f32", _K4_ARGS),
+                           ("stream_decode_q8_bf16", _K4_ARGS)):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -122,7 +194,10 @@ def _require(cond: bool, what: str):
         raise ValueError(f"paged flash-decode kernel: {what}")
 
 
-def _check_common(q, kpool, vpool, start_block, index, li, pool_dtypes):
+def _check_pools(q, kpool, vpool, li, pool_dtypes, **slot_ints):
+    """The checks every kernel call shares: q (S, H, 64) and equal flat pools
+    of ``pool_dtypes`` on one CUDA device, contiguous and 16-byte aligned;
+    ``slot_ints`` are (S,) int32 per-slot arguments."""
     dev = q.device
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     _require(q.dim() == 3, f"q must be (S, H, hd), got {tuple(q.shape)}")
@@ -136,17 +211,39 @@ def _check_common(q, kpool, vpool, start_block, index, li, pool_dtypes):
     _require(0 <= int(li) < kpool.shape[0], f"layer {li} out of range")
     _require(kpool.dtype in pool_dtypes and vpool.dtype == kpool.dtype,
              f"pool dtype {kpool.dtype} not in {pool_dtypes}")
-    for name, t in (("start_block", start_block), ("index", index)):
+    for name, t in slot_ints.items():
         _require(t.dtype == torch.int32 and t.shape == (s_slots,),
                  f"{name} must be int32 ({s_slots},), got {t.dtype} "
                  f"{tuple(t.shape)}")
     for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool),
-                    ("start_block", start_block), ("index", index)):
+                    *slot_ints.items()):
         _require(t.device == dev, f"{name} on {t.device}, q on {dev}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
     for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
         # the kernel reads rows with 16-byte vector loads
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
+def _check_scales(q, k_scale, v_scale, nb, bs):
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _require(t.dtype == torch.float32 and t.shape == (nb, bs),
+                 f"{name} must be fp32 ({nb}, {bs}), got {t.dtype} "
+                 f"{tuple(t.shape)}")
+        _require(t.device == q.device and t.is_contiguous(),
+                 f"{name} must be contiguous on {q.device}")
+
+
+def _check_vis(q, kpool, vis, num_active_blocks):
+    """-> the bound; the mask is int8 (S, nb*BS), contiguous, 16-byte
+    aligned, and a block's mask bytes are whole 16-byte words."""
+    nb = _stream_bound(q, kpool, vis, num_active_blocks)
+    _require(kpool.shape[2] % 16 == 0,
+             f"block size {kpool.shape[2]} not a multiple of 16")
+    _require(vis.dtype == torch.int8 and vis.device == q.device
+             and vis.is_contiguous() and vis.data_ptr() % 16 == 0,
+             f"vis must be contiguous 16-byte aligned int8 on {q.device}, "
+             f"got {vis.dtype} on {vis.device}")
+    return nb
 
 
 def _raise_on(rc: int, name: str):
@@ -160,8 +257,8 @@ def paged_flash_decode_owner(q, kpool, vpool, start_block, index, li):
     if q.device.type == "cpu":
         return paged_flash_decode_owner_ref(q, kpool, vpool, start_block,
                                             index, li)
-    _check_common(q, kpool, vpool, start_block, index, li,
-                  (torch.bfloat16, torch.float32))
+    _check_pools(q, kpool, vpool, li, (torch.bfloat16, torch.float32),
+                 start_block=start_block, index=index)
     _require(q.dtype == kpool.dtype,
              f"q dtype {q.dtype} != pool dtype {kpool.dtype}")
     lib = _library()
@@ -187,16 +284,12 @@ def paged_flash_decode_owner_q8(q, kpool, vpool, k_scale, v_scale,
         return paged_flash_decode_owner_q8_ref(q, kpool, vpool, k_scale,
                                                v_scale, start_block, index,
                                                li)
-    _check_common(q, kpool, vpool, start_block, index, li, (torch.int8,))
+    _check_pools(q, kpool, vpool, li, (torch.int8,),
+                 start_block=start_block, index=index)
     _require(q.dtype in (torch.bfloat16, torch.float32),
              f"q dtype {q.dtype} not bf16/fp32")
     nb, bs = kpool.shape[1], kpool.shape[2]
-    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        _require(t.dtype == torch.float32 and t.shape == (nb, bs),
-                 f"{name} must be fp32 ({nb}, {bs}), got {t.dtype} "
-                 f"{tuple(t.shape)}")
-        _require(t.device == q.device and t.is_contiguous(),
-                 f"{name} must be contiguous on {q.device}")
+    _check_scales(q, k_scale, v_scale, nb, bs)
     lib = _library()
     fn = lib.owner_decode_q8_bf16 if q.dtype == torch.bfloat16 \
         else lib.owner_decode_q8_f32
@@ -211,8 +304,65 @@ def paged_flash_decode_owner_q8(q, kpool, vpool, k_scale, v_scale,
     return out
 
 
+def paged_flash_decode_stream_flat(q, kpool, vpool, vis, li,
+                                   num_active_blocks=None):
+    """K3: stream-mode flash decode over a bf16 (or fp32) pool: each slot
+    against the visible keys of the prefix ``[0, num_active_blocks)``
+    (default the whole pool); ``vis`` (S, nb*BS) int8. q's dtype must match
+    the pool's. Returns (S, H, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_stream_flat_ref(q, kpool, vpool, vis, li,
+                                                  num_active_blocks)
+    _check_pools(q, kpool, vpool, li, (torch.bfloat16, torch.float32))
+    _require(q.dtype == kpool.dtype,
+             f"q dtype {q.dtype} != pool dtype {kpool.dtype}")
+    nb = _check_vis(q, kpool, vis, num_active_blocks)
+    lib = _library()
+    fn = lib.stream_decode_bf16 if q.dtype == torch.bfloat16 \
+        else lib.stream_decode_f32
+    s_slots, h, hd = q.shape
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), vis.data_ptr(),
+            out.data_ptr(), s_slots, h, kpool.shape[1], kpool.shape[2], nb,
+            int(li), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_flash_decode_stream_flat")
+    paged_flash_decode_stream_flat.launches += 1
+    return out
+
+
+def paged_flash_decode_stream_flat_q8(q, kpool, vpool, k_scale, v_scale, vis,
+                                      li, num_active_blocks=None):
+    """K4: K3 over an int8 pool; ``k_scale``/``v_scale`` are the layer's
+    (NB, BS) fp32 scales. q is bf16 or fp32. Returns (S, H, hd) in q's
+    dtype."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_stream_flat_q8_ref(
+            q, kpool, vpool, k_scale, v_scale, vis, li, num_active_blocks)
+    _check_pools(q, kpool, vpool, li, (torch.int8,))
+    _require(q.dtype in (torch.bfloat16, torch.float32),
+             f"q dtype {q.dtype} not bf16/fp32")
+    _check_scales(q, k_scale, v_scale, kpool.shape[1], kpool.shape[2])
+    nb = _check_vis(q, kpool, vis, num_active_blocks)
+    lib = _library()
+    fn = lib.stream_decode_q8_bf16 if q.dtype == torch.bfloat16 \
+        else lib.stream_decode_q8_f32
+    s_slots, h, hd = q.shape
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), vis.data_ptr(),
+            out.data_ptr(), s_slots, h, kpool.shape[1], kpool.shape[2], nb,
+            int(li), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_flash_decode_stream_flat_q8")
+    paged_flash_decode_stream_flat_q8.launches += 1
+    return out
+
+
 paged_flash_decode_owner.launches = 0
 paged_flash_decode_owner_q8.launches = 0
+paged_flash_decode_stream_flat.launches = 0
+paged_flash_decode_stream_flat_q8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -247,15 +397,64 @@ def serving_case(quant: bool, dtype, device, seed: int = 0):
     return [a.to(device) for a in args] + [7]
 
 
-def compare_with_plain(kernel, ref, args):
+def stream_serving_case(quant: bool, dtype, device, seed: int = 0):
+    """Arguments of one K4 (``quant``) or K3 call at the serving shapes of
+    the UniTok engine in stream mode: 16 slots, a 12-layer pool of 320
+    64-token blocks with rows of 8 heads of 64, the bound at the whole pool
+    (320), layer 7. Tables are scattered, as a ``BlockAllocator`` hands them
+    out after requests of 5-9 blocks came and went; each active slot's
+    position is drawn inside its blocks. Slot 1 is inactive with no table
+    (a row with no visible key); slot 9 is inactive with a stale table that
+    now belongs to slot 5; slot 3's only block is the pool's last, so its
+    only visible keys lie in the last chunk of the prefix."""
+    from ...serve.paged import BlockAllocator
+
+    s, n_layers, h, hd, bs, nb = 16, 12, 8, 64, 64, 320
+    rng = np.random.default_rng(seed)
+    alloc = BlockAllocator(nb)
+    held = [alloc.alloc(int(rng.integers(5, 10))) for _ in range(24)]
+    for i in rng.permutation(24)[:12]:  # requests that finished
+        alloc.release(held[i])
+        held[i] = None
+    live = [t for t in held if t is not None]
+    tables = {slot: live[i] for i, slot in enumerate(
+        [0, 2] + list(range(4, 9)) + list(range(10, 15)))}
+    tables[15] = alloc.alloc(int(rng.integers(5, 10)))
+    tables[3] = [nb - 1]
+    tables[9] = tables[5]
+    vis = torch.zeros(s, nb * bs, dtype=torch.int8)
+    for slot, blocks in tables.items():
+        last = int(rng.integers(0, len(blocks) * bs))
+        for j, b in enumerate(blocks):
+            n = min(bs, last + 1 - j * bs)
+            if n > 0:
+                vis[slot, b * bs:b * bs + n] = 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(s, h, hd, generator=g, device=device).to(dtype)
+    shape = (n_layers, nb, bs, h * hd)
+    if quant:
+        kv = [torch.randint(-127, 128, shape, generator=g, device=device,
+                            dtype=torch.int8) for _ in range(2)]
+        scales = [0.02 * torch.rand(nb, bs, generator=g, device=device)
+                  for _ in range(2)]
+        return [q, *kv, *scales, vis.to(device), 7, nb]
+    kv = [torch.randn(shape, generator=g, device=device).to(dtype)
+          for _ in range(2)]
+    return [q, *kv, vis.to(device), 7, nb]
+
+
+def compare_with_plain(kernel, ref, args, empty=None):
     """Run ``kernel(*args)`` and ``ref`` on the same values in fp32.
 
     Returns (max abs error, within tolerance). Tolerance: fp32 q within
     1e-5 abs + 1e-5 rel (another summation order); bf16 q within 2 bf16 ulps
     of the fp32 plain result (ulp floored at that of 2**-8), since the
-    kernel rounds its output, and the probabilities before the p.v product,
-    to bf16. Inactive slots (``index < 0``) must be exact zeros."""
-    q, index = args[0], args[-2]
+    kernel rounds its output to bf16. ``empty`` (S,) bool marks the rows
+    with no visible key, which must be exact zeros; by default the owner
+    kernels' inactive slots (``index < 0``, the next-to-last argument)."""
+    q = args[0]
+    if empty is None:
+        empty = args[-2] < 0
     out = kernel(*args).float()
     up = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a
           for a in args]
@@ -268,5 +467,5 @@ def compare_with_plain(kernel, ref, args):
             torch.log2(want.abs().clamp(min=2.0 ** -8))))
         ok = bool((err <= 2 * ulp).all())
     ok = ok and bool(torch.isfinite(out).all()) \
-        and bool((out[index < 0] == 0).all())
+        and bool((out[empty] == 0).all())
     return err.max().item(), ok

@@ -25,7 +25,10 @@ SE/TSE/rTSE traffic shares one prefill per wave.
 
 The attention mode is chosen once, from the device of the model: the owner
 kernels (``"owner"``, contiguous regions from a ``RegionAllocator``) on
-CUDA, the plain attention (``""``) on the CPU.
+CUDA, the plain attention (``""``) on the CPU. ``"stream"`` (the stream
+kernels over a ``BlockAllocator``'s scattered blocks) is the mode of a pool
+shared with another engine: pass the same ``pool_ref`` and ``allocator``
+to both (``serve/unitok_engine.py`` serves UniTok from the same pool).
 """
 from __future__ import annotations
 
@@ -38,15 +41,11 @@ import torch
 
 from ..models.lm.llama import init_cache, range_mask, sample_logits_vec
 from ..models.lm.sft import LLMSFT
-from .paged import (TRASH_BLOCK, BlockAllocator, RegionAllocator, init_pool,
+from .paged import (TRASH_BLOCK, PoolRef, kernel_mode, open_pool,
                     paged_decode_ids, scatter_prefill)
 
 PHASE_GLOBAL, PHASE_SEMANTIC, PHASE_DONE = 0, 1, 2
 MAX_TOP_K = 256  # the widest per-request top_k (one static topk per step)
-# owner-mode regions round up to a multiple of this many blocks: the JAX
-# package's owner geometry (14-block regions for UniSE serving), so both
-# packages lay the pool out alike; the CUDA kernels need no chunking
-OWNER_CHUNK_BLOCKS = 14
 
 
 @dataclass
@@ -97,6 +96,8 @@ class ContinuousBatchingEngine:
         use_kernel: Optional[str] = None,
         feature_fn: Optional[Callable] = None,
         frames_fn: Optional[Callable[[int], int]] = None,
+        pool_ref: Optional[PoolRef] = None,
+        allocator=None,
     ):
         """``sft`` is the LM, already on its device and in its serving
         dtype (the pool and activations follow it). ``feature_fn(wav (B, N)
@@ -104,19 +105,16 @@ class ContinuousBatchingEngine:
         waveform requests; ``mix_buckets`` are the feature-frame lengths
         prompts pad to (mix and enroll alike). ``use_kernel`` overrides the
         attention mode that is otherwise chosen from the device ("owner" on
-        CUDA, "" on CPU). ``kv_quant="int8"`` stores the pool as int8 with
-        per-token scales."""
+        CUDA, "" on CPU); "stream" is the third. ``kv_quant="int8"`` stores
+        the pool as int8 with per-token scales. ``pool_ref`` and
+        ``allocator`` (given together) share another engine's pool; its
+        storage format then decides ``kv_quant``."""
         self.sft = sft
         self.cfg = cfg = sft.cfg
         weight = sft.codec_embedding.weight
         self.device = weight.device
         self.kv_dtype = weight.dtype
-        if use_kernel is None:
-            use_kernel = "owner" if self.device.type == "cuda" else ""
-        if use_kernel not in ("", "owner"):
-            raise ValueError(f"use_kernel={use_kernel!r}: expected None, '' "
-                             "or 'owner'")
-        self.use_kernel = use_kernel
+        self.use_kernel = kernel_mode(use_kernel, self.device)
         if num_slots > block_size:
             raise ValueError(f"num_slots {num_slots} > block_size "
                              f"{block_size}: inactive slots need distinct "
@@ -126,7 +124,6 @@ class ContinuousBatchingEngine:
         self.max_global = max_global
         self.max_semantic = max_semantic
         self.buckets = tuple(sorted(mix_buckets))
-        self.kv_quant = kv_quant
         if (feature_fn is None) != (frames_fn is None):
             raise ValueError("feature_fn and frames_fn go together")
         self.feature_fn = feature_fn
@@ -136,19 +133,11 @@ class ContinuousBatchingEngine:
         max_prompt = 3 + 2 * self.buckets[-1]
         max_tokens = max_prompt + max_global + 1 + max_semantic + 1
         self.max_blocks = math.ceil(max_tokens / block_size)
-        owner = use_kernel == "owner"
-        region_blocks = (-(-self.max_blocks // OWNER_CHUNK_BLOCKS)
-                         * OWNER_CHUNK_BLOCKS)
-        # owner: one region per slot + the trash region + one spare;
-        # plain: one table per slot + the trash block; both rounded up to
-        # 64 blocks
-        need = ((num_slots + 2) * region_blocks if owner
-                else 1 + num_slots * self.max_blocks)
-        self.num_blocks = num_blocks = -(-need // 64) * 64
-        self.pool = init_pool(cfg, num_blocks, block_size, dtype=self.kv_dtype,
-                              quant=kv_quant, device=self.device)
-        self.allocator = (RegionAllocator(num_blocks, region_blocks) if owner
-                          else BlockAllocator(num_blocks))
+        self._pool_ref, self.allocator, self.kv_quant = open_pool(
+            cfg, num_slots, self.max_blocks, block_size, self.use_kernel,
+            self.kv_dtype, self.device, kv_quant, pool_ref=pool_ref,
+            allocator=allocator)
+        self.num_blocks = self.pool["k"].shape[1]
 
         # host-side mirrors: decode lengths are fixed, so the host knows
         # when each slot finishes without reading the device
@@ -180,6 +169,10 @@ class ContinuousBatchingEngine:
         self._stats = {"requests_admitted": 0, "requests_completed": 0,
                        "tokens_generated": 0, "decode_steps": 0,
                        "prefill_waves": 0}
+
+    @property
+    def pool(self) -> Dict[str, torch.Tensor]:
+        return self._pool_ref.pool
 
     # --- admission ---
 
@@ -343,8 +336,9 @@ class ContinuousBatchingEngine:
     # --- decode ---
 
     def _block_bound(self) -> int:
-        """Pool prefix the plain attention reads (allocator high water,
-        bucketed); the owner kernels read each slot's own region only."""
+        """Pool prefix the plain and stream attention read (the allocator's
+        high water, bucketed; with a shared allocator it covers every
+        engine's blocks); the owner kernels read each slot's own region."""
         if self.use_kernel == "owner":
             return self.num_blocks
         return self.allocator.bounded_high_water()

@@ -2,10 +2,11 @@
 
 Port of ``unified_audio_tpu/serve/paged.py``: ``init_pool`` (flat
 (L, NB, BS, H*hd) layout; int8 pools carry fp32 per-token scales),
-``quantize_kv``, ``BlockAllocator``, ``RegionAllocator``, ``scatter_prefill``
-and the one-token decode step ``paged_decode_ids`` / ``paged_decode_embeds``.
+``quantize_kv``, ``BlockAllocator``, ``RegionAllocator``, ``scatter_prefill``,
+``PoolRef`` and the one-token decode step ``paged_decode_ids`` /
+``paged_decode_embeds``.
 
-The decode step's attention runs in one of two modes:
+The decode step's attention runs in one of three modes:
 
 * ``""``: the plain attention, the reference. Every slot attends over the
   pool prefix with a block-ownership mask, in the rounding order of the JAX
@@ -14,6 +15,10 @@ The decode step's attention runs in one of two modes:
   ``RegionAllocator`` contract) through the owner kernels K1/K2
   (``ops/cuda/paged_attention.py``): CUDA kernels for tensors on the card,
   their plain versions for tensors on the CPU.
+* ``"stream"``: every slot against the visible keys of the pool prefix
+  through the stream kernels K3/K4, with the layer-invariant int8
+  visibility mask built once per step; pairs with the ``BlockAllocator``
+  and is the mode of a pool shared by several engines (``PoolRef``).
 
 Pool updates happen in place (``index_put_``): the pool is the largest
 buffer of the server and a functional update would copy it every step.
@@ -31,9 +36,16 @@ import torch
 from ..models.lm.llama import NEG_INF, LlamaConfig
 from ..nn.transformer import apply_rope, rms_norm, rope_cos_sin
 from ..ops.cuda.paged_attention import (paged_flash_decode_owner,
-                                        paged_flash_decode_owner_q8)
+                                        paged_flash_decode_owner_q8,
+                                        paged_flash_decode_stream_flat,
+                                        paged_flash_decode_stream_flat_q8)
 
 TRASH_BLOCK = 0  # physical block 0 is never allocated; inactive slots write here
+# owner-mode regions round up to a multiple of this many blocks: the JAX
+# package's owner geometry (14-block regions for UniSE serving), so both
+# packages lay the pool out alike; the CUDA kernels need no chunking
+OWNER_CHUNK_BLOCKS = 14
+KERNEL_MODES = ("", "owner", "stream")
 
 
 def init_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
@@ -210,11 +222,12 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
     embeddings. Writes each active slot's new K/V at (block, offset) of its
     current position, in place, and returns the normed hidden (S, D).
 
-    ``num_active_blocks`` bounds the pool prefix the plain attention reads
-    (it must be >= the allocator's high water); the owner mode reads only
-    each slot's own region and ignores it. ``use_kernel="owner"`` requires
-    contiguous per-slot regions (``RegionAllocator``)."""
-    if use_kernel not in ("", "owner"):
+    ``num_active_blocks`` bounds the pool prefix the plain and stream
+    attention read (it must be >= the allocator's high water); the owner
+    mode reads only each slot's own region and ignores it.
+    ``use_kernel="owner"`` requires contiguous per-slot regions
+    (``RegionAllocator``)."""
+    if use_kernel not in KERNEL_MODES:
         raise ValueError(f"unknown kernel mode {use_kernel!r}")
     bs = block_size
     s_slots, max_blocks = tables.shape
@@ -237,8 +250,13 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
         lmap[rows, tables.long()] = torch.arange(
             max_blocks, device=dev)[None].expand(s_slots, max_blocks)
         lmap[:, TRASH_BLOCK] = -1
+        # layer-invariant key visibility, built once per step
         vis = visibility_mask(lmap[:, :nb], index, bs)
-        mask = torch.where(vis, 0.0, NEG_INF).reshape(s_slots, 1, 1, nb * bs)
+        if use_kernel == "stream":
+            vis_i8 = vis.to(torch.int8)
+        else:
+            mask = torch.where(vis, 0.0, NEG_INF).reshape(s_slots, 1, 1,
+                                                          nb * bs)
 
     # scatter target of each slot's new row; inactive slots go to the trash
     # block at distinct offsets (slot counts never exceed block_size here)
@@ -278,6 +296,15 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
             else:
                 attn = paged_flash_decode_owner(q0, pool["k"], pool["v"],
                                                 start, own_index, li)
+        elif use_kernel == "stream":
+            q0 = q[:, 0].contiguous()
+            if quant:
+                attn = paged_flash_decode_stream_flat_q8(
+                    q0, pool["k"], pool["v"], pool["k_scale"][li],
+                    pool["v_scale"][li], vis_i8, li, nb)
+            else:
+                attn = paged_flash_decode_stream_flat(
+                    q0, pool["k"], pool["v"], vis_i8, li, nb)
         else:
             attn = _plain_attention(q, pool, li, mask, nb, x.dtype)
         attn = attn.reshape(s_slots, 1, h * hd).to(x.dtype)
@@ -317,3 +344,68 @@ def scatter_prefill(pool, tables, cache_k, cache_v, block_size: int):
     pool["k"][:, blk, off] = cache_k.to(pool["k"].dtype)
     pool["v"][:, blk, off] = cache_v.to(pool["v"].dtype)
     return pool
+
+
+class PoolRef:
+    """Shared handle to one physical KV block pool: engines built with the
+    same ``PoolRef`` and the same allocator serve from one pool (the
+    allocator partitions its blocks between them). The port updates pools
+    in place, so the handle only carries the dict."""
+
+    def __init__(self, pool: Dict[str, torch.Tensor]):
+        self.pool = pool
+
+
+def kernel_mode(use_kernel: Optional[str], device: torch.device) -> str:
+    """An engine's decode attention mode: ``use_kernel`` if given, else the
+    owner kernels on CUDA and the plain attention on the CPU."""
+    if use_kernel is None:
+        use_kernel = "owner" if device.type == "cuda" else ""
+    if use_kernel not in KERNEL_MODES:
+        raise ValueError(f"use_kernel={use_kernel!r}: expected None, '', "
+                         "'owner' or 'stream'")
+    return use_kernel
+
+
+def open_pool(cfg: LlamaConfig, num_slots: int, max_blocks: int,
+              block_size: int, use_kernel: str, dtype, device,
+              kv_quant: Optional[str] = None,
+              num_blocks: Optional[int] = None,
+              pool_ref: Optional[PoolRef] = None, allocator=None):
+    """The pool an engine serves from -> (pool_ref, allocator, kv_quant).
+
+    With ``pool_ref`` (and its ``allocator``) the engine shares another
+    engine's pool, whose storage format decides ``kv_quant``. Otherwise a
+    new pool of ``num_blocks`` (default: in the owner mode a region per
+    slot, the trash region and a spare; in the plain and stream modes a
+    table of ``max_blocks`` per slot and the trash block; rounded up to the
+    64-block buckets of the decode bound) with a ``RegionAllocator`` (owner)
+    or a ``BlockAllocator``. The owner mode needs regions of at least
+    ``max_blocks``."""
+    owner = use_kernel == "owner"
+    region_blocks = (-(-max_blocks // OWNER_CHUNK_BLOCKS)
+                     * OWNER_CHUNK_BLOCKS)
+    if pool_ref is not None:
+        if allocator is None:
+            raise ValueError("a shared pool needs its allocator")
+        shared = "int8" if "k_scale" in pool_ref.pool else None
+        if kv_quant is not None and kv_quant != shared:
+            raise ValueError(f"kv_quant={kv_quant!r} conflicts with the "
+                             f"shared pool's ({shared!r})")
+        kv_quant = shared
+    else:
+        if num_blocks is None:
+            need = ((num_slots + 2) * region_blocks if owner
+                    else 1 + num_slots * max_blocks)
+            num_blocks = -(-need // 64) * 64
+        pool_ref = PoolRef(init_pool(cfg, num_blocks, block_size,
+                                     dtype=dtype, quant=kv_quant,
+                                     device=device))
+        if allocator is None:
+            allocator = (RegionAllocator(num_blocks, region_blocks) if owner
+                         else BlockAllocator(num_blocks))
+    if owner and not (isinstance(allocator, RegionAllocator)
+                      and allocator.region_blocks >= max_blocks):
+        raise ValueError("use_kernel='owner' needs a RegionAllocator with "
+                         f"regions of >= {max_blocks} blocks")
+    return pool_ref, allocator, kv_quant

@@ -1,22 +1,30 @@
 """Where a serving run's time goes, on one CUDA card.
 
-    python -m unified_audio_tpu_torch.serve.profile_step [--out PROFILE.json]
+    python -m unified_audio_tpu_torch.serve.profile_step [--model unise|unitok]
+        [--out PROFILE.json]
 
-Builds the full-width UniSE stack as ``cli serve`` does (random weights,
-LM bf16, WavLM and BiCodec fp32) and, for each KV pool format in turn
-(int8, bf16, int8, bf16: the two alternate), admits 16 five-second
-segments (8 SE, 8 TSE with 5-s enrolls, half of them sampled) into a
-16-slot engine and measures:
+``--model unise`` (the default) builds the full-width UniSE stack as
+``cli serve`` does (random weights, LM bf16, WavLM and BiCodec fp32) and,
+for each KV pool format in turn (int8, bf16, int8, bf16: the two
+alternate), admits 16 five-second segments (8 SE, 8 TSE with 5-s enrolls,
+half of them sampled) into a 16-slot engine in the owner mode (K1/K2).
+``--model unitok`` builds UniTok-audio at full width (``UniTokConfig``,
+LM bf16) over a full-width HCodec-1.0 (fp32) and admits 16 requests (SR,
+SS, CODEC and AE on 5-s inputs, 125 codec frames each, half sampled) into
+a 16-slot ``UniTokEngine`` in the stream mode (K3 for the bf16 pool, K4
+for the int8 pool). For each it measures:
 
-* admission (WavLM frontend + prompt + prefill + scatter) of the wave;
-* the decode step at two points of the 283-step decode, early (after 70
-  steps) and late (after 240), with the cached tokens per slot: wall
-  time per step over 20 unprofiled steps, then the same number of
-  steps under ``torch.profiler`` for device kernel time per step, the
-  device-busy share of the unprofiled step, kernel launches per step, the
-  owner attention kernel's time per call, and the kernels by device time;
-* the WavLM frontend alone and ``BiCodec`` detokenize alone on the 16
-  segments (warm, synchronized wall time).
+* admission (frontend + prompt + prefill + scatter) of the wave;
+* the decode step at two points of the decode (UniSE's 283 steps: after
+  70 and after 240; UniTok's 132: after 20 and after 90), with the cached
+  tokens per slot: wall time per step over 20 unprofiled steps, then the
+  same number of steps under ``torch.profiler`` for device kernel time
+  per step, the device-busy share of the unprofiled step, kernel launches
+  per step, the attention kernel's time per call and share of device
+  time, and the kernels by device time;
+* the frontend alone (WavLM; HuBERT features) and the detokenize alone
+  (``BiCodec``; HCodec-1.0 ``codes_to_audio``) on the 16 requests (warm,
+  synchronized wall time).
 
 Prints one JSON object per measurement and writes them all to ``--out``.
 """
@@ -53,11 +61,15 @@ def _steps(eng, gen, n):
         eng.step(gen)
 
 
-def _window(eng, gen, n_steps):
-    """Unprofiled then profiled decode steps -> one measurement dict."""
+def _window(eng, gen, n_steps, active=None):
+    """Unprofiled then profiled decode steps -> one measurement dict;
+    ``active`` (S,) bool marks the slots still decoding (by default the
+    UniSE engine's slots not in the done phase)."""
     from torch.profiler import ProfilerActivity, profile
 
-    index = eng.state["index"][eng.state["phase"] != 2]
+    if active is None:
+        active = eng.state["phase"] != 2
+    index = eng.state["index"][active]
     wall_s, _ = _wall(lambda: _steps(eng, gen, n_steps))
     step_ms = 1e3 * wall_s / n_steps
     torch.cuda.synchronize()
@@ -76,7 +88,7 @@ def _window(eng, gen, n_steps):
             launches += 1
     device_us = sum(us for us, _ in by_kernel.values())
     attn = [(us, n) for name, (us, n) in by_kernel.items()
-            if "owner_decode_kernel" in name]
+            if "owner_decode_kernel" in name or "stream_decode_kernel" in name]
     attn_us = sum(us for us, _ in attn)
     attn_calls = sum(n for _, n in attn)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
@@ -90,9 +102,9 @@ def _window(eng, gen, n_steps):
         "device_busy_share": (1e-3 * device_us / n_steps / step_ms)
         if by_kernel else None,
         "launches_per_step": launches / n_steps,
-        "owner_kernel_us_per_call": attn_us / attn_calls if attn_calls
+        "attention_kernel_us_per_call": attn_us / attn_calls if attn_calls
         else None,
-        "owner_kernel_share_of_device": attn_us / device_us if device_us
+        "attention_kernel_share_of_device": attn_us / device_us if device_us
         else None,
         "top_kernels": [{"name": name[:90], "us_per_step": us / n_steps,
                          "calls_per_step": n / n_steps,
@@ -116,12 +128,79 @@ def _requests(n, seg_len, sem_len, seed):
     return reqs
 
 
+def _unitok(emit):
+    """The UniTok-audio measurements (``--model unitok``)."""
+    from ..models.unitok.model import UNITOK_TASKS
+    from ..models.unitok.pipeline import UniTokPipeline
+    from .unitok_engine import UniTokEngine, UniTokRequest
+
+    pipe = UniTokPipeline.from_random(seed=SEED, device="cuda")
+    tok, lm = pipe.tokenizer, pipe.lm.to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    wavs = torch.as_tensor((0.3 * rng.standard_normal((SLOTS, 80000))).astype(
+        np.float32), device="cuda")
+    t = [_wall(lambda: tok.extract_features(tok.pad_wav(wavs)))[0]
+         for _ in range(3)]
+    emit({"phase": "hubert", "requests": SLOTS, "s_first": t[0],
+          "s_warm": t[-1]})
+    feats = tok.extract_features(tok.pad_wav(wavs)).cpu().numpy()
+    tasks = [UNITOK_TASKS[t] for t in ("sr", "ss", "codec", "ae")]
+    frames = wavs.shape[1] // tok.hop_length
+    reqs = [UniTokRequest(task_id=tasks[i % 4], num_frames=frames,
+                          input_feats=feats[i], do_sample=i % 4 >= 2, uid=i)
+            for i in range(SLOTS)]
+    for run, pool in enumerate(POOLS):
+        eng = UniTokEngine(lm, num_slots=SLOTS, use_kernel="stream",
+                           kv_quant="int8" if pool == "int8" else None)
+        admit_s, admitted = _wall(lambda: eng.admit_wave(reqs))
+        if len(admitted) != len(reqs):
+            sys.exit(f"profile_step: admitted {len(admitted)} of {len(reqs)}")
+        emit({"phase": "admission", "model": "unitok", "pool": pool,
+              "run": run, "requests": len(admitted), "s": admit_s})
+        done = 0
+        for at in (20, 90):
+            _steps(eng, gen, at - done)
+            emit({"phase": "decode_step", "model": "unitok", "pool": pool,
+                  "run": run, "after_steps": at,
+                  **_window(eng, gen, WINDOW, eng.state["active"])})
+            done = at + 2 * WINDOW
+        out = {}
+        while len(out) < len(reqs):
+            eng.step(gen)
+            out.update({r.uid: r for r in eng.harvest()})
+    codes = torch.as_tensor(np.stack([out[r.uid].codes for r in reqs]),
+                            device="cuda").long()
+    t = [_wall(lambda: pipe.codes_to_audio(codes))[0] for _ in range(3)]
+    emit({"phase": "detokenize", "model": "unitok", "requests": len(reqs),
+          "s_first": t[0], "s_warm": t[-1]})
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="profile_step")
+    p.add_argument("--model", choices=("unise", "unitok"), default="unise")
     p.add_argument("--out", default=None, help="write the results as JSON")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: needs a CUDA card")
+    results = []
+
+    def emit(rec):
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    if args.model == "unitok":
+        _unitok(emit)
+    else:
+        _unise(emit)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return results
+
+
+def _unise(emit):
+    """The UniSE measurements (``--model unise``)."""
     from ..cli import _build_unise, make_engine
 
     unise = _build_unise(device="cuda")
@@ -130,12 +209,6 @@ def main(argv=None):
     sem_len = unise._semantic_len()
     reqs = _requests(SLOTS, cfg.segment_len, sem_len, SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results = []
-
-    def emit(rec):
-        results.append(rec)
-        print(json.dumps(rec), flush=True)
-
     wavs = torch.as_tensor(np.stack([r.mix_wav for r in reqs]),
                            device="cuda")
     with torch.no_grad():
@@ -154,7 +227,8 @@ def main(argv=None):
         for at in (70, 240):
             _steps(eng, gen, at - done)
             emit({"phase": "decode_step", "pool": pool, "run": run,
-                  "after_steps": at, **_window(eng, gen, WINDOW)})
+                  "after_steps": at,
+                  **_window(eng, gen, WINDOW)})
             done = at + 2 * WINDOW
         out = {}
         while len(out) < len(reqs):
@@ -167,10 +241,6 @@ def main(argv=None):
             g, s, len(reqs) * cfg.segment_len))[0] for _ in range(3)]
     emit({"phase": "detokenize", "segments": len(reqs), "s_first": t[0],
           "s_warm": t[-1]})
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
-    return results
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
 * :func:`llmsft_state_dict`: ``LLMSFT`` variables -> the reference torch
   layout (split q/k/v and gate/up, Linear weights (out, in)), key for key
   what ``utils/convert.py export_custom_llama_state_dict`` writes.
+* :func:`unitok_state_dict`: ``UniTokLM`` variables -> the port's
+  ``UniTokLM`` (its backbone in the same reference layout).
 * :func:`wavlm_state_dict` and :func:`hubert_state_dict`:
   ``Wav2Vec2Model`` (WavLM, HuBERT) variables -> the HF layout, which
   ``utils/convert.py convert_hf_wav2vec2`` maps back.
@@ -77,35 +79,39 @@ def _index(tree, i: int):
 # LM (LLMSFT / CodecLM)
 # ---------------------------------------------------------------------------
 
+def _backbone(bb, cfg, prefix: str, out: StateDict):
+    """``LlamaBackbone`` params (layers stacked on a leading axis, fused
+    qkv and gate/up) -> ``{prefix}layers.{i}.*`` and ``{prefix}norm.weight``
+    in the reference layout (split q/k/v and gate/up, Linear (out, in))."""
+    d = cfg.hidden_size
+    out[f"{prefix}norm.weight"] = _a(bb["norm"]["weight"])
+    layers = bb["layers"]
+    for i in range(cfg.num_layers):
+        lp, pre = _index(layers, i), f"{prefix}layers.{i}"
+        qkv = lp["self_attn"]["qkv_proj"]["kernel"]
+        out[f"{pre}.self_attn.q_proj.weight"] = qkv[:, :d].T
+        out[f"{pre}.self_attn.k_proj.weight"] = qkv[:, d:2 * d].T
+        out[f"{pre}.self_attn.v_proj.weight"] = qkv[:, 2 * d:].T
+        out[f"{pre}.self_attn.o_proj.weight"] = \
+            lp["self_attn"]["o_proj"]["kernel"].T
+        gate_up = lp["mlp"]["gate_up_proj"]["kernel"]
+        inter = gate_up.shape[1] // 2
+        out[f"{pre}.mlp.gate_proj.weight"] = gate_up[:, :inter].T
+        out[f"{pre}.mlp.up_proj.weight"] = gate_up[:, inter:].T
+        out[f"{pre}.mlp.down_proj.weight"] = lp["mlp"]["down_proj"]["kernel"].T
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{pre}.{norm}.weight"] = lp[norm]["weight"]
+
+
 def llmsft_state_dict(variables, cfg) -> StateDict:
     """LLMSFT (or CodecLM) variables -> reference-layout state dict."""
     p = variables["params"]
     lm = p["lm"]
-    d = cfg.hidden_size
     sd: StateDict = {
         "codec_embedding.weight": _a(lm["codec_embedding"]["embedding"]),
         "output_head.weight": _a(lm["output_head"]["kernel"]).T,
-        "norm.weight": _a(lm["backbone"]["norm"]["weight"]),
     }
-    layers = lm["backbone"]["layers"]
-    for i in range(cfg.num_layers):
-        pre = f"layers.{i}"
-        qkv = _a(layers["self_attn"]["qkv_proj"]["kernel"])[i]
-        sd[f"{pre}.self_attn.q_proj.weight"] = qkv[:, :d].T
-        sd[f"{pre}.self_attn.k_proj.weight"] = qkv[:, d:2 * d].T
-        sd[f"{pre}.self_attn.v_proj.weight"] = qkv[:, 2 * d:].T
-        sd[f"{pre}.self_attn.o_proj.weight"] = _a(
-            layers["self_attn"]["o_proj"]["kernel"])[i].T
-        gate_up = _a(layers["mlp"]["gate_up_proj"]["kernel"])[i]
-        inter = gate_up.shape[1] // 2
-        sd[f"{pre}.mlp.gate_proj.weight"] = gate_up[:, :inter].T
-        sd[f"{pre}.mlp.up_proj.weight"] = gate_up[:, inter:].T
-        sd[f"{pre}.mlp.down_proj.weight"] = _a(
-            layers["mlp"]["down_proj"]["kernel"])[i].T
-        sd[f"{pre}.input_layernorm.weight"] = _a(
-            layers["input_layernorm"]["weight"])[i]
-        sd[f"{pre}.post_attention_layernorm.weight"] = _a(
-            layers["post_attention_layernorm"]["weight"])[i]
+    _backbone(lm["backbone"], cfg, "", sd)
     if "task_embedding" in p:
         sd["task_embedding.weight"] = _a(p["task_embedding"]["embedding"])
         sd["enroll_sos_embedding.weight"] = _a(p["enroll_sos_embedding"])
@@ -113,6 +119,25 @@ def llmsft_state_dict(variables, cfg) -> StateDict:
         _linear(p["adapter"], "adapter", sd)
     elif "mix_sos_embedding" in p:
         sd["mix_sos_embedding.weight"] = _a(p["mix_sos_embedding"])
+    return sd
+
+
+def unitok_state_dict(variables, cfg) -> StateDict:
+    """UniTokLM variables -> the port's ``UniTokLM`` state dict: the
+    backbone in the reference layout under ``backbone.``, the task and
+    separator tables, the two adapters, and ``code_embeddings.{k}`` /
+    ``heads.{k}`` from ``code_embed_{k}`` / ``head_{k}``."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _backbone(p["backbone"], cfg, "backbone.", sd)
+    for name in ("task_embedding", "sep_embedding"):
+        sd[f"{name}.weight"] = _a(p[name]["embedding"])
+    for name in ("text_adapter", "audio_adapter"):
+        _linear(p[name], name, sd)
+    for k in range(cfg.num_codebooks):
+        sd[f"code_embeddings.{k}.weight"] = _a(
+            p[f"code_embed_{k}"]["embedding"])
+        sd[f"heads.{k}.weight"] = _a(p[f"head_{k}"]["kernel"]).T
     return sd
 
 
