@@ -20,8 +20,13 @@ prints no result. Phases, each fatal on failure:
    12-layer pool of 320 64-token blocks, the bound at 320, tables scattered
    as a ``BlockAllocator`` hands them out, inactive slots, a slot whose only
    keys lie in the last chunk, a row with no visible key, which must come
-   out as finite zeros); K3 is also timed against one
-   ``scaled_dot_product_attention`` call on the same function. Tolerances:
+   out as finite zeros). The block-table flash-decode kernel K7 (bf16/fp32
+   pool; no serving path launches it) runs at UniSE serving width (16
+   slots, a 12-layer pool of 320 64-token blocks, 14-entry tables scattered
+   by a ``BlockAllocator``, trash entries x100, a repeated block, an index
+   past the table, inactive slots). K1, K3 and K7 are also timed against
+   one ``scaled_dot_product_attention`` call on the same function (a
+   boolean mask over the pool prefix). Tolerances:
    fp32 within 1e-5 (abs and rel); bf16
    output within 2 bf16 ulps of the fp32 plain result on the same
    bf16-valued inputs (ulp floored at that of 2**-8). The VQ kernels K5
@@ -38,7 +43,10 @@ prints no result. Phases, each fatal on failure:
    length, each kernel launched 12 times per decode step, no plain
    attention run. Then, on two segments in fp32, teacher-forced decode
    steps through the kernels agree with the plain attention path: max
-   |logit difference| within 1e-4.
+   |logit difference| within 1e-4. On the fp32 pools those steps leave, K7
+   (a seeded random q, every layer, each engine's block tables and
+   positions) equals K1 on the owner engine's regions and K3 on the plain
+   engine's allocator tables, within the fp32 tolerance above.
 4. HCodec-1.0 round trip: ``unified_audio_tpu_torch.cli codec --model
    hcodec10`` on a synthetic 10-s 16 kHz wav at full width with random
    weights, the plain VQ functions made to raise. Checks: codes (1, 4, 250)
@@ -61,15 +69,19 @@ prints no result. Phases, each fatal on failure:
    ``BlockAllocator`` shared by a UniSE engine (phase 3's LM) and a UniTok
    engine, both in the stream mode, stepped in turn (K3): disjoint blocks,
    outputs in range, K3 launched 12 times per step of each engine, no block
-   left held. (c) Teacher-forced fp32 decode through K3 (fp32 pool) and K4
+   left held; after the first steps, K7 with each engine's tables and
+   positions equals K3 on the mask they give (bf16 tolerance, every
+   layer). (c) Teacher-forced fp32 decode through K3 (fp32 pool) and K4
    (int8 pool) against the plain attention: max |logit difference| within
    1e-4. Prints UniTok codes per second of engine wall time.
 6. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
-above, each kernel's time, its plain version's and its bound), and as its
-last line the device JSON object.
+above, each kernel's time, its plain version's and its bound; K7's
+launches are those of the serving paths, 0, and the smoke's own check
+calls are printed on the line before), and as its last line the device
+JSON object.
 """
 import dataclasses
 import json
@@ -89,6 +101,7 @@ K1_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:602"
 K2_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:540"
 K3_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:668"
 K4_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:295"
+K7_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:94"
 K5_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:45"
 K6_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:148"
 SOURCE = "unified_audio_tpu_torch/csrc/paged_attention.cu"
@@ -158,20 +171,39 @@ def in_turns(torch, fns, iters=100):
             for i in range(n)]
 
 
+def timed(torch, kernel, ref, args, lib=None, rows=None):
+    """The plain version, the kernel and, where given, the library call
+    ``lib`` timed in turns -> {"ms"/"wall_ms": the kernel's,
+    "plain_ms"/"plain_wall_ms": the plain version's, "library_ms" (None
+    without ``lib``) and "library_err": its max abs error against the plain
+    version on the (S,) bool ``rows``}."""
+    fns = [lambda: ref(*args), lambda: kernel(*args)]
+    out = {"library_ms": None}
+    if lib is not None:
+        fns.append(lib)
+        want = ref(*args)[rows].float()
+        got = lib()[0].transpose(0, 1)[rows].float()
+        out["library_err"] = (got - want).abs().max().item()
+    t = in_turns(torch, fns)
+    out.update(t[1], plain_ms=t[0]["ms"], plain_wall_ms=t[0]["wall_ms"])
+    if lib is not None:
+        out["library_ms"] = t[2]["ms"]
+    return out
+
+
 def check_kernel(torch, pa, kernel, ref, dtype, quant):
     """K1 (float pool) or K2 (int8 pool) against its plain version at the
     UniSE serving shapes -> {"err": max abs error vs the fp32 plain result,
-    "ms"/"wall_ms": the kernel's, "plain_ms"/"plain_wall_ms": the plain
-    version's, "bound": (ms, bound by)}."""
+    "bound": (ms, bound by), and the times of ``timed``, K1's with its
+    library call on the active slots}."""
     args = pa.serving_case(quant, dtype, "cuda")
     err, ok = pa.compare_with_plain(kernel, ref, args)
     if not ok:
         fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
              "tolerance, or inactive slots not zero")
-    plain, kern = in_turns(torch, [lambda: ref(*args), lambda: kernel(*args)])
-    return {"err": err, **kern, "plain_ms": plain["ms"],
-            "plain_wall_ms": plain["wall_ms"],
-            "bound": owner_bound(args, quant)}
+    lib = None if quant else owner_sdpa_call(torch, args)
+    return {"err": err, "bound": owner_bound(args, quant),
+            **timed(torch, kernel, ref, args, lib, args[-2] >= 0)}
 
 
 def report(name, kernel, dtype, r, gpu):
@@ -245,31 +277,131 @@ def sdpa_call(torch, args):
     return lambda: sdpa(qh, k, v, attn_mask=mask)
 
 
+def owner_sdpa_call(torch, args):
+    """K1's function as one library call: ``sdpa_call`` over the layer's
+    pool prefix up to the last region's end (the first blocks plus the
+    blocks the longest prefix spans) under the boolean mask of each slot's
+    positions 0..index from its first block."""
+    q, kpool, vpool, start, index, li = args
+    bs = kpool.shape[2]
+    nb = int(start.max()) + -(-(int(index.max()) + 1) // bs)
+    key = torch.arange(nb * bs, device=q.device)
+    first = start.long()[:, None] * bs
+    vis = (key >= first) & (key <= first + index.long()[:, None])
+    return sdpa_call(torch, [q, kpool, vpool, vis, li, nb])
+
+
 def check_stream(torch, pa, kernel, ref, dtype, quant):
     """K3 (float pool) or K4 (int8 pool) against its plain version at the
-    UniTok serving shapes -> the dict of ``check_kernel``, with K3's
-    library call ("library_ms", and "library_err" against the plain
-    version on the rows with a visible key)."""
+    UniTok serving shapes -> the dict of ``check_kernel``, K3's with its
+    library call on the rows with a visible key."""
     args = pa.stream_serving_case(quant, dtype, "cuda")
     empty = ~(args[-3] != 0).any(1)
     err, ok = pa.compare_with_plain(kernel, ref, args, empty=empty)
     if not (ok and bool(empty.any())):
         fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
              "tolerance, or rows with no visible key not finite zeros")
-    fns = [lambda: ref(*args), lambda: kernel(*args)]
-    out = {"err": err, "bound": stream_bound(args, quant),
-           "library_ms": None}
-    if not quant:
-        lib = sdpa_call(torch, args)
-        fns.append(lib)
-        want = ref(*args)[~empty].float()
-        got = lib()[0].transpose(0, 1)[~empty].float()
-        out["library_err"] = (got - want).abs().max().item()
-    t = in_turns(torch, fns)
-    out.update(t[1], plain_ms=t[0]["ms"], plain_wall_ms=t[0]["wall_ms"])
-    if not quant:
-        out["library_ms"] = t[2]["ms"]
-    return out
+    lib = None if quant else sdpa_call(torch, args)
+    return {"err": err, "bound": stream_bound(args, quant),
+            **timed(torch, kernel, ref, args, lib, ~empty)}
+
+
+def table_bound(args):
+    """Bound of one K7 call on ``args``: the distinct K and V rows the
+    active slots attend read once, q, the table entries the positions reach
+    and the positions read and the output written once; two dot products
+    of the head dim per attended (slot, position) pair and head, at the
+    rate of q's type."""
+    q, kpool, _, tables, index, _ = args
+    bs, mb = kpool.shape[2], tables.shape[1]
+    tables, index = tables.cpu().long(), index.cpu().long()
+    pos = np.arange(mb * bs)
+    seen = pos[None] <= index.numpy()[:, None]  # (S, MB*BS): table's only
+    rows = tables.numpy()[:, pos // bs] * bs + pos % bs
+    entries = int(np.minimum(-(-(index.numpy() + 1) // bs), mb).clip(0).sum())
+    h, hd = q.shape[1], q.shape[2]
+    moved = (2 * len(np.unique(rows[seen])) * h * hd * kpool.element_size()
+             + 2 * q.numel() * q.element_size() + 4 * entries
+             + 4 * index.numel())
+    return bound(moved, 4 * int(seen.sum()) * h * hd,
+                 "fp32" if q.element_size() == 4 else "bf16")
+
+
+def check_table(torch, pa, kernel, ref, dtype, quant):
+    """K7 against its plain version at ``table_serving_case`` -> the dict
+    of ``check_kernel``, with its library call (``sdpa_call`` over the
+    layer's whole pool under the visibility the tables give) judged on the
+    active slots whose live prefix repeats no block."""
+    from unified_audio_tpu_torch.serve.paged import table_visibility
+
+    args = pa.table_serving_case(dtype, "cuda")
+    err, ok = pa.compare_with_plain(kernel, ref, args)
+    if not ok:
+        fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
+             "tolerance, or inactive slots not zero")
+    q, kpool, vpool, tables, index, li = args
+    nb, bs, mb = kpool.shape[1], kpool.shape[2], tables.shape[1]
+    vis = table_visibility(tables, index, nb, bs)
+    distinct = []
+    for row, i in zip(tables.tolist(), index.tolist()):
+        n = min(mb, i // bs + 1)
+        distinct.append(i >= 0 and len(set(row[:n])) == n)
+    lib = sdpa_call(torch, [q, kpool, vpool, vis, li, nb])
+    return {"err": err, "bound": table_bound(args),
+            **timed(torch, kernel, ref, args, lib,
+                    torch.tensor(distinct, device=q.device))}
+
+
+@contextmanager
+def uncounted(tally, *wrappers):
+    """Kernel launches inside the block are the smoke's own check calls:
+    they are added to ``tally`` (by wrapper name) and the wrappers' launch
+    counts are left as they were."""
+    saved = [w.launches for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, n in zip(wrappers, saved):
+            tally[w.__name__] = tally.get(w.__name__, 0) + w.launches - n
+            w.launches = n
+
+
+def table_on_live_pool(torch, pa, paged, eng, against, seed=11):
+    """K7 on an engine's live pool, block tables and positions (-1 where a
+    slot is inactive), a seeded random q, every layer, against K1
+    (``against="K1"``: each table's first block as the region start) or K3
+    (``"K3"``: the visibility the tables give over the whole pool) -> max
+    abs error; fails outside ``compare_kernels``' tolerance."""
+    from unified_audio_tpu_torch.serve.engine import PHASE_DONE
+
+    st, k, v = eng.state, eng.pool["k"], eng.pool["v"]
+    active = st["active"] if "active" in st else st["phase"] != PHASE_DONE
+    index = torch.where(active, st["index"], -1).int()
+    tables = st["block_tables"]
+    g = torch.Generator(device=k.device).manual_seed(seed)
+    q = torch.randn(len(index), k.shape[3] // 64, 64, generator=g,
+                    device=k.device).to(k.dtype)
+    if against == "K1":
+        start = tables[:, 0].contiguous()
+
+        def other(li):
+            return pa.paged_flash_decode_owner(q, k, v, start, index, li)
+    else:
+        vis = paged.table_visibility(tables, index, k.shape[1],
+                                     k.shape[2]).to(torch.int8)
+
+        def other(li):
+            return pa.paged_flash_decode_stream_flat(q, k, v, vis, li)
+    worst = 0.0
+    for li in range(k.shape[0]):
+        err, ok = pa.compare_kernels(
+            pa.paged_flash_decode(q, k, v, tables, index, li), other(li),
+            index < 0)
+        if not ok:
+            fail(f"K7 against {against} on a live {k.dtype} pool, layer "
+                 f"{li}: max abs err {err} outside tolerance")
+        worst = max(worst, err)
+    return worst
 
 
 def vq_bound(m, n, d, nq):
@@ -376,7 +508,8 @@ def serve_and_check(torch, cli, path, lines, kv_quant, records, read_wav):
 
 def decode_agreement(torch, unise, kv_quant, steps=24):
     """Teacher-forced greedy decode of two SE segments in fp32 through the
-    owner kernels and through the plain attention: max |logit diff|."""
+    owner kernels and through the plain attention -> (max |logit diff|,
+    the engines by mode, holding the pools those steps left)."""
     from unified_audio_tpu_torch.models.lm.llama import range_mask
     from unified_audio_tpu_torch.serve.engine import (ContinuousBatchingEngine,
                                                       Request)
@@ -410,7 +543,7 @@ def decode_agreement(torch, unise, kv_quant, steps=24):
                 st["index"] += 1
             worst = max(worst, (logits["owner"] - logits[""]).abs().max().item())
             ids = (logits[""] + gmask).argmax(-1).int()
-    return worst
+    return worst, engines
 
 
 # ---------------------------------------------------------------------------
@@ -586,8 +719,9 @@ def unitok_agreement(torch, lm, reqs, quant, steps=24):
     return worst
 
 
-def unitok_phase(torch, cli, pa, paged, tok, unise, gpu):
-    """Phase 5 -> (K3 launches, K4 launches) on their serving passes."""
+def unitok_phase(torch, cli, pa, paged, tok, unise, gpu, tally):
+    """Phase 5 -> (K3 launches, K4 launches) on their serving passes; the
+    K7 check's launches go to ``tally``."""
     from unified_audio_tpu_torch.models.unitok.model import UniTokConfig, UniTokLM
     from unified_audio_tpu_torch.models.unitok.pipeline import UniTokPipeline
     from unified_audio_tpu_torch.serve.engine import Request
@@ -684,6 +818,7 @@ def unitok_phase(torch, cli, pa, paged, tok, unise, gpu):
             fail(f"shared pool blocks overlap: {sorted(held_u & held_t)}")
         pa.paged_flash_decode_stream_flat.launches = 0
         res_u, res_t = {}, {}
+        check_s = None
         t0 = time.perf_counter()
         while len(res_u) < len(u_reqs) or len(res_t) < len(t_reqs):
             for e, res, n in ((eng_u, res_u, len(u_reqs)),
@@ -691,7 +826,14 @@ def unitok_phase(torch, cli, pa, paged, tok, unise, gpu):
                 if len(res) < n:
                     e.step(gen)
                     res.update({r.uid: r for r in e.harvest()})
-        shared_s = time.perf_counter() - t0
+            if check_s is None:  # K7 on the tables the two engines hold
+                t1 = time.perf_counter()
+                with uncounted(tally, pa.paged_flash_decode,
+                               pa.paged_flash_decode_stream_flat):
+                    errs = [table_on_live_pool(torch, pa, paged, e, "K3")
+                            for e in (eng_u, eng_t)]
+                check_s = time.perf_counter() - t1
+        shared_s = time.perf_counter() - t0 - check_s
         k3 = pa.paged_flash_decode_stream_flat.launches
     steps_u = eng_u.stats()["decode_steps"]
     steps_t = eng_t.stats()["decode_steps"]
@@ -711,6 +853,9 @@ def unitok_phase(torch, cli, pa, paged, tok, unise, gpu):
           f"{steps_u} steps and UniTok {len(t_reqs)} requests in {steps_t} "
           f"steps, stepped in turn, {len(held_u)} + {len(held_t)} disjoint "
           f"blocks; {shared_s:.2f} s; K3 launches {k3} | {gpu}", flush=True)
+    print(f"K7 on the shared bf16 pool after the first steps, every layer, "
+          f"vs K3 on the mask the tables give: UniSE engine max abs err "
+          f"{errs[0]:.3e}, UniTok engine {errs[1]:.3e}", flush=True)
 
     # teacher-forced fp32: the stream kernels against the plain attention
     lm.float()
@@ -765,7 +910,9 @@ def main():
             ("K3", pa.paged_flash_decode_stream_flat,
              pa.paged_flash_decode_stream_flat_ref, False, check_stream),
             ("K4", pa.paged_flash_decode_stream_flat_q8,
-             pa.paged_flash_decode_stream_flat_q8_ref, True, check_stream)):
+             pa.paged_flash_decode_stream_flat_q8_ref, True, check_stream),
+            ("K7", pa.paged_flash_decode, pa.paged_flash_decode_ref, False,
+             check_table)):
         for dtype in (torch.float32, torch.bfloat16):
             r = check(torch, pa, kernel, ref, dtype, quant)
             results[name, dtype] = r
@@ -783,7 +930,10 @@ def main():
                   f" {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
                   f"{b_ms * 1e3:.1f} us | {gpu}", flush=True)
 
-    # 3. UniSE serving
+    # 3. UniSE serving. From here on K7's count holds the serving paths'
+    # launches; the smoke's own K7 checks go to ``tally``.
+    tally = {pa.paged_flash_decode.__name__: pa.paged_flash_decode.launches}
+    pa.paged_flash_decode.launches = 0
     records = []
     decode = UniSE._decode_tokens
 
@@ -833,7 +983,7 @@ def main():
                   f"{kernel.__name__} launches {n} | {gpu}", flush=True)
     unise = recording.unise
     for quant in (None, "int8"):
-        worst = decode_agreement(torch, unise, quant)
+        worst, engines = decode_agreement(torch, unise, quant)
         print(f"teacher-forced fp32 decode, {quant or 'fp32'} pool: owner "
               f"kernels vs plain attention max |logit diff| {worst:.2e}",
               flush=True)
@@ -841,6 +991,17 @@ def main():
         # an H100; a dropped or doubled key moves logits by far more
         if not worst <= 1e-4:
             fail(f"owner-kernel decode disagrees with the plain path: {worst}")
+        if quant is None:  # K7 has no int8 variant (nor has the TPU kernel)
+            with uncounted(tally, pa.paged_flash_decode,
+                           pa.paged_flash_decode_owner,
+                           pa.paged_flash_decode_stream_flat):
+                errs = [table_on_live_pool(torch, pa, paged, engines[mode],
+                                           against)
+                        for mode, against in (("owner", "K1"), ("", "K3"))]
+            print(f"K7 on the live fp32 pools of those steps, every layer: "
+                  f"vs K1 (owner engine's regions) max abs err "
+                  f"{errs[0]:.3e}, vs K3 (plain engine's allocator tables) "
+                  f"{errs[1]:.3e}", flush=True)
 
     # 4. HCodec-1.0 round trip
     with tempfile.TemporaryDirectory() as tmp:
@@ -849,7 +1010,7 @@ def main():
 
     # 5. UniTok-audio in the stream mode
     k3_launches, k4_launches = unitok_phase(torch, cli, pa, paged, tok, unise,
-                                            gpu)
+                                            gpu, tally)
 
     # 6. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
@@ -857,19 +1018,25 @@ def main():
     if jax_side:
         fail(f"the port loaded JAX-side modules: {sorted(jax_side)}")
 
-    # the kernels at the main path's shapes: K1-K4 bf16 at the serving
-    # shapes, K5/K6 at one 10-s clip (M = 250); K3's function is one
-    # scaled_dot_product_attention call; no single PyTorch call computes
-    # the others (an owner or int8 paged decode; a product and an argmin)
+    # the kernels at the main path's shapes: K1-K4 and K7 bf16 at the
+    # serving shapes, K5/K6 at one 10-s clip (M = 250). The functions of
+    # K1, K3 and K7 are each one scaled_dot_product_attention call under a
+    # boolean mask; no single PyTorch call computes the others: K2/K4
+    # dequantize int8 rows by per-token scales, K5/K6 are a product and an
+    # argmin
     kernels = []
+    k7 = pa.paged_flash_decode
+    print(f"K7 launches on the serving paths {k7.launches}; the smoke's own "
+          f"K7 check calls {tally[k7.__name__]}", flush=True)
     launches.update({pa.paged_flash_decode_stream_flat.__name__: k3_launches,
                      pa.paged_flash_decode_stream_flat_q8.__name__:
-                     k4_launches})
+                     k4_launches, k7.__name__: k7.launches})
     for name, fn, tpu in (("K1", pa.paged_flash_decode_owner, K1_TPU),
                           ("K2", pa.paged_flash_decode_owner_q8, K2_TPU),
                           ("K3", pa.paged_flash_decode_stream_flat, K3_TPU),
                           ("K4", pa.paged_flash_decode_stream_flat_q8,
-                           K4_TPU)):
+                           K4_TPU),
+                          ("K7", k7, K7_TPU)):
         r = results[name, torch.bfloat16]
         kernels.append({"name": fn.__name__, "route": "cuda",
                         "source": SOURCE, "replaces": tpu,

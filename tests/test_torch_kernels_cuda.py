@@ -1,7 +1,9 @@
 """The CUDA kernels on the card against their plain PyTorch versions: the
-owner flash-decode K1/K2 and the stream flash-decode K3/K4 at the serving
-shapes and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports no JAX, so it
-also runs on a machine without it:
+owner flash-decode K1/K2, the stream flash-decode K3/K4 and the block-table
+flash-decode K7 at the serving shapes (K7 also against K1 and K3 where
+they compute the same function) and the VQ nearest-code K5/K6 at the
+HCodec-1.0 shapes. Needs a CUDA card; imports no JAX, so it also runs on a
+machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
@@ -55,6 +57,66 @@ class TestKernelsOnCard:
         assert 1 <= int(empty.sum()) < len(empty)
         err, ok = t_pa.compare_with_plain(kernel, ref, args, empty=empty)
         assert ok, f"max abs err {err}"
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("bs,mb", [(64, 14), (16, 40)])
+    def test_table_kernel_matches_plain(self, card, dtype, bs, mb):
+        """K7 at ``table_serving_case``: trash entries x100, a repeated
+        block, an index past the table, inactive slots (zeros); also with
+        16-token blocks and 40-entry tables, so that a walk crosses many
+        blocks."""
+        args = t_pa.table_serving_case(dtype, card, block_size=bs,
+                                       max_blocks=mb)
+        err, ok = t_pa.compare_with_plain(t_pa.paged_flash_decode,
+                                          t_pa.paged_flash_decode_ref, args)
+        assert ok, f"max abs err {err}"
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_table_kernel_equals_owner_on_regions(self, card, dtype):
+        """K7 on region tables (each slot's 14-block region) equals K1 at
+        the owner serving case."""
+        q, k, v, start, index, li = t_pa.serving_case(False, dtype, card)
+        tables = (start[:, None] + torch.arange(14, device=card)).int()
+        err, ok = t_pa.compare_kernels(
+            t_pa.paged_flash_decode(q, k, v, tables, index, li),
+            t_pa.paged_flash_decode_owner(q, k, v, start, index, li),
+            index < 0)
+        assert ok, f"max abs err {err}"
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_table_kernel_equals_stream_on_allocator_tables(self, card,
+                                                            dtype):
+        """K7 equals K3 under the visibility its tables give, on every slot
+        of ``table_serving_case`` but the one whose table repeats a block
+        (K7 attends positions, the mask dedups blocks)."""
+        from unified_audio_tpu_torch.serve.paged import table_visibility
+
+        q, k, v, tables, index, li = t_pa.table_serving_case(dtype, card)
+        vis = table_visibility(tables, index, k.shape[1], k.shape[2])
+        got = t_pa.paged_flash_decode(q, k, v, tables, index, li)
+        want = t_pa.paged_flash_decode_stream_flat(q, k, v,
+                                                   vis.to(torch.int8), li)
+        keep = torch.arange(len(q), device=card) != 6
+        err, ok = t_pa.compare_kernels(got[keep], want[keep],
+                                       (index < 0)[keep])
+        assert ok, f"max abs err {err}"
+
+    def test_table_wrapper_refuses(self, card):
+        """hd != 64, a table that is not int32 and tensors on two devices
+        raise ValueError before any launch."""
+        q, k, v, tables, index, li = t_pa.table_serving_case(torch.bfloat16,
+                                                             card)
+        before = t_pa.paged_flash_decode.launches
+        q32 = q[..., :32].contiguous()
+        k32, v32 = (x.view(*x.shape[:3], 8, 64)[..., :32].contiguous()
+                    for x in (k, v))
+        for bad in ((q32, k32, v32, tables, index, li),
+                    (q, k, v, tables.long(), index, li),
+                    (q, k, v, tables.cpu(), index, li),
+                    (q, k, v, tables, index.cpu(), li)):
+            with pytest.raises(ValueError):
+                t_pa.paged_flash_decode(*bad)
+        assert t_pa.paged_flash_decode.launches == before
 
     @pytest.mark.parametrize("m,n", [(250, 1024), (2000, 1024), (37, 300)])
     def test_vq_kernels_match_plain(self, card, m, n):

@@ -1,5 +1,5 @@
-// Paged flash-decode attention for Hopper (sm_90a): the owner and the
-// stream kernels.
+// Paged flash-decode attention for Hopper (sm_90a): the owner, the stream
+// and the block-table kernels.
 //
 // Replaces the TPU kernels in unified_audio_tpu/ops/pallas/paged_attention.py:
 //   K1  paged_flash_decode_owner     (_owner_kernel_flat):    bf16 / fp32 pool
@@ -7,6 +7,7 @@
 //       fp32 per-token scales
 //   K3  paged_flash_decode_stream_flat     (_stream_kernel_flat): bf16 / fp32
 //   K4  paged_flash_decode_stream_flat_q8  (_stream_kernel_flat_q8): int8
+//   K7  paged_flash_decode  (_kernel, the block-table decode): bf16 / fp32
 //
 // What they compute. One decode query per slot s and head h attends to keys
 // of the flat pool (L, NB, BS, H*HD), columns [h*HD, (h+1)*HD), softmax in
@@ -17,6 +18,11 @@
 //   stream (K3/K4): every key of the pool prefix [0, bound * BS) whose byte
 //     in the slot's row of the (S, bound * BS) int8 visibility mask is
 //     non-zero. A row with no visible key returns zeros.
+//   table (K7): the slot's logical positions p <= index[s] with p < MB * BS;
+//     position p lives in physical block tables[s, p / BS] at offset p % BS.
+//     Positions, not blocks: a table repeating a block attends its rows once
+//     per position; entries past the last position are never read. An
+//     inactive slot (index < 0) returns zeros.
 // For the int8 pool the layer's per-token scales fold in by row exactly as
 // the TPU kernels and the plain paths do: logits = (q . k_int8) *
 // (k_scale * 1/sqrt(HD)) before the mask, and the probabilities are
@@ -30,7 +36,8 @@
 // memory-bound and their time is set by how many bytes are in flight. The
 // arithmetic (two dot products of HD per visible key) is negligible. The
 // stream kernels also read the visibility mask (S * bound * BS bytes, 20 KB
-// per slot at a 320-block bound), once per head.
+// per slot at a 320-block bound), once per head; the table kernel reads a
+// slot's table entries (4 bytes a block) once per head.
 //
 // Design. One thread block per (slot, head), 128 threads. Thread t keeps
 // its own online-softmax state (running max, denominator, HD accumulators)
@@ -38,6 +45,13 @@
 // reads whole K and V rows with 16-byte (8-element) loads, all issued before
 // they are used; at the end the 128 partial states merge through shared
 // memory. The owner kernels walk positions t, t+128, ... up to index[s].
+// The table kernel walks positions the same way (one code path, templated
+// on the map from a position to its row); it first stages the table
+// entries its positions reach in shared memory, so each position costs one
+// shared-memory read before its K/V rows. The TPU kernel runs one grid step
+// per (slot, logical block), all heads at once, and carries the softmax
+// state between steps in scratch; here the block loop is inside the thread
+// block and the heads are split over blocks.
 // The TPU stream kernel walks the prefix in chunks with all slots at once
 // (one program, one core); a slot owns a few percent of a serving prefix,
 // so here each (slot, head) block first finds, 128 physical blocks at a
@@ -173,21 +187,36 @@ __device__ __forceinline__ void merge_store(float m, float l, const float* acc,
   }
 }
 
+// Token row inside the layer (block * BS + offset) of a slot's position p.
+// K1/K2: the slot's contiguous region, from its first block.
+struct RegionRows {
+  long long start;
+  int block_size;
+  __device__ __forceinline__ long long operator()(int p) const {
+    return (start + p / block_size) * block_size + p % block_size;
+  }
+};
+
+// K7: the slot's block table, staged in shared memory.
+struct TableRows {
+  const int* table;
+  int block_size;
+  __device__ __forceinline__ long long operator()(int p) const {
+    return static_cast<long long>(table[p / block_size]) * block_size +
+           p % block_size;
+  }
+};
+
+// The flash decode of one (slot, head) over positions 0..last, thread t
+// taking positions t, t+128, ...; `rows` maps a position to its token row.
 // QT: query/output type; KT: pool element type; kQ8: int8 pool with scales.
-template <typename QT, typename KT, bool kQ8>
-__global__ void __launch_bounds__(kThreads)
-owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
-                    const KT* __restrict__ vpool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ start_block,
-                    const int* __restrict__ index, QT* __restrict__ out,
-                    int num_heads, int num_blocks, int block_size, int layer,
-                    float scale) {
-  const int s = blockIdx.x / num_heads;
-  const int h = blockIdx.x % num_heads;
-  const int idx = index[s];
-  const long long start = start_block[s];
+template <typename QT, typename KT, bool kQ8, typename Rows>
+__device__ __forceinline__ void decode_positions(
+    const QT* __restrict__ q, const KT* __restrict__ kpool,
+    const KT* __restrict__ vpool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, Rows rows, int last,
+    QT* __restrict__ out, int s, int h, int num_heads, int num_blocks,
+    int block_size, int layer, float scale) {
   const long long row = static_cast<long long>(num_heads) * kHeadDim;
   // the layer's pool slice, offset to this head's columns
   const long long layer_off =
@@ -205,15 +234,60 @@ owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
 #pragma unroll
   for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
 
-  for (int p = threadIdx.x; p <= idx; p += kThreads) {
-    // token slot of position p inside the layer: block * BS + offset
-    const long long tok = (start + p / block_size) * block_size + p % block_size;
+  for (int p = threadIdx.x; p <= last; p += kThreads) {
+    const long long tok = rows(p);
     attend_key<KT, kQ8>(qs, kbase + tok * row, vbase + tok * row,
                         kQ8 ? k_scale[tok] : 1.f, kQ8 ? v_scale[tok] : 1.f,
                         scale, m, l, acc);
   }
   merge_store(m, l, acc,
               out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
+}
+
+template <typename QT, typename KT, bool kQ8>
+__global__ void __launch_bounds__(kThreads)
+owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
+                    const KT* __restrict__ vpool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ start_block,
+                    const int* __restrict__ index, QT* __restrict__ out,
+                    int num_heads, int num_blocks, int block_size, int layer,
+                    float scale) {
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  decode_positions<QT, KT, kQ8>(
+      q, kpool, vpool, k_scale, v_scale,
+      RegionRows{start_block[s], block_size}, index[s], out, s, h, num_heads,
+      num_blocks, block_size, layer, scale);
+}
+
+// One block per (slot, head). Dynamic shared memory: max_blocks ints.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads)
+table_decode_kernel(const QT* __restrict__ q, const QT* __restrict__ kpool,
+                    const QT* __restrict__ vpool,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ index, QT* __restrict__ out,
+                    int num_heads, int num_blocks, int block_size,
+                    int max_blocks, int layer, float scale) {
+  extern __shared__ int table[];
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  // the TPU grid covers the table's blocks only: positions past it are not
+  // attended, whatever the index
+  const int last = static_cast<int>(
+      min(static_cast<long long>(index[s]),
+          static_cast<long long>(max_blocks) * block_size - 1));
+  const int n_entries = last < 0 ? 0 : last / block_size + 1;
+  const int* slot_table = tables + static_cast<long long>(s) * max_blocks;
+  for (int i = threadIdx.x; i < n_entries; i += kThreads) {
+    table[i] = slot_table[i];
+  }
+  __syncthreads();
+  decode_positions<QT, QT, false>(
+      q, kpool, vpool, nullptr, nullptr, TableRows{table, block_size}, last,
+      out, s, h, num_heads, num_blocks, block_size, layer, scale);
 }
 
 template <typename QT, typename KT, bool kQ8>
@@ -326,6 +400,22 @@ int launch_stream(const void* q, const void* kpool, const void* vpool,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename QT>
+int launch_table(const void* q, const void* kpool, const void* vpool,
+                 const void* tables, const void* index, void* out,
+                 int num_slots, int num_heads, int num_blocks, int block_size,
+                 int max_blocks, int layer, float scale, void* stream) {
+  const dim3 grid(num_slots * num_heads);
+  const size_t table_bytes = static_cast<size_t>(max_blocks) * sizeof(int);
+  table_decode_kernel<QT><<<grid, kThreads, table_bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
+      static_cast<const QT*>(vpool), static_cast<const int*>(tables),
+      static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
+      num_blocks, block_size, max_blocks, layer, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError().
@@ -405,6 +495,27 @@ int stream_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
   return launch_stream<__nv_bfloat16, int8_t, true>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
+}
+
+int table_decode_f32(const void* q, const void* kpool, const void* vpool,
+                     const void* tables, const void* index, void* out,
+                     int num_slots, int num_heads, int num_blocks,
+                     int block_size, int max_blocks, int layer, float scale,
+                     void* stream) {
+  return launch_table<float>(q, kpool, vpool, tables, index, out, num_slots,
+                             num_heads, num_blocks, block_size, max_blocks,
+                             layer, scale, stream);
+}
+
+int table_decode_bf16(const void* q, const void* kpool, const void* vpool,
+                      const void* tables, const void* index, void* out,
+                      int num_slots, int num_heads, int num_blocks,
+                      int block_size, int max_blocks, int layer, float scale,
+                      void* stream) {
+  return launch_table<__nv_bfloat16>(q, kpool, vpool, tables, index, out,
+                                     num_slots, num_heads, num_blocks,
+                                     block_size, max_blocks, layer, scale,
+                                     stream);
 }
 
 }  // extern "C"

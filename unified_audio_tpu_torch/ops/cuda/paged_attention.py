@@ -9,7 +9,11 @@ Port of ``unified_audio_tpu/ops/pallas/paged_attention.py``:
 * K3 :func:`paged_flash_decode_stream_flat` (``_stream_kernel_flat``), bf16
   or fp32 pool;
 * K4 :func:`paged_flash_decode_stream_flat_q8` (``_stream_kernel_flat_q8``),
-  int8 pool.
+  int8 pool;
+* K7 :func:`paged_flash_decode` (``_kernel``, the block-table decode), bf16
+  or fp32 pool. No serving mode routes through it (none does in the JAX
+  package either); it is held against its plain version and against K1/K3
+  on live engine pools.
 
 The kernels are CUDA C++ for sm_90a in ``csrc/paged_attention.cu``, built
 with ``nvcc`` on first use (``ops/cuda/build.py``). Each wrapper launches its
@@ -32,6 +36,23 @@ pool's blocks) that its row of ``vis`` (S, nb * BS) int8 marks visible
 probabilities stay fp32 for the p.v product, and the output is cast to q's
 dtype at the end. A row with no visible key (an inactive slot, a table of
 trash only) returns zeros.
+
+Table semantics (K7): q (S, H, hd); pools (L, NB, BS, H, hd) as the TPU
+kernel takes them, or the port's flat (L, NB, BS, H*hd) pool, the same
+bytes; ``tables`` (S, MB) int32; ``index`` (S,) int32; ``li`` the layer.
+Slot s attends its logical positions ``0..index[s]``: position p is row
+``p % BS`` of physical block ``tables[s, p // BS]``, for p < MB*BS only (an
+index at or past MB*BS attends exactly the table's MB*BS positions, and
+``tables[s, MB]`` is never read). It attends positions, not blocks: a table
+that repeats a physical block attends its rows once per position, and
+entries at or past ``ceil((index+1)/BS)`` (trash, stale) are never read.
+So K7 equals K3 on the visibility of :func:`serve.paged.table_visibility`
+(which dedups blocks and drops the trash block) only on tables an allocator
+hands out, and equals K1 on ``RegionAllocator`` regions. Rounding as K3:
+q, k and v up-cast to fp32, the logits scaled after the q.k sum, p and the
+p.v product fp32, the output cast to q's dtype once. An inactive slot
+(``index < 0``) returns zeros (the TPU kernel returns the mean of V over
+every table entry, trash included).
 """
 from __future__ import annotations
 
@@ -158,6 +179,25 @@ def paged_flash_decode_stream_flat_q8_ref(q, kpool, vpool, k_scale, v_scale,
     return _stream_attend(logits, vis, v, vsc, q.dtype)
 
 
+def paged_flash_decode_ref(q, kpool, vpool, tables, index, li):
+    """Plain K7, by its definition (not through a visibility mask): each
+    slot's logical positions gathered through its table, positions past
+    ``index`` or past the table masked, in the rounding order of K3."""
+    s_slots, h, hd = q.shape
+    bs, mb = kpool.shape[2], tables.shape[1]
+    # the table entries any position reaches (never past the table)
+    n_blk = min(max(-(-(int(index.max()) + 1) // bs), 1), mb)
+    pos = torch.arange(n_blk * bs, device=q.device)
+    tok = tables[:, :n_blk].long()[:, pos // bs] * bs + pos % bs  # (S, P)
+    k = kpool[li].reshape(-1, h, hd)[tok].float()  # (S, P, H, hd)
+    v = vpool[li].reshape(-1, h, hd)[tok].float()
+    logits = torch.einsum("shd,sphd->shp", q.float(), k) * hd ** -0.5
+    seen = pos[None] <= index.long()[:, None]  # (S, P)
+    probs = torch.softmax(logits.masked_fill(~seen[:, None], -torch.inf), -1)
+    out = torch.einsum("shp,sphd->shd", probs, v)
+    return torch.where(index[:, None, None] >= 0, out, 0.0).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -167,6 +207,10 @@ _K1_ARGS = [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _PTR]
 _K2_ARGS = [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR]
 _K3_ARGS = [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR]
 _K4_ARGS = [_PTR] * 7 + [_INT] * 6 + [_FLOAT, _PTR]
+_K7_ARGS = [_PTR] * 6 + [_INT] * 6 + [_FLOAT, _PTR]
+# K7 stages a slot's table in shared memory beside the merge buffers (33 KB)
+# within the 48 KB a block gets without opting in
+MAX_TABLE_BLOCKS = 2048
 
 
 def _library():
@@ -181,7 +225,9 @@ def _library():
                            ("stream_decode_f32", _K3_ARGS),
                            ("stream_decode_bf16", _K3_ARGS),
                            ("stream_decode_q8_f32", _K4_ARGS),
-                           ("stream_decode_q8_bf16", _K4_ARGS)):
+                           ("stream_decode_q8_bf16", _K4_ARGS),
+                           ("table_decode_f32", _K7_ARGS),
+                           ("table_decode_bf16", _K7_ARGS)):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -359,10 +405,59 @@ def paged_flash_decode_stream_flat_q8(q, kpool, vpool, k_scale, v_scale, vis,
     return out
 
 
+def _flat_pool(name, pool, h, hd):
+    """A 5-D (L, NB, BS, H, hd) pool as the flat (L, NB, BS, H*hd) view of
+    the same bytes (no copy); a flat pool as it is."""
+    if pool.dim() != 5:
+        return pool
+    _require(tuple(pool.shape[3:]) == (h, hd),
+             f"{name} heads {tuple(pool.shape[3:])} != q's ({h}, {hd})")
+    _require(pool.is_contiguous(), f"{name} must be contiguous")
+    return pool.view(*pool.shape[:3], h * hd)
+
+
+def paged_flash_decode(q, kpool, vpool, tables, index, li):
+    """K7: flash decode through per-slot block tables over a bf16 (or fp32)
+    pool, 5-D (L, NB, BS, H, hd) or flat (L, NB, BS, H*hd); ``tables`` (S,
+    MB) int32, ``index`` (S,) int32. q's dtype must match the pool's. The
+    table entries a slot's positions reach must name blocks of the pool,
+    as for the TPU kernel: checking them would make the host wait for the
+    card. Returns (S, H, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_ref(q, kpool, vpool, tables, index, li)
+    _require(q.dim() == 3, f"q must be (S, H, hd), got {tuple(q.shape)}")
+    s_slots, h, hd = q.shape
+    kpool, vpool = (_flat_pool("kpool", kpool, h, hd),
+                    _flat_pool("vpool", vpool, h, hd))
+    _check_pools(q, kpool, vpool, li, (torch.bfloat16, torch.float32),
+                 index=index)
+    _require(q.dtype == kpool.dtype,
+             f"q dtype {q.dtype} != pool dtype {kpool.dtype}")
+    _require(tables.dtype == torch.int32 and tables.dim() == 2
+             and tables.shape[0] == s_slots
+             and 1 <= tables.shape[1] <= MAX_TABLE_BLOCKS,
+             f"tables must be int32 ({s_slots}, MB) with 1 <= MB <= "
+             f"{MAX_TABLE_BLOCKS}, got {tables.dtype} {tuple(tables.shape)}")
+    _require(tables.device == q.device and tables.is_contiguous(),
+             f"tables must be contiguous on {q.device}, got {tables.device}")
+    lib = _library()
+    fn = lib.table_decode_bf16 if q.dtype == torch.bfloat16 \
+        else lib.table_decode_f32
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            tables.data_ptr(), index.data_ptr(), out.data_ptr(), s_slots, h,
+            kpool.shape[1], kpool.shape[2], tables.shape[1], int(li),
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_flash_decode")
+    paged_flash_decode.launches += 1
+    return out
+
+
 paged_flash_decode_owner.launches = 0
 paged_flash_decode_owner_q8.launches = 0
 paged_flash_decode_stream_flat.launches = 0
 paged_flash_decode_stream_flat_q8.launches = 0
+paged_flash_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +538,66 @@ def stream_serving_case(quant: bool, dtype, device, seed: int = 0):
     return [q, *kv, vis.to(device), 7, nb]
 
 
+def table_serving_case(dtype, device, seed: int = 0, block_size: int = 64,
+                       max_blocks: int = 14):
+    """Arguments of one K7 call at UniSE serving width: 16 slots, a 12-layer
+    flat pool of 20,480 tokens (320 64-token blocks) with rows of 8 heads of
+    64, layer 7, tables of 14 blocks (UniSE's 896-token cap) scattered by a
+    ``BlockAllocator`` after requests of 2-9 blocks came and went. Entries
+    past a slot's allocation are ``TRASH_BLOCK``, whose rows hold values
+    x100. Slot 0 sits at position MB*BS-1, slot 2 on the last row of its
+    third block, slot 3 at position 0, slot 4 past its table (index
+    MB*BS+37, so the whole table is attended), slot 6's table repeats a
+    physical block inside its live prefix; slots 1 and 9 are inactive
+    (slot 9 with a stale table, now slot 5's); the rest sit at random
+    positions inside their allocations. ``block_size``/``max_blocks`` cut
+    the same pool into other blocks and tables."""
+    from ...serve.paged import TRASH_BLOCK, BlockAllocator
+
+    s, n_layers, h, hd = 16, 12, 8, 64
+    bs, nb, mb = block_size, 20480 // block_size, max_blocks
+    rng = np.random.default_rng(seed)
+    alloc = BlockAllocator(nb)
+    held = [alloc.alloc(int(rng.integers(2, 10))) for _ in range(20)]
+    for i in rng.permutation(20)[:10]:  # requests that finished
+        alloc.release(held[i])
+    tables = np.full((s, mb), TRASH_BLOCK, np.int32)
+    index = np.full(s, -1, np.int32)
+    sizes = {0: mb, 2: 3, 3: 1, 4: mb, 6: 6}  # blocks; the rest drawn
+    for slot in [0, 2, 3, 4, 5, 6, 7, 8] + list(range(10, 16)):
+        n = sizes[slot] if slot in sizes else int(rng.integers(1, mb + 1))
+        tables[slot, :n] = alloc.alloc(n)
+        index[slot] = rng.integers(0, n * bs)
+    index[[0, 2, 3, 4, 6]] = [mb * bs - 1, 3 * bs - 1, 0, mb * bs + 37,
+                              5 * bs + 10]
+    tables[6, 3] = tables[6, 1]  # logical blocks 1 and 3: one physical block
+    tables[9] = tables[5]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(s, h, hd, generator=g, device=device).to(dtype)
+    kv = []
+    for _ in range(2):
+        pool = torch.randn((n_layers, nb, bs, h * hd), generator=g,
+                           device=device)
+        pool[:, TRASH_BLOCK] *= 100
+        kv.append(pool.to(dtype))
+    return [q, *kv, torch.as_tensor(tables, device=device),
+            torch.as_tensor(index, device=device), 7]
+
+
+def _within(out, want, dtype):
+    """-> (max abs error, ``out`` within the tolerance of ``dtype`` around
+    ``want``): fp32 within 1e-5 abs + 1e-5 rel; bf16 within 2 bf16 ulps of
+    ``want`` (ulp floored at that of 2**-8)."""
+    err = (out - want).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+            torch.log2(want.abs().clamp(min=2.0 ** -8))))
+        ok = bool((err <= 2 * ulp).all())
+    return err.max().item(), ok and bool(torch.isfinite(out).all())
+
+
 def compare_with_plain(kernel, ref, args, empty=None):
     """Run ``kernel(*args)`` and ``ref`` on the same values in fp32.
 
@@ -451,21 +606,22 @@ def compare_with_plain(kernel, ref, args, empty=None):
     of the fp32 plain result (ulp floored at that of 2**-8), since the
     kernel rounds its output to bf16. ``empty`` (S,) bool marks the rows
     with no visible key, which must be exact zeros; by default the owner
-    kernels' inactive slots (``index < 0``, the next-to-last argument)."""
-    q = args[0]
+    and table kernels' inactive slots (``index < 0``, the next-to-last
+    argument)."""
     if empty is None:
         empty = args[-2] < 0
     out = kernel(*args).float()
     up = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a
           for a in args]
-    want = ref(*up)
-    err = (out - want).abs()
-    if q.dtype == torch.float32:
-        ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
-    else:
-        ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
-            torch.log2(want.abs().clamp(min=2.0 ** -8))))
-        ok = bool((err <= 2 * ulp).all())
-    ok = ok and bool(torch.isfinite(out).all()) \
-        and bool((out[empty] == 0).all())
-    return err.max().item(), ok
+    err, ok = _within(out, ref(*up), args[0].dtype)
+    return err, ok and bool((out[empty] == 0).all())
+
+
+def compare_kernels(out, other, empty):
+    """Two kernels' outputs for the same function on the same inputs (K7
+    against K1 or K3) -> (max abs error, within tolerance): the tolerance of
+    :func:`compare_with_plain` around ``other``, whose rounding to bf16 may
+    differ by one ulp; the ``empty`` rows exact zeros in both."""
+    err, ok = _within(out.float(), other.float(), out.dtype)
+    return err, ok and bool((out[empty] == 0).all()) \
+        and bool((other[empty] == 0).all())

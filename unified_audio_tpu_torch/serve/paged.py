@@ -186,6 +186,22 @@ def visibility_mask(lmap, index, block_size: int):
     return vis.reshape(s, nb * block_size)
 
 
+def table_visibility(tables, index, num_blocks: int, block_size: int,
+                     nb: Optional[int] = None):
+    """(S, MB) block tables of a pool of ``num_blocks`` + (S,) positions ->
+    (S, nb*BS) bool key visibility of the prefix [0, nb) (default the whole
+    pool): the inverse block map of each table, the trash block dropped."""
+    s_slots, max_blocks = tables.shape
+    dev = tables.device
+    rows = torch.arange(s_slots, device=dev)[:, None]
+    lmap = torch.full((s_slots, num_blocks), -1, dtype=torch.long, device=dev)
+    lmap[rows, tables.long()] = torch.arange(
+        max_blocks, device=dev)[None].expand(s_slots, max_blocks)
+    lmap[:, TRASH_BLOCK] = -1
+    nb = num_blocks if nb is None else nb
+    return visibility_mask(lmap[:, :nb], index, block_size)
+
+
 def _plain_attention(q, pool, li, mask, nb, x_dtype):
     """The reference attention (mode ""): every slot against the pool
     prefix [0, nb) under ``mask`` (S, 1, 1, nb*BS); int8 pools dequantize
@@ -244,14 +260,8 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
         start = tables[:, 0].contiguous()
         own_index = torch.where(active, index, -1).int()
     else:
-        rows = torch.arange(s_slots, device=dev)[:, None]
-        lmap = torch.full((s_slots, num_blocks), -1, dtype=torch.long,
-                          device=dev)
-        lmap[rows, tables.long()] = torch.arange(
-            max_blocks, device=dev)[None].expand(s_slots, max_blocks)
-        lmap[:, TRASH_BLOCK] = -1
         # layer-invariant key visibility, built once per step
-        vis = visibility_mask(lmap[:, :nb], index, bs)
+        vis = table_visibility(tables, index, num_blocks, bs, nb)
         if use_kernel == "stream":
             vis_i8 = vis.to(torch.int8)
         else:
