@@ -12,6 +12,12 @@ prints no result. Phases, each fatal on failure:
    time (the kernels one call launches, summed from torch.profiler's CUPTI
    records; this is the ``ms`` of the kernels line) and its wall time per
    call with the host's dispatch (CUDA events around back-to-back calls).
+   Every decode kernel (K1-K4, K7), its plain version and its library call
+   are timed twice more in turns with the layer cycling 0..11, so that each
+   call finds its layer out of L2 as in a decode step (``cold_ms`` on the
+   kernels line; the calls above reuse one layer, warm in L2). K2 and K3
+   are the split-K kernels (a cluster of blocks per slot, merged inside
+   the launch).
    The owner flash-decode kernels K1 (bf16/fp32 pool) and K2 (int8 pool) run
    at the serving shapes (16 slots, 12 layers, 8 heads of 64, 64-token
    blocks, 14-block regions in a 256-block pool, inactive slots, positions
@@ -84,6 +90,7 @@ calls are printed on the line before), and as its last line the device
 JSON object.
 """
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -171,23 +178,49 @@ def in_turns(torch, fns, iters=100):
             for i in range(n)]
 
 
-def timed(torch, kernel, ref, args, lib=None, rows=None):
+def cycling(call):
+    """-> a function that calls ``call(0)``, ``call(1)``, ..., ``call(L -
+    1)``, ``call(0)``, ...: one layer after another, as a decode step does,
+    so that each call finds its layer's rows out of L2 (the 12 layers'
+    pools far exceed its 50 MB)."""
+    layers = itertools.cycle(range(L))
+    return lambda: call(next(layers))
+
+
+def at_layer(args, pos, li):
+    out = list(args)
+    out[pos] = li
+    return out
+
+
+def timed(torch, kernel, ref, args, li_pos, lib_at=None, rows=None):
     """The plain version, the kernel and, where given, the library call
-    ``lib`` timed in turns -> {"ms"/"wall_ms": the kernel's,
-    "plain_ms"/"plain_wall_ms": the plain version's, "library_ms" (None
-    without ``lib``) and "library_err": its max abs error against the plain
-    version on the (S,) bool ``rows``}."""
+    (``lib_at(li)`` builds it for layer ``li``) timed in turns, warm (100
+    calls on layer ``args[li_pos]``) and cold (the layer cycling 0..11) ->
+    {"ms"/"wall_ms": the kernel's warm, "plain_ms"/"plain_wall_ms": the
+    plain version's, "library_ms" (None without ``lib_at``),
+    "library_err": its max abs error against the plain version on the (S,)
+    bool ``rows``, and "cold_ms", "cold_plain_ms", "cold_library_ms": the
+    device times of the cold calls}."""
     fns = [lambda: ref(*args), lambda: kernel(*args)]
-    out = {"library_ms": None}
-    if lib is not None:
+    cold = [cycling(lambda li: ref(*at_layer(args, li_pos, li))),
+            cycling(lambda li: kernel(*at_layer(args, li_pos, li)))]
+    out = {"library_ms": None, "cold_library_ms": None}
+    if lib_at is not None:
+        lib = lib_at(args[li_pos])
         fns.append(lib)
         want = ref(*args)[rows].float()
         got = lib()[0].transpose(0, 1)[rows].float()
         out["library_err"] = (got - want).abs().max().item()
+        libs = [lib_at(li) for li in range(L)]
+        cold.append(cycling(lambda li: libs[li]()))
     t = in_turns(torch, fns)
     out.update(t[1], plain_ms=t[0]["ms"], plain_wall_ms=t[0]["wall_ms"])
-    if lib is not None:
+    c = in_turns(torch, cold)
+    out.update(cold_ms=c[1]["ms"], cold_plain_ms=c[0]["ms"])
+    if lib_at is not None:
         out["library_ms"] = t[2]["ms"]
+        out["cold_library_ms"] = c[2]["ms"]
     return out
 
 
@@ -201,19 +234,24 @@ def check_kernel(torch, pa, kernel, ref, dtype, quant):
     if not ok:
         fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
              "tolerance, or inactive slots not zero")
-    lib = None if quant else owner_sdpa_call(torch, args)
+    lib_at = None if quant else (
+        lambda li: owner_sdpa_call(torch, at_layer(args, -1, li)))
     return {"err": err, "bound": owner_bound(args, quant),
-            **timed(torch, kernel, ref, args, lib, args[-2] >= 0)}
+            **timed(torch, kernel, ref, args, -1, lib_at, args[-2] >= 0)}
 
 
 def report(name, kernel, dtype, r, gpu):
     lib = ("" if r.get("library_ms") is None else
            f"; scaled_dot_product_attention {r['library_ms'] * 1e3:.1f} us "
            f"(max abs err {r['library_err']:.3e} vs plain)")
+    cold_lib = ("" if r.get("cold_library_ms") is None else
+                f", library {r['cold_library_ms'] * 1e3:.1f} us")
     print(f"{name} {kernel.__name__} q {str(dtype)[6:]}: max abs err "
           f"{r['err']:.3e} vs fp32 plain; device time per layer call: kernel "
           f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us{lib}, "
-          f"bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}); wall per "
+          f"bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}); cold "
+          f"(layers 0..11 in turn): kernel {r['cold_ms'] * 1e3:.2f} us, "
+          f"plain {r['cold_plain_ms'] * 1e3:.2f} us{cold_lib}; wall per "
           f"call with dispatch: kernel {r['wall_ms'] * 1e3:.1f} us, plain "
           f"{r['plain_wall_ms'] * 1e3:.1f} us | {gpu}", flush=True)
 
@@ -301,9 +339,10 @@ def check_stream(torch, pa, kernel, ref, dtype, quant):
     if not (ok and bool(empty.any())):
         fail(f"{kernel.__name__} {dtype}: max abs err {err} outside "
              "tolerance, or rows with no visible key not finite zeros")
-    lib = None if quant else sdpa_call(torch, args)
+    lib_at = None if quant else (
+        lambda li: sdpa_call(torch, at_layer(args, -2, li)))
     return {"err": err, "bound": stream_bound(args, quant),
-            **timed(torch, kernel, ref, args, lib, ~empty)}
+            **timed(torch, kernel, ref, args, -2, lib_at, ~empty)}
 
 
 def table_bound(args):
@@ -346,9 +385,10 @@ def check_table(torch, pa, kernel, ref, dtype, quant):
     for row, i in zip(tables.tolist(), index.tolist()):
         n = min(mb, i // bs + 1)
         distinct.append(i >= 0 and len(set(row[:n])) == n)
-    lib = sdpa_call(torch, [q, kpool, vpool, vis, li, nb])
     return {"err": err, "bound": table_bound(args),
-            **timed(torch, kernel, ref, args, lib,
+            **timed(torch, kernel, ref, args, -1,
+                    lambda li: sdpa_call(torch, [q, kpool, vpool, vis, li,
+                                                 nb]),
                     torch.tensor(distinct, device=q.device))}
 
 
@@ -1044,7 +1084,10 @@ def main():
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        "cold_ms": r["cold_ms"],
+                        "cold_plain_ms": r["cold_plain_ms"],
+                        "cold_library_ms": r["cold_library_ms"]})
     for name, fn, tpu, n_launch, nq in (
             ("K5", vq.nearest_code, K5_TPU, k5_launches, 1),
             ("K6", vq.rvq_encode_fused, K6_TPU, k6_launches, 4)):

@@ -1,9 +1,10 @@
 """The CUDA kernels on the card against their plain PyTorch versions: the
 owner flash-decode K1/K2, the stream flash-decode K3/K4 and the block-table
 flash-decode K7 at the serving shapes (K7 also against K1 and K3 where
-they compute the same function) and the VQ nearest-code K5/K6 at the
-HCodec-1.0 shapes. Needs a CUDA card; imports no JAX, so it also runs on a
-machine without it:
+they compute the same function; the split-K kernels K2/K3 also at their
+tile and split edges, and call to call bit for bit) and the VQ
+nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports
+no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
@@ -117,6 +118,100 @@ class TestKernelsOnCard:
             with pytest.raises(ValueError):
                 t_pa.paged_flash_decode(*bad)
         assert t_pa.paged_flash_decode.launches == before
+
+    # K2 positions hitting the split-K kernel's edges (int8 rows: 32-row
+    # tiles, 16 splits on an H100 at 16 slots): position 0, the last row of
+    # a tile, of the first round of splits (16 tiles) and of a full
+    # 14-block region, one row past a tile, a prefix of one tile shared by
+    # all splits (the others empty), and every slot inactive
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("edges", [
+        [0, 31, 511, 895, 32, 5, -1, 63],
+        [895] * 8,
+        [-1] * 8,
+    ], ids=["edges", "full_regions", "all_inactive"])
+    def test_owner_q8_split_edges(self, card, dtype, edges):
+        """K2 on the edge positions above, spread over the 16 slots, within
+        ``compare_with_plain``'s tolerance, inactive slots exact zeros."""
+        args = t_pa.serving_case(True, dtype, card)
+        args[-2] = torch.tensor(edges * 2, dtype=torch.int32, device=card)
+        err, ok = t_pa.compare_with_plain(
+            t_pa.paged_flash_decode_owner_q8,
+            t_pa.paged_flash_decode_owner_q8_ref, args)
+        assert ok, f"max abs err {err}"
+        if min(edges) < 0 and max(edges) < 0:
+            assert not t_pa.paged_flash_decode_owner_q8(*args).any()
+
+    @staticmethod
+    def _stream_edge_case(dtype, card, bound):
+        """K3 at ``stream_serving_case`` cut to ``bound`` blocks, slot 4's
+        mask replaced: blocks 21-24 fully visible (inside one split's scan
+        range at every bound here), block 25 visible on its first 10 keys
+        only, and every other key of block 26 (masked keys inside a live
+        block)."""
+        args = t_pa.stream_serving_case(False, dtype, card)
+        vis = args[-3].clone()
+        vis[4] = 0
+        vis[4, 21 * 64:25 * 64] = 1
+        vis[4, 25 * 64:25 * 64 + 10] = 1
+        vis[4, 26 * 64:27 * 64:2] = 1
+        args[-3:] = [vis[:, :bound * 64].contiguous(), args[-2], bound]
+        return args
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("bound", [320, 64, 37])
+    def test_stream_split_edges(self, card, dtype, bound):
+        """K3 under bounds of 320, 64 and 37 blocks (a bound no split count
+        divides), a slot whose live blocks lie in one split's share and end
+        partly masked, rows with no visible key (zeros)."""
+        args = self._stream_edge_case(dtype, card, bound)
+        empty = ~(args[-3] != 0).any(1)
+        err, ok = t_pa.compare_with_plain(
+            t_pa.paged_flash_decode_stream_flat,
+            t_pa.paged_flash_decode_stream_flat_ref, args, empty=empty)
+        assert ok, f"max abs err {err}"
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kernel", ["K2", "K3"])
+    def test_split_kernels_repeat_bit_for_bit(self, card, dtype, kernel):
+        """Three back-to-back calls give the same bits: the partial states
+        merge in split order."""
+        if kernel == "K2":
+            fn, args = (t_pa.paged_flash_decode_owner_q8,
+                        t_pa.serving_case(True, dtype, card))
+        else:
+            fn, args = (t_pa.paged_flash_decode_stream_flat,
+                        self._stream_edge_case(dtype, card, 320))
+        outs = [fn(*args) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+    def test_split_wrappers_refuse(self, card):
+        """K2 and K3 raise ValueError before any launch on what they do not
+        take: hd != 64, a q/pool dtype mismatch (K3), scales of the wrong
+        shape or dtype (K2), per-slot ints or a mask on the CPU, a mask that
+        is not int8, a bound outside the pool."""
+        q, k, v, ks, vs, start, index, li = t_pa.serving_case(
+            True, torch.bfloat16, card)
+        k2 = t_pa.paged_flash_decode_owner_q8
+        bad2 = ((q[..., :32].contiguous(), k, v, ks, vs, start, index, li),
+                (q, k, v, ks[:, :32].contiguous(), vs, start, index, li),
+                (q, k, v, ks.double(), vs, start, index, li),
+                (q, k, v, ks, vs, start.cpu(), index, li),
+                (q, k, v, ks, vs, start, index.long(), li))
+        q3, k3, v3, vis, li3, nb = t_pa.stream_serving_case(
+            False, torch.bfloat16, card)
+        k3_fn = t_pa.paged_flash_decode_stream_flat
+        bad3 = ((q3.float(), k3, v3, vis, li3, nb),
+                (q3, k3, v3, vis.cpu(), li3, nb),
+                (q3, k3, v3, vis.bool(), li3, nb),
+                (q3, k3, v3, vis, li3, nb + 1))
+        before = (k2.launches, k3_fn.launches)
+        for fn, cases in ((k2, bad2), (k3_fn, bad3)):
+            for bad in cases:
+                with pytest.raises(ValueError):
+                    fn(*bad)
+        assert (k2.launches, k3_fn.launches) == before
 
     @pytest.mark.parametrize("m,n", [(250, 1024), (2000, 1024), (37, 300)])
     def test_vq_kernels_match_plain(self, card, m, n):

@@ -42,6 +42,7 @@ import torch
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 POOLS = ("int8", "bf16") * 2  # alternated: host time drifts between runs
+ATTENTION_KERNELS = ("owner_decode_kernel", "stream_decode_kernel")
 SLOTS = 16  # the serving default
 WINDOW = 20  # decode steps per timed and per profiled window
 SEED = 0
@@ -87,10 +88,17 @@ def _window(eng, gen, n_steps, active=None):
         elif ev.name in LAUNCH_CALLS:
             launches += 1
     device_us = sum(us for us, _ in by_kernel.values())
+    # the attention kernels by name: owner_decode_kernel (K1),
+    # owner_decode_kernel_split (K2), stream_decode_kernel (K4) and
+    # stream_decode_kernel_split (K3)
     attn = [(us, n) for name, (us, n) in by_kernel.items()
-            if "owner_decode_kernel" in name or "stream_decode_kernel" in name]
+            if any(k in name for k in ATTENTION_KERNELS)]
     attn_us = sum(us for us, _ in attn)
     attn_calls = sum(n for _, n in attn)
+    if by_kernel and not attn_calls:
+        sys.exit("profile_step: no attention kernel among the device "
+                 f"kernels (names containing {ATTENTION_KERNELS}); a renamed "
+                 "kernel would read as 0 us")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "cached_tokens_min": int(index.min()) + 1,
