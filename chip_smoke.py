@@ -16,8 +16,8 @@ prints no result. Phases, each fatal on failure:
    are timed twice more in turns with the layer cycling 0..11, so that each
    call finds its layer out of L2 as in a decode step (``cold_ms`` on the
    kernels line; the calls above reuse one layer, warm in L2). K2 and K3
-   are the split-K kernels (a cluster of blocks per slot, merged inside
-   the launch).
+   are the pipelined kernels (256 threads per slot and head, two keys in
+   flight a thread).
    The owner flash-decode kernels K1 (bf16/fp32 pool) and K2 (int8 pool) run
    at the serving shapes (16 slots, 12 layers, 8 heads of 64, 64-token
    blocks, 14-block regions in a 256-block pool, inactive slots, positions

@@ -1,9 +1,9 @@
 """The CUDA kernels on the card against their plain PyTorch versions: the
 owner flash-decode K1/K2, the stream flash-decode K3/K4 and the block-table
 flash-decode K7 at the serving shapes (K7 also against K1 and K3 where
-they compute the same function; the split-K kernels K2/K3 also at their
-tile and split edges, and call to call bit for bit) and the VQ
-nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports
+they compute the same function; the pipelined kernels K2/K3 also where a
+thread's keys run out, under other bounds, and call to call bit for bit)
+and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports
 no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
@@ -119,14 +119,13 @@ class TestKernelsOnCard:
                 t_pa.paged_flash_decode(*bad)
         assert t_pa.paged_flash_decode.launches == before
 
-    # K2 positions hitting the split-K kernel's edges (int8 rows: 32-row
-    # tiles, 16 splits on an H100 at 16 slots): position 0, the last row of
-    # a tile, of the first round of splits (16 tiles) and of a full
-    # 14-block region, one row past a tile, a prefix of one tile shared by
-    # all splits (the others empty), and every slot inactive
+    # K2 positions at the pipelined kernel's edges (256 threads, two keys
+    # in flight a thread): position 0, the last position of one, two and
+    # three keys a thread (255, 511, 767) and one past each (256, 768), a
+    # full 14-block region (895), an inactive slot; every slot inactive
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("edges", [
-        [0, 31, 511, 895, 32, 5, -1, 63],
+        [0, 255, 511, 895, 256, 767, -1, 768],
         [895] * 8,
         [-1] * 8,
     ], ids=["edges", "full_regions", "all_inactive"])
@@ -145,10 +144,10 @@ class TestKernelsOnCard:
     @staticmethod
     def _stream_edge_case(dtype, card, bound):
         """K3 at ``stream_serving_case`` cut to ``bound`` blocks, slot 4's
-        mask replaced: blocks 21-24 fully visible (inside one split's scan
-        range at every bound here), block 25 visible on its first 10 keys
-        only, and every other key of block 26 (masked keys inside a live
-        block)."""
+        mask replaced: blocks 21-24 fully visible (256 keys, one a thread),
+        block 25 visible on its first 10 keys only, and every other key of
+        block 26 (masked keys inside a live block, a second key for some
+        threads)."""
         args = t_pa.stream_serving_case(False, dtype, card)
         vis = args[-3].clone()
         vis[4] = 0
@@ -161,9 +160,9 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("bound", [320, 64, 37])
     def test_stream_split_edges(self, card, dtype, bound):
-        """K3 under bounds of 320, 64 and 37 blocks (a bound no split count
-        divides), a slot whose live blocks lie in one split's share and end
-        partly masked, rows with no visible key (zeros)."""
+        """K3 under bounds of 320 (two rounds of 256 blocks' mask scan), 64
+        and 37 blocks, a slot whose live blocks end partly masked, rows with
+        no visible key (zeros)."""
         args = self._stream_edge_case(dtype, card, bound)
         empty = ~(args[-3] != 0).any(1)
         err, ok = t_pa.compare_with_plain(
@@ -174,8 +173,8 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("kernel", ["K2", "K3"])
     def test_split_kernels_repeat_bit_for_bit(self, card, dtype, kernel):
-        """Three back-to-back calls give the same bits: the partial states
-        merge in split order."""
+        """Three back-to-back calls give the same bits: the threads' partial
+        states merge in a fixed order."""
         if kernel == "K2":
             fn, args = (t_pa.paged_flash_decode_owner_q8,
                         t_pa.serving_case(True, dtype, card))

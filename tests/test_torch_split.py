@@ -1,12 +1,15 @@
-"""The split-K arithmetic of K2 and K3 on the CPU: ``split_merge_ref``
+"""The decode kernels' partial-state arithmetic on the CPU: ``split_merge``
 computes the owner int8 decode (K2) and the stream decode (K3) as P
-per-split partial states, tile g of a slot going to split g % P, merged in
-split order, as the CUDA kernels do. It is held against the unchanged plain
-versions (fp32, within 1e-6) for P in {1, 2, 3, 8, 14}, with splits left
-empty, an inactive slot and a row with no visible key (exact zeros, no
-NaN), and against the JAX package's Pallas kernels in interpret mode
-(atol/rtol 1e-4, another reduction order). The kernels themselves are held
-against the plain versions on the card in tests/test_torch_kernels_cuda.py.
+partial states, tile g of a slot's keys going to state g % P, each an
+online softmax (running max, denominator, p-weighted V sum), merged in
+state order. The CUDA kernels do this with P = the threads of a (slot,
+head) block and tiles of one key. It is held against the plain versions
+(fp32, within 1e-6) for P in {1, 2, 3, 8, 14} and at a kernel's 256
+threads, with states left empty, an inactive slot and a row with no
+visible key (exact zeros, no NaN), and against the JAX package's Pallas
+kernels in interpret mode (atol/rtol 1e-4, another reduction order). The
+kernels themselves are held against the plain versions on the card in
+tests/test_torch_kernels_cuda.py.
 """
 import numpy as np
 import pytest
@@ -25,6 +28,80 @@ TABLES = [[3, 9, 5], [], [15], [1, 12]]
 STREAM_INDEX = np.array([9, 0, 2, 7], np.int32)
 SPLITS = [1, 2, 3, 8, 14]
 EXACT = dict(atol=1e-6, rtol=1e-6)
+
+
+
+def _slot_tiles(bs, rows, stream, start=None, last=None, seen=None):
+    """The (first row in the layer, rows) of one slot's tiles in the order
+    they are dealt out: owner, positions 0..last from the region's first
+    row in tiles of ``rows``; stream, each block holding a visible key in
+    ``seen`` (bool, the slot's mask row), in block order, cut into tiles of
+    ``rows``."""
+    if not stream:
+        n_pos = max(last + 1, 0)
+        return [(start * bs + g, min(rows, n_pos - g))
+                for g in range(0, n_pos, rows)]
+    live = seen.reshape(-1, bs).any(1).nonzero().flatten().tolist()
+    return [(b * bs + off, min(rows, bs - off))
+            for b in live for off in range(0, bs, rows)]
+
+
+def split_merge(q, kpool, vpool, li, splits, start_block=None, index=None,
+                vis=None, k_scale=None, v_scale=None, num_active_blocks=None,
+                rows=1):
+    """K2's function (``start_block``/``index`` and the int8 pool's
+    ``k_scale``/``v_scale``) or K3's (``vis``, the bound
+    ``num_active_blocks``) as ``splits`` partial states, tile g of a slot
+    (``rows`` keys) going to state g % ``splits``, merged in state order. A
+    state with no key holds m = -inf, l = 0 and adds nothing; a slot with no
+    key returns zeros. fp32 throughout, the output in q's dtype."""
+    stream = vis is not None
+    bs = kpool.shape[2]
+    if stream:
+        nb = kpool.shape[1] if num_active_blocks is None \
+            else int(num_active_blocks)
+        seen_all = vis[:, :nb * bs] != 0
+    s_slots, h, hd = q.shape
+    k_layer = kpool[li].reshape(-1, h, hd).float()
+    v_layer = vpool[li].reshape(-1, h, hd).float()
+    ksc = None if k_scale is None else k_scale.reshape(-1).float()
+    vsc = None if v_scale is None else v_scale.reshape(-1).float()
+    out = torch.zeros(s_slots, h, hd)
+    for s in range(s_slots):
+        tiles = _slot_tiles(
+            bs, rows, stream,
+            start=None if stream else int(start_block[s]),
+            last=None if stream else int(index[s]),
+            seen=seen_all[s] if stream else None)
+        parts = []
+        for r in range(splits):
+            toks = [tok + i for tok, n in tiles[r::splits] for i in range(n)]
+            toks = torch.tensor(toks, dtype=torch.long)
+            if stream and len(toks):
+                toks = toks[seen_all[s, toks]]
+            if not len(toks):
+                parts.append((torch.full((h,), -torch.inf), torch.zeros(h),
+                              torch.zeros(h, hd)))
+                continue
+            dots = torch.einsum("hd,phd->hp", q[s].float(), k_layer[toks])
+            logits = (dots * (ksc[toks] * hd ** -0.5) if ksc is not None
+                      else dots * hd ** -0.5)
+            m = logits.max(1).values
+            p = torch.exp(logits - m[:, None])
+            pv = p * vsc[toks] if vsc is not None else p
+            parts.append((m, p.sum(1),
+                          torch.einsum("hp,phd->hd", pv, v_layer[toks])))
+        big = torch.stack([m for m, _, _ in parts]).max(0).values
+        if bool(torch.isinf(big).all()):
+            continue  # no key at all: zeros
+        num = torch.zeros(h, hd)
+        den = torch.zeros(h)
+        for m, l, acc in parts:
+            w = torch.where(torch.isinf(m), 0.0, torch.exp(m - big))
+            num = num + acc * w[:, None]
+            den = den + l * w
+        out[s] = num / den[:, None]
+    return out.to(q.dtype)
 
 
 def _pools(seed, quant):
@@ -57,11 +134,10 @@ def _owner(seed=0, li=1):
     return [torch.as_tensor(x) for x in (q, k, v, ks, vs, START, INDEX)] + [li]
 
 
-def _mirror_owner(args, splits, rows=None):
+def _mirror_owner(args, splits, rows=1):
     q, k, v, ks, vs, start, index, li = args
-    return t_pa.split_merge_ref(q, k, v, li, splits, start_block=start,
-                                index=index, k_scale=ks, v_scale=vs,
-                                rows=rows)
+    return split_merge(q, k, v, li, splits, start_block=start, index=index,
+                       k_scale=ks, v_scale=vs, rows=rows)
 
 
 def _stream(seed=0, li=1, nb=NB):
@@ -69,10 +145,10 @@ def _stream(seed=0, li=1, nb=NB):
     return [torch.as_tensor(x) for x in (q, k, v, _vis(nb))] + [li, nb]
 
 
-def _mirror_stream(args, splits, rows=None):
+def _mirror_stream(args, splits, rows=1):
     q, k, v, vis, li, nb = args
-    return t_pa.split_merge_ref(q, k, v, li, splits, vis=vis,
-                                num_active_blocks=nb, rows=rows)
+    return split_merge(q, k, v, li, splits, vis=vis, num_active_blocks=nb,
+                       rows=rows)
 
 
 @pytest.mark.parametrize("splits", SPLITS)
@@ -129,7 +205,7 @@ def test_owner_mirror_matches_pallas(splits, li):
         jnp.asarray(q[:3]), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks),
         jnp.asarray(vs), jnp.asarray(start), jnp.asarray(index), li,
         num_heads=H, chunk_blocks=2, max_chunks=2, interpret=True)
-    got = t_pa.split_merge_ref(
+    got = split_merge(
         torch.as_tensor(q[:3]), torch.as_tensor(k), torch.as_tensor(v), li,
         splits, start_block=torch.as_tensor(start),
         index=torch.as_tensor(index), k_scale=torch.as_tensor(ks),
@@ -147,27 +223,23 @@ def test_stream_mirror_matches_pallas(splits, li):
     want = j_pa.paged_flash_decode_stream_flat(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vis), li,
         num_heads=H, chunk_blocks=4, num_active_blocks=NB, interpret=True)
-    got = t_pa.split_merge_ref(torch.as_tensor(q), torch.as_tensor(k),
-                               torch.as_tensor(v), li, splits,
-                               vis=torch.as_tensor(vis), rows=2)
+    got = split_merge(torch.as_tensor(q), torch.as_tensor(k),
+                      torch.as_tensor(v), li, splits,
+                      vis=torch.as_tensor(vis), rows=2)
     seen = (vis != 0).any(1)
     np.testing.assert_allclose(got.numpy()[seen], np.asarray(want)[seen],
                                **TOL)
 
 
 def test_split_plan():
-    """Splits from the slot and SM counts (two blocks per SM, at most 16
-    for the owner kernel and 8 for the stream kernel); tile rows from the
-    row width (32 int8 or bf16 rows a tile at 8 heads of 64, 16 fp32 in the
-    stream kernel), a stream tile never past its block."""
-    assert t_pa.split_count(16, 132, stream=False) == 16
-    assert t_pa.split_count(16, 132, stream=True) == 8
-    assert t_pa.split_count(64, 132, stream=False) == 5
-    assert t_pa.split_count(1024, 132, stream=True) == 1
-    pool = {dt: torch.zeros(1, 2, 64, 512, dtype=dt)
-            for dt in (torch.int8, torch.bfloat16, torch.float32)}
-    assert t_pa.tile_rows(pool[torch.int8], stream=False) == 32
-    assert t_pa.tile_rows(pool[torch.bfloat16], stream=True) == 32
-    assert t_pa.tile_rows(pool[torch.float32], stream=True) == 16
-    assert t_pa.tile_rows(torch.zeros(1, 2, 16, 512, dtype=torch.int8),
-                          stream=True) == 16
+    """The kernels' own dealing: each of a (slot, head) block's 256 threads
+    keeps the state of keys t, t + 256, ... (tiles of one key), most of
+    them empty at these sizes; the merge equals the plain K2 and K3."""
+    args = _owner()
+    np.testing.assert_allclose(
+        _mirror_owner(args, 256).numpy(),
+        t_pa.paged_flash_decode_owner_q8_ref(*args).numpy(), **EXACT)
+    args = _stream()
+    np.testing.assert_allclose(
+        _mirror_stream(args, 256).numpy(),
+        t_pa.paged_flash_decode_stream_flat_ref(*args).numpy(), **EXACT)

@@ -34,89 +34,61 @@
 // about 17.6 MB per layer for 16 slots at 536 cached tokens in bf16 (half
 // that for int8). At 3.35 TB/s that is ~5 us per layer, so the kernels are
 // memory-bound and their time is set by how many bytes are in flight. The
-// arithmetic (two dot products of HD per visible key) is about one
-// operation per byte read, far below the ~295 operations per byte at which
-// bf16 tensor cores would be the limit: these are matrix-vector products
-// (one query row per slot and head), so no design here uses tensor cores.
-// The stream kernels also read the visibility mask (S * bound * BS bytes,
-// 20 KB per slot at a 320-block bound); the table kernel reads a slot's
-// table entries (4 bytes a block) once per head.
+// arithmetic (two dot products of HD per visible key) is negligible. The
+// stream kernels also read the visibility mask (S * bound * BS bytes, 20 KB
+// per slot at a 320-block bound), once per head; the table kernel reads a
+// slot's table entries (4 bytes a block) once per head.
 //
-// Two designs live here.
+// Two designs live here, both one thread block per (slot, head) in which
+// thread t keeps its own online-softmax state (running max, denominator,
+// HD accumulators) in registers for keys t, t + T, ..., so the key loop has
+// no cross-thread reduction, and the T states merge at the end.
 //
-// The split-K design (K2, K3; redesigned for Hopper). The grid is (split,
-// slot): P splits per slot, each split one 256-thread block, the P blocks
-// of a slot one thread-block cluster. P comes from the slot and SM counts
-// alone, never from a device value: enough blocks for two per SM, at most
-// 16 for K2 (a non-portable cluster size Hopper allows) and 8 for K3
-// (16-block clusters start microseconds apart, which K3's shorter tiles do
-// not repay). A split walks its share of the slot's tiles, tile g going to
-// split g % P; a tile is up to 32 whole token rows (all heads), contiguous
-// in the pool: owner positions p <= index[s] are rows start * BS + p, and
-// a stream tile is a span of one live block. K2 stages 16 KB K and V tiles
-// (32 int8 rows) three deep, K3 32 KB ones (32 bf16 rows, 16 fp32) two
-// deep, 96-128 KB in all. One thread issues each tile's K and V as two
-// cp.async.bulk copies (the 1-D TMA) completing on an mbarrier. Warp w
-// handles heads w, w + 8, ...: for the logits 4 lanes take a key (16
-// elements each, the query in registers) and two shuffles sum them; for
-// the softmax each lane takes one key (a warp max by shuffles, the
-// denominator kept per lane); for p.v 8 lanes take a key and 8 columns,
-// 4 keys a step, in 8 independent sums that meet by shuffles once a tile.
-// The pass and step loops stay rolled (small code). int8 values become
-// floats by a byte permute into 2^23's mantissa, exactly, without the
-// quarter-rate integer conversion. Each head's state (m, acc[HD], l per
-// lane) lives in shared memory. The stream kernel finds the slot's live
-// blocks first: every split scans the slot's whole mask row (16-byte
-// loads, all in flight, from L2) and compacts the blocks holding a visible
-// key in block order, so a slot's keys spread over its splits wherever its
-// blocks lie. Exchanging shares of the scan through distributed shared
-// memory, so that each mask byte is read once, cost a cluster barrier and
-// two remote round trips before the first copy, and measured slower.
-// Masked keys get no probability, and a tile with no visible key for the
-// slot leaves the state untouched, so the running max starts at -inf
-// without the exp(-inf - -inf) hazard. The merge happens inside the
-// launch: each split stores each head's state with st.async into the
-// shared memory of block h % P, the bytes completing on that block's
-// mbarrier; block r waits for its inbox and merges its heads in split
-// order (the result is bit-for-bit the same from call to call). A split
-// with no key holds m = -inf, l = 0 and adds nothing; a slot with no key
-// at all returns zeros. No workspace, no second launch. (A workspace of
-// split states with a per-slot arrival count, the last split merging,
-// measured ~3 us slower in isolation.)
+// The pipelined design (K2, K3; redesigned for Hopper). T = 256 threads (8
+// warps; 128 blocks at 16 slots fill the SMs one block each, with half the
+// keys per thread of 128 threads). A thread holds a key as its raw
+// 16-byte words (the K and V rows of its head, the int8 scales, the mask
+// byte) and issues the next key's loads before it computes this one: two
+// keys in flight per thread (254-255 registers, no spills; fp32 rows, 128
+// registers a key, go one at a time). The dot product runs in four
+// independent sums, int8 values become floats by a byte permute into 2^23's
+// mantissa (exact, two full-rate instructions instead of the quarter-rate
+// conversion), and K3 loads a key's mask byte beside its rows instead of
+// before them. The merge is a reduce-scatter of shuffles in each warp (lane
+// L ends with columns 2L, 2L + 1) and one shared-memory row per warp,
+// instead of 128 rows summed in series. On an H100 both kernels are faster
+// than the 128-thread design, alone and inside the decode step (PERF.md;
+// K2 by a third, K3 by a tenth). A split-K version (a thread-block cluster
+// of blocks per slot, all heads per block, K/V tiles by cp.async.bulk, the
+// merge in distributed shared memory) beat the old kernels alone but lost
+// to them inside the decode step, where its blocks started microseconds
+// apart, and was not kept.
 //
-// What still bounds the split-K kernels (clock64 and globaltimer stamps on
-// an H100): a 32-row tile takes ~3 K cycles of in-warp work, whether or
-// not the dot products run (latency-bound chains of shared-memory loads
-// and shuffles, 8-16 warps on an SM); neither moving the query to
-// registers, unrolling, nor one key per lane with register accumulators
-// shortened a tile. The launch and setup take ~2.5 K cycles, and the
-// blocks of a launch start up to 2.5-3 us apart in isolation and ~8 us
-// apart inside a decode step, where the old per-(slot, head) kernels stay
-// faster (PERF.md); the cause is not found yet.
-//
-// The per-(slot, head) design (K1, K4, K7). One thread block per (slot, head), 128 threads. Thread t keeps
-// its own online-softmax state (running max, denominator, HD accumulators)
-// in registers, so the key loop has no cross-thread reduction; each thread
-// reads whole K and V rows with 16-byte (8-element) loads, all issued before
-// they are used; at the end the 128 partial states merge through shared
-// memory. The owner kernel walks positions t, t+128, ... up to index[s].
+// The per-(slot, head) design of the first port (K1, K4, K7). T = 128
+// threads; each thread reads whole K and V rows with 16-byte (8-element)
+// loads, all issued before they are used, one key at a time; at the end the
+// 128 partial states merge through shared memory (64 threads each adding
+// 128 rows). The owner kernel walks positions t, t+128, ... up to index[s].
 // The table kernel walks positions the same way (one code path, templated
 // on the map from a position to its row); it first stages the table
 // entries its positions reach in shared memory, so each position costs one
 // shared-memory read before its K/V rows. The TPU kernel runs one grid step
 // per (slot, logical block), all heads at once, and carries the softmax
 // state between steps in scratch; here the block loop is inside the thread
-// block and the heads are split over blocks. The int8 stream kernel (K4)
-// finds, 128 physical blocks at a time, the blocks holding any visible key
-// for its slot (16-byte mask loads, a warp ballot and a block-wide
-// compaction into shared memory), then spreads those blocks' keys over its
-// threads and skips the masked ones. This design keeps one block of 4 warps
-// per SM at 16 slots with one key in flight per thread, and ends in a
-// serial 128-row merge: latency-bound at 3-9x its bound.
-//
-// The Mosaic chunk rules of the TPU stream kernels (chunk * BS a multiple
-// of 128, the bound divisible by the chunk) have no counterpart: the bound
-// is any block count up to the pool's.
+// block and the heads are split over blocks.
+// The TPU stream kernel walks the prefix in chunks with all slots at once
+// (one program, one core); a slot owns a few percent of a serving prefix,
+// so here each (slot, head) block of K3 and K4 first finds, T physical
+// blocks at a time, the blocks holding any visible key for its slot
+// (16-byte mask loads, a warp ballot and a block-wide compaction into
+// shared memory), then spreads those blocks' keys over its threads and
+// skips the masked ones. Fully masked blocks cost one mask read and no K/V
+// traffic, and no masked key enters the softmax state, so the running max
+// starts at -inf without the exp(-inf - -inf) hazard. The Mosaic chunk
+// rules (chunk * BS a multiple of 128, the bound divisible by the chunk)
+// have no counterpart: the bound is any block count up to the pool's.
+// Tensor cores are not used: with one query row per (slot, head), QK^T and
+// p.v are matrix-vector products at about one operation per byte read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -240,7 +212,7 @@ __device__ __forceinline__ void merge_store(float m, float l, const float* acc,
 }
 
 // Token row inside the layer (block * BS + offset) of a slot's position p.
-// K1/K2: the slot's contiguous region, from its first block.
+// K1: the slot's contiguous region, from its first block.
 struct RegionRows {
   long long start;
   int block_size;
@@ -261,21 +233,20 @@ struct TableRows {
 
 // The flash decode of one (slot, head) over positions 0..last, thread t
 // taking positions t, t+128, ...; `rows` maps a position to its token row.
-// QT: query/output type; KT: pool element type; kQ8: int8 pool with scales.
-template <typename QT, typename KT, bool kQ8, typename Rows>
+// QT: the query, output and pool element type (bf16 or fp32).
+template <typename QT, typename Rows>
 __device__ __forceinline__ void decode_positions(
-    const QT* __restrict__ q, const KT* __restrict__ kpool,
-    const KT* __restrict__ vpool, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, Rows rows, int last,
-    QT* __restrict__ out, int s, int h, int num_heads, int num_blocks,
-    int block_size, int layer, float scale) {
+    const QT* __restrict__ q, const QT* __restrict__ kpool,
+    const QT* __restrict__ vpool, Rows rows, int last, QT* __restrict__ out,
+    int s, int h, int num_heads, int num_blocks, int block_size, int layer,
+    float scale) {
   const long long row = static_cast<long long>(num_heads) * kHeadDim;
   // the layer's pool slice, offset to this head's columns
   const long long layer_off =
       static_cast<long long>(layer) * num_blocks * block_size * row +
       static_cast<long long>(h) * kHeadDim;
-  const KT* kbase = kpool + layer_off;
-  const KT* vbase = vpool + layer_off;
+  const QT* kbase = kpool + layer_off;
+  const QT* vbase = vpool + layer_off;
 
   __shared__ float qs[kHeadDim];
   load_query(q, s, h, num_heads, qs);
@@ -288,30 +259,26 @@ __device__ __forceinline__ void decode_positions(
 
   for (int p = threadIdx.x; p <= last; p += kThreads) {
     const long long tok = rows(p);
-    attend_key<KT, kQ8>(qs, kbase + tok * row, vbase + tok * row,
-                        kQ8 ? k_scale[tok] : 1.f, kQ8 ? v_scale[tok] : 1.f,
-                        scale, m, l, acc);
+    attend_key<QT, false>(qs, kbase + tok * row, vbase + tok * row, 1.f, 1.f,
+                          scale, m, l, acc);
   }
   merge_store(m, l, acc,
               out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-template <typename QT, typename KT, bool kQ8>
+template <typename QT>
 __global__ void __launch_bounds__(kThreads)
-owner_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
-                    const KT* __restrict__ vpool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
+owner_decode_kernel(const QT* __restrict__ q, const QT* __restrict__ kpool,
+                    const QT* __restrict__ vpool,
                     const int* __restrict__ start_block,
                     const int* __restrict__ index, QT* __restrict__ out,
                     int num_heads, int num_blocks, int block_size, int layer,
                     float scale) {
   const int s = blockIdx.x / num_heads;
   const int h = blockIdx.x % num_heads;
-  decode_positions<QT, KT, kQ8>(
-      q, kpool, vpool, k_scale, v_scale,
-      RegionRows{start_block[s], block_size}, index[s], out, s, h, num_heads,
-      num_blocks, block_size, layer, scale);
+  decode_positions(q, kpool, vpool, RegionRows{start_block[s], block_size},
+                   index[s], out, s, h, num_heads, num_blocks, block_size,
+                   layer, scale);
 }
 
 // One block per (slot, head). Dynamic shared memory: max_blocks ints.
@@ -337,15 +304,16 @@ table_decode_kernel(const QT* __restrict__ q, const QT* __restrict__ kpool,
     table[i] = slot_table[i];
   }
   __syncthreads();
-  decode_positions<QT, QT, false>(
-      q, kpool, vpool, nullptr, nullptr, TableRows{table, block_size}, last,
-      out, s, h, num_heads, num_blocks, block_size, layer, scale);
+  decode_positions(q, kpool, vpool, TableRows{table, block_size}, last, out,
+                   s, h, num_heads, num_blocks, block_size, layer, scale);
 }
 
-template <typename QT, typename KT, bool kQ8>
+// K4: the stream flash decode over an int8 pool with per-token scales.
+template <typename QT>
 __global__ void __launch_bounds__(kThreads)
-stream_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
-                     const KT* __restrict__ vpool,
+stream_decode_kernel(const QT* __restrict__ q,
+                     const int8_t* __restrict__ kpool,
+                     const int8_t* __restrict__ vpool,
                      const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale,
                      const int8_t* __restrict__ vis, QT* __restrict__ out,
@@ -360,8 +328,8 @@ stream_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
   const long long layer_off =
       static_cast<long long>(layer) * num_blocks * block_size * row +
       static_cast<long long>(h) * kHeadDim;
-  const KT* kbase = kpool + layer_off;
-  const KT* vbase = vpool + layer_off;
+  const int8_t* kbase = kpool + layer_off;
+  const int8_t* vbase = vpool + layer_off;
   // the slot's row of the mask: one byte per key of the prefix
   const int8_t* seen = vis + static_cast<long long>(s) * bound * block_size;
 
@@ -408,9 +376,8 @@ stream_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
           static_cast<long long>(live[i / block_size]) * block_size +
           i % block_size;
       if (seen[tok] == 0) continue;
-      attend_key<KT, kQ8>(qs, kbase + tok * row, vbase + tok * row,
-                          kQ8 ? k_scale[tok] : 1.f, kQ8 ? v_scale[tok] : 1.f,
-                          scale, m, l, acc);
+      attend_key<int8_t, true>(qs, kbase + tok * row, vbase + tok * row,
+                               k_scale[tok], v_scale[tok], scale, m, l, acc);
     }
     __syncthreads();  // live[] and warp_live[] are rewritten next round
   }
@@ -419,107 +386,19 @@ stream_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
 }
 
 // ---------------------------------------------------------------------------
-// The split-K design (K2, K3): see the header.
+// The pipelined per-(slot, head) design (K2, K3): see the header.
 // ---------------------------------------------------------------------------
 
-constexpr int kSplitWarps = 8;
-constexpr int kSplitThreads = kSplitWarps * 32;
-// Tile stages in flight: three for the owner kernel (16 KB K and V tiles,
-// 32 int8 rows), two for the stream kernel (32 KB tiles: 32 bf16 rows, 16
-// fp32), 96-128 KB in all.
-template <bool kStream>
-__host__ __device__ constexpr int split_stages() {
-  return kStream ? 2 : 3;
-}
-constexpr int kInbox = kHeadDim + 2;  // one split's state of a head: m, l, acc
+constexpr int kPipeThreads = 256;  // 8 warps per (slot, head) block
+constexpr int kPipeWarps = kPipeThreads / 32;
 
-// Rows of a tile: at most 32 (one key a lane in the softmax). The logits
-// take 8 keys a pass (4 lanes a key, 16 elements a lane); p.v takes 4 keys
-// a step (8 lanes a key, 8 columns a lane). The pass and step loops stay
-// rolled.
-constexpr int kMaxTileRows = 32;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// This thread's arrival, announcing `bytes` of asynchronous copies to come.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the phase of `parity` to complete; a copy that never completes
-// traps (the launch fails) rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 1-D TMA copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from global to this block's shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// This block's shared-memory address `p` as the same address in block
-// `rank` of the cluster.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(smem_addr(p)), "r"(rank));
-  return out;
-}
-
-// Two floats into another block's shared memory (cluster address `addr`),
-// their 8 bytes completing on that block's mbarrier at `bar`.
-__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b,
-                                          uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
-      "{%1, %2}, [%3];" ::"r"(addr),
-      "f"(a), "f"(b), "r"(bar)
-      : "memory");
-}
-
-// The two halves of a cluster barrier: every thread of every block arrives,
-// and later waits for all to have arrived. The arrival is relaxed: it
-// orders no memory access (the mbarrier setup it publishes is fenced).
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
+// One head's K or V row (HD elements) as loaded: 16-byte words.
+template <typename KT>
+struct RawRow {
+  static constexpr int kWords = kHeadDim * static_cast<int>(sizeof(KT)) / 16;
+  static constexpr int kPerWord = 16 / static_cast<int>(sizeof(KT));
+  uint4 w[kWords];
+};
 
 // Four int8 values (one 32-bit word) as exact floats without the
 // quarter-rate integer conversion: each byte, offset to unsigned, becomes
@@ -533,16 +412,15 @@ __device__ __forceinline__ void i8x4_to_float(uint32_t word, float* out) {
   }
 }
 
-// 8 elements of a row in shared memory as floats.
-__device__ __forceinline__ void row8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+// The elements of one 16-byte word as floats.
+__device__ __forceinline__ void word_to_float(const uint4& w, float* out,
+                                              const float*) {
+  out[0] = __uint_as_float(w.x); out[1] = __uint_as_float(w.y);
+  out[2] = __uint_as_float(w.z); out[3] = __uint_as_float(w.w);
 }
-__device__ __forceinline__ void row8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void word_to_float(const uint4& w, float* out,
+                                              const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -550,499 +428,354 @@ __device__ __forceinline__ void row8(const __nv_bfloat16* p, float* out) {
     out[2 * i + 1] = f.y;
   }
 }
-__device__ __forceinline__ void row8(const int8_t* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  i8x4_to_float(raw.x, out);
-  i8x4_to_float(raw.y, out + 4);
+__device__ __forceinline__ void word_to_float(const uint4& w, float* out,
+                                              const int8_t*) {
+  i8x4_to_float(w.x, out);
+  i8x4_to_float(w.y, out + 4);
+  i8x4_to_float(w.z, out + 8);
+  i8x4_to_float(w.w, out + 12);
 }
 
-// q . k over 16 elements: q (registers) against a key row's 16 elements in
-// shared memory, in four independent partial sums.
+// A key as one thread holds it between its load and its use: the raw K and
+// V rows of the head, the int8 scales, the mask byte.
 template <typename KT>
-__device__ __forceinline__ float dot16(const float* q, const KT* k) {
-  float kf[16];
-  row8(k, kf);
-  row8(k + 8, kf + 8);
-  float part[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    part[i] = fmaf(q[4 * i], kf[4 * i], q[4 * i + 1] * kf[4 * i + 1]) +
-              fmaf(q[4 * i + 2], kf[4 * i + 2], q[4 * i + 3] * kf[4 * i + 3]);
-  }
-  return (part[0] + part[1]) + (part[2] + part[3]);
-}
-
-// What a lane holds of its key of a tile (key `lane`), loaded one tile
-// ahead of its use: the mask byte (stream) and the int8 scales.
-struct TileKey {
+struct PipeKey {
+  RawRow<KT> k, v;
+  float k_sc, v_sc;
   int8_t seen;
-  float k_sc;
-  float v_sc;
 };
 
-// Bytes of dynamic shared memory one split block takes: the tile stages,
-// the query, the softmax state (m per head, l per lane, acc), the logits
-// and probabilities of each warp's tile,
-// the merge inbox and, for the stream kernel, the live-block lists.
-template <typename KT, bool kStream>
-size_t split_smem_bytes(int num_heads, int tile_rows, int bound, int splits) {
-  const size_t row = static_cast<size_t>(num_heads) * kHeadDim;
-  size_t bytes = split_stages<kStream>() * 2 * tile_rows * row * sizeof(KT);
-  bytes += sizeof(float) * (2 * row + num_heads + 32 * num_heads +
-                            kSplitWarps * kMaxTileRows);
-  bytes += sizeof(float) * ((num_heads + splits - 1) / splits) * splits *
-           kInbox;
-  if (kStream) bytes += sizeof(int) * bound;
-  return bytes;
+template <typename KT, bool kQ8, bool kMask>
+__device__ __forceinline__ void fetch_key(const KT* kbase, const KT* vbase,
+                                          long long row, const float* k_scale,
+                                          const float* v_scale,
+                                          const int8_t* seen, long long tok,
+                                          PipeKey<KT>& key) {
+  const uint4* kw = reinterpret_cast<const uint4*>(kbase + tok * row);
+  const uint4* vw = reinterpret_cast<const uint4*>(vbase + tok * row);
+#pragma unroll
+  for (int i = 0; i < RawRow<KT>::kWords; ++i) key.k.w[i] = __ldg(kw + i);
+#pragma unroll
+  for (int i = 0; i < RawRow<KT>::kWords; ++i) key.v.w[i] = __ldg(vw + i);
+  key.k_sc = kQ8 ? __ldg(k_scale + tok) : 1.f;
+  key.v_sc = kQ8 ? __ldg(v_scale + tok) : 1.f;
+  key.seen = kMask ? seen[tok] : 1;
 }
 
-// One split of one slot (see the header). Grid (P, S), one cluster of P
-// blocks per slot; `tile_rows` <= kMaxTileRows (<= block_size for the
-// stream kernel).
-template <typename QT, typename KT, bool kQ8, bool kStream>
-__device__ __forceinline__ void split_decode(
-    const QT* __restrict__ q, const KT* __restrict__ kpool,
-    const KT* __restrict__ vpool, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ start_block,
-    const int* __restrict__ index, const int8_t* __restrict__ vis,
-    QT* __restrict__ out, int num_heads, int num_blocks, int block_size,
-    int bound, int layer, float scale, int tile_rows) {
-  constexpr int kStages = split_stages<kStream>();
-  const int split = blockIdx.x;  // the block's rank in its cluster
-  const int splits = gridDim.x;
-  const int s = blockIdx.y;
+// One key of the online softmax (as attend_key), from its raw rows; the dot
+// product in four independent sums. A masked key leaves the state as it is.
+template <typename KT, bool kQ8, bool kMask>
+__device__ __forceinline__ void attend_raw(const float* qs,
+                                           const PipeKey<KT>& key, float scale,
+                                           float& m, float& l, float* acc) {
+  if (kMask && key.seen == 0) return;
+  constexpr int kPer = RawRow<KT>::kPerWord;
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < RawRow<KT>::kWords; ++i) {
+    float kf[kPer];
+    word_to_float(key.k.w[i], kf, static_cast<const KT*>(nullptr));
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      part[e & 3] = fmaf(qs[i * kPer + e], kf[e], part[e & 3]);
+    }
+  }
+  const float dot = (part[0] + part[1]) + (part[2] + part[3]);
+  const float logit = kQ8 ? dot * (key.k_sc * scale) : dot * scale;
+  const float m_new = fmaxf(m, logit);
+  const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
+  const float prob = expf(logit - m_new);
+  l = l * alpha + prob;
+  const float pv = kQ8 ? prob * key.v_sc : prob;
+#pragma unroll
+  for (int i = 0; i < RawRow<KT>::kWords; ++i) {
+    float vf[kPer];
+    word_to_float(key.v.w[i], vf, static_cast<const KT*>(nullptr));
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      acc[i * kPer + e] = fmaf(acc[i * kPer + e], alpha, pv * vf[e]);
+    }
+  }
+  m = m_new;
+}
+
+// Keys j = t, t + 256, ... below n (token row tok_of(j) in the layer), into
+// this thread's softmax state. For 1- and 2-byte pools the next key's loads
+// are issued before this key is computed (two keys in flight a thread);
+// fp32 rows (128 registers a key) are loaded one key at a time.
+template <typename KT, bool kQ8, bool kMask, typename TokOf>
+__device__ __forceinline__ void walk_keys(int n, TokOf tok_of,
+                                          const float* qs, const KT* kbase,
+                                          const KT* vbase, long long row,
+                                          const float* k_scale,
+                                          const float* v_scale,
+                                          const int8_t* seen, float scale,
+                                          float& m, float& l, float* acc) {
+  PipeKey<KT> a;
+  int j = threadIdx.x;
+  if constexpr (sizeof(KT) < 4) {
+    PipeKey<KT> b;
+    if (j < n) {
+      fetch_key<KT, kQ8, kMask>(kbase, vbase, row, k_scale, v_scale, seen,
+                                tok_of(j), a);
+    }
+    for (; j < n; j += 2 * kPipeThreads) {
+      if (j + kPipeThreads < n) {
+        fetch_key<KT, kQ8, kMask>(kbase, vbase, row, k_scale, v_scale, seen,
+                                  tok_of(j + kPipeThreads), b);
+      }
+      attend_raw<KT, kQ8, kMask>(qs, a, scale, m, l, acc);
+      if (j + kPipeThreads >= n) break;
+      if (j + 2 * kPipeThreads < n) {
+        fetch_key<KT, kQ8, kMask>(kbase, vbase, row, k_scale, v_scale, seen,
+                                  tok_of(j + 2 * kPipeThreads), a);
+      }
+      attend_raw<KT, kQ8, kMask>(qs, b, scale, m, l, acc);
+    }
+  } else {
+    for (; j < n; j += kPipeThreads) {
+      fetch_key<KT, kQ8, kMask>(kbase, vbase, row, k_scale, v_scale, seen,
+                                tok_of(j), a);
+      attend_raw<KT, kQ8, kMask>(qs, a, scale, m, l, acc);
+    }
+  }
+}
+
+// One halving of a warp's reduce-scatter of acc: lanes with bit kHalf / 2
+// set keep the upper kHalf values and take their partner's, the others the
+// lower ones; acc[0, kHalf) then holds the pair's sums.
+template <int kHalf>
+__device__ __forceinline__ void fold_half(float* acc, int lane) {
+  const bool upper = (lane & (kHalf / 2)) != 0;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const float keep = upper ? acc[j + kHalf] : acc[j];
+    const float send = upper ? acc[j] : acc[j + kHalf];
+    acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, kHalf / 2);
+  }
+}
+
+// Merge the 256 threads' softmax states and write the (slot, head) output
+// row; zeros where no thread saw a key. Each warp sums its lanes' rescaled
+// accumulators by a reduce-scatter of shuffles (lane L ends with columns 2L
+// and 2L + 1), then 64 threads add the 8 warps' rows.
+template <typename QT>
+__device__ __forceinline__ void merge_store_pipe(float m, float l, float* acc,
+                                                 QT* orow) {
+  __shared__ float warp_max[kPipeWarps];
+  __shared__ float warp_den[kPipeWarps];
+  __shared__ float warp_acc[kPipeWarps][kHeadDim];
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int heads = num_heads;
-  const int row = heads * kHeadDim;  // elements of a token row
-  const long long tile_elems = static_cast<long long>(tile_rows) * row;
-  // heads this block merges: split, split + P, ...
-  const int merged = split < heads ? (heads - split + splits - 1) / splits : 0;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  KT* tiles = reinterpret_cast<KT*>(smem);  // kStages x (K tile, V tile)
-  float* qs = reinterpret_cast<float*>(smem + kStages * 2 * tile_elems *
-                                                  sizeof(KT));
-  float* acc_s = qs + row;           // per head: p-weighted V sum (HD),
-  float* m_s = acc_s + row;          // running max,
-  float* lane_l = m_s + heads;       // denominator by lane (32)
-  float* p_s = lane_l + 32 * heads;  // per warp: logits, then weights
-  // entry (k, r): split r's state (m, l, acc) of head split + k * P
-  float* inbox = p_s + kSplitWarps * kMaxTileRows;
-  int* live = reinterpret_cast<int*>(
-      inbox + ((heads + splits - 1) / splits) * splits * kInbox);
-  __shared__ uint64_t bars[kStages];
-  __shared__ uint64_t merge_bar;  // completes when the inbox is full
-  __shared__ long long tile_tok[kStages];  // a stage's first row in the layer
-  __shared__ int tile_n[kStages];          // and its rows
-  __shared__ int warp_count[kSplitWarps];
-
-  const long long layer_rows =
-      static_cast<long long>(layer) * num_blocks * block_size;
-  const KT* kbase = kpool + layer_rows * row;
-  const KT* vbase = vpool + layer_rows * row;
-  if (t == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(&bars[i], 1);
-    mbar_init(&merge_bar, 1);
-    mbar_expect_tx(&merge_bar, merged * splits * kInbox * sizeof(float));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // every block's merge barrier is set up before any split stores to it:
-  // each waits for this arrival before its merge
-  cluster_arrive_relaxed();
-  const QT* qrow = q + static_cast<long long>(s) * row;
-  for (int i = t; i < row; i += kSplitThreads) {
-    qs[i] = to_float(qrow[i]);
-    acc_s[i] = 0.f;
-  }
-  for (int i = t; i < 32 * heads; i += kSplitThreads) lane_l[i] = 0.f;
-  for (int h = t; h < heads; h += kSplitThreads) m_s[h] = -INFINITY;
-
-  // the slot's tiles: `total` of them, tile g going to split g % P
-  int total = 0;
-  int n_pos = 0;              // owner: positions 0..index[s]
-  long long region_row = 0;   // owner: the row of position 0
-  const int8_t* seen = nullptr;  // stream: the slot's row of the mask
-  const int tiles_per_block = (block_size + tile_rows - 1) / tile_rows;
-  if constexpr (!kStream) {
-    n_pos = max(index[s] + 1, 0);
-    region_row = static_cast<long long>(start_block[s]) * block_size;
-    total = (n_pos + tile_rows - 1) / tile_rows;
-  } else {
-    // the slot's blocks with a visible key, compacted in block order into
-    // live[]: every split scans the whole row of the mask (from L2), which
-    // costs less than exchanging the splits' shares through the cluster.
-    // Thread t checks blocks t, t + 256, ... (16-byte loads, all in
-    // flight), then the rounds compact them
-    seen = vis + static_cast<long long>(s) * bound * block_size;
-    const int rounds = (bound + kSplitThreads - 1) / kSplitThreads;
-    int count = 0;
-    for (int r0 = 0; r0 < rounds; r0 += 32) {
-      uint32_t bits = 0;  // round r0 + j: bit j
-#pragma unroll 4
-      for (int j = 0; j < 32 && r0 + j < rounds; ++j) {
-        const int b = (r0 + j) * kSplitThreads + t;
-        if (b < bound) {
-          const uint4* words = reinterpret_cast<const uint4*>(
-              seen + static_cast<long long>(b) * block_size);
-          uint32_t any = 0u;
-          for (int i = 0; i < block_size / 16; ++i) {
-            const uint4 w = words[i];
-            any |= w.x | w.y | w.z | w.w;
-          }
-          bits |= (any != 0u ? 1u : 0u) << j;
-        }
-      }
-      for (int j = 0; j < 32 && r0 + j < rounds; ++j) {
-        const bool any = (bits >> j) & 1u;
-        const unsigned ballot = __ballot_sync(0xffffffffu, any);
-        if (lane == 0) warp_count[warp] = __popc(ballot);
-        __syncthreads();
-        int offset = count;
-        int round = 0;
+  float wm = m;
 #pragma unroll
-        for (int w = 0; w < kSplitWarps; ++w) {
-          offset += (w < warp) ? warp_count[w] : 0;
-          round += warp_count[w];
-        }
-        if (any) {
-          live[offset + __popc(ballot & ((1u << lane) - 1u))] =
-              (r0 + j) * kSplitThreads + t;
-        }
-        count += round;
-        __syncthreads();  // warp_count is rewritten next round
-      }
-    }
-    total = count * tiles_per_block;
-  }
-  const int mine = total > split ? (total - split + splits - 1) / splits : 0;
-
-  // thread 0: tile i of this split into stage i % kStages
-  auto issue = [&](int i) {
-    const int g = split + i * splits;
-    const int st = i % kStages;
-    long long tok;
-    int n;
-    if constexpr (!kStream) {
-      tok = region_row + static_cast<long long>(g) * tile_rows;
-      n = min(tile_rows, n_pos - g * tile_rows);
-    } else {
-      const int sub = g % tiles_per_block;
-      tok = static_cast<long long>(live[g / tiles_per_block]) *
-                block_size + sub * tile_rows;
-      n = min(tile_rows, block_size - sub * tile_rows);
-    }
-    tile_tok[st] = tok;
-    tile_n[st] = n;
-    const uint32_t bytes = static_cast<uint32_t>(n * row * sizeof(KT));
-    KT* kt = tiles + st * 2 * tile_elems;
-    mbar_expect_tx(&bars[st], 2 * bytes);
-    bulk_load(kt, kbase + tok * row, bytes, &bars[st]);
-    bulk_load(kt + tile_elems, vbase + tok * row, bytes, &bars[st]);
-  };
-  // every lane: its key of tile i (issued, so described)
-  auto fetch = [&](int i) {
-    const int st = i % kStages;
-    const long long tok = tile_tok[st];
-    const bool in = lane < tile_n[st];
-    TileKey k;
-    k.seen = in ? 1 : 0;
-    if constexpr (kStream) k.seen = in ? seen[tok + lane] : 0;
-    k.k_sc = 0.f;
-    k.v_sc = 0.f;
-    if constexpr (kQ8) {
-      if (in) {
-        k.k_sc = k_scale[tok + lane];
-        k.v_sc = v_scale[tok + lane];
-      }
-    }
-    return k;
-  };
-
-  if (t == 0) {
-    for (int i = 0; i < min(kStages, mine); ++i) issue(i);
-  }
+  for (int o = 16; o > 0; o >>= 1) wm = fmaxf(wm, __shfl_xor_sync(0xffffffffu, wm, o));
+  if (lane == 0) warp_max[warp] = wm;
   __syncthreads();
-  TileKey cur{};
-  if (mine > 0) cur = fetch(0);
-  const int part = lane & 3;     // logits: the lane's 16 elements of a key
-  const int group = lane >> 3;   // p.v: the lane's key of each step
-  const int cols = 8 * (lane & 7);  // and its 8 columns
-  float* pw = p_s + warp * kMaxTileRows;
-  for (int i = 0; i < mine; ++i) {
-    const int st = i % kStages;
-    mbar_wait(&bars[st], (i / kStages) & 1);
-    const int n = tile_n[st];
-    const KT* kt = tiles + st * 2 * tile_elems;
-    const KT* vt = kt + tile_elems;
-    for (int h = warp; h < heads; h += kSplitWarps) {
-      float qf[16];
+  float big = warp_max[0];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = reinterpret_cast<const float4*>(
-            qs + h * kHeadDim + 16 * part)[j];
-        qf[4 * j] = v.x; qf[4 * j + 1] = v.y;
-        qf[4 * j + 2] = v.z; qf[4 * j + 3] = v.w;
-      }
-      // logits: 4 lanes a key, their partial dots summed by two shuffles.
-      // A row past n holds another tile's bytes (or none yet): its logit
-      // is masked below
-#pragma unroll 1
-      for (int a = 0; a < n; a += 8) {
-        const int key = a + (lane >> 2);
-        float dot = dot16(qf, kt + key * row + h * kHeadDim + 16 * part);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        if (part == 0) pw[key] = dot;
-      }
-      __syncwarp();
-      // softmax over the tile, one key a lane
-      const float sc = kQ8 ? cur.k_sc * scale : scale;
-      const float logit = cur.seen != 0 ? pw[lane] * sc : -INFINITY;
-      float tile_max = logit;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
-      }
-      if (tile_max == -INFINITY) continue;  // no visible key for this slot
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, tile_max);
-      const float alpha = expf(m_old - m_new);  // 0 on the first keys
-      const float p = expf(logit - m_new);      // 0 for a masked key
-      // each lane keeps its share of the denominator
-      lane_l[h * 32 + lane] = fmaf(lane_l[h * 32 + lane], alpha, p);
-      __syncwarp();  // every lane has read its logit
-      pw[lane] = kQ8 ? p * cur.v_sc : p;
-      __syncwarp();
-      // p.v: step j, lane group g takes key 4 j + g and 8 columns, in 8
-      // independent sums; the groups' sums meet by shuffles at the end
-      float sum[8] = {};
-#pragma unroll 2
-      for (int key = group; key < n; key += 4) {
-        const float w = pw[key];
-        float v[8];
-        row8(vt + key * row + h * kHeadDim + cols, v);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sum[e] = fmaf(w, v[e], sum[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 8);
-        sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 16);
-      }
-      if (group == 0) {
-        float4* accp = reinterpret_cast<float4*>(acc_s + h * kHeadDim + cols);
-        float4 a0 = accp[0];
-        float4 a1 = accp[1];
-        a0.x = fmaf(a0.x, alpha, sum[0]); a0.y = fmaf(a0.y, alpha, sum[1]);
-        a0.z = fmaf(a0.z, alpha, sum[2]); a0.w = fmaf(a0.w, alpha, sum[3]);
-        a1.x = fmaf(a1.x, alpha, sum[4]); a1.y = fmaf(a1.y, alpha, sum[5]);
-        a1.z = fmaf(a1.z, alpha, sum[6]); a1.w = fmaf(a1.w, alpha, sum[7]);
-        accp[0] = a0;
-        accp[1] = a1;
-      }
-      __syncwarp();  // every lane has read m_s[h]
-      if (lane == 0) m_s[h] = m_new;
-    }
-    __syncthreads();  // stage st is free; tile i+1 is described
-    // the next tile's key data, in flight while its bytes land and its
-    // logits are computed
-    if (i + 1 < mine) cur = fetch(i + 1);
-    if (t == 0 && i + kStages < mine) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      issue(i + kStages);
-    }
-  }
+  for (int w = 1; w < kPipeWarps; ++w) big = fmaxf(big, warp_max[w]);
 
-  // the merge. Each split stores each head's state (m, l from its lanes'
-  // shares, acc) into the inbox of block h % P with st.async, whose bytes
-  // complete on that block's merge barrier; block r waits for its inbox to
-  // fill and merges its heads in split order. A block exits only after
-  // its inbox is full, so no store reaches a block that has exited.
-  __syncthreads();  // acc_s and m_s are final
-  cluster_wait();  // every merge barrier is set up
-  for (int h = warp; h < heads; h += kSplitWarps) {
-    float l = lane_l[h * 32 + lane];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    const int dest = h % splits;
-    const float* box = inbox + ((h / splits) * splits + split) * kInbox;
-    const uint32_t bar = cluster_addr(&merge_bar, dest);
-    const float2 a = reinterpret_cast<const float2*>(acc_s + h * kHeadDim)[lane];
-    st_async2(cluster_addr(box + 2 + 2 * lane, dest), a.x, a.y, bar);
-    if (lane == 0) st_async2(cluster_addr(box, dest), m_s[h], l, bar);
+  if (big == -INFINITY) {  // no visible key: an inactive or empty row
+    if (t < kHeadDim) store(orow + t, 0.f);
+    return;
   }
-  mbar_wait(&merge_bar, 0);
-  for (int i = t; i < merged * kHeadDim; i += kSplitThreads) {
-    const int k = i / kHeadDim;
-    const int c = i % kHeadDim;
-    const int h = split + k * splits;
-    const float* box = inbox + k * splits * kInbox;
-    float big = -INFINITY;
-    for (int r = 0; r < splits; ++r) big = fmaxf(big, box[r * kInbox]);
-    float val = 0.f;  // a slot with no key
-    if (big != -INFINITY) {
-      float num = 0.f;
-      float den = 0.f;
-      for (int r = 0; r < splits; ++r) {
-        const float* state = box + r * kInbox;
-        if (state[0] == -INFINITY) continue;  // a split that saw no key
-        const float w = expf(state[0] - big);
-        num = fmaf(state[2 + c], w, num);
-        den = fmaf(state[1], w, den);
-      }
-      val = num * (1.f / den);
+  const float f = (m == -INFINITY) ? 0.f : expf(m - big);
+  float den = l * f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
+  if (lane == 0) warp_den[warp] = den;
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] *= f;
+  fold_half<32>(acc, lane);
+  fold_half<16>(acc, lane);
+  fold_half<8>(acc, lane);
+  fold_half<4>(acc, lane);
+  fold_half<2>(acc, lane);
+  warp_acc[warp][2 * lane] = acc[0];
+  warp_acc[warp][2 * lane + 1] = acc[1];
+  __syncthreads();
+  if (t < kHeadDim) {
+    float total = 0.f;
+    float denom = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPipeWarps; ++w) {
+      total += warp_acc[w][t];
+      denom += warp_den[w];
     }
-    store(out + static_cast<long long>(s) * row + h * kHeadDim + c, val);
+    store(orow + t, total * (1.f / denom));
   }
 }
 
-template <typename QT, typename KT, bool kQ8>
-__global__ void __launch_bounds__(kSplitThreads)
-owner_decode_kernel_split(const QT* __restrict__ q,
-                          const KT* __restrict__ kpool,
-                          const KT* __restrict__ vpool,
-                          const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale,
-                          const int* __restrict__ start_block,
-                          const int* __restrict__ index,
-                          const int8_t* __restrict__ vis,
-                          QT* __restrict__ out, int num_heads, int num_blocks,
-                          int block_size, int bound, int layer, float scale,
-                          int tile_rows) {
-  split_decode<QT, KT, kQ8, false>(q, kpool, vpool, k_scale, v_scale,
-                                   start_block, index, vis, out, num_heads,
-                                   num_blocks, block_size, bound, layer, scale,
-                                   tile_rows);
+// K2: the owner flash decode over an int8 pool; thread t takes positions
+// t, t + 256, ... <= index[s], rows start_block[s] * BS + p of the layer.
+template <typename QT>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+owner_decode_kernel_pipelined(const QT* __restrict__ q,
+                              const int8_t* __restrict__ kpool,
+                              const int8_t* __restrict__ vpool,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ start_block,
+                              const int* __restrict__ index,
+                              QT* __restrict__ out, int num_heads,
+                              int num_blocks, int block_size, int layer,
+                              float scale) {
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  const long long first = static_cast<long long>(start_block[s]) * block_size;
+  const int n = max(index[s] + 1, 0);
+
+  __shared__ float qs[kHeadDim];
+  load_query(q, s, h, num_heads, qs);
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+  walk_keys<int8_t, true, false>(
+      n, [&](int p) { return first + p; }, qs, kpool + layer_off,
+      vpool + layer_off, row, k_scale, v_scale, nullptr, scale, m, l, acc);
+  merge_store_pipe(m, l, acc,
+                   out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-template <typename QT, typename KT, bool kQ8>
-__global__ void __launch_bounds__(kSplitThreads)
-stream_decode_kernel_split(const QT* __restrict__ q,
-                           const KT* __restrict__ kpool,
-                           const KT* __restrict__ vpool,
-                           const float* __restrict__ k_scale,
-                           const float* __restrict__ v_scale,
-                           const int* __restrict__ start_block,
-                           const int* __restrict__ index,
-                           const int8_t* __restrict__ vis,
-                           QT* __restrict__ out, int num_heads, int num_blocks,
-                           int block_size, int bound, int layer, float scale,
-                           int tile_rows) {
-  split_decode<QT, KT, kQ8, true>(q, kpool, vpool, k_scale, v_scale,
-                                  start_block, index, vis, out, num_heads,
-                                  num_blocks, block_size, bound, layer, scale,
-                                  tile_rows);
-}
+// K3: the stream flash decode over a bf16 or fp32 pool. Each round finds
+// 256 physical blocks' live ones for the slot (as stream_decode_kernel),
+// then spreads their keys over the threads; a key's mask byte is loaded
+// with its rows, and a masked key is skipped when it is used.
+template <typename QT>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+stream_decode_kernel_pipelined(const QT* __restrict__ q,
+                               const QT* __restrict__ kpool,
+                               const QT* __restrict__ vpool,
+                               const int8_t* __restrict__ vis,
+                               QT* __restrict__ out, int num_heads,
+                               int num_blocks, int block_size, int bound,
+                               int layer, float scale) {
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  const int8_t* seen = vis + static_cast<long long>(s) * bound * block_size;
 
-// Launch a split kernel: grid (splits, slots), clusters of `splits` blocks,
-// `smem` bytes of dynamic shared memory (opted in above 48 KB once per
-// kernel: `opted` holds what was granted).
-template <typename QT, typename KT>
-int launch_split(void (*kernel)(const QT*, const KT*, const KT*, const float*,
-                                const float*, const int*, const int*,
-                                const int8_t*, QT*, int, int, int, int, int,
-                                float, int),
-                 int& opted, size_t smem, const void* q, const void* kpool,
-                 const void* vpool, const void* k_scale, const void* v_scale,
-                 const void* start_block, const void* index, const void* vis,
-                 void* out, int num_slots, int num_heads, int num_blocks,
-                 int block_size, int bound, int layer, float scale,
-                 int splits, int tile_rows, void* stream) {
-  if (static_cast<int>(smem) > opted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  __shared__ float qs[kHeadDim];
+  load_query(q, s, h, num_heads, qs);
+  __shared__ int live[kPipeThreads];
+  __shared__ int warp_live[kPipeWarps];
+
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kHeadDim];
+#pragma unroll
+  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
+
+  for (int base = 0; base < bound; base += kPipeThreads) {
+    const int b = base + t;
+    bool any = false;
+    if (b < bound) {
+      const uint4* words = reinterpret_cast<const uint4*>(
+          seen + static_cast<long long>(b) * block_size);
+      for (int i = 0; i < block_size / 16; ++i) {
+        const uint4 w = words[i];
+        any |= (w.x | w.y | w.z | w.w) != 0u;
+      }
     }
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted = static_cast<int>(smem);
+    const unsigned ballot = __ballot_sync(0xffffffffu, any);
+    if (lane == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int offset = 0;
+    int n_live = 0;
+#pragma unroll
+    for (int w = 0; w < kPipeWarps; ++w) {
+      offset += (w < warp) ? warp_live[w] : 0;
+      n_live += warp_live[w];
+    }
+    if (any) live[offset + __popc(ballot & ((1u << lane) - 1u))] = b;
+    __syncthreads();
+    walk_keys<QT, false, true>(
+        n_live * block_size,
+        [&](int i) {
+          return static_cast<long long>(live[i / block_size]) * block_size +
+                 i % block_size;
+        },
+        qs, kpool + layer_off, vpool + layer_off, row, nullptr, nullptr,
+        seen, scale, m, l, acc);
+    __syncthreads();  // live[] and warp_live[] are rewritten next round
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, num_slots);
-  cfg.blockDim = dim3(kSplitThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const QT*>(q), static_cast<const KT*>(kpool),
-      static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(start_block),
-      static_cast<const int*>(index), static_cast<const int8_t*>(vis),
-      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
-      scale, tile_rows);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  merge_store_pipe(m, l, acc,
+                   out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-template <typename QT, typename KT, bool kQ8>
-int launch_owner_split(const void* q, const void* kpool, const void* vpool,
-                       const void* k_scale, const void* v_scale,
-                       const void* start_block, const void* index, void* out,
-                       int num_slots, int num_heads, int num_blocks,
-                       int block_size, int layer, float scale, int splits,
-                       int tile_rows, void* stream) {
-  static int opted = 0;
-  return launch_split<QT, KT>(
-      owner_decode_kernel_split<QT, KT, kQ8>, opted,
-      split_smem_bytes<KT, false>(num_heads, tile_rows, 0, splits), q, kpool,
-      vpool, k_scale, v_scale, start_block, index, nullptr, out, num_slots,
-      num_heads, num_blocks, block_size, 0, layer, scale, splits, tile_rows,
-      stream);
-}
-
-template <typename QT, typename KT, bool kQ8>
-int launch_stream_split(const void* q, const void* kpool, const void* vpool,
-                        const void* k_scale, const void* v_scale,
-                        const void* vis, void* out, int num_slots,
-                        int num_heads, int num_blocks, int block_size,
-                        int bound, int layer, float scale, int splits,
-                        int tile_rows, void* stream) {
-  static int opted = 0;
-  return launch_split<QT, KT>(
-      stream_decode_kernel_split<QT, KT, kQ8>, opted,
-      split_smem_bytes<KT, true>(num_heads, tile_rows, bound, splits), q,
-      kpool, vpool, k_scale, v_scale, nullptr, nullptr, vis, out, num_slots,
-      num_heads, num_blocks, block_size, bound, layer, scale, splits,
-      tile_rows, stream);
-}
-
-template <typename QT, typename KT, bool kQ8>
-int launch_owner(const void* q, const void* kpool, const void* vpool,
-                 const void* k_scale, const void* v_scale,
-                 const void* start_block, const void* index, void* out,
-                 int num_slots, int num_heads, int num_blocks, int block_size,
-                 int layer, float scale, void* stream) {
-  const dim3 grid(num_slots * num_heads);
-  owner_decode_kernel<QT, KT, kQ8><<<grid, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kpool),
-      static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
+template <typename QT>
+int launch_owner_pipelined(const void* q, const void* kpool,
+                           const void* vpool, const void* k_scale,
+                           const void* v_scale, const void* start_block,
+                           const void* index, void* out, int num_slots,
+                           int num_heads, int num_blocks, int block_size,
+                           int layer, float scale, void* stream) {
+  owner_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
+      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(start_block),
       static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
       num_blocks, block_size, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT, typename KT, bool kQ8>
+template <typename QT>
+int launch_stream_pipelined(const void* q, const void* kpool,
+                            const void* vpool, const void* vis, void* out,
+                            int num_slots, int num_heads, int num_blocks,
+                            int block_size, int bound, int layer, float scale,
+                            void* stream) {
+  stream_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
+      static_cast<const QT*>(vpool), static_cast<const int8_t*>(vis),
+      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
+int launch_owner(const void* q, const void* kpool, const void* vpool,
+                 const void* start_block, const void* index, void* out,
+                 int num_slots, int num_heads, int num_blocks, int block_size,
+                 int layer, float scale, void* stream) {
+  const dim3 grid(num_slots * num_heads);
+  owner_decode_kernel<QT><<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
+      static_cast<const QT*>(vpool), static_cast<const int*>(start_block),
+      static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
+      num_blocks, block_size, layer, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
 int launch_stream(const void* q, const void* kpool, const void* vpool,
                   const void* k_scale, const void* v_scale, const void* vis,
                   void* out, int num_slots, int num_heads, int num_blocks,
                   int block_size, int bound, int layer, float scale,
                   void* stream) {
   const dim3 grid(num_slots * num_heads);
-  stream_decode_kernel<QT, KT, kQ8><<<grid, kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kpool),
-      static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
+  stream_decode_kernel<QT><<<grid, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
+      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
       static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
       scale);
@@ -1074,58 +807,58 @@ int owner_decode_f32(const void* q, const void* kpool, const void* vpool,
                      const void* start_block, const void* index, void* out,
                      int num_slots, int num_heads, int num_blocks,
                      int block_size, int layer, float scale, void* stream) {
-  return launch_owner<float, float, false>(
-      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
-      num_heads, num_blocks, block_size, layer, scale, stream);
+  return launch_owner<float>(q, kpool, vpool, start_block, index, out,
+                             num_slots, num_heads, num_blocks, block_size,
+                             layer, scale, stream);
 }
 
 int owner_decode_bf16(const void* q, const void* kpool, const void* vpool,
                       const void* start_block, const void* index, void* out,
                       int num_slots, int num_heads, int num_blocks,
                       int block_size, int layer, float scale, void* stream) {
-  return launch_owner<__nv_bfloat16, __nv_bfloat16, false>(
-      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
-      num_heads, num_blocks, block_size, layer, scale, stream);
+  return launch_owner<__nv_bfloat16>(q, kpool, vpool, start_block, index,
+                                     out, num_slots, num_heads, num_blocks,
+                                     block_size, layer, scale, stream);
 }
 
 int owner_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
-    const void* k_scale, const void* v_scale, const void* start_block,
-    const void* index, void* out, int num_slots, int num_heads,
-    int num_blocks, int block_size, int layer, float scale, int splits,
-    int tile_rows, void* stream) {
-  return launch_owner_split<float, int8_t, true>(
+                        const void* k_scale, const void* v_scale,
+                        const void* start_block, const void* index, void* out,
+                        int num_slots, int num_heads, int num_blocks,
+                        int block_size, int layer, float scale, void* stream) {
+  return launch_owner_pipelined<float>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
-      num_heads, num_blocks, block_size, layer, scale, splits, tile_rows,
-      stream);
+      num_heads, num_blocks, block_size, layer, scale, stream);
 }
 
 int owner_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
-    const void* k_scale, const void* v_scale, const void* start_block,
-    const void* index, void* out, int num_slots, int num_heads,
-    int num_blocks, int block_size, int layer, float scale, int splits,
-    int tile_rows, void* stream) {
-  return launch_owner_split<__nv_bfloat16, int8_t, true>(
+                         const void* k_scale, const void* v_scale,
+                         const void* start_block, const void* index, void* out,
+                         int num_slots, int num_heads, int num_blocks,
+                         int block_size, int layer, float scale, void* stream) {
+  return launch_owner_pipelined<__nv_bfloat16>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
-      num_heads, num_blocks, block_size, layer, scale, splits, tile_rows,
-      stream);
+      num_heads, num_blocks, block_size, layer, scale, stream);
 }
 
 int stream_decode_f32(const void* q, const void* kpool, const void* vpool,
-    const void* vis, void* out, int num_slots, int num_heads, int num_blocks,
-    int block_size, int bound, int layer, float scale, int splits,
-    int tile_rows, void* stream) {
-  return launch_stream_split<float, float, false>(
-      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
-      num_blocks, block_size, bound, layer, scale, splits, tile_rows, stream);
+                      const void* vis, void* out, int num_slots, int num_heads,
+                      int num_blocks, int block_size, int bound, int layer,
+                      float scale, void* stream) {
+  return launch_stream_pipelined<float>(q, kpool, vpool, vis, out,
+                                       num_slots, num_heads, num_blocks,
+                                       block_size, bound, layer, scale,
+                                       stream);
 }
 
 int stream_decode_bf16(const void* q, const void* kpool, const void* vpool,
-    const void* vis, void* out, int num_slots, int num_heads, int num_blocks,
-    int block_size, int bound, int layer, float scale, int splits,
-    int tile_rows, void* stream) {
-  return launch_stream_split<__nv_bfloat16, __nv_bfloat16, false>(
-      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
-      num_blocks, block_size, bound, layer, scale, splits, tile_rows, stream);
+                       const void* vis, void* out, int num_slots,
+                       int num_heads, int num_blocks, int block_size,
+                       int bound, int layer, float scale, void* stream) {
+  return launch_stream_pipelined<__nv_bfloat16>(q, kpool, vpool, vis, out,
+                                               num_slots, num_heads,
+                                               num_blocks, block_size, bound,
+                                               layer, scale, stream);
 }
 
 int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
@@ -1133,7 +866,7 @@ int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                          const void* vis, void* out, int num_slots,
                          int num_heads, int num_blocks, int block_size,
                          int bound, int layer, float scale, void* stream) {
-  return launch_stream<float, int8_t, true>(
+  return launch_stream<float>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }
@@ -1143,7 +876,7 @@ int stream_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                           const void* vis, void* out, int num_slots,
                           int num_heads, int num_blocks, int block_size,
                           int bound, int layer, float scale, void* stream) {
-  return launch_stream<__nv_bfloat16, int8_t, true>(
+  return launch_stream<__nv_bfloat16>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }

@@ -21,13 +21,6 @@ kernel for CUDA tensors and uses the plain PyTorch version beside it only for
 tensors on the CPU; there is no fallback from a failed launch. Each wrapper
 counts its launches in a plain integer attribute, ``<wrapper>.launches``.
 
-K2 and K3 are split-K kernels: a cluster of blocks per slot walks the
-slot's keys in tiles of whole token rows and merges its partial states
-inside the launch. The wrappers fix the split count and the tile rows from
-the slot count, the card's SM count and the pool's row width
-(:func:`split_count`, :func:`tile_rows`), never from a device value;
-:func:`split_merge_ref` repeats that arithmetic on the CPU for the tests.
-
 Owner semantics (K1/K2): q (S, H, hd); pools flat (L, NB, BS, H*hd);
 ``start_block`` (S,) int32, the first physical block of each slot's
 contiguous region; ``index`` (S,) int32, the last visible slot-local
@@ -211,23 +204,13 @@ def paged_flash_decode_ref(q, kpool, vpool, tables, index, li):
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _K1_ARGS = [_PTR] * 6 + [_INT] * 5 + [_FLOAT, _PTR]
-_K2_ARGS = [_PTR] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 2 + [_PTR]
-_K3_ARGS = [_PTR] * 5 + [_INT] * 6 + [_FLOAT] + [_INT] * 2 + [_PTR]
+_K2_ARGS = [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR]
+_K3_ARGS = [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR]
 _K4_ARGS = [_PTR] * 7 + [_INT] * 6 + [_FLOAT, _PTR]
 _K7_ARGS = [_PTR] * 6 + [_INT] * 6 + [_FLOAT, _PTR]
 # K7 stages a slot's table in shared memory beside the merge buffers (33 KB)
 # within the 48 KB a block gets without opting in
 MAX_TABLE_BLOCKS = 2048
-# The split-K kernels (K2, K3): each slot's keys are dealt out in tiles of
-# whole token rows to a cluster of blocks, up to 16 for the owner kernel (a
-# non-portable cluster size Hopper allows) and 8 for the stream kernel; a
-# tile holds TILE_BYTES of K (and as much of V), at most MAX_TILE_ROWS rows
-# (one key a lane in the softmax). The sizes are the fastest measured on an
-# H100 (PERF.md).
-MAX_SPLITS = {False: 16, True: 8}
-TILE_BYTES = {False: 16384, True: 32768}
-MAX_TILE_ROWS = 32
-_SM_COUNT: dict = {}
 
 
 def _library():
@@ -309,109 +292,6 @@ def _check_vis(q, kpool, vis, num_active_blocks):
     return nb
 
 
-def split_count(s_slots: int, sm_count: int, stream: bool) -> int:
-    """Splits per slot of a split-K kernel: enough blocks for two per SM,
-    at most ``MAX_SPLITS[stream]``. Fixed by the slot and SM counts alone,
-    never by a device value."""
-    per_sm = -(-2 * sm_count // max(s_slots, 1))
-    return max(1, min(MAX_SPLITS[stream], per_sm))
-
-
-def tile_rows(kpool, stream: bool) -> int:
-    """Token rows of a split-K tile: ``TILE_BYTES[stream]`` of rows, at most
-    ``MAX_TILE_ROWS``; a stream tile stays inside one block."""
-    row_bytes = kpool.shape[3] * kpool.element_size()
-    rows = max(1, min(MAX_TILE_ROWS, TILE_BYTES[stream] // row_bytes))
-    return min(rows, kpool.shape[2]) if stream else rows
-
-
-def _split_plan(q, kpool, stream):
-    """-> (splits, tile rows) of a split-K launch on q's card."""
-    dev = q.device.index if q.device.index is not None \
-        else torch.cuda.current_device()
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return (split_count(q.shape[0], _SM_COUNT[dev], stream),
-            tile_rows(kpool, stream))
-
-
-def _slot_tiles(bs, rows, stream, start=None, last=None, seen=None):
-    """The (first row in the layer, rows) of one slot's tiles in the order
-    the split-K kernels deal them out: owner, positions 0..last from the
-    region's first row in tiles of ``rows``; stream, each block holding a
-    visible key in ``seen`` (bool, the slot's mask row), in block order,
-    cut into tiles of ``rows``."""
-    if not stream:
-        n_pos = max(last + 1, 0)
-        return [(start * bs + g, min(rows, n_pos - g))
-                for g in range(0, n_pos, rows)]
-    live = seen.reshape(-1, bs).any(1).nonzero().flatten().tolist()
-    return [(b * bs + off, min(rows, bs - off))
-            for b in live for off in range(0, bs, rows)]
-
-
-def split_merge_ref(q, kpool, vpool, li, splits, start_block=None,
-                    index=None, vis=None, k_scale=None, v_scale=None,
-                    num_active_blocks=None, rows=None):
-    """The split-K kernels' arithmetic on the CPU, for the tests: K2's
-    function (``start_block``/``index`` and the int8 pool's ``k_scale``/
-    ``v_scale``) or K3's (``vis``, the bound ``num_active_blocks``) as
-    ``splits`` partial states, tile g of a slot going to split g %
-    ``splits``, each state (running max m, denominator l, p-weighted V sum)
-    over its keys, merged in split order. A split with no key holds m =
-    -inf, l = 0 and adds nothing; a slot with no key returns zeros. fp32
-    throughout, the output in q's dtype. ``rows`` overrides the tile rows
-    (default the kernels', :func:`tile_rows`)."""
-    stream = vis is not None
-    if stream:
-        nb = _stream_bound(q, kpool, vis, num_active_blocks)
-        seen_all = vis[:, :nb * kpool.shape[2]] != 0
-    s_slots, h, hd = q.shape
-    bs = kpool.shape[2]
-    rows = rows or tile_rows(kpool, stream)
-    k_layer = kpool[li].reshape(-1, h, hd).float()
-    v_layer = vpool[li].reshape(-1, h, hd).float()
-    ksc = None if k_scale is None else k_scale.reshape(-1).float()
-    vsc = None if v_scale is None else v_scale.reshape(-1).float()
-    out = torch.zeros(s_slots, h, hd)
-    for s in range(s_slots):
-        tiles = _slot_tiles(
-            bs, rows, stream,
-            start=None if stream else int(start_block[s]),
-            last=None if stream else int(index[s]),
-            seen=seen_all[s] if stream else None)
-        parts = []
-        for r in range(splits):
-            toks = [tok + i for tok, n in tiles[r::splits] for i in range(n)]
-            toks = torch.tensor(toks, dtype=torch.long)
-            if stream and len(toks):
-                toks = toks[seen_all[s, toks]]
-            if not len(toks):
-                parts.append((torch.full((h,), -torch.inf), torch.zeros(h),
-                              torch.zeros(h, hd)))
-                continue
-            dots = torch.einsum("hd,phd->hp", q[s].float(), k_layer[toks])
-            logits = (dots * (ksc[toks] * hd ** -0.5) if ksc is not None
-                      else dots * hd ** -0.5)
-            m = logits.max(1).values
-            p = torch.exp(logits - m[:, None])
-            pv = p * vsc[toks] if vsc is not None else p
-            parts.append((m, p.sum(1),
-                          torch.einsum("hp,phd->hd", pv, v_layer[toks])))
-        big = torch.stack([m for m, _, _ in parts]).max(0).values
-        if bool(torch.isinf(big).all()):
-            continue  # no key at all: zeros
-        num = torch.zeros(h, hd)
-        den = torch.zeros(h)
-        for m, l, acc in parts:
-            w = torch.where(torch.isinf(m), 0.0, torch.exp(m - big))
-            num = num + acc * w[:, None]
-            den = den + l * w
-        out[s] = num / den[:, None]
-    return out.to(q.dtype)
-
-
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
@@ -461,12 +341,10 @@ def paged_flash_decode_owner_q8(q, kpool, vpool, k_scale, v_scale,
         else lib.owner_decode_q8_f32
     s_slots, h, hd = q.shape
     out = torch.empty_like(q)
-    splits, rows = _split_plan(q, kpool, stream=False)
     rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), start_block.data_ptr(),
             index.data_ptr(), out.data_ptr(), s_slots, h, nb, bs, int(li),
-            hd ** -0.5, splits, rows,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode_owner_q8")
     paged_flash_decode_owner_q8.launches += 1
     return out
@@ -490,10 +368,9 @@ def paged_flash_decode_stream_flat(q, kpool, vpool, vis, li,
         else lib.stream_decode_f32
     s_slots, h, hd = q.shape
     out = torch.empty_like(q)
-    splits, rows = _split_plan(q, kpool, stream=True)
     rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), vis.data_ptr(),
             out.data_ptr(), s_slots, h, kpool.shape[1], kpool.shape[2], nb,
-            int(li), hd ** -0.5, splits, rows,
+            int(li), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode_stream_flat")
     paged_flash_decode_stream_flat.launches += 1
