@@ -266,21 +266,6 @@ __device__ __forceinline__ void decode_positions(
               out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-template <typename QT>
-__global__ void __launch_bounds__(kThreads)
-owner_decode_kernel(const QT* __restrict__ q, const QT* __restrict__ kpool,
-                    const QT* __restrict__ vpool,
-                    const int* __restrict__ start_block,
-                    const int* __restrict__ index, QT* __restrict__ out,
-                    int num_heads, int num_blocks, int block_size, int layer,
-                    float scale) {
-  const int s = blockIdx.x / num_heads;
-  const int h = blockIdx.x % num_heads;
-  decode_positions(q, kpool, vpool, RegionRows{start_block[s], block_size},
-                   index[s], out, s, h, num_heads, num_blocks, block_size,
-                   layer, scale);
-}
-
 // One block per (slot, head). Dynamic shared memory: max_blocks ints.
 template <typename QT>
 __global__ void __launch_bounds__(kThreads)
@@ -306,83 +291,6 @@ table_decode_kernel(const QT* __restrict__ q, const QT* __restrict__ kpool,
   __syncthreads();
   decode_positions(q, kpool, vpool, TableRows{table, block_size}, last, out,
                    s, h, num_heads, num_blocks, block_size, layer, scale);
-}
-
-// K4: the stream flash decode over an int8 pool with per-token scales.
-template <typename QT>
-__global__ void __launch_bounds__(kThreads)
-stream_decode_kernel(const QT* __restrict__ q,
-                     const int8_t* __restrict__ kpool,
-                     const int8_t* __restrict__ vpool,
-                     const float* __restrict__ k_scale,
-                     const float* __restrict__ v_scale,
-                     const int8_t* __restrict__ vis, QT* __restrict__ out,
-                     int num_heads, int num_blocks, int block_size, int bound,
-                     int layer, float scale) {
-  const int s = blockIdx.x / num_heads;
-  const int h = blockIdx.x % num_heads;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const long long row = static_cast<long long>(num_heads) * kHeadDim;
-  const long long layer_off =
-      static_cast<long long>(layer) * num_blocks * block_size * row +
-      static_cast<long long>(h) * kHeadDim;
-  const int8_t* kbase = kpool + layer_off;
-  const int8_t* vbase = vpool + layer_off;
-  // the slot's row of the mask: one byte per key of the prefix
-  const int8_t* seen = vis + static_cast<long long>(s) * bound * block_size;
-
-  __shared__ float qs[kHeadDim];
-  load_query(q, s, h, num_heads, qs);
-  __shared__ int live[kThreads];      // this round's blocks with a visible key
-  __shared__ int warp_live[kWarps];
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[kHeadDim];
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-
-  for (int base = 0; base < bound; base += kThreads) {
-    // thread t checks physical block base + t: any visible key in its
-    // block_size mask bytes (16 at a time)
-    const int b = base + t;
-    bool any = false;
-    if (b < bound) {
-      const uint4* words = reinterpret_cast<const uint4*>(
-          seen + static_cast<long long>(b) * block_size);
-      for (int i = 0; i < block_size / 16; ++i) {
-        const uint4 w = words[i];
-        any |= (w.x | w.y | w.z | w.w) != 0u;
-      }
-    }
-    // compact the live blocks into live[0, n_live), in block order
-    const unsigned ballot = __ballot_sync(0xffffffffu, any);
-    if (lane == 0) warp_live[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = 0;
-    int n_live = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      offset += (w < warp) ? warp_live[w] : 0;
-      n_live += warp_live[w];
-    }
-    if (any) live[offset + __popc(ballot & ((1u << lane) - 1u))] = b;
-    __syncthreads();
-    // the live blocks' keys, spread over the threads; masked keys skipped
-    for (int i = t; i < n_live * block_size; i += kThreads) {
-      const long long tok =
-          static_cast<long long>(live[i / block_size]) * block_size +
-          i % block_size;
-      if (seen[tok] == 0) continue;
-      attend_key<int8_t, true>(qs, kbase + tok * row, vbase + tok * row,
-                               k_scale[tok], v_scale[tok], scale, m, l, acc);
-    }
-    __syncthreads();  // live[] and warp_live[] are rewritten next round
-  }
-  merge_store(m, l, acc,
-              out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
 // ---------------------------------------------------------------------------
@@ -609,13 +517,14 @@ __device__ __forceinline__ void merge_store_pipe(float m, float l, float* acc,
   }
 }
 
-// K2: the owner flash decode over an int8 pool; thread t takes positions
-// t, t + 256, ... <= index[s], rows start_block[s] * BS + p of the layer.
-template <typename QT>
+// K1 (KT = QT) and K2 (KT = int8_t): the owner flash decode; thread t
+// takes positions t, t + 256, ... <= index[s], rows start_block[s] * BS + p
+// of the layer.
+template <typename QT, typename KT>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 owner_decode_kernel_pipelined(const QT* __restrict__ q,
-                              const int8_t* __restrict__ kpool,
-                              const int8_t* __restrict__ vpool,
+                              const KT* __restrict__ kpool,
+                              const KT* __restrict__ vpool,
                               const float* __restrict__ k_scale,
                               const float* __restrict__ v_scale,
                               const int* __restrict__ start_block,
@@ -623,6 +532,7 @@ owner_decode_kernel_pipelined(const QT* __restrict__ q,
                               QT* __restrict__ out, int num_heads,
                               int num_blocks, int block_size, int layer,
                               float scale) {
+  constexpr bool kQ8 = sizeof(KT) == 1;
   const int s = blockIdx.x / num_heads;
   const int h = blockIdx.x % num_heads;
   const long long row = static_cast<long long>(num_heads) * kHeadDim;
@@ -639,26 +549,29 @@ owner_decode_kernel_pipelined(const QT* __restrict__ q,
   float acc[kHeadDim];
 #pragma unroll
   for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-  walk_keys<int8_t, true, false>(
+  walk_keys<KT, kQ8, false>(
       n, [&](int p) { return first + p; }, qs, kpool + layer_off,
       vpool + layer_off, row, k_scale, v_scale, nullptr, scale, m, l, acc);
   merge_store_pipe(m, l, acc,
                    out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-// K3: the stream flash decode over a bf16 or fp32 pool. Each round finds
-// 256 physical blocks' live ones for the slot (as stream_decode_kernel),
-// then spreads their keys over the threads; a key's mask byte is loaded
-// with its rows, and a masked key is skipped when it is used.
-template <typename QT>
+// K3 (KT = QT) and K4 (KT = int8_t): the stream flash decode. Each round
+// finds 256 physical blocks' live ones for the slot, then spreads their
+// keys over the threads; a key's mask byte is loaded with its rows, and a
+// masked key is skipped when it is used.
+template <typename QT, typename KT>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 stream_decode_kernel_pipelined(const QT* __restrict__ q,
-                               const QT* __restrict__ kpool,
-                               const QT* __restrict__ vpool,
+                               const KT* __restrict__ kpool,
+                               const KT* __restrict__ vpool,
+                               const float* __restrict__ k_scale,
+                               const float* __restrict__ v_scale,
                                const int8_t* __restrict__ vis,
                                QT* __restrict__ out, int num_heads,
                                int num_blocks, int block_size, int bound,
                                int layer, float scale) {
+  constexpr bool kQ8 = sizeof(KT) == 1;
   const int s = blockIdx.x / num_heads;
   const int h = blockIdx.x % num_heads;
   const int t = threadIdx.x;
@@ -704,13 +617,13 @@ stream_decode_kernel_pipelined(const QT* __restrict__ q,
     }
     if (any) live[offset + __popc(ballot & ((1u << lane) - 1u))] = b;
     __syncthreads();
-    walk_keys<QT, false, true>(
+    walk_keys<KT, kQ8, true>(
         n_live * block_size,
         [&](int i) {
           return static_cast<long long>(live[i / block_size]) * block_size +
                  i % block_size;
         },
-        qs, kpool + layer_off, vpool + layer_off, row, nullptr, nullptr,
+        qs, kpool + layer_off, vpool + layer_off, row, k_scale, v_scale,
         seen, scale, m, l, acc);
     __syncthreads();  // live[] and warp_live[] are rewritten next round
   }
@@ -718,67 +631,40 @@ stream_decode_kernel_pipelined(const QT* __restrict__ q,
                    out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-template <typename QT>
+template <typename QT, typename KT>
 int launch_owner_pipelined(const void* q, const void* kpool,
                            const void* vpool, const void* k_scale,
                            const void* v_scale, const void* start_block,
                            const void* index, void* out, int num_slots,
                            int num_heads, int num_blocks, int block_size,
                            int layer, float scale, void* stream) {
-  owner_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
-      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(start_block),
-      static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
-      num_blocks, block_size, layer, scale);
+  owner_decode_kernel_pipelined<QT, KT>
+      <<<num_slots * num_heads, kPipeThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const QT*>(q), static_cast<const KT*>(kpool),
+          static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale),
+          static_cast<const int*>(start_block),
+          static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
+          num_blocks, block_size, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT>
+template <typename QT, typename KT>
 int launch_stream_pipelined(const void* q, const void* kpool,
-                            const void* vpool, const void* vis, void* out,
+                            const void* vpool, const void* k_scale,
+                            const void* v_scale, const void* vis, void* out,
                             int num_slots, int num_heads, int num_blocks,
                             int block_size, int bound, int layer, float scale,
                             void* stream) {
-  stream_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
-      static_cast<const QT*>(vpool), static_cast<const int8_t*>(vis),
-      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
-      scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename QT>
-int launch_owner(const void* q, const void* kpool, const void* vpool,
-                 const void* start_block, const void* index, void* out,
-                 int num_slots, int num_heads, int num_blocks, int block_size,
-                 int layer, float scale, void* stream) {
-  const dim3 grid(num_slots * num_heads);
-  owner_decode_kernel<QT><<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
-      static_cast<const QT*>(vpool), static_cast<const int*>(start_block),
-      static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
-      num_blocks, block_size, layer, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename QT>
-int launch_stream(const void* q, const void* kpool, const void* vpool,
-                  const void* k_scale, const void* v_scale, const void* vis,
-                  void* out, int num_slots, int num_heads, int num_blocks,
-                  int block_size, int bound, int layer, float scale,
-                  void* stream) {
-  const dim3 grid(num_slots * num_heads);
-  stream_decode_kernel<QT><<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
-      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
-      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
-      scale);
+  stream_decode_kernel_pipelined<QT, KT>
+      <<<num_slots * num_heads, kPipeThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const QT*>(q), static_cast<const KT*>(kpool),
+          static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
+          static_cast<QT*>(out), num_heads, num_blocks, block_size, bound,
+          layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -807,18 +693,18 @@ int owner_decode_f32(const void* q, const void* kpool, const void* vpool,
                      const void* start_block, const void* index, void* out,
                      int num_slots, int num_heads, int num_blocks,
                      int block_size, int layer, float scale, void* stream) {
-  return launch_owner<float>(q, kpool, vpool, start_block, index, out,
-                             num_slots, num_heads, num_blocks, block_size,
-                             layer, scale, stream);
+  return launch_owner_pipelined<float, float>(
+      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
+      num_heads, num_blocks, block_size, layer, scale, stream);
 }
 
 int owner_decode_bf16(const void* q, const void* kpool, const void* vpool,
                       const void* start_block, const void* index, void* out,
                       int num_slots, int num_heads, int num_blocks,
                       int block_size, int layer, float scale, void* stream) {
-  return launch_owner<__nv_bfloat16>(q, kpool, vpool, start_block, index,
-                                     out, num_slots, num_heads, num_blocks,
-                                     block_size, layer, scale, stream);
+  return launch_owner_pipelined<__nv_bfloat16, __nv_bfloat16>(
+      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
+      num_heads, num_blocks, block_size, layer, scale, stream);
 }
 
 int owner_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
@@ -826,7 +712,7 @@ int owner_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                         const void* start_block, const void* index, void* out,
                         int num_slots, int num_heads, int num_blocks,
                         int block_size, int layer, float scale, void* stream) {
-  return launch_owner_pipelined<float>(
+  return launch_owner_pipelined<float, int8_t>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
       num_heads, num_blocks, block_size, layer, scale, stream);
 }
@@ -836,7 +722,7 @@ int owner_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                          const void* start_block, const void* index, void* out,
                          int num_slots, int num_heads, int num_blocks,
                          int block_size, int layer, float scale, void* stream) {
-  return launch_owner_pipelined<__nv_bfloat16>(
+  return launch_owner_pipelined<__nv_bfloat16, int8_t>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
       num_heads, num_blocks, block_size, layer, scale, stream);
 }
@@ -845,20 +731,18 @@ int stream_decode_f32(const void* q, const void* kpool, const void* vpool,
                       const void* vis, void* out, int num_slots, int num_heads,
                       int num_blocks, int block_size, int bound, int layer,
                       float scale, void* stream) {
-  return launch_stream_pipelined<float>(q, kpool, vpool, vis, out,
-                                       num_slots, num_heads, num_blocks,
-                                       block_size, bound, layer, scale,
-                                       stream);
+  return launch_stream_pipelined<float, float>(
+      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
 }
 
 int stream_decode_bf16(const void* q, const void* kpool, const void* vpool,
                        const void* vis, void* out, int num_slots,
                        int num_heads, int num_blocks, int block_size,
                        int bound, int layer, float scale, void* stream) {
-  return launch_stream_pipelined<__nv_bfloat16>(q, kpool, vpool, vis, out,
-                                               num_slots, num_heads,
-                                               num_blocks, block_size, bound,
-                                               layer, scale, stream);
+  return launch_stream_pipelined<__nv_bfloat16, __nv_bfloat16>(
+      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
 }
 
 int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
@@ -866,7 +750,7 @@ int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                          const void* vis, void* out, int num_slots,
                          int num_heads, int num_blocks, int block_size,
                          int bound, int layer, float scale, void* stream) {
-  return launch_stream<float>(
+  return launch_stream_pipelined<float, int8_t>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }
@@ -876,7 +760,7 @@ int stream_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                           const void* vis, void* out, int num_slots,
                           int num_heads, int num_blocks, int block_size,
                           int bound, int layer, float scale, void* stream) {
-  return launch_stream<__nv_bfloat16>(
+  return launch_stream_pipelined<__nv_bfloat16, int8_t>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }
