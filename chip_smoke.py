@@ -9,15 +9,21 @@ prints no result. Phases, each fatal on failure:
 2. kernels: builds ``csrc/paged_attention.cu`` and ``csrc/vq.cu`` (one nvcc
    each, started together), then holds each kernel against its plain
    PyTorch version, plain and kernel in turns, each timed twice: its device
-   time (the kernels one call launches, summed from torch.profiler's CUPTI
-   records; this is the ``ms`` of the kernels line) and its wall time per
-   call with the host's dispatch (CUDA events around back-to-back calls).
-   Every decode kernel (K1-K4, K7), its plain version and its library call
-   are timed twice more in turns with the layer cycling 0..11, so that each
-   call finds its layer out of L2 as in a decode step (``cold_ms`` on the
-   kernels line; the calls above reuse one layer, warm in L2). K2 and K3
-   are the pipelined kernels (256 threads per slot and head, two keys in
-   flight a thread).
+   time (the CUDA records one call leaves, summed from torch.profiler's
+   CUPTI records; this is the ``ms`` of the kernels line) and its wall time
+   per call with the host's dispatch (CUDA events around back-to-back
+   calls). The timer counts the records by name: a window of N calls must
+   hold N times one call's records, and one call exactly one record of the
+   kernel under test; a window that does not is timed again once, then
+   the run fails (``records`` on the kernels line: the kernel's records
+   over its timed windows). Every decode kernel (K1-K4, K7), its plain
+   version and its library call are timed twice more in turns with the
+   layer cycling 0..11, so that each call finds its layer out of L2 as in a
+   decode step (``cold_ms`` on the kernels line; the calls above reuse one
+   layer, warm in L2). K1, K4 and K7 are the tiled kernels (K/V tiles
+   staged in a shared-memory ring by cp.async, lane groups over the head
+   dimension); K2 and K3 the pipelined ones (256 threads per slot and
+   head, two keys in flight a thread).
    The owner flash-decode kernels K1 (bf16/fp32 pool) and K2 (int8 pool) run
    at the serving shapes (16 slots, 12 layers, 8 heads of 64, 64-token
    blocks, 14-block regions in a 256-block pool, inactive slots, positions
@@ -119,6 +125,17 @@ PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12}
 SR = 16000
 CLIP_S = 10.0  # the round trip's clip, as bench.py times it
 VQ_SHAPES = dict(n=1024, d=512, nq=4)  # HCodec-1.0: 4 x 1024 codes of 512
+# the CUDA function each wrapper launches once a call (as the profiler
+# names it), whose records the timer counts
+CUDA_KERNELS = {"paged_flash_decode_owner": "owner_decode_kernel_tiled",
+                "paged_flash_decode_owner_q8": "owner_decode_kernel_pipelined",
+                "paged_flash_decode_stream_flat":
+                    "stream_decode_kernel_pipelined",
+                "paged_flash_decode_stream_flat_q8":
+                    "stream_decode_kernel_tiled",
+                "paged_flash_decode": "table_decode_kernel_tiled",
+                "vq": "vq_search_kernel"}
+ITERS = 100  # calls per timed window of a decode kernel (50 for K5/K6)
 
 
 def fail(msg):
@@ -136,14 +153,37 @@ def gpu_line():
 # kernels
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, iters):
-    """-> (device ms, wall ms) per call of ``fn``. Device: the time of the
-    kernels the call launches, summed from torch.profiler's CUPTI records.
+def profiled(torch, fn, n):
+    """-> (CUDA records by name, their summed us) of ``n`` calls of ``fn``
+    under torch.profiler (CUPTI)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    counts, us = Counter(), 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            counts[ev.name] += 1
+            us += ev.time_range.elapsed_us()
+    return counts, us
+
+
+def time_ms(torch, fn, iters, kernel=None):
+    """-> (device ms, wall ms, records) per call of ``fn``. Device: the time
+    of the CUDA records (kernels, copies) that ``iters`` calls leave under
+    torch.profiler, summed. The records are counted by name: the window
+    must hold ``iters`` times the records of one profiled call, name for
+    name, and one call must launch exactly one kernel whose name holds
+    ``kernel`` (where given); a window that does not is timed once more,
+    then the run fails. ``records`` counts the window's ``kernel`` records.
     Wall: CUDA events around ``iters`` back-to-back calls; it holds the
     host's dispatch too wherever the host is slower than the card, as it is
     for a small decode kernel behind its wrapper's Python checks."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
@@ -154,27 +194,36 @@ def time_ms(torch, fn, iters):
         fn()
     b.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        fail("torch.profiler recorded no device time")
-    return 1e-3 * us / iters, a.elapsed_time(b) / iters
+    per_call, _ = profiled(torch, fn, 1)
+    mine = sum(n for name, n in per_call.items() if kernel and kernel in name)
+    if kernel is not None and mine != 1:
+        fail(f"one call left {mine} records of {kernel}: {dict(per_call)}")
+    want = {name: iters * n for name, n in per_call.items()}
+    for _ in range(2):
+        counts, us = profiled(torch, fn, iters)
+        if dict(counts) == want and us > 0:
+            return (1e-3 * us / iters, a.elapsed_time(b) / iters,
+                    iters * mine)
+        print(f"chip_smoke: {sum(counts.values())} CUDA records in a window "
+              f"of {iters} calls, {sum(want.values())} expected; timing it "
+              "again", flush=True)
+    fail(f"the profiler's records of {iters} calls do not match one call's "
+         f"{dict(per_call)}: {dict(counts)}")
 
 
-def in_turns(torch, fns, iters=100):
+def in_turns(torch, fns, iters=ITERS, kernels=None):
     """Times each of ``fns`` twice, in the order f0, f1, ..., f1, f0 (the
-    versions alternate) -> [{"ms": device ms, "wall_ms": wall ms}], the
-    two timings of each averaged."""
+    versions alternate) -> [{"ms": device ms, "wall_ms": wall ms,
+    "records": the records of ``kernels[i]`` over both windows}], the two
+    timings of each averaged. ``kernels[i]`` names the one kernel a call of
+    ``fns[i]`` launches (None for a plain version or a library call)."""
     n = len(fns)
-    t = [time_ms(torch, fns[i], iters)
+    kernels = kernels or [None] * n
+    t = [time_ms(torch, fns[i], iters, kernels[i])
          for i in list(range(n)) + list(range(n))[::-1]]
     return [{"ms": (t[i][0] + t[2 * n - 1 - i][0]) / 2,
-             "wall_ms": (t[i][1] + t[2 * n - 1 - i][1]) / 2}
+             "wall_ms": (t[i][1] + t[2 * n - 1 - i][1]) / 2,
+             "records": t[i][2] + t[2 * n - 1 - i][2]}
             for i in range(n)]
 
 
@@ -200,9 +249,11 @@ def timed(torch, kernel, ref, args, li_pos, lib_at=None, rows=None):
     {"ms"/"wall_ms": the kernel's warm, "plain_ms"/"plain_wall_ms": the
     plain version's, "library_ms" (None without ``lib_at``),
     "library_err": its max abs error against the plain version on the (S,)
-    bool ``rows``, and "cold_ms", "cold_plain_ms", "cold_library_ms": the
-    device times of the cold calls}."""
+    bool ``rows``, "cold_ms", "cold_plain_ms", "cold_library_ms": the
+    device times of the cold calls, and "records": the kernel's CUDA
+    records over its four timed windows}."""
     fns = [lambda: ref(*args), lambda: kernel(*args)]
+    names = [None, CUDA_KERNELS[kernel.__name__]]
     cold = [cycling(lambda li: ref(*at_layer(args, li_pos, li))),
             cycling(lambda li: kernel(*at_layer(args, li_pos, li)))]
     out = {"library_ms": None, "cold_library_ms": None}
@@ -214,10 +265,12 @@ def timed(torch, kernel, ref, args, li_pos, lib_at=None, rows=None):
         out["library_err"] = (got - want).abs().max().item()
         libs = [lib_at(li) for li in range(L)]
         cold.append(cycling(lambda li: libs[li]()))
-    t = in_turns(torch, fns)
+    names += [None] * (len(fns) - 2)
+    t = in_turns(torch, fns, kernels=names)
     out.update(t[1], plain_ms=t[0]["ms"], plain_wall_ms=t[0]["wall_ms"])
-    c = in_turns(torch, cold)
-    out.update(cold_ms=c[1]["ms"], cold_plain_ms=c[0]["ms"])
+    c = in_turns(torch, cold, kernels=names)
+    out.update(cold_ms=c[1]["ms"], cold_plain_ms=c[0]["ms"],
+               records=t[1]["records"] + c[1]["records"])
     if lib_at is not None:
         out["library_ms"] = t[2]["ms"]
         out["cold_library_ms"] = c[2]["ms"]
@@ -253,7 +306,8 @@ def report(name, kernel, dtype, r, gpu):
           f"(layers 0..11 in turn): kernel {r['cold_ms'] * 1e3:.2f} us, "
           f"plain {r['cold_plain_ms'] * 1e3:.2f} us{cold_lib}; wall per "
           f"call with dispatch: kernel {r['wall_ms'] * 1e3:.1f} us, plain "
-          f"{r['plain_wall_ms'] * 1e3:.1f} us | {gpu}", flush=True)
+          f"{r['plain_wall_ms'] * 1e3:.1f} us; {r['records']} kernel records "
+          f"timed | {gpu}", flush=True)
 
 
 def bound(bytes_moved, ops, ops_type):
@@ -469,8 +523,9 @@ def check_vq(torch, vq, m):
         if not (share >= 0.999 and ok):
             fail(f"{name} at M={m}: {share:.5f} of codes equal to the plain "
                  f"search, worst distance excess {worst:.3e}")
-        plain, kern = in_turns(torch, [ref, kernel], iters=50)
-        out[name] = (share, worst, kern["ms"], plain["ms"])
+        plain, kern = in_turns(torch, [ref, kernel], iters=50,
+                               kernels=[None, CUDA_KERNELS["vq"]])
+        out[name] = (share, worst, kern["ms"], plain["ms"], kern["records"])
     return out
 
 
@@ -959,9 +1014,9 @@ def main():
             report(name, kernel, dtype, r, gpu)
     vq_results = {}
     for m in (250, 2000):
-        for name, (share, worst, ms, plain_ms) in check_vq(torch, vq,
-                                                           m).items():
-            vq_results[name, m] = (worst, ms, plain_ms)
+        for name, (share, worst, ms, plain_ms, n_rec) in check_vq(
+                torch, vq, m).items():
+            vq_results[name, m] = (worst, ms, plain_ms, n_rec)
             b_ms, _ = vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"],
                                1 if name == "K5" else VQ_SHAPES["nq"])
             print(f"{name} at M={m}, N=1024, D=512"
@@ -1087,17 +1142,24 @@ def main():
                         "library_ms": r.get("library_ms"),
                         "cold_ms": r["cold_ms"],
                         "cold_plain_ms": r["cold_plain_ms"],
-                        "cold_library_ms": r["cold_library_ms"]})
+                        "cold_library_ms": r["cold_library_ms"],
+                        "records": r["records"],
+                        "records_expected": 4 * ITERS})
     for name, fn, tpu, n_launch, nq in (
             ("K5", vq.nearest_code, K5_TPU, k5_launches, 1),
             ("K6", vq.rvq_encode_fused, K6_TPU, k6_launches, 4)):
-        err, ms, plain_ms = vq_results[name, 250]
+        err, ms, plain_ms, n_rec = vq_results[name, 250]
         b_ms, b_by = vq_bound(250, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
         kernels.append({"name": fn.__name__, "route": "cuda",
                         "source": VQ_SOURCE, "replaces": tpu,
                         "launches": n_launch, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
+                        "bound_by": b_by, "library_ms": None,
+                        "records": n_rec, "records_expected": 2 * 50})
+    for k in kernels:
+        if k["records"] != k["records_expected"]:
+            fail(f"{k['name']}: {k['records']} kernel records timed, "
+                 f"{k['records_expected']} expected")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -2,14 +2,18 @@
 owner flash-decode K1/K2, the stream flash-decode K3/K4 and the block-table
 flash-decode K7 at the serving shapes (K7 also against K1 and K3 where
 they compute the same function; the pipelined kernels K2/K3 also where a
-thread's keys run out, under other bounds, and call to call bit for bit)
-and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA card; imports
-no JAX, so it also runs on a machine without it:
+thread's keys run out, under other bounds, and call to call bit for bit;
+the tiled kernels K1/K4/K7 at the edges of their tiles, at a 4096-entry
+table, call to call bit for bit, and three broken copies of them shown to
+fail) and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA
+card; imports no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
 import pytest
 import torch
+
+from unified_audio_tpu_torch.ops.cuda import build
 
 from unified_audio_tpu_torch.ops.cuda import paged_attention as t_pa
 from unified_audio_tpu_torch.ops.cuda import vq
@@ -211,6 +215,174 @@ class TestKernelsOnCard:
                 with pytest.raises(ValueError):
                     fn(*bad)
         assert (k2.launches, k3_fn.launches) == before
+
+    # K1 positions at the tiled kernel's edges (64-row tiles): position 0,
+    # the last row of one tile and the first of the next (63, 64; 127,
+    # 128), eight tiles (511), a full 14-block region (895), an inactive
+    # slot; every slot at the region's end; every slot inactive
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("edges", [
+        [0, 63, 64, 511, 895, -1, 127, 128],
+        [895] * 8,
+        [-1] * 8,
+    ], ids=["edges", "full_regions", "all_inactive"])
+    def test_owner_tiled_edges(self, card, dtype, edges):
+        """K1 on the edge positions above, spread over the 16 slots, within
+        ``compare_with_plain``'s tolerance, inactive slots exact zeros."""
+        args = t_pa.serving_case(False, dtype, card)
+        args[-2] = torch.tensor(edges * 2, dtype=torch.int32, device=card)
+        err, ok = t_pa.compare_with_plain(
+            t_pa.paged_flash_decode_owner, t_pa.paged_flash_decode_owner_ref,
+            args)
+        assert ok, f"max abs err {err}"
+        if max(edges) < 0:
+            assert not t_pa.paged_flash_decode_owner(*args).any()
+
+    @staticmethod
+    def _stream_q8_edge_case(dtype, card, bound):
+        """K4 at ``stream_serving_case`` cut to ``bound`` blocks, slot 4's
+        mask replaced: blocks 21-24 fully visible, block 25 visible on its
+        first 10 keys, every other key of block 26, block 27 fully masked
+        between live blocks and block 28 visible on its first key only."""
+        args = t_pa.stream_serving_case(True, dtype, card)
+        vis = args[-3].clone()
+        vis[4] = 0
+        vis[4, 21 * 64:25 * 64] = 1
+        vis[4, 25 * 64:25 * 64 + 10] = 1
+        vis[4, 26 * 64:27 * 64:2] = 1
+        vis[4, 28 * 64] = 1
+        args[-3:] = [vis[:, :bound * 64].contiguous(), args[-2], bound]
+        return args
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("bound", [320, 64, 37])
+    def test_stream_q8_tiled_edges(self, card, dtype, bound):
+        """K4 under bounds of 320, 64 and 37 blocks: a live block partly
+        masked, a fully masked block between live ones, rows with no
+        visible key (zeros)."""
+        args = self._stream_q8_edge_case(dtype, card, bound)
+        empty = ~(args[-3] != 0).any(1)
+        assert bool(empty.any())
+        err, ok = t_pa.compare_with_plain(
+            t_pa.paged_flash_decode_stream_flat_q8,
+            t_pa.paged_flash_decode_stream_flat_q8_ref, args, empty=empty)
+        assert ok, f"max abs err {err}"
+
+    @staticmethod
+    def _wide_table_case(dtype, card):
+        """K7 with 4096-entry tables over a pool of 1280 16-token blocks:
+        slot 0 past the table (all 65,536 positions, four rounds of staged
+        entries), slot 1 inside the second round, slot 2 inactive, slot 3
+        at position 0; entries drawn with repeats, so tables repeat
+        blocks."""
+        q, k, v, _, _, li = t_pa.table_serving_case(dtype, card,
+                                                    block_size=16)
+        g = torch.Generator(device=card).manual_seed(4)
+        tables = torch.randint(0, k.shape[1], (4, 4096), generator=g,
+                               device=card, dtype=torch.int32)
+        index = torch.tensor([4096 * 16 + 37, 1500 * 16 + 9, -1, 0],
+                             dtype=torch.int32, device=card)
+        return [q[:4].contiguous(), k, v, tables, index, li]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_table_kernel_wide_table(self, card, dtype):
+        """K7 at MB = 4096 (wider than the 2048 entries the first port's
+        kernel took) within ``compare_with_plain``'s tolerance."""
+        args = self._wide_table_case(dtype, card)
+        err, ok = t_pa.compare_with_plain(t_pa.paged_flash_decode,
+                                          t_pa.paged_flash_decode_ref, args)
+        assert ok, f"max abs err {err}"
+
+    def _tiled_cases(self, card, dtype):
+        """(wrapper, plain version, arguments, rows with no key) of K1, K4
+        and K7 at their edge cases."""
+        owner = t_pa.serving_case(False, dtype, card)
+        stream = self._stream_q8_edge_case(dtype, card, 320)
+        table = t_pa.table_serving_case(dtype, card)
+        return [(t_pa.paged_flash_decode_owner,
+                 t_pa.paged_flash_decode_owner_ref, owner, None),
+                (t_pa.paged_flash_decode_stream_flat_q8,
+                 t_pa.paged_flash_decode_stream_flat_q8_ref, stream,
+                 ~(stream[-3] != 0).any(1)),
+                (t_pa.paged_flash_decode, t_pa.paged_flash_decode_ref,
+                 table, None)]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_tiled_kernels_repeat_bit_for_bit(self, card, dtype):
+        """K1, K4 and K7: three back-to-back calls give the same bits (the
+        groups' states merge in a fixed order)."""
+        for fn, _, args, _ in self._tiled_cases(card, dtype):
+            outs = [fn(*args) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(outs[0], o) for o in outs[1:]), \
+                fn.__name__
+
+    def test_tiled_wrappers_refuse(self, card):
+        """K1, K4 and K7 raise ValueError before any launch on what they do
+        not take: hd != 64, a q/pool dtype mismatch (K1), per-slot ints on
+        the CPU or not int32, scales of the wrong shape (K4), a mask that
+        is not int8, a bound outside the pool, a table with no entry or
+        not int32 (K7)."""
+        q, k, v, start, index, li = t_pa.serving_case(False, torch.bfloat16,
+                                                      card)
+        k1 = t_pa.paged_flash_decode_owner
+        bad1 = ((q[..., :32].contiguous(), k, v, start, index, li),
+                (q.float(), k, v, start, index, li),
+                (q, k, v, start.cpu(), index, li),
+                (q, k, v, start, index.long(), li))
+        q4, k4, v4, ks, vs, vis, li4, nb = t_pa.stream_serving_case(
+            True, torch.bfloat16, card)
+        k4_fn = t_pa.paged_flash_decode_stream_flat_q8
+        bad4 = ((q4, k4, v4, ks[:, :32].contiguous(), vs, vis, li4, nb),
+                (q4, k4, v4, ks, vs, vis.bool(), li4, nb),
+                (q4, k4, v4, ks, vs, vis, li4, nb + 1))
+        q7, k7, v7, tables, index7, li7 = t_pa.table_serving_case(
+            torch.bfloat16, card)
+        k7_fn = t_pa.paged_flash_decode
+        bad7 = ((q7, k7, v7, tables[:, :0].contiguous(), index7, li7),
+                (q7, k7, v7, tables.long(), index7, li7))
+        before = (k1.launches, k4_fn.launches, k7_fn.launches)
+        for fn, cases in ((k1, bad1), (k4_fn, bad4), (k7_fn, bad7)):
+            for bad in cases:
+                with pytest.raises(ValueError):
+                    fn(*bad)
+        assert (k1.launches, k4_fn.launches, k7_fn.launches) == before
+
+    # Broken copies of the tiled kernels, one per failure mode: tile j
+    # computed before its copies are waited for; a tile's mask bytes copied
+    # from the tile before it; the partner group's accumulators dropped at
+    # the first step of a warp's merge
+    MUTANTS = {
+        "wrong_stage_waited": (
+            "cp_async_wait_pending<kMaxStages - 2>(stages - 2);",
+            "cp_async_wait_pending<kMaxStages - 2>(stages - 1);"),
+        "mask_of_wrong_tile": (
+            "seen + tile.first + 16 * i);",
+            "seen + tile_of(j > 0 ? j - 1 : j).first + 16 * i);"),
+        "group_dropped_in_merge": (
+            "st.acc[e] = st.acc[e] * f + a_o * f_o;",
+            "st.acc[e] = st.acc[e] * f + (off == Lay::kLanes ? 0.f : a_o)"
+            " * f_o;"),
+    }
+
+    @pytest.mark.parametrize("mutant", sorted(MUTANTS))
+    def test_tiled_mutants_fail(self, card, mutant, tmp_path, monkeypatch):
+        """Each broken copy of ``csrc/paged_attention.cu`` builds and puts
+        at least one of K1, K4 and K7 (bf16) outside the tolerance of
+        ``compare_with_plain``, where the real kernels pass."""
+        old, new = self.MUTANTS[mutant]
+        src = (build.CSRC_DIR / "paged_attention.cu").read_text()
+        assert src.count(old) == 1
+        path = tmp_path / f"paged_attention_{mutant}.cu"
+        path.write_text(src.replace(old, new))
+        lib = t_pa.typed(build.load_library(path))
+        cases = self._tiled_cases(card, torch.bfloat16)
+        for fn, ref, args, empty in cases:
+            assert t_pa.compare_with_plain(fn, ref, args, empty)[1]
+        monkeypatch.setattr(t_pa, "_library", lambda: lib)
+        results = [t_pa.compare_with_plain(fn, ref, args, empty)
+                   for fn, ref, args, empty in cases]
+        assert not all(ok for _, ok in results), results
 
     @pytest.mark.parametrize("m,n", [(250, 1024), (2000, 1024), (37, 300)])
     def test_vq_kernels_match_plain(self, card, m, n):

@@ -82,6 +82,27 @@ def test_plain_matches_pallas(case, li):
     assert not got[torch.as_tensor(~live)].any()  # inactive: exact zeros
 
 
+@pytest.mark.parametrize("li", [0, 1])
+def test_plain_matches_pallas_wide_table(li):
+    """Tables of 4096 entries (the CUDA kernel stages them in rounds, with
+    no limit on the width): slot 0 past the table (all 32,768 positions),
+    slot 1 deep inside it, slot 2 at position 0; entries drawn with
+    repeats over the small pool, past each slot's last position trash.
+    Tolerance atol/rtol 1e-4, that of the other parity tests: sums of up to
+    32,768 terms taken in another order drift past the 2e-5 of the short
+    cases."""
+    rng = np.random.default_rng(40 + li)
+    mb = 4096
+    tables = rng.integers(1, NB, (3, mb)).astype(np.int32)
+    index = np.array([mb * BS + 3, 2500 * BS + 5, 0], np.int32)
+    tables[1, 2501:] = t_paged.TRASH_BLOCK
+    tables[2, 1:] = t_paged.TRASH_BLOCK
+    q, k, v = _inputs(li, 3)
+    got = _port(q, k, v, tables, index, li)
+    want = _jax(q, k, v, tables, index, li)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
 def test_trash_entries_never_read():
     """The JAX test's garbage case: entries past the allocation (the trash
     block or other blocks) change nothing, with every pool value x100."""

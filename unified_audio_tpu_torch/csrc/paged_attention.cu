@@ -33,62 +33,64 @@
 // may see once: 2 * HD * bytes per element for each visible key and head,
 // about 17.6 MB per layer for 16 slots at 536 cached tokens in bf16 (half
 // that for int8). At 3.35 TB/s that is ~5 us per layer, so the kernels are
-// memory-bound and their time is set by how many bytes are in flight. The
-// arithmetic (two dot products of HD per visible key) is negligible. The
-// stream kernels also read the visibility mask (S * bound * BS bytes, 20 KB
-// per slot at a 320-block bound), once per head; the table kernel reads a
-// slot's table entries (4 bytes a block) once per head.
+// memory-bound, and what sets their time is how many bytes each SM keeps in
+// flight against the HBM latency (~1 us): one 256-thread block per (slot,
+// head) fills the SMs one block each at 16 slots, and a slot's keys are all
+// read by its own block. The arithmetic (two dot products of HD per visible
+// key) is negligible, so tensor cores are not used: with one query row per
+// (slot, head), QK^T and p.v are matrix-vector products at about one
+// operation per byte read. The stream kernels also read the visibility mask
+// (S * bound * BS bytes), once per head.
 //
-// Two designs live here, both one thread block per (slot, head) in which
-// thread t keeps its own online-softmax state (running max, denominator,
-// HD accumulators) in registers for keys t, t + T, ..., so the key loop has
-// no cross-thread reduction, and the T states merge at the end.
-//
-// The pipelined design (K2, K3; redesigned for Hopper). T = 256 threads (8
-// warps; 128 blocks at 16 slots fill the SMs one block each, with half the
-// keys per thread of 128 threads). A thread holds a key as its raw
-// 16-byte words (the K and V rows of its head, the int8 scales, the mask
-// byte) and issues the next key's loads before it computes this one: two
-// keys in flight per thread (254-255 registers, no spills; fp32 rows, 128
-// registers a key, go one at a time). The dot product runs in four
-// independent sums, int8 values become floats by a byte permute into 2^23's
-// mantissa (exact, two full-rate instructions instead of the quarter-rate
-// conversion), and K3 loads a key's mask byte beside its rows instead of
-// before them. The merge is a reduce-scatter of shuffles in each warp (lane
-// L ends with columns 2L, 2L + 1) and one shared-memory row per warp,
-// instead of 128 rows summed in series. On an H100 both kernels are faster
-// than the 128-thread design, alone and inside the decode step (PERF.md;
-// K2 by a third, K3 by a tenth). A split-K version (a thread-block cluster
-// of blocks per slot, all heads per block, K/V tiles by cp.async.bulk, the
-// merge in distributed shared memory) beat the old kernels alone but lost
-// to them inside the decode step, where its blocks started microseconds
-// apart, and was not kept.
-//
-// The per-(slot, head) design of the first port (K1, K4, K7). T = 128
-// threads; each thread reads whole K and V rows with 16-byte (8-element)
-// loads, all issued before they are used, one key at a time; at the end the
-// 128 partial states merge through shared memory (64 threads each adding
-// 128 rows). The owner kernel walks positions t, t+128, ... up to index[s].
-// The table kernel walks positions the same way (one code path, templated
-// on the map from a position to its row); it first stages the table
-// entries its positions reach in shared memory, so each position costs one
-// shared-memory read before its K/V rows. The TPU kernel runs one grid step
-// per (slot, logical block), all heads at once, and carries the softmax
-// state between steps in scratch; here the block loop is inside the thread
-// block and the heads are split over blocks.
-// The TPU stream kernel walks the prefix in chunks with all slots at once
-// (one program, one core); a slot owns a few percent of a serving prefix,
-// so here each (slot, head) block of K3 and K4 first finds, T physical
-// blocks at a time, the blocks holding any visible key for its slot
-// (16-byte mask loads, a warp ballot and a block-wide compaction into
-// shared memory), then spreads those blocks' keys over its threads and
-// skips the masked ones. Fully masked blocks cost one mask read and no K/V
-// traffic, and no masked key enters the softmax state, so the running max
-// starts at -inf without the exp(-inf - -inf) hazard. The Mosaic chunk
+// Both designs below run one 256-thread block per (slot, head). The TPU
+// kernels run one grid step per (slot, block) or per chunk of the prefix,
+// all heads at once, and carry the softmax state between steps in scratch;
+// here the key loop is inside the thread block and the heads are split
+// over blocks. The TPU stream kernel walks the prefix in chunks with all
+// slots at once; a slot owns a few percent of a serving prefix, so here each
+// (slot, head) block of K3 and K4 first finds the physical blocks holding
+// any visible key for its slot (16-byte mask loads, a warp ballot and a
+// block-wide compaction into shared memory) and reads only those: fully
+// masked blocks cost one mask read and no K/V traffic. The Mosaic chunk
 // rules (chunk * BS a multiple of 128, the bound divisible by the chunk)
 // have no counterpart: the bound is any block count up to the pool's.
-// Tensor cores are not used: with one query row per (slot, head), QK^T and
-// p.v are matrix-vector products at about one operation per byte read.
+//
+// The tiled design (K1, K4, K7). A tile is up to 64 token rows of one
+// physical block, this head's 64 columns of K and of V (bf16: 8 KB + 8 KB;
+// int8: 4 + 4 KB plus the rows' scales and mask bytes; fp32: 16 + 16 KB).
+// The block stages its tiles in a ring of up to 16 stages (192 KB) of
+// dynamic shared memory by cp.async (16 bytes a copy, one commit group a
+// tile), as many tiles ahead of the compute as the ring holds, so a (slot,
+// head) pays about one HBM latency in all instead of one per key and
+// thread, and no register holds a byte in flight. The consumer lays lanes
+// over the head dimension: a group of lanes holds one key (8 lanes of 16
+// bytes for a bf16 row, 4 for int8, 16 for fp32), each lane reads its
+// 16-byte word of the row from the stage (a warp's reads are contiguous
+// rows, free of bank conflicts), the dot product finishes with 2-4
+// shuffles inside the group, and each group keeps an online-softmax state
+// over its lane's columns only (8 accumulators for bf16, 16 for int8, 4 for
+// fp32). A masked key (K4, its mask byte from the stage) leaves the state
+// as it is; int8 values become floats by a byte permute into 2^23's
+// mantissa (exact, full rate). The groups' states merge by shuffles inside
+// each warp, then through 8 rows of shared memory (max, rescale, column
+// sum). K1's tiles are its region's rows; K4's are the live blocks the mask
+// scan finds, 1024 blocks a round; K7's are its table's entries, staged
+// 1024 a round, so the table's width is not limited.
+//
+// The pipelined design (K2, K3). A thread keeps its own online-softmax
+// state (running max, denominator, HD accumulators) in registers for keys
+// t, t + 256, ..., holds a key as its raw 16-byte words (the K and V rows
+// of its head, the int8 scales, the mask byte) and issues the next key's
+// loads before it computes this one: two keys in flight per thread
+// (254-255 registers, no spills; fp32 rows, 128 registers a key, go one at
+// a time). The dot product runs in four independent sums, and K3 loads a
+// key's mask byte beside its rows. The 256 states merge by a reduce-scatter
+// of shuffles in each warp (lane L ends with columns 2L, 2L + 1) and one
+// shared-memory row per warp. A split-K version (a thread-block cluster of
+// blocks per slot, all heads per block, K/V tiles by cp.async.bulk, the
+// merge in distributed shared memory) beat the first port's kernels alone
+// but lost to them inside the decode step, where its blocks started
+// microseconds apart, and was not kept (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,33 +98,11 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;   // head dim the kernels are built for (UniSE LM)
-constexpr int kThreads = 128;  // 4 warps per (slot, head) block
-constexpr int kWarps = kThreads / 32;
+constexpr int kHeadDim = 64;  // head dim the kernels are built for (UniSE LM)
 
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const int8_t* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -130,167 +110,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// The query row of (slot, head) into shared memory (read as a broadcast),
-// which keeps the registers for the K/V rows and the accumulators.
+// The query row of (slot, head) into shared memory as floats (read as a
+// broadcast), which keeps the registers for the K/V rows and the
+// accumulators.
 template <typename QT>
 __device__ __forceinline__ void load_query(const QT* q, int s, int h,
                                            int num_heads, float* qs) {
   const QT* qrow = q + (static_cast<long long>(s) * num_heads + h) * kHeadDim;
-  if (threadIdx.x < kHeadDim / 8) load8(qrow + 8 * threadIdx.x, qs + 8 * threadIdx.x);
+  if (threadIdx.x < kHeadDim) qs[threadIdx.x] = to_float(qrow[threadIdx.x]);
   __syncthreads();
-}
-
-// One key of the online softmax: m the running max (-inf before the first
-// key), l the denominator, acc the p-weighted V sum. k_sc/v_sc are the int8
-// pool's per-token scales (ignored for a float pool).
-template <typename KT, bool kQ8>
-__device__ __forceinline__ void attend_key(const float* qs, const KT* krow,
-                                           const KT* vrow, float k_sc,
-                                           float v_sc, float scale, float& m,
-                                           float& l, float* acc) {
-  float kf[kHeadDim];
-#pragma unroll
-  for (int d = 0; d < kHeadDim; d += 8) load8(krow + d, kf + d);
-  float vf[kHeadDim];
-#pragma unroll
-  for (int d = 0; d < kHeadDim; d += 8) load8(vrow + d, vf + d);
-  float dot = 0.f;
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) dot = fmaf(qs[d], kf[d], dot);
-  const float logit = kQ8 ? dot * (k_sc * scale) : dot * scale;
-  const float m_new = fmaxf(m, logit);
-  const float alpha = expf(m - m_new);  // 0 on the first key (m = -inf)
-  const float prob = expf(logit - m_new);
-  l = l * alpha + prob;
-  const float pv = kQ8 ? prob * v_sc : prob;
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = fmaf(acc[d], alpha, pv * vf[d]);
-  m = m_new;
-}
-
-// Merge the 128 threads' softmax states (global max, rescale, sum) and write
-// the (slot, head) output row; zeros where no thread saw a key.
-template <typename QT>
-__device__ __forceinline__ void merge_store(float m, float l, const float* acc,
-                                            QT* orow) {
-  __shared__ float warp_max[kWarps];
-  __shared__ float warp_den[kWarps];
-  __shared__ float partial[kThreads][kHeadDim + 1];  // +1: no bank conflicts
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-
-  float wm = m;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) wm = fmaxf(wm, __shfl_xor_sync(0xffffffffu, wm, o));
-  if (lane == 0) warp_max[warp] = wm;
-  __syncthreads();
-  float big = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) big = fmaxf(big, warp_max[w]);
-
-  if (big == -INFINITY) {  // no visible key: an inactive or empty row
-    if (t < kHeadDim) store(orow + t, 0.f);
-    return;
-  }
-  const float f = (m == -INFINITY) ? 0.f : expf(m - big);
-  float den = l * f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
-  if (lane == 0) warp_den[warp] = den;
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) partial[t][d] = acc[d] * f;
-  __syncthreads();
-  if (t < kHeadDim) {
-    float total = 0.f;
-    for (int r = 0; r < kThreads; ++r) total += partial[r][t];
-    float denom = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) denom += warp_den[w];
-    store(orow + t, total * (1.f / denom));
-  }
-}
-
-// Token row inside the layer (block * BS + offset) of a slot's position p.
-// K1: the slot's contiguous region, from its first block.
-struct RegionRows {
-  long long start;
-  int block_size;
-  __device__ __forceinline__ long long operator()(int p) const {
-    return (start + p / block_size) * block_size + p % block_size;
-  }
-};
-
-// K7: the slot's block table, staged in shared memory.
-struct TableRows {
-  const int* table;
-  int block_size;
-  __device__ __forceinline__ long long operator()(int p) const {
-    return static_cast<long long>(table[p / block_size]) * block_size +
-           p % block_size;
-  }
-};
-
-// The flash decode of one (slot, head) over positions 0..last, thread t
-// taking positions t, t+128, ...; `rows` maps a position to its token row.
-// QT: the query, output and pool element type (bf16 or fp32).
-template <typename QT, typename Rows>
-__device__ __forceinline__ void decode_positions(
-    const QT* __restrict__ q, const QT* __restrict__ kpool,
-    const QT* __restrict__ vpool, Rows rows, int last, QT* __restrict__ out,
-    int s, int h, int num_heads, int num_blocks, int block_size, int layer,
-    float scale) {
-  const long long row = static_cast<long long>(num_heads) * kHeadDim;
-  // the layer's pool slice, offset to this head's columns
-  const long long layer_off =
-      static_cast<long long>(layer) * num_blocks * block_size * row +
-      static_cast<long long>(h) * kHeadDim;
-  const QT* kbase = kpool + layer_off;
-  const QT* vbase = vpool + layer_off;
-
-  __shared__ float qs[kHeadDim];
-  load_query(q, s, h, num_heads, qs);
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[kHeadDim];
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-
-  for (int p = threadIdx.x; p <= last; p += kThreads) {
-    const long long tok = rows(p);
-    attend_key<QT, false>(qs, kbase + tok * row, vbase + tok * row, 1.f, 1.f,
-                          scale, m, l, acc);
-  }
-  merge_store(m, l, acc,
-              out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
-}
-
-// One block per (slot, head). Dynamic shared memory: max_blocks ints.
-template <typename QT>
-__global__ void __launch_bounds__(kThreads)
-table_decode_kernel(const QT* __restrict__ q, const QT* __restrict__ kpool,
-                    const QT* __restrict__ vpool,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ index, QT* __restrict__ out,
-                    int num_heads, int num_blocks, int block_size,
-                    int max_blocks, int layer, float scale) {
-  extern __shared__ int table[];
-  const int s = blockIdx.x / num_heads;
-  const int h = blockIdx.x % num_heads;
-  // the TPU grid covers the table's blocks only: positions past it are not
-  // attended, whatever the index
-  const int last = static_cast<int>(
-      min(static_cast<long long>(index[s]),
-          static_cast<long long>(max_blocks) * block_size - 1));
-  const int n_entries = last < 0 ? 0 : last / block_size + 1;
-  const int* slot_table = tables + static_cast<long long>(s) * max_blocks;
-  for (int i = threadIdx.x; i < n_entries; i += kThreads) {
-    table[i] = slot_table[i];
-  }
-  __syncthreads();
-  decode_positions(q, kpool, vpool, TableRows{table, block_size}, last, out,
-                   s, h, num_heads, num_blocks, block_size, layer, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -517,14 +345,13 @@ __device__ __forceinline__ void merge_store_pipe(float m, float l, float* acc,
   }
 }
 
-// K1 (KT = QT) and K2 (KT = int8_t): the owner flash decode; thread t
-// takes positions t, t + 256, ... <= index[s], rows start_block[s] * BS + p
-// of the layer.
-template <typename QT, typename KT>
+// K2: the owner flash decode over an int8 pool; thread t takes positions
+// t, t + 256, ... <= index[s], rows start_block[s] * BS + p of the layer.
+template <typename QT>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 owner_decode_kernel_pipelined(const QT* __restrict__ q,
-                              const KT* __restrict__ kpool,
-                              const KT* __restrict__ vpool,
+                              const int8_t* __restrict__ kpool,
+                              const int8_t* __restrict__ vpool,
                               const float* __restrict__ k_scale,
                               const float* __restrict__ v_scale,
                               const int* __restrict__ start_block,
@@ -532,7 +359,6 @@ owner_decode_kernel_pipelined(const QT* __restrict__ q,
                               QT* __restrict__ out, int num_heads,
                               int num_blocks, int block_size, int layer,
                               float scale) {
-  constexpr bool kQ8 = sizeof(KT) == 1;
   const int s = blockIdx.x / num_heads;
   const int h = blockIdx.x % num_heads;
   const long long row = static_cast<long long>(num_heads) * kHeadDim;
@@ -549,29 +375,26 @@ owner_decode_kernel_pipelined(const QT* __restrict__ q,
   float acc[kHeadDim];
 #pragma unroll
   for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-  walk_keys<KT, kQ8, false>(
+  walk_keys<int8_t, true, false>(
       n, [&](int p) { return first + p; }, qs, kpool + layer_off,
       vpool + layer_off, row, k_scale, v_scale, nullptr, scale, m, l, acc);
   merge_store_pipe(m, l, acc,
                    out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-// K3 (KT = QT) and K4 (KT = int8_t): the stream flash decode. Each round
-// finds 256 physical blocks' live ones for the slot, then spreads their
-// keys over the threads; a key's mask byte is loaded with its rows, and a
-// masked key is skipped when it is used.
-template <typename QT, typename KT>
+// K3: the stream flash decode over a bf16 or fp32 pool. Each round finds
+// 256 physical blocks' live ones for the slot (as stream_decode_kernel),
+// then spreads their keys over the threads; a key's mask byte is loaded
+// with its rows, and a masked key is skipped when it is used.
+template <typename QT>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 stream_decode_kernel_pipelined(const QT* __restrict__ q,
-                               const KT* __restrict__ kpool,
-                               const KT* __restrict__ vpool,
-                               const float* __restrict__ k_scale,
-                               const float* __restrict__ v_scale,
+                               const QT* __restrict__ kpool,
+                               const QT* __restrict__ vpool,
                                const int8_t* __restrict__ vis,
                                QT* __restrict__ out, int num_heads,
                                int num_blocks, int block_size, int bound,
                                int layer, float scale) {
-  constexpr bool kQ8 = sizeof(KT) == 1;
   const int s = blockIdx.x / num_heads;
   const int h = blockIdx.x % num_heads;
   const int t = threadIdx.x;
@@ -617,13 +440,13 @@ stream_decode_kernel_pipelined(const QT* __restrict__ q,
     }
     if (any) live[offset + __popc(ballot & ((1u << lane) - 1u))] = b;
     __syncthreads();
-    walk_keys<KT, kQ8, true>(
+    walk_keys<QT, false, true>(
         n_live * block_size,
         [&](int i) {
           return static_cast<long long>(live[i / block_size]) * block_size +
                  i % block_size;
         },
-        qs, kpool + layer_off, vpool + layer_off, row, k_scale, v_scale,
+        qs, kpool + layer_off, vpool + layer_off, row, nullptr, nullptr,
         seen, scale, m, l, acc);
     __syncthreads();  // live[] and warp_live[] are rewritten next round
   }
@@ -631,56 +454,605 @@ stream_decode_kernel_pipelined(const QT* __restrict__ q,
                    out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-template <typename QT, typename KT>
+template <typename QT>
 int launch_owner_pipelined(const void* q, const void* kpool,
                            const void* vpool, const void* k_scale,
                            const void* v_scale, const void* start_block,
                            const void* index, void* out, int num_slots,
                            int num_heads, int num_blocks, int block_size,
                            int layer, float scale, void* stream) {
-  owner_decode_kernel_pipelined<QT, KT>
-      <<<num_slots * num_heads, kPipeThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const QT*>(q), static_cast<const KT*>(kpool),
-          static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
-          static_cast<const float*>(v_scale),
-          static_cast<const int*>(start_block),
-          static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
-          num_blocks, block_size, layer, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename QT, typename KT>
-int launch_stream_pipelined(const void* q, const void* kpool,
-                            const void* vpool, const void* k_scale,
-                            const void* v_scale, const void* vis, void* out,
-                            int num_slots, int num_heads, int num_blocks,
-                            int block_size, int bound, int layer, float scale,
-                            void* stream) {
-  stream_decode_kernel_pipelined<QT, KT>
-      <<<num_slots * num_heads, kPipeThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const QT*>(q), static_cast<const KT*>(kpool),
-          static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
-          static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
-          static_cast<QT*>(out), num_heads, num_blocks, block_size, bound,
-          layer, scale);
+  owner_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
+      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(start_block),
+      static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
+      num_blocks, block_size, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT>
-int launch_table(const void* q, const void* kpool, const void* vpool,
-                 const void* tables, const void* index, void* out,
-                 int num_slots, int num_heads, int num_blocks, int block_size,
-                 int max_blocks, int layer, float scale, void* stream) {
-  const dim3 grid(num_slots * num_heads);
-  const size_t table_bytes = static_cast<size_t>(max_blocks) * sizeof(int);
-  table_decode_kernel<QT><<<grid, kThreads, table_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
+int launch_stream_pipelined(const void* q, const void* kpool,
+                            const void* vpool, const void* vis, void* out,
+                            int num_slots, int num_heads, int num_blocks,
+                            int block_size, int bound, int layer, float scale,
+                            void* stream) {
+  stream_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
+      static_cast<const QT*>(vpool), static_cast<const int8_t*>(vis),
+      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The tiled per-(slot, head) design (K1, K4, K7): see the header.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;  // 8 warps per (slot, head) block
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kMaxTileRows = 64;
+constexpr int kMaxStages = 16;
+constexpr int kRingBytes = 192 * 1024;  // of the 227 KB a block may opt in to
+constexpr int kRound = 1024;  // K4 blocks scanned, K7 entries staged a round
+constexpr int kScan = kRound / kTileThreads;
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
+
+// How a tile of KT rows lies in its ring stage and over the lanes: the
+// tile's K rows, then its V rows (kRowBytes each, dense), then for the int8
+// pool the rows' k and v scales, then (kMask) the rows' mask bytes.
+template <typename KT, bool kMask>
+struct TileLayout {
+  static constexpr bool kQ8 = sizeof(KT) == 1;
+  static constexpr int kRowBytes = kHeadDim * static_cast<int>(sizeof(KT));
+  static constexpr int kLanes = kRowBytes / 16;  // lanes holding one key
+  static constexpr int kPerLane = 16 / static_cast<int>(sizeof(KT));
+  static constexpr int kGroups = kTileThreads / kLanes;
+  // keys a group takes at once: a 64-row tile in one pass
+  static constexpr int kBatch =
+      kGroups >= kMaxTileRows ? 1 : kMaxTileRows / kGroups;
+  __host__ __device__ static int v_off(int rows) { return rows * kRowBytes; }
+  __host__ __device__ static int ksc_off(int rows) {
+    return 2 * rows * kRowBytes;
+  }
+  __host__ __device__ static int vsc_off(int rows) {
+    return ksc_off(rows) + round16(4 * rows);
+  }
+  __host__ __device__ static int mask_off(int rows) {
+    return ksc_off(rows) + (kQ8 ? 2 * round16(4 * rows) : 0);
+  }
+  __host__ __device__ static int stage_bytes(int rows) {
+    return mask_off(rows) + (kMask ? round16(rows) : 0);
+  }
+};
+
+// One tile: its first token row in the layer and its row count.
+struct Tile {
+  long long first;
+  int rows;
+};
+
+__device__ __forceinline__ unsigned char* dynamic_smem() {
+  extern __shared__ __align__(128) unsigned char smem[];
+  return smem;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most n of this thread's commit groups are pending
+// (n <= N; the instruction takes its count as an immediate).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if constexpr (N == 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    if (n >= N) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+    } else {
+      cp_async_wait_pending<N - 1>(n);
+    }
+  }
+}
+
+// The online-softmax state of one lane group: the running max, the
+// denominator and the p-weighted V sum over the lane's columns.
+template <int kPerLane>
+struct GroupState {
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kPerLane] = {};
+};
+
+// The lane's columns of the (slot, head) query row, as floats.
+template <typename Lay, typename QT>
+__device__ __forceinline__ void load_query_cols(const QT* q, int s, int h,
+                                                int num_heads, float* qf) {
+  const QT* qrow = q + (static_cast<long long>(s) * num_heads + h) * kHeadDim +
+                   (threadIdx.x % Lay::kLanes) * Lay::kPerLane;
+#pragma unroll
+  for (int e = 0; e < Lay::kPerLane; ++e) qf[e] = to_float(qrow[e]);
+}
+
+// One tile of the ring stage `stage` (`rows` of `tile_rows` filled) into
+// the state of group g: each group takes keys g, g + kGroups, ..., kBatch
+// at a time (their K words read and dot products shuffled together), the
+// lane c of the group reading the 16-byte word c of each row.
+template <typename KT, bool kMask, typename Lay = TileLayout<KT, kMask>>
+__device__ __forceinline__ void attend_tile(const unsigned char* stage,
+                                            int rows, int tile_rows, int g,
+                                            int c, const float* qf,
+                                            float scale,
+                                            GroupState<Lay::kPerLane>& st) {
+  const unsigned char* ks = stage + c * 16;
+  const unsigned char* vs = stage + Lay::v_off(tile_rows) + c * 16;
+  const float* ksc =
+      reinterpret_cast<const float*>(stage + Lay::ksc_off(tile_rows));
+  const float* vsc =
+      reinterpret_cast<const float*>(stage + Lay::vsc_off(tile_rows));
+  const int8_t* seen =
+      reinterpret_cast<const int8_t*>(stage + Lay::mask_off(tile_rows));
+  for (int r0 = 0; r0 < rows; r0 += Lay::kGroups * Lay::kBatch) {
+    float logit[Lay::kBatch];
+    uint4 vw[Lay::kBatch];
+#pragma unroll
+    for (int b = 0; b < Lay::kBatch; ++b) {
+      const int r = r0 + b * Lay::kGroups + g;
+      uint4 kw = make_uint4(0u, 0u, 0u, 0u);
+      vw[b] = kw;
+      if (r < rows) {
+        kw = *reinterpret_cast<const uint4*>(ks + r * Lay::kRowBytes);
+        vw[b] = *reinterpret_cast<const uint4*>(vs + r * Lay::kRowBytes);
+      }
+      float kf[Lay::kPerLane];
+      word_to_float(kw, kf, static_cast<const KT*>(nullptr));
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < Lay::kPerLane; ++e) {
+        part[e & 1] = fmaf(qf[e], kf[e], part[e & 1]);
+      }
+      logit[b] = part[0] + part[1];
+    }
+    // the group's lanes sum their columns' parts
+#pragma unroll
+    for (int off = Lay::kLanes / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int b = 0; b < Lay::kBatch; ++b) {
+        logit[b] += __shfl_xor_sync(0xffffffffu, logit[b], off);
+      }
+    }
+    float big = -INFINITY;
+#pragma unroll
+    for (int b = 0; b < Lay::kBatch; ++b) {
+      const int r = r0 + b * Lay::kGroups + g;
+      const bool ok = r < rows && (!kMask || seen[r] != 0);
+      logit[b] = !ok ? -INFINITY
+                 : Lay::kQ8 ? logit[b] * (ksc[r] * scale)
+                            : logit[b] * scale;
+      big = fmaxf(big, logit[b]);
+    }
+    if (big == -INFINITY) continue;  // no key of the batch: state unchanged
+    const float m_new = fmaxf(st.m, big);
+    const float alpha = expf(st.m - m_new);  // 0 on the first key (m = -inf)
+    float psum = 0.f;
+#pragma unroll
+    for (int e = 0; e < Lay::kPerLane; ++e) st.acc[e] *= alpha;
+#pragma unroll
+    for (int b = 0; b < Lay::kBatch; ++b) {
+      if (logit[b] == -INFINITY) continue;  // masked or past the tile
+      const float p = expf(logit[b] - m_new);
+      psum += p;
+      const float pv =
+          Lay::kQ8 ? p * vsc[r0 + b * Lay::kGroups + g] : p;
+      float vf[Lay::kPerLane];
+      word_to_float(vw[b], vf, static_cast<const KT*>(nullptr));
+#pragma unroll
+      for (int e = 0; e < Lay::kPerLane; ++e) {
+        st.acc[e] = fmaf(pv, vf[e], st.acc[e]);
+      }
+    }
+    st.l = st.l * alpha + psum;
+    st.m = m_new;
+  }
+}
+
+// Tiles 0..n_tiles-1 (tile_of(j) -> Tile) into the groups' states through
+// the ring of `stages` stages: tiles j + 1 .. j + stages - 1 are in flight
+// while tile j is computed. kbase/vbase: the layer's pool offset to this
+// head's columns, `row` elements a token row; k_scale/v_scale/seen the
+// layer's scales and the slot's mask row, indexed by token row.
+template <typename KT, bool kMask, typename TileOf,
+          typename Lay = TileLayout<KT, kMask>>
+__device__ __forceinline__ void walk_tiles(
+    int n_tiles, TileOf tile_of, int tile_rows, int stages, const float* qf,
+    const KT* kbase, const KT* vbase, long long row, const float* k_scale,
+    const float* v_scale, const int8_t* seen, float scale,
+    GroupState<Lay::kPerLane>& st) {
+  unsigned char* ring = dynamic_smem();
+  const int stage_bytes = Lay::stage_bytes(tile_rows);
+  const int t = threadIdx.x;
+
+  // every thread copies its share of tile j and commits one group (an
+  // empty one past the last tile, so that the counts stay aligned)
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      const Tile tile = tile_of(j);
+      unsigned char* dst = ring + (j % stages) * stage_bytes;
+      for (int i = t; i < tile.rows * Lay::kLanes; i += kTileThreads) {
+        const int r = i / Lay::kLanes;
+        const int w = i % Lay::kLanes;
+        const long long src = (tile.first + r) * row + w * Lay::kPerLane;
+        const int at = r * Lay::kRowBytes + w * 16;
+        cp_async16(dst + at, kbase + src);
+        cp_async16(dst + Lay::v_off(tile_rows) + at, vbase + src);
+      }
+      if constexpr (Lay::kQ8) {
+        for (int r = t; r < tile.rows; r += kTileThreads) {
+          cp_async4(dst + Lay::ksc_off(tile_rows) + 4 * r,
+                    k_scale + tile.first + r);
+          cp_async4(dst + Lay::vsc_off(tile_rows) + 4 * r,
+                    v_scale + tile.first + r);
+        }
+      }
+      if constexpr (kMask) {
+        for (int i = t; i < tile.rows / 16; i += kTileThreads) {
+          cp_async16(dst + Lay::mask_off(tile_rows) + 16 * i,
+                     seen + tile.first + 16 * i);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int j = 0; j < stages - 1; ++j) issue(j);
+  const int g = t / Lay::kLanes;
+  const int c = t % Lay::kLanes;
+  for (int j = 0; j < n_tiles; ++j) {
+    // tile j has landed once at most stages - 2 of this thread's groups
+    // are pending; the barrier shows every thread's copies and frees the
+    // stage of tile j - 1, which tile j + stages - 1 takes
+    cp_async_wait_pending<kMaxStages - 2>(stages - 2);
+    __syncthreads();
+    issue(j + stages - 1);
+    attend_tile<KT, kMask>(ring + (j % stages) * stage_bytes,
+                           tile_of(j).rows, tile_rows, g, c, qf, scale, st);
+  }
+  cp_async_wait_pending<0>(0);
+  __syncthreads();  // the ring and the caller's tile list are rewritten next
+}
+
+// Merge the groups' states and write the (slot, head) output row; zeros
+// where no group saw a key. The groups of a warp merge by shuffles (each
+// step joins the groups kLanes, 2 kLanes, ... lanes apart), then 64 threads
+// merge the 8 warps' rows: the global max, each row rescaled, a column sum.
+template <typename Lay, typename QT>
+__device__ __forceinline__ void merge_store_tiled(
+    GroupState<Lay::kPerLane>& st, QT* orow) {
+  __shared__ float warp_m[kTileWarps];
+  __shared__ float warp_l[kTileWarps];
+  __shared__ float warp_acc[kTileWarps][kHeadDim];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+#pragma unroll
+  for (int off = Lay::kLanes; off < 32; off <<= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, st.m, off);
+    const float l_o = __shfl_xor_sync(0xffffffffu, st.l, off);
+    const float big = fmaxf(st.m, m_o);
+    const float f = st.m == -INFINITY ? 0.f : expf(st.m - big);
+    const float f_o = m_o == -INFINITY ? 0.f : expf(m_o - big);
+    st.l = st.l * f + l_o * f_o;
+#pragma unroll
+    for (int e = 0; e < Lay::kPerLane; ++e) {
+      const float a_o = __shfl_xor_sync(0xffffffffu, st.acc[e], off);
+      st.acc[e] = st.acc[e] * f + a_o * f_o;
+    }
+    st.m = big;
+  }
+  if (lane < Lay::kLanes) {
+#pragma unroll
+    for (int e = 0; e < Lay::kPerLane; ++e) {
+      warp_acc[warp][lane * Lay::kPerLane + e] = st.acc[e];
+    }
+  }
+  if (lane == 0) {
+    warp_m[warp] = st.m;
+    warp_l[warp] = st.l;
+  }
+  __syncthreads();
+  if (t < kHeadDim) {
+    float big = warp_m[0];
+#pragma unroll
+    for (int w = 1; w < kTileWarps; ++w) big = fmaxf(big, warp_m[w]);
+    if (big == -INFINITY) {  // no visible key: an inactive or empty row
+      store(orow + t, 0.f);
+      return;
+    }
+    float total = 0.f;
+    float denom = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      const float f = expf(warp_m[w] - big);  // 0 for a warp with no key
+      total += warp_acc[w][t] * f;
+      denom += warp_l[w] * f;
+    }
+    store(orow + t, total * (1.f / denom));
+  }
+}
+
+// K1: the owner flash decode over a bf16 or fp32 pool; the slot's
+// positions 0..index[s] are the contiguous rows from start_block[s] * BS,
+// cut into tiles of tile_rows.
+template <typename QT, typename Lay = TileLayout<QT, false>>
+__global__ void __launch_bounds__(kTileThreads, 1)
+owner_decode_kernel_tiled(const QT* __restrict__ q,
+                          const QT* __restrict__ kpool,
+                          const QT* __restrict__ vpool,
+                          const int* __restrict__ start_block,
+                          const int* __restrict__ index, QT* __restrict__ out,
+                          int num_heads, int num_blocks, int block_size,
+                          int tile_rows, int stages, int layer, float scale) {
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  const long long first = static_cast<long long>(start_block[s]) * block_size;
+  const int n = max(index[s] + 1, 0);
+  float qf[Lay::kPerLane];
+  load_query_cols<Lay>(q, s, h, num_heads, qf);
+  GroupState<Lay::kPerLane> st;
+  walk_tiles<QT, false>(
+      (n + tile_rows - 1) / tile_rows,
+      [&](int j) {
+        return Tile{first + static_cast<long long>(j) * tile_rows,
+                    min(tile_rows, n - j * tile_rows)};
+      },
+      tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
+      nullptr, nullptr, nullptr, scale, st);
+  merge_store_tiled<Lay>(
+      st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
+}
+
+// K7: the block-table flash decode over a bf16 or fp32 pool; positions
+// 0..min(index[s], MB * BS - 1), position p at row p % BS of block
+// tables[s, p / BS]. The table entries those positions reach are staged
+// kRound at a time.
+template <typename QT, typename Lay = TileLayout<QT, false>>
+__global__ void __launch_bounds__(kTileThreads, 1)
+table_decode_kernel_tiled(const QT* __restrict__ q,
+                          const QT* __restrict__ kpool,
+                          const QT* __restrict__ vpool,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ index, QT* __restrict__ out,
+                          int num_heads, int num_blocks, int block_size,
+                          int max_blocks, int tile_rows, int stages, int layer,
+                          float scale) {
+  __shared__ int entry[kRound];
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  // the TPU grid covers the table's blocks only: positions past it are not
+  // attended, whatever the index
+  const int n = static_cast<int>(
+      max(min(static_cast<long long>(index[s]) + 1,
+              static_cast<long long>(max_blocks) * block_size),
+          0LL));
+  const int n_entries = (n + block_size - 1) / block_size;
+  const int* slot_table = tables + static_cast<long long>(s) * max_blocks;
+  float qf[Lay::kPerLane];
+  load_query_cols<Lay>(q, s, h, num_heads, qf);
+  GroupState<Lay::kPerLane> st;
+  for (int e0 = 0; e0 < n_entries; e0 += kRound) {
+    const int count = min(kRound, n_entries - e0);
+    for (int i = threadIdx.x; i < count; i += kTileThreads) {
+      entry[i] = slot_table[e0 + i];
+    }
+    __syncthreads();
+    // this round's positions, from e0 * BS
+    const int n_round = min(count * block_size, n - e0 * block_size);
+    walk_tiles<QT, false>(
+        (n_round + tile_rows - 1) / tile_rows,
+        [&](int j) {
+          const int p = j * tile_rows;
+          return Tile{static_cast<long long>(entry[p / block_size]) *
+                              block_size + p % block_size,
+                      min(tile_rows, n_round - p)};
+        },
+        tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
+        nullptr, nullptr, nullptr, scale, st);
+  }
+  merge_store_tiled<Lay>(
+      st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
+}
+
+// K4: the stream flash decode over an int8 pool with per-token scales.
+// Each round scans kRound physical blocks of the prefix (thread t blocks
+// base + t, base + t + 256, ...) for a visible key of the slot, compacts
+// the live ones in block order, and walks their tiles; a tile's mask bytes
+// and scales come with its rows.
+template <typename QT, typename Lay = TileLayout<int8_t, true>>
+__global__ void __launch_bounds__(kTileThreads, 1)
+stream_decode_kernel_tiled(const QT* __restrict__ q,
+                           const int8_t* __restrict__ kpool,
+                           const int8_t* __restrict__ vpool,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           const int8_t* __restrict__ vis, QT* __restrict__ out,
+                           int num_heads, int num_blocks, int block_size,
+                           int bound, int tile_rows, int stages, int layer,
+                           float scale) {
+  __shared__ int live[kRound];
+  __shared__ int warp_live[kScan][kTileWarps];
+  const int s = blockIdx.x / num_heads;
+  const int h = blockIdx.x % num_heads;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long row = static_cast<long long>(num_heads) * kHeadDim;
+  const long long layer_off =
+      static_cast<long long>(layer) * num_blocks * block_size * row +
+      static_cast<long long>(h) * kHeadDim;
+  // the slot's row of the mask: one byte per key of the prefix
+  const int8_t* seen = vis + static_cast<long long>(s) * bound * block_size;
+  const int per_block = block_size / tile_rows;
+  float qf[Lay::kPerLane];
+  load_query_cols<Lay>(q, s, h, num_heads, qf);
+  GroupState<Lay::kPerLane> st;
+  for (int base = 0; base < bound; base += kRound) {
+    bool any[kScan];
+    unsigned ballot[kScan];
+#pragma unroll
+    for (int i = 0; i < kScan; ++i) {
+      const int b = base + i * kTileThreads + t;
+      any[i] = false;
+      if (b < bound) {
+        const uint4* words = reinterpret_cast<const uint4*>(
+            seen + static_cast<long long>(b) * block_size);
+        for (int k = 0; k < block_size / 16; ++k) {
+          const uint4 w = words[k];
+          any[i] |= (w.x | w.y | w.z | w.w) != 0u;
+        }
+      }
+      ballot[i] = __ballot_sync(0xffffffffu, any[i]);
+      if (lane == 0) warp_live[i][warp] = __popc(ballot[i]);
+    }
+    __syncthreads();
+    // compact the live blocks into live[0, n_live), in block order
+    int n_live = 0;
+#pragma unroll
+    for (int i = 0; i < kScan; ++i) {
+      int offset = n_live;
+#pragma unroll
+      for (int w = 0; w < kTileWarps; ++w) {
+        offset += (w < warp) ? warp_live[i][w] : 0;
+        n_live += warp_live[i][w];
+      }
+      if (any[i]) {
+        live[offset + __popc(ballot[i] & ((1u << lane) - 1u))] =
+            base + i * kTileThreads + t;
+      }
+    }
+    __syncthreads();
+    walk_tiles<int8_t, true>(
+        n_live * per_block,
+        [&](int j) {
+          return Tile{static_cast<long long>(live[j / per_block]) *
+                              block_size + (j % per_block) * tile_rows,
+                      tile_rows};
+        },
+        tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
+        k_scale, v_scale, seen, scale, st);
+  }
+  merge_store_tiled<Lay>(
+      st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
+}
+
+// Rows of a tile: a physical block's, or 64 where a block holds a multiple
+// of 64 rows.
+int tile_rows_for(int block_size) {
+  return (block_size > kMaxTileRows && block_size % kMaxTileRows == 0)
+             ? kMaxTileRows
+             : block_size;
+}
+
+// The ring of a tiled launch: as many stages as kRingBytes holds, at most
+// kMaxStages; fewer than 2 (a tile too large to double-buffer) is refused.
+template <typename Lay>
+int ring_stages(int tile_rows, size_t* bytes) {
+  const int per_stage = Lay::stage_bytes(tile_rows);
+  const int stages = min(kMaxStages, kRingBytes / per_stage);
+  *bytes = static_cast<size_t>(stages) * per_stage;
+  return stages;
+}
+
+// Opt the kernel in to the ring's dynamic shared memory (above the 48 KB a
+// block gets without asking), once per kernel.
+template <typename Kernel>
+int opt_in(Kernel kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes));
+}
+
+template <typename QT>
+int launch_owner_tiled(const void* q, const void* kpool, const void* vpool,
+                       const void* start_block, const void* index, void* out,
+                       int num_slots, int num_heads, int num_blocks,
+                       int block_size, int layer, float scale, void* stream) {
+  static const int opted = opt_in(owner_decode_kernel_tiled<QT>);
+  if (opted != 0) return opted;
+  const int rows = tile_rows_for(block_size);
+  size_t bytes = 0;
+  const int stages = ring_stages<TileLayout<QT, false>>(rows, &bytes);
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  owner_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
+      static_cast<const QT*>(vpool), static_cast<const int*>(start_block),
+      static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
+      num_blocks, block_size, rows, stages, layer, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
+int launch_table_tiled(const void* q, const void* kpool, const void* vpool,
+                       const void* tables, const void* index, void* out,
+                       int num_slots, int num_heads, int num_blocks,
+                       int block_size, int max_blocks, int layer, float scale,
+                       void* stream) {
+  static const int opted = opt_in(table_decode_kernel_tiled<QT>);
+  if (opted != 0) return opted;
+  const int rows = tile_rows_for(block_size);
+  size_t bytes = 0;
+  const int stages = ring_stages<TileLayout<QT, false>>(rows, &bytes);
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  table_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const QT*>(q), static_cast<const QT*>(kpool),
       static_cast<const QT*>(vpool), static_cast<const int*>(tables),
       static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
-      num_blocks, block_size, max_blocks, layer, scale);
+      num_blocks, block_size, max_blocks, rows, stages, layer, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
+int launch_stream_tiled(const void* q, const void* kpool, const void* vpool,
+                        const void* k_scale, const void* v_scale,
+                        const void* vis, void* out, int num_slots,
+                        int num_heads, int num_blocks, int block_size,
+                        int bound, int layer, float scale, void* stream) {
+  static const int opted = opt_in(stream_decode_kernel_tiled<QT>);
+  if (opted != 0) return opted;
+  const int rows = tile_rows_for(block_size);
+  size_t bytes = 0;
+  const int stages = ring_stages<TileLayout<int8_t, true>>(rows, &bytes);
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  stream_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
+      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
+      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, rows,
+      stages, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -693,18 +1065,19 @@ int owner_decode_f32(const void* q, const void* kpool, const void* vpool,
                      const void* start_block, const void* index, void* out,
                      int num_slots, int num_heads, int num_blocks,
                      int block_size, int layer, float scale, void* stream) {
-  return launch_owner_pipelined<float, float>(
-      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
-      num_heads, num_blocks, block_size, layer, scale, stream);
+  return launch_owner_tiled<float>(q, kpool, vpool, start_block, index, out,
+                                   num_slots, num_heads, num_blocks,
+                                   block_size, layer, scale, stream);
 }
 
 int owner_decode_bf16(const void* q, const void* kpool, const void* vpool,
                       const void* start_block, const void* index, void* out,
                       int num_slots, int num_heads, int num_blocks,
                       int block_size, int layer, float scale, void* stream) {
-  return launch_owner_pipelined<__nv_bfloat16, __nv_bfloat16>(
-      q, kpool, vpool, nullptr, nullptr, start_block, index, out, num_slots,
-      num_heads, num_blocks, block_size, layer, scale, stream);
+  return launch_owner_tiled<__nv_bfloat16>(q, kpool, vpool, start_block,
+                                           index, out, num_slots, num_heads,
+                                           num_blocks, block_size, layer,
+                                           scale, stream);
 }
 
 int owner_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
@@ -712,7 +1085,7 @@ int owner_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                         const void* start_block, const void* index, void* out,
                         int num_slots, int num_heads, int num_blocks,
                         int block_size, int layer, float scale, void* stream) {
-  return launch_owner_pipelined<float, int8_t>(
+  return launch_owner_pipelined<float>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
       num_heads, num_blocks, block_size, layer, scale, stream);
 }
@@ -722,7 +1095,7 @@ int owner_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                          const void* start_block, const void* index, void* out,
                          int num_slots, int num_heads, int num_blocks,
                          int block_size, int layer, float scale, void* stream) {
-  return launch_owner_pipelined<__nv_bfloat16, int8_t>(
+  return launch_owner_pipelined<__nv_bfloat16>(
       q, kpool, vpool, k_scale, v_scale, start_block, index, out, num_slots,
       num_heads, num_blocks, block_size, layer, scale, stream);
 }
@@ -731,18 +1104,20 @@ int stream_decode_f32(const void* q, const void* kpool, const void* vpool,
                       const void* vis, void* out, int num_slots, int num_heads,
                       int num_blocks, int block_size, int bound, int layer,
                       float scale, void* stream) {
-  return launch_stream_pipelined<float, float>(
-      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
-      num_blocks, block_size, bound, layer, scale, stream);
+  return launch_stream_pipelined<float>(q, kpool, vpool, vis, out,
+                                       num_slots, num_heads, num_blocks,
+                                       block_size, bound, layer, scale,
+                                       stream);
 }
 
 int stream_decode_bf16(const void* q, const void* kpool, const void* vpool,
                        const void* vis, void* out, int num_slots,
                        int num_heads, int num_blocks, int block_size,
                        int bound, int layer, float scale, void* stream) {
-  return launch_stream_pipelined<__nv_bfloat16, __nv_bfloat16>(
-      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
-      num_blocks, block_size, bound, layer, scale, stream);
+  return launch_stream_pipelined<__nv_bfloat16>(q, kpool, vpool, vis, out,
+                                               num_slots, num_heads,
+                                               num_blocks, block_size, bound,
+                                               layer, scale, stream);
 }
 
 int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
@@ -750,7 +1125,7 @@ int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                          const void* vis, void* out, int num_slots,
                          int num_heads, int num_blocks, int block_size,
                          int bound, int layer, float scale, void* stream) {
-  return launch_stream_pipelined<float, int8_t>(
+  return launch_stream_tiled<float>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }
@@ -760,7 +1135,7 @@ int stream_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                           const void* vis, void* out, int num_slots,
                           int num_heads, int num_blocks, int block_size,
                           int bound, int layer, float scale, void* stream) {
-  return launch_stream_pipelined<__nv_bfloat16, int8_t>(
+  return launch_stream_tiled<__nv_bfloat16>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }
@@ -770,9 +1145,10 @@ int table_decode_f32(const void* q, const void* kpool, const void* vpool,
                      int num_slots, int num_heads, int num_blocks,
                      int block_size, int max_blocks, int layer, float scale,
                      void* stream) {
-  return launch_table<float>(q, kpool, vpool, tables, index, out, num_slots,
-                             num_heads, num_blocks, block_size, max_blocks,
-                             layer, scale, stream);
+  return launch_table_tiled<float>(q, kpool, vpool, tables, index, out,
+                                   num_slots, num_heads, num_blocks,
+                                   block_size, max_blocks, layer, scale,
+                                   stream);
 }
 
 int table_decode_bf16(const void* q, const void* kpool, const void* vpool,
@@ -780,10 +1156,10 @@ int table_decode_bf16(const void* q, const void* kpool, const void* vpool,
                       int num_slots, int num_heads, int num_blocks,
                       int block_size, int max_blocks, int layer, float scale,
                       void* stream) {
-  return launch_table<__nv_bfloat16>(q, kpool, vpool, tables, index, out,
-                                     num_slots, num_heads, num_blocks,
-                                     block_size, max_blocks, layer, scale,
-                                     stream);
+  return launch_table_tiled<__nv_bfloat16>(q, kpool, vpool, tables, index,
+                                           out, num_slots, num_heads,
+                                           num_blocks, block_size, max_blocks,
+                                           layer, scale, stream);
 }
 
 }  // extern "C"

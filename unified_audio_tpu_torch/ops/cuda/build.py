@@ -37,15 +37,16 @@ def find_nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if its library is missing, then load it.
+def load_library(source) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (or the source at an absolute path) if its
+    library is missing, then load it.
 
     The build writes to a temporary name and renames it into place, so two
     processes building at once never load a half-written library."""
-    lib = _loaded.get(source)
+    src = CSRC_DIR / source  # an absolute path replaces CSRC_DIR
+    lib = _loaded.get(str(src))
     if lib is not None:
         return lib
-    src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
@@ -62,5 +63,5 @@ def load_library(source: str) -> ctypes.CDLL:
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    _loaded[source] = lib
+    _loaded[str(src)] = lib
     return lib

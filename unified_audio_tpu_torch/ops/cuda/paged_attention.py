@@ -208,15 +208,11 @@ _K2_ARGS = [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR]
 _K3_ARGS = [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR]
 _K4_ARGS = [_PTR] * 7 + [_INT] * 6 + [_FLOAT, _PTR]
 _K7_ARGS = [_PTR] * 6 + [_INT] * 6 + [_FLOAT, _PTR]
-# K7 stages a slot's table in shared memory beside the merge buffers (33 KB)
-# within the 48 KB a block gets without opting in
-MAX_TABLE_BLOCKS = 2048
 
 
-def _library():
-    from .build import load_library
-
-    lib = load_library("paged_attention.cu")
+def typed(lib):
+    """``lib`` (a build of ``csrc/paged_attention.cu``) with the argument
+    types of its C entry points set."""
     if not getattr(lib, "_typed", False):
         for name, args in (("owner_decode_f32", _K1_ARGS),
                            ("owner_decode_bf16", _K1_ARGS),
@@ -233,6 +229,12 @@ def _library():
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def _library():
+    from .build import load_library
+
+    return typed(load_library("paged_attention.cu"))
 
 
 def _require(cond: bool, what: str):
@@ -434,10 +436,9 @@ def paged_flash_decode(q, kpool, vpool, tables, index, li):
     _require(q.dtype == kpool.dtype,
              f"q dtype {q.dtype} != pool dtype {kpool.dtype}")
     _require(tables.dtype == torch.int32 and tables.dim() == 2
-             and tables.shape[0] == s_slots
-             and 1 <= tables.shape[1] <= MAX_TABLE_BLOCKS,
-             f"tables must be int32 ({s_slots}, MB) with 1 <= MB <= "
-             f"{MAX_TABLE_BLOCKS}, got {tables.dtype} {tuple(tables.shape)}")
+             and tables.shape[0] == s_slots and tables.shape[1] >= 1,
+             f"tables must be int32 ({s_slots}, MB) with MB >= 1, got "
+             f"{tables.dtype} {tuple(tables.shape)}")
     _require(tables.device == q.device and tables.is_contiguous(),
              f"tables must be contiguous on {q.device}, got {tables.device}")
     lib = _library()
