@@ -20,9 +20,9 @@ prints no result. Phases, each fatal on failure:
    version and its library call are timed twice more in turns with the
    layer cycling 0..11, so that each call finds its layer out of L2 as in a
    decode step (``cold_ms`` on the kernels line; the calls above reuse one
-   layer, warm in L2). K1, K4 and K7 are the tiled kernels (K/V tiles
-   staged in a shared-memory ring by cp.async, lane groups over the head
-   dimension); K2 and K3 the pipelined ones (256 threads per slot and
+   layer, warm in L2). K1 and K7 are the tiled kernels (K/V tiles staged
+   in a shared-memory ring by cp.async, lane groups over the head
+   dimension); K2, K3 and K4 the pipelined ones (256 threads per slot and
    head, two keys in flight a thread).
    The owner flash-decode kernels K1 (bf16/fp32 pool) and K2 (int8 pool) run
    at the serving shapes (16 slots, 12 layers, 8 heads of 64, 64-token
@@ -132,10 +132,11 @@ CUDA_KERNELS = {"paged_flash_decode_owner": "owner_decode_kernel_tiled",
                 "paged_flash_decode_stream_flat":
                     "stream_decode_kernel_pipelined",
                 "paged_flash_decode_stream_flat_q8":
-                    "stream_decode_kernel_tiled",
+                    "stream_decode_kernel_pipelined",
                 "paged_flash_decode": "table_decode_kernel_tiled",
                 "vq": "vq_search_kernel"}
 ITERS = 100  # calls per timed window of a decode kernel (50 for K5/K6)
+PAD_S = 0.02  # idle time at each end of a profiled window
 
 
 def fail(msg):
@@ -155,16 +156,21 @@ def gpu_line():
 
 def profiled(torch, fn, n):
     """-> (CUDA records by name, their summed us) of ``n`` calls of ``fn``
-    under torch.profiler (CUPTI)."""
+    under torch.profiler (CUPTI). The window opens PAD_S before the first
+    call and closes PAD_S after the card is done: the profiler keeps only
+    the device records whose timestamps, mapped to the host's clock, fall
+    inside its window."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PAD_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PAD_S)
     counts, us = Counter(), 0.0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:

@@ -3,9 +3,9 @@ owner flash-decode K1/K2, the stream flash-decode K3/K4 and the block-table
 flash-decode K7 at the serving shapes (K7 also against K1 and K3 where
 they compute the same function; the pipelined kernels K2/K3 also where a
 thread's keys run out, under other bounds, and call to call bit for bit;
-the tiled kernels K1/K4/K7 at the edges of their tiles, at a 4096-entry
-table, call to call bit for bit, and three broken copies of them shown to
-fail) and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA
+the tiled K1/K7 at the edges of their tiles and at a 4096-entry table, K4
+with masked blocks, the three call to call bit for bit, and three broken
+copies of the source shown to fail) and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA
 card; imports no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
@@ -256,7 +256,7 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("bound", [320, 64, 37])
-    def test_stream_q8_tiled_edges(self, card, dtype, bound):
+    def test_stream_q8_edges(self, card, dtype, bound):
         """K4 under bounds of 320, 64 and 37 blocks: a live block partly
         masked, a fully masked block between live ones, rows with no
         visible key (zeros)."""
@@ -293,7 +293,7 @@ class TestKernelsOnCard:
                                           t_pa.paged_flash_decode_ref, args)
         assert ok, f"max abs err {err}"
 
-    def _tiled_cases(self, card, dtype):
+    def _k1_k4_k7_cases(self, card, dtype):
         """(wrapper, plain version, arguments, rows with no key) of K1, K4
         and K7 at their edge cases."""
         owner = t_pa.serving_case(False, dtype, card)
@@ -308,16 +308,16 @@ class TestKernelsOnCard:
                  table, None)]
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    def test_tiled_kernels_repeat_bit_for_bit(self, card, dtype):
+    def test_k1_k4_k7_repeat_bit_for_bit(self, card, dtype):
         """K1, K4 and K7: three back-to-back calls give the same bits (the
-        groups' states merge in a fixed order)."""
-        for fn, _, args, _ in self._tiled_cases(card, dtype):
+        partial states merge in a fixed order)."""
+        for fn, _, args, _ in self._k1_k4_k7_cases(card, dtype):
             outs = [fn(*args) for _ in range(3)]
             torch.cuda.synchronize()
             assert all(torch.equal(outs[0], o) for o in outs[1:]), \
                 fn.__name__
 
-    def test_tiled_wrappers_refuse(self, card):
+    def test_k1_k4_k7_wrappers_refuse(self, card):
         """K1, K4 and K7 raise ValueError before any launch on what they do
         not take: hd != 64, a q/pool dtype mismatch (K1), per-slot ints on
         the CPU or not int32, scales of the wrong shape (K4), a mask that
@@ -348,17 +348,17 @@ class TestKernelsOnCard:
                     fn(*bad)
         assert (k1.launches, k4_fn.launches, k7_fn.launches) == before
 
-    # Broken copies of the tiled kernels, one per failure mode: tile j
-    # computed before its copies are waited for; a tile's mask bytes copied
-    # from the tile before it; the partner group's accumulators dropped at
-    # the first step of a warp's merge
+    # Broken copies of the kernels, one per failure mode: a tile of the
+    # tiled K1/K7 computed before its copies are waited for; a K3/K4 key's
+    # mask byte taken from the block before (or after) its own; the partner
+    # group's accumulators dropped at the first step of a tiled warp's merge
     MUTANTS = {
         "wrong_stage_waited": (
             "cp_async_wait_pending<kMaxStages - 2>(stages - 2);",
             "cp_async_wait_pending<kMaxStages - 2>(stages - 1);"),
-        "mask_of_wrong_tile": (
-            "seen + tile.first + 16 * i);",
-            "seen + tile_of(j > 0 ? j - 1 : j).first + 16 * i);"),
+        "mask_of_wrong_block": (
+            "key.seen = kMask ? seen[tok] : 1;",
+            "key.seen = kMask ? seen[tok >= 64 ? tok - 64 : tok + 64] : 1;"),
         "group_dropped_in_merge": (
             "st.acc[e] = st.acc[e] * f + a_o * f_o;",
             "st.acc[e] = st.acc[e] * f + (off == Lay::kLanes ? 0.f : a_o)"
@@ -366,7 +366,7 @@ class TestKernelsOnCard:
     }
 
     @pytest.mark.parametrize("mutant", sorted(MUTANTS))
-    def test_tiled_mutants_fail(self, card, mutant, tmp_path, monkeypatch):
+    def test_mutants_fail(self, card, mutant, tmp_path, monkeypatch):
         """Each broken copy of ``csrc/paged_attention.cu`` builds and puts
         at least one of K1, K4 and K7 (bf16) outside the tolerance of
         ``compare_with_plain``, where the real kernels pass."""
@@ -376,7 +376,7 @@ class TestKernelsOnCard:
         path = tmp_path / f"paged_attention_{mutant}.cu"
         path.write_text(src.replace(old, new))
         lib = t_pa.typed(build.load_library(path))
-        cases = self._tiled_cases(card, torch.bfloat16)
+        cases = self._k1_k4_k7_cases(card, torch.bfloat16)
         for fn, ref, args, empty in cases:
             assert t_pa.compare_with_plain(fn, ref, args, empty)[1]
         monkeypatch.setattr(t_pa, "_library", lambda: lib)

@@ -1,6 +1,6 @@
 """The decode kernels' partial-state arithmetic on the CPU: ``split_merge``
-computes the owner int8 decode (K2) and the stream decode (K3) as P
-partial states, tile g of a slot's keys going to state g % P, each an
+computes the owner int8 decode (K2) and the stream decode over a float
+(K3) or an int8 pool (K4) as P partial states, tile g of a slot's keys going to state g % P, each an
 online softmax (running max, denominator, p-weighted V sum), merged in
 state order. The CUDA kernels do this with P = the threads of a (slot,
 head) block and tiles of one key. It is held against the plain versions
@@ -151,6 +151,18 @@ def _mirror_stream(args, splits, rows=1):
                        rows=rows)
 
 
+def _stream_q8(seed=0, li=1, nb=NB):
+    q, k, v, ks, vs = _pools(seed, quant=True)
+    return [torch.as_tensor(x) for x in (q, k, v, ks, vs, _vis(nb))] + \
+        [li, nb]
+
+
+def _mirror_stream_q8(args, splits, rows=1):
+    q, k, v, ks, vs, vis, li, nb = args
+    return split_merge(q, k, v, li, splits, vis=vis, k_scale=ks, v_scale=vs,
+                       num_active_blocks=nb, rows=rows)
+
+
 @pytest.mark.parametrize("splits", SPLITS)
 @pytest.mark.parametrize("rows", [1, 3, 8])
 def test_owner_mirror_matches_plain(splits, rows):
@@ -177,6 +189,22 @@ def test_stream_mirror_matches_plain(splits, nb):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want.numpy(), **EXACT)
     empty = ~(args[3] != 0).any(1)
+    assert bool(empty[1]) and not got[empty].any()
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("nb", [NB, NB // 2])
+def test_stream_q8_mirror_matches_plain(splits, nb):
+    """K4 (the stream decode over an int8 pool, the scales folded by row) as
+    ``splits`` partial states equals the plain K4 over the whole pool and
+    under a bound of half of it; the row that sees nothing is exact
+    zeros."""
+    args = _stream_q8(nb=nb)
+    got = _mirror_stream_q8(args, splits, rows=2)
+    want = t_pa.paged_flash_decode_stream_flat_q8_ref(*args)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **EXACT)
+    empty = ~(args[5] != 0).any(1)
     assert bool(empty[1]) and not got[empty].any()
 
 
@@ -229,6 +257,36 @@ def test_stream_mirror_matches_pallas(splits, li):
     seen = (vis != 0).any(1)
     np.testing.assert_allclose(got.numpy()[seen], np.asarray(want)[seen],
                                **TOL)
+
+
+@pytest.mark.parametrize("splits", [3, 8])
+@pytest.mark.parametrize("li", [0, 1])
+def test_stream_q8_mirror_matches_pallas(splits, li):
+    """The K4 mirror against the Pallas K4 in interpret mode on the rows
+    with a visible key."""
+    q, k, v, ks, vs = _pools(20 + li, quant=True)
+    vis = _vis(NB)
+    want = j_pa.paged_flash_decode_stream_flat_q8(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks),
+        jnp.asarray(vs), jnp.asarray(vis), li, num_heads=H, chunk_blocks=4,
+        num_active_blocks=NB, interpret=True)
+    got = split_merge(torch.as_tensor(q), torch.as_tensor(k),
+                      torch.as_tensor(v), li, splits,
+                      vis=torch.as_tensor(vis), k_scale=torch.as_tensor(ks),
+                      v_scale=torch.as_tensor(vs), rows=2)
+    seen = (vis != 0).any(1)
+    np.testing.assert_allclose(got.numpy()[seen], np.asarray(want)[seen],
+                               **TOL)
+
+
+def test_split_plan_stream_q8():
+    """K4's dealing in its pipelined kernel: thread t of a (slot, head)
+    block keeps keys t, t + 256, ... of the live blocks; the merge equals
+    the plain K4."""
+    args = _stream_q8()
+    np.testing.assert_allclose(
+        _mirror_stream_q8(args, 256).numpy(),
+        t_pa.paged_flash_decode_stream_flat_q8_ref(*args).numpy(), **EXACT)
 
 
 def test_split_plan():

@@ -1,10 +1,9 @@
 """The tiled decode kernels' plan on the CPU: ``tiled_decode`` computes K1
-(owner), K4 (stream, int8 pool) and K7 (block table) as the CUDA kernels in
+(owner) and K7 (block table) as the tiled CUDA kernels in
 ``csrc/paged_attention.cu`` do, in fp32:
 
 * tiles of up to 64 token rows of one physical block, from the slot's
-  region (K1), from the live blocks a mask scan finds, ``round_`` blocks a
-  round (K4), or from the table's entries, staged ``round_`` at a time
+  region (K1) or from the table's entries, staged ``round_`` at a time
   (K7);
 * lane groups over the head dimension: a group of ``lanes`` lanes holds
   one key, each lane a slice of its columns, the dot product summed over
@@ -18,8 +17,9 @@
 The mirror is held to the port's plain versions (fp32 within 1e-5 abs and
 rel) and to the JAX package's Pallas kernels in interpret mode (atol/rtol
 1e-4, the tolerance of the other parity tests: another reduction order) at
-2-3 layers, 2 heads of 64 and 16- or 64-token blocks. The CUDA kernels are
-held against the plain versions on the card in
+2-3 layers, 2 heads of 64 and 16- or 64-token blocks. K4 runs the
+pipelined design, mirrored in tests/test_torch_split.py. The CUDA kernels
+are held against the plain versions on the card in
 tests/test_torch_kernels_cuda.py.
 """
 import numpy as np
@@ -35,7 +35,7 @@ from unified_audio_tpu_torch.serve import paged as t_paged
 
 H, HD, THREADS = 2, 64, 256
 EXACT = dict(atol=1e-5, rtol=1e-5)
-LANES = {"fp32": 16, "bf16": 8, "int8": 4}  # lanes holding one key
+LANES = {"fp32": 16, "bf16": 8}  # lanes holding one key
 
 
 def tile_rows_for(bs):
@@ -48,19 +48,6 @@ def owner_tiles(start, index, bs):
     contiguous region."""
     n, rows = max(int(index) + 1, 0), tile_rows_for(bs)
     return [(int(start) * bs + p, min(rows, n - p)) for p in range(0, n, rows)]
-
-
-def stream_tiles(seen, bound, bs, round_=1024):
-    """K4: the blocks of [0, bound) holding a visible key of ``seen`` (the
-    slot's mask row), found ``round_`` blocks a round, cut into tiles."""
-    rows = tile_rows_for(bs)
-    tiles = []
-    for base in range(0, bound, round_):
-        live = [b for b in range(base, min(base + round_, bound))
-                if bool(seen[b * bs:(b + 1) * bs].any())]
-        tiles += [(b * bs + off, rows) for b in live
-                  for off in range(0, bs, rows)]
-    return tiles
 
 
 def table_tiles(table, index, bs, round_=1024):
@@ -98,12 +85,10 @@ def _lane_dot(q, k, lanes):
     return parts[..., 0]
 
 
-def tiled_decode(q, kpool, vpool, li, tiles, lanes, k_scale=None,
-                 v_scale=None, seen=None):
-    """K1/K4/K7 by the tiled plan: ``tiles`` lists each slot's (first row,
-    rows) tiles of the layer; ``lanes`` lanes hold one key; ``k_scale``/
-    ``v_scale`` the int8 pool's (NB, BS) scales; ``seen`` (S, rows) the
-    stream mask by token row. fp32 throughout, the output in q's dtype."""
+def tiled_decode(q, kpool, vpool, li, tiles, lanes):
+    """K1/K7 by the tiled plan: ``tiles`` lists each slot's (first row,
+    rows) tiles of the layer; ``lanes`` lanes hold one key. fp32
+    throughout, the output in q's dtype."""
     s_slots = q.shape[0]
     groups = THREADS // lanes
     batch = max(1, 64 // groups)
@@ -122,25 +107,19 @@ def tiled_decode(q, kpool, vpool, li, tiles, lanes, k_scale=None,
                     + torch.arange(groups)  # (batch, G)
                 ok = r < rows
                 tok = first + r.clamp(max=rows - 1)
-                if seen is not None:
-                    ok &= seen[s, tok] != 0
                 k = k_layer[tok.flatten()].transpose(0, 1)  # (H, B*G, 64)
                 logit = _lane_dot(qf, k, lanes).reshape(H, batch, groups)
-                logit = logit * (k_scale.reshape(-1)[tok] * HD ** -0.5
-                                 if k_scale is not None else HD ** -0.5)
-                logit = logit.masked_fill(~ok, -torch.inf)
+                logit = (logit * HD ** -0.5).masked_fill(~ok, -torch.inf)
                 big = logit.max(1).values  # (H, G)
                 m_new = torch.maximum(m, big)
                 live = ~torch.isinf(big)  # groups with a key in the batch
                 p = torch.exp(logit - torch.where(live, m_new, 0.0)[:, None])
                 p = torch.where(ok, p, 0.0)
-                pv = p * v_scale.reshape(-1)[tok] if v_scale is not None \
-                    else p
                 v = v_layer[tok.flatten()].transpose(0, 1).reshape(
                     H, batch, groups, HD)
                 alpha = torch.exp(m - m_new)
                 upd = (acc * alpha[..., None]
-                       + (pv[..., None] * v).sum(1))
+                       + (p[..., None] * v).sum(1))
                 acc = torch.where(live[..., None], upd, acc)
                 l = torch.where(live, l * alpha + p.sum(1), l)
                 m = torch.where(live, m_new, m)
@@ -166,16 +145,10 @@ def tiled_decode(q, kpool, vpool, li, tiles, lanes, k_scale=None,
 # cases
 # ---------------------------------------------------------------------------
 
-def _pools(rng, n_layers, nb, bs, quant):
+def _pools(rng, n_layers, nb, bs):
     shape = (n_layers, nb, bs, H * HD)
-    if quant:
-        k = rng.integers(-127, 128, shape).astype(np.int8)
-        v = rng.integers(-127, 128, shape).astype(np.int8)
-        ks = (0.02 * rng.random((nb, bs))).astype(np.float32)
-        vs = (0.02 * rng.random((nb, bs))).astype(np.float32)
-        return k, v, ks, vs
     return (rng.standard_normal(shape).astype(np.float32),
-            rng.standard_normal(shape).astype(np.float32), None, None)
+            rng.standard_normal(shape).astype(np.float32))
 
 
 def _owner_case(bs, seed=0, n_layers=3):
@@ -183,30 +156,12 @@ def _owner_case(bs, seed=0, n_layers=3):
     inactive, one at a tile's last row, one at position 0."""
     rng = np.random.default_rng(seed)
     nb = 20
-    k, v, _, _ = _pools(rng, n_layers, nb, bs, quant=False)
+    k, v = _pools(rng, n_layers, nb, bs)
     q = rng.standard_normal((4, H, HD)).astype(np.float32)
     start = np.array([0, 4, 8, 12], np.int32)
     rows = tile_rows_for(bs)
     index = np.array([4 * bs - 1, -1, rows - 1, 0], np.int32)
     return [torch.as_tensor(x) for x in (q, k, v, start, index)]
-
-
-def _stream_case(bs, nb, seed=0, n_layers=2):
-    """Four slots over an int8 pool: scattered blocks, one partly masked
-    live block, a fully masked block between live ones, a row with no
-    visible key and a slot whose only key is in the last block."""
-    rng = np.random.default_rng(seed)
-    k, v, ks, vs = _pools(rng, n_layers, nb, bs, quant=True)
-    q = rng.standard_normal((4, H, HD)).astype(np.float32)
-    vis = np.zeros((4, nb * bs), np.int8)
-    for b in (3, nb - 7, 5):
-        vis[0, b * bs:(b + 1) * bs] = 1
-    vis[0, 9 * bs:9 * bs + 3] = 1  # partly masked; block 8 fully masked
-    vis[0, 10 * bs:11 * bs:2] = 1
-    vis[2, (nb - 1) * bs + bs // 2] = 1  # only in the last block
-    vis[3, 1 * bs:2 * bs] = 1
-    vis[3, 2 * bs + 1] = 1
-    return [torch.as_tensor(x) for x in (q, k, v, ks, vs, vis)]
 
 
 def _table_case(bs, mb, seed=0, n_layers=2):
@@ -215,7 +170,7 @@ def _table_case(bs, mb, seed=0, n_layers=2):
     position are the trash block, its rows x100."""
     rng = np.random.default_rng(seed)
     nb = 24
-    k, v, _, _ = _pools(rng, n_layers, nb, bs, quant=False)
+    k, v = _pools(rng, n_layers, nb, bs)
     k[:, t_paged.TRASH_BLOCK] *= 100
     v[:, t_paged.TRASH_BLOCK] *= 100
     q = rng.standard_normal((4, H, HD)).astype(np.float32)
@@ -236,14 +191,6 @@ def _owner_mirror(args, li, lanes):
     return tiled_decode(q, k, v, li, tiles, lanes)
 
 
-def _stream_mirror(args, li, bound, round_=1024):
-    q, k, v, ks, vs, vis = args
-    bs = k.shape[2]
-    vis = vis[:, :bound * bs]
-    tiles = [stream_tiles(vis[s], bound, bs, round_) for s in range(len(q))]
-    return tiled_decode(q, k, v, li, tiles, LANES["int8"], ks, vs, vis)
-
-
 def _table_mirror(args, li, lanes, round_=1024):
     q, k, v, tables, index = args
     tiles = [table_tiles(tables[s], index[s], k.shape[2], round_)
@@ -262,20 +209,6 @@ def test_tiles_from_regions():
     assert owner_tiles(2, 15, 16) == [(32, 16)]
     assert owner_tiles(5, -1, 64) == []
     assert owner_tiles(1, 0, 128) == [(128, 1)]
-
-
-def test_tiles_from_live_blocks():
-    """K4's tiles: the blocks with a visible key, in block order, across
-    scan rounds; 128-token blocks give two tiles each."""
-    seen = torch.zeros(10 * 16, dtype=torch.int8)
-    seen[3 * 16 + 4] = seen[7 * 16] = seen[9 * 16 + 15] = 1
-    want = [(3 * 16, 16), (7 * 16, 16), (9 * 16, 16)]
-    assert stream_tiles(seen, 10, 16) == want
-    assert stream_tiles(seen, 10, 16, round_=4) == want
-    assert stream_tiles(seen, 8, 16) == want[:2]
-    seen = torch.zeros(3 * 128, dtype=torch.int8)
-    seen[128 + 70] = 1
-    assert stream_tiles(seen, 3, 128) == [(128, 64), (192, 64)]
 
 
 def test_tiles_from_tables():
@@ -308,23 +241,6 @@ def test_owner_mirror_matches_plain(li, bs, lanes):
     assert not got[1].any()
 
 
-@pytest.mark.parametrize("bs,nb,bound", [(16, 24, 24), (16, 24, 13),
-                                         (64, 16, 16), (64, 16, 11)])
-@pytest.mark.parametrize("round_", [1024, 4])
-def test_stream_mirror_matches_plain(bs, nb, bound, round_):
-    """K4 by the tiled plan equals the plain K4 under the whole pool and a
-    shorter bound, in one scan round or in rounds of 4 blocks; rows with
-    no visible key are exact zeros."""
-    args = _stream_case(bs, nb)
-    vis = args[5][:, :bound * bs].contiguous()
-    got = _stream_mirror(args, 1, bound, round_)
-    want = t_pa.paged_flash_decode_stream_flat_q8_ref(*args[:5], vis, 1,
-                                                      bound)
-    empty = ~(vis != 0).any(1)
-    assert bool(empty[1]) and not got[empty].any()
-    np.testing.assert_allclose(got.numpy(), want.numpy(), **EXACT)
-
-
 @pytest.mark.parametrize("lanes", [LANES["fp32"], LANES["bf16"]])
 @pytest.mark.parametrize("bs,mb,round_", [(16, 6, 1024), (16, 6, 2),
                                           (64, 3, 1), (16, 4096, 1024),
@@ -341,14 +257,11 @@ def test_table_mirror_matches_plain(bs, mb, round_, lanes):
 
 
 def test_mirror_every_state_empty():
-    """No active slot (K1), an all-zero mask (K4), every slot inactive (K7):
-    every group's state is empty, the merge gives exact zeros, no NaN."""
+    """No active slot (K1), every slot inactive (K7): every group's state is
+    empty, the merge gives exact zeros, no NaN."""
     args = _owner_case(16)
     args[4] = torch.full((4,), -1, dtype=torch.int32)
     assert torch.equal(_owner_mirror(args, 0, 8), torch.zeros(4, H, HD))
-    args = _stream_case(16, 24)
-    args[5] = torch.zeros_like(args[5])
-    assert torch.equal(_stream_mirror(args, 0, 24), torch.zeros(4, H, HD))
     args = _table_case(16, 6)
     args[4] = torch.full((4,), -1, dtype=torch.int32)
     assert torch.equal(_table_mirror(args, 0, 16), torch.zeros(4, H, HD))
@@ -372,21 +285,6 @@ def test_owner_mirror_matches_pallas(li, bs):
     got = _owner_mirror(args, li, LANES["bf16"]).numpy()
     live = index >= 0
     np.testing.assert_allclose(got[live], want[live], **TOL)
-
-
-@pytest.mark.parametrize("bs,nb,chunk", [(16, 24, 8), (64, 16, 4)])
-@pytest.mark.parametrize("li", [0, 1])
-def test_stream_mirror_matches_pallas(li, bs, nb, chunk):
-    """K4's mirror against the Pallas K4 on the rows with a visible key."""
-    args = _stream_case(bs, nb, seed=li)
-    q, k, v, ks, vs, vis = (x.numpy() for x in args)
-    want = np.asarray(j_pa.paged_flash_decode_stream_flat_q8(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks),
-        jnp.asarray(vs), jnp.asarray(vis), li, num_heads=H,
-        chunk_blocks=chunk, num_active_blocks=nb, interpret=True))
-    got = _stream_mirror(args, li, nb).numpy()
-    seen = (vis != 0).any(1)
-    np.testing.assert_allclose(got[seen], want[seen], **TOL)
 
 
 @pytest.mark.parametrize("bs,mb", [(16, 6), (64, 3), (16, 4096)])

@@ -31,66 +31,71 @@
 //
 // What bounds them on this card. Each call reads the K and V rows its slots
 // may see once: 2 * HD * bytes per element for each visible key and head,
-// about 17.6 MB per layer for 16 slots at 536 cached tokens in bf16 (half
-// that for int8). At 3.35 TB/s that is ~5 us per layer, so the kernels are
-// memory-bound, and what sets their time is how many bytes each SM keeps in
-// flight against the HBM latency (~1 us): one 256-thread block per (slot,
-// head) fills the SMs one block each at 16 slots, and a slot's keys are all
-// read by its own block. The arithmetic (two dot products of HD per visible
-// key) is negligible, so tensor cores are not used: with one query row per
-// (slot, head), QK^T and p.v are matrix-vector products at about one
-// operation per byte read. The stream kernels also read the visibility mask
-// (S * bound * BS bytes), once per head.
+// about 10 MB per layer for 16 slots at UniSE's serving prefixes in bf16
+// (half that for int8). At 3.35 TB/s that is ~3 us per layer, so the
+// kernels are memory-bound. Both designs below run one 256-thread block per
+// (slot, head), which fills the SMs one block each at 16 slots, so a
+// slot's keys are read by its own SM: what sets the time is how fast one SM
+// pulls the longest slot's rows (224 KB a head for 896 bf16 tokens), that
+// is how many bytes it keeps in flight and at what rate its loads are
+// served. The arithmetic (two dot products of HD per visible key) is
+// negligible, so tensor cores are not used: with one query row per (slot,
+// head), QK^T and p.v are matrix-vector products at about one operation per
+// byte read. The stream kernels also read the visibility mask (S * bound *
+// BS bytes), once per head.
 //
-// Both designs below run one 256-thread block per (slot, head). The TPU
-// kernels run one grid step per (slot, block) or per chunk of the prefix,
-// all heads at once, and carry the softmax state between steps in scratch;
-// here the key loop is inside the thread block and the heads are split
-// over blocks. The TPU stream kernel walks the prefix in chunks with all
-// slots at once; a slot owns a few percent of a serving prefix, so here each
-// (slot, head) block of K3 and K4 first finds the physical blocks holding
-// any visible key for its slot (16-byte mask loads, a warp ballot and a
-// block-wide compaction into shared memory) and reads only those: fully
-// masked blocks cost one mask read and no K/V traffic. The Mosaic chunk
-// rules (chunk * BS a multiple of 128, the bound divisible by the chunk)
-// have no counterpart: the bound is any block count up to the pool's.
+// The TPU kernels run one grid step per (slot, block) or per chunk of the
+// prefix, all heads at once, and carry the softmax state between steps in
+// scratch; here the key loop is inside the thread block and the heads are
+// split over blocks. The TPU stream kernel walks the prefix in chunks with
+// all slots at once; a slot owns a few percent of a serving prefix, so here
+// each (slot, head) block of K3 and K4 first finds the physical blocks
+// holding any visible key for its slot (16-byte mask loads, a warp ballot
+// and a block-wide compaction into shared memory) and reads only those:
+// fully masked blocks cost one mask read and no K/V traffic. The Mosaic
+// chunk rules (chunk * BS a multiple of 128, the bound divisible by the
+// chunk) have no counterpart: the bound is any block count up to the
+// pool's.
 //
-// The tiled design (K1, K4, K7). A tile is up to 64 token rows of one
-// physical block, this head's 64 columns of K and of V (bf16: 8 KB + 8 KB;
-// int8: 4 + 4 KB plus the rows' scales and mask bytes; fp32: 16 + 16 KB).
-// The block stages its tiles in a ring of up to 16 stages (192 KB) of
-// dynamic shared memory by cp.async (16 bytes a copy, one commit group a
-// tile), as many tiles ahead of the compute as the ring holds, so a (slot,
-// head) pays about one HBM latency in all instead of one per key and
-// thread, and no register holds a byte in flight. The consumer lays lanes
-// over the head dimension: a group of lanes holds one key (8 lanes of 16
-// bytes for a bf16 row, 4 for int8, 16 for fp32), each lane reads its
-// 16-byte word of the row from the stage (a warp's reads are contiguous
-// rows, free of bank conflicts), the dot product finishes with 2-4
-// shuffles inside the group, and each group keeps an online-softmax state
-// over its lane's columns only (8 accumulators for bf16, 16 for int8, 4 for
-// fp32). A masked key (K4, its mask byte from the stage) leaves the state
-// as it is; int8 values become floats by a byte permute into 2^23's
-// mantissa (exact, full rate). The groups' states merge by shuffles inside
-// each warp, then through 8 rows of shared memory (max, rescale, column
-// sum). K1's tiles are its region's rows; K4's are the live blocks the mask
-// scan finds, 1024 blocks a round; K7's are its table's entries, staged
-// 1024 a round, so the table's width is not limited.
+// The tiled design (K1, K7). A tile is up to 64 token rows of one physical
+// block, this head's 64 columns of K and of V (bf16: 8 KB + 8 KB; fp32: 16
+// + 16 KB). The block stages its tiles in a ring of up to 16 stages (192
+// KB) of dynamic shared memory by cp.async (16 bytes a copy, one commit
+// group a tile), as many tiles ahead of the compute as the ring holds, so
+// no register holds a byte in flight and a (slot, head) waits on the
+// memory about once instead of once per key. The consumer lays lanes over
+// the head dimension: a group of lanes holds one key (8 lanes of 16 bytes
+// for a bf16 row, 16 for fp32), each lane reads its 16-byte word of the row
+// from the stage (a warp's reads are contiguous rows, free of bank
+// conflicts), the dot product finishes with 3-4 shuffles inside the group,
+// and each group keeps an online-softmax state over its lane's columns
+// only (8 accumulators for bf16, 4 for fp32: 68-88 registers). The groups'
+// states merge by shuffles inside each warp, then through 8 rows of shared
+// memory (max, rescale, column sum). K1's tiles are its region's rows; K7's
+// follow its table, whose entries are staged 1024 at a time, so the table's
+// width is not limited. On an H100 the tiled K1 is slower than the
+// pipelined design alone with the layer warm in L2 but faster cold and
+// inside the decode step, where it was kept; its time is nearly the same
+// warm and cold, as if one SM's load rate, not the bytes in flight, set it.
 //
-// The pipelined design (K2, K3). A thread keeps its own online-softmax
+// The pipelined design (K2, K3, K4). A thread keeps its own online-softmax
 // state (running max, denominator, HD accumulators) in registers for keys
 // t, t + 256, ..., holds a key as its raw 16-byte words (the K and V rows
 // of its head, the int8 scales, the mask byte) and issues the next key's
 // loads before it computes this one: two keys in flight per thread
-// (254-255 registers, no spills; fp32 rows, 128 registers a key, go one at
-// a time). The dot product runs in four independent sums, and K3 loads a
-// key's mask byte beside its rows. The 256 states merge by a reduce-scatter
-// of shuffles in each warp (lane L ends with columns 2L, 2L + 1) and one
-// shared-memory row per warp. A split-K version (a thread-block cluster of
+// (246-255 registers, no spills; fp32 rows, 128 registers a key, go one at
+// a time). The dot product runs in four independent sums, int8 values
+// become floats by a byte permute into 2^23's mantissa (exact, full rate),
+// and the stream kernels load a key's mask byte beside its rows instead of
+// before them. The 256 states merge by a reduce-scatter of shuffles in each
+// warp (lane L ends with columns 2L, 2L + 1) and one shared-memory row per
+// warp. K4 was also built on the tiled design (its live blocks' tiles, the
+// scales and mask bytes staged with the rows) and lost to this one inside
+// the decode step. A split-K version of K2/K3 (a thread-block cluster of
 // blocks per slot, all heads per block, K/V tiles by cp.async.bulk, the
 // merge in distributed shared memory) beat the first port's kernels alone
 // but lost to them inside the decode step, where its blocks started
-// microseconds apart, and was not kept (PERF.md).
+// microseconds apart (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,7 +127,7 @@ __device__ __forceinline__ void load_query(const QT* q, int s, int h,
 }
 
 // ---------------------------------------------------------------------------
-// The pipelined per-(slot, head) design (K2, K3): see the header.
+// The pipelined per-(slot, head) design (K2, K3, K4): see the header.
 // ---------------------------------------------------------------------------
 
 constexpr int kPipeThreads = 256;  // 8 warps per (slot, head) block
@@ -382,19 +387,22 @@ owner_decode_kernel_pipelined(const QT* __restrict__ q,
                    out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-// K3: the stream flash decode over a bf16 or fp32 pool. Each round finds
-// 256 physical blocks' live ones for the slot (as stream_decode_kernel),
-// then spreads their keys over the threads; a key's mask byte is loaded
-// with its rows, and a masked key is skipped when it is used.
-template <typename QT>
+// K3 (KT = QT) and K4 (KT = int8_t): the stream flash decode. Each round
+// finds 256 physical blocks' live ones for the slot, then spreads their
+// keys over the threads; a key's mask byte is loaded with its rows, and a
+// masked key is skipped when it is used.
+template <typename QT, typename KT>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 stream_decode_kernel_pipelined(const QT* __restrict__ q,
-                               const QT* __restrict__ kpool,
-                               const QT* __restrict__ vpool,
+                               const KT* __restrict__ kpool,
+                               const KT* __restrict__ vpool,
+                               const float* __restrict__ k_scale,
+                               const float* __restrict__ v_scale,
                                const int8_t* __restrict__ vis,
                                QT* __restrict__ out, int num_heads,
                                int num_blocks, int block_size, int bound,
                                int layer, float scale) {
+  constexpr bool kQ8 = sizeof(KT) == 1;
   const int s = blockIdx.x / num_heads;
   const int h = blockIdx.x % num_heads;
   const int t = threadIdx.x;
@@ -440,13 +448,13 @@ stream_decode_kernel_pipelined(const QT* __restrict__ q,
     }
     if (any) live[offset + __popc(ballot & ((1u << lane) - 1u))] = b;
     __syncthreads();
-    walk_keys<QT, false, true>(
+    walk_keys<KT, kQ8, true>(
         n_live * block_size,
         [&](int i) {
           return static_cast<long long>(live[i / block_size]) * block_size +
                  i % block_size;
         },
-        qs, kpool + layer_off, vpool + layer_off, row, nullptr, nullptr,
+        qs, kpool + layer_off, vpool + layer_off, row, k_scale, v_scale,
         seen, scale, m, l, acc);
     __syncthreads();  // live[] and warp_live[] are rewritten next round
   }
@@ -471,23 +479,26 @@ int launch_owner_pipelined(const void* q, const void* kpool,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT>
+template <typename QT, typename KT>
 int launch_stream_pipelined(const void* q, const void* kpool,
-                            const void* vpool, const void* vis, void* out,
+                            const void* vpool, const void* k_scale,
+                            const void* v_scale, const void* vis, void* out,
                             int num_slots, int num_heads, int num_blocks,
                             int block_size, int bound, int layer, float scale,
                             void* stream) {
-  stream_decode_kernel_pipelined<QT><<<num_slots * num_heads, kPipeThreads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const QT*>(kpool),
-      static_cast<const QT*>(vpool), static_cast<const int8_t*>(vis),
-      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, layer,
-      scale);
+  stream_decode_kernel_pipelined<QT, KT>
+      <<<num_slots * num_heads, kPipeThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const QT*>(q), static_cast<const KT*>(kpool),
+          static_cast<const KT*>(vpool), static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
+          static_cast<QT*>(out), num_heads, num_blocks, block_size, bound,
+          layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// The tiled per-(slot, head) design (K1, K4, K7): see the header.
+// The tiled per-(slot, head) design (K1, K7): see the header.
 // ---------------------------------------------------------------------------
 
 constexpr int kTileThreads = 256;  // 8 warps per (slot, head) block
@@ -495,17 +506,12 @@ constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kMaxTileRows = 64;
 constexpr int kMaxStages = 16;
 constexpr int kRingBytes = 192 * 1024;  // of the 227 KB a block may opt in to
-constexpr int kRound = 1024;  // K4 blocks scanned, K7 entries staged a round
-constexpr int kScan = kRound / kTileThreads;
-
-__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
+constexpr int kRound = 1024;  // K7 table entries staged a round
 
 // How a tile of KT rows lies in its ring stage and over the lanes: the
-// tile's K rows, then its V rows (kRowBytes each, dense), then for the int8
-// pool the rows' k and v scales, then (kMask) the rows' mask bytes.
-template <typename KT, bool kMask>
+// tile's K rows, then its V rows, kRowBytes each, dense.
+template <typename KT>
 struct TileLayout {
-  static constexpr bool kQ8 = sizeof(KT) == 1;
   static constexpr int kRowBytes = kHeadDim * static_cast<int>(sizeof(KT));
   static constexpr int kLanes = kRowBytes / 16;  // lanes holding one key
   static constexpr int kPerLane = 16 / static_cast<int>(sizeof(KT));
@@ -513,18 +519,8 @@ struct TileLayout {
   // keys a group takes at once: a 64-row tile in one pass
   static constexpr int kBatch =
       kGroups >= kMaxTileRows ? 1 : kMaxTileRows / kGroups;
-  __host__ __device__ static int v_off(int rows) { return rows * kRowBytes; }
-  __host__ __device__ static int ksc_off(int rows) {
-    return 2 * rows * kRowBytes;
-  }
-  __host__ __device__ static int vsc_off(int rows) {
-    return ksc_off(rows) + round16(4 * rows);
-  }
-  __host__ __device__ static int mask_off(int rows) {
-    return ksc_off(rows) + (kQ8 ? 2 * round16(4 * rows) : 0);
-  }
   __host__ __device__ static int stage_bytes(int rows) {
-    return mask_off(rows) + (kMask ? round16(rows) : 0);
+    return 2 * rows * kRowBytes;
   }
 };
 
@@ -542,12 +538,6 @@ __device__ __forceinline__ unsigned char* dynamic_smem() {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src));
 }
 
@@ -593,20 +583,14 @@ __device__ __forceinline__ void load_query_cols(const QT* q, int s, int h,
 // the state of group g: each group takes keys g, g + kGroups, ..., kBatch
 // at a time (their K words read and dot products shuffled together), the
 // lane c of the group reading the 16-byte word c of each row.
-template <typename KT, bool kMask, typename Lay = TileLayout<KT, kMask>>
+template <typename KT, typename Lay = TileLayout<KT>>
 __device__ __forceinline__ void attend_tile(const unsigned char* stage,
                                             int rows, int tile_rows, int g,
                                             int c, const float* qf,
                                             float scale,
                                             GroupState<Lay::kPerLane>& st) {
   const unsigned char* ks = stage + c * 16;
-  const unsigned char* vs = stage + Lay::v_off(tile_rows) + c * 16;
-  const float* ksc =
-      reinterpret_cast<const float*>(stage + Lay::ksc_off(tile_rows));
-  const float* vsc =
-      reinterpret_cast<const float*>(stage + Lay::vsc_off(tile_rows));
-  const int8_t* seen =
-      reinterpret_cast<const int8_t*>(stage + Lay::mask_off(tile_rows));
+  const unsigned char* vs = stage + tile_rows * Lay::kRowBytes + c * 16;
   for (int r0 = 0; r0 < rows; r0 += Lay::kGroups * Lay::kBatch) {
     float logit[Lay::kBatch];
     uint4 vw[Lay::kBatch];
@@ -639,14 +623,11 @@ __device__ __forceinline__ void attend_tile(const unsigned char* stage,
     float big = -INFINITY;
 #pragma unroll
     for (int b = 0; b < Lay::kBatch; ++b) {
-      const int r = r0 + b * Lay::kGroups + g;
-      const bool ok = r < rows && (!kMask || seen[r] != 0);
-      logit[b] = !ok ? -INFINITY
-                 : Lay::kQ8 ? logit[b] * (ksc[r] * scale)
-                            : logit[b] * scale;
+      const bool in = r0 + b * Lay::kGroups + g < rows;
+      logit[b] = in ? logit[b] * scale : -INFINITY;
       big = fmaxf(big, logit[b]);
     }
-    if (big == -INFINITY) continue;  // no key of the batch: state unchanged
+    if (big == -INFINITY) continue;  // the group's rows end before the batch
     const float m_new = fmaxf(st.m, big);
     const float alpha = expf(st.m - m_new);  // 0 on the first key (m = -inf)
     float psum = 0.f;
@@ -654,16 +635,14 @@ __device__ __forceinline__ void attend_tile(const unsigned char* stage,
     for (int e = 0; e < Lay::kPerLane; ++e) st.acc[e] *= alpha;
 #pragma unroll
     for (int b = 0; b < Lay::kBatch; ++b) {
-      if (logit[b] == -INFINITY) continue;  // masked or past the tile
+      if (logit[b] == -INFINITY) continue;  // past the tile
       const float p = expf(logit[b] - m_new);
       psum += p;
-      const float pv =
-          Lay::kQ8 ? p * vsc[r0 + b * Lay::kGroups + g] : p;
       float vf[Lay::kPerLane];
       word_to_float(vw[b], vf, static_cast<const KT*>(nullptr));
 #pragma unroll
       for (int e = 0; e < Lay::kPerLane; ++e) {
-        st.acc[e] = fmaf(pv, vf[e], st.acc[e]);
+        st.acc[e] = fmaf(p, vf[e], st.acc[e]);
       }
     }
     st.l = st.l * alpha + psum;
@@ -674,21 +653,21 @@ __device__ __forceinline__ void attend_tile(const unsigned char* stage,
 // Tiles 0..n_tiles-1 (tile_of(j) -> Tile) into the groups' states through
 // the ring of `stages` stages: tiles j + 1 .. j + stages - 1 are in flight
 // while tile j is computed. kbase/vbase: the layer's pool offset to this
-// head's columns, `row` elements a token row; k_scale/v_scale/seen the
-// layer's scales and the slot's mask row, indexed by token row.
-template <typename KT, bool kMask, typename TileOf,
-          typename Lay = TileLayout<KT, kMask>>
-__device__ __forceinline__ void walk_tiles(
-    int n_tiles, TileOf tile_of, int tile_rows, int stages, const float* qf,
-    const KT* kbase, const KT* vbase, long long row, const float* k_scale,
-    const float* v_scale, const int8_t* seen, float scale,
-    GroupState<Lay::kPerLane>& st) {
+// head's columns, `row` elements a token row.
+template <typename KT, typename TileOf, typename Lay = TileLayout<KT>>
+__device__ __forceinline__ void walk_tiles(int n_tiles, TileOf tile_of,
+                                           int tile_rows, int stages,
+                                           const float* qf, const KT* kbase,
+                                           const KT* vbase, long long row,
+                                           float scale,
+                                           GroupState<Lay::kPerLane>& st) {
   unsigned char* ring = dynamic_smem();
   const int stage_bytes = Lay::stage_bytes(tile_rows);
   const int t = threadIdx.x;
 
-  // every thread copies its share of tile j and commits one group (an
-  // empty one past the last tile, so that the counts stay aligned)
+  // every thread copies its share of tile j's K and V rows and commits one
+  // group (an empty one past the last tile, so that the counts stay
+  // aligned)
   auto issue = [&](int j) {
     if (j < n_tiles) {
       const Tile tile = tile_of(j);
@@ -699,21 +678,7 @@ __device__ __forceinline__ void walk_tiles(
         const long long src = (tile.first + r) * row + w * Lay::kPerLane;
         const int at = r * Lay::kRowBytes + w * 16;
         cp_async16(dst + at, kbase + src);
-        cp_async16(dst + Lay::v_off(tile_rows) + at, vbase + src);
-      }
-      if constexpr (Lay::kQ8) {
-        for (int r = t; r < tile.rows; r += kTileThreads) {
-          cp_async4(dst + Lay::ksc_off(tile_rows) + 4 * r,
-                    k_scale + tile.first + r);
-          cp_async4(dst + Lay::vsc_off(tile_rows) + 4 * r,
-                    v_scale + tile.first + r);
-        }
-      }
-      if constexpr (kMask) {
-        for (int i = t; i < tile.rows / 16; i += kTileThreads) {
-          cp_async16(dst + Lay::mask_off(tile_rows) + 16 * i,
-                     seen + tile.first + 16 * i);
-        }
+        cp_async16(dst + tile_rows * Lay::kRowBytes + at, vbase + src);
       }
     }
     cp_async_commit();
@@ -729,8 +694,8 @@ __device__ __forceinline__ void walk_tiles(
     cp_async_wait_pending<kMaxStages - 2>(stages - 2);
     __syncthreads();
     issue(j + stages - 1);
-    attend_tile<KT, kMask>(ring + (j % stages) * stage_bytes,
-                           tile_of(j).rows, tile_rows, g, c, qf, scale, st);
+    attend_tile<KT>(ring + (j % stages) * stage_bytes, tile_of(j).rows,
+                    tile_rows, g, c, qf, scale, st);
   }
   cp_async_wait_pending<0>(0);
   __syncthreads();  // the ring and the caller's tile list are rewritten next
@@ -798,7 +763,7 @@ __device__ __forceinline__ void merge_store_tiled(
 // K1: the owner flash decode over a bf16 or fp32 pool; the slot's
 // positions 0..index[s] are the contiguous rows from start_block[s] * BS,
 // cut into tiles of tile_rows.
-template <typename QT, typename Lay = TileLayout<QT, false>>
+template <typename QT, typename Lay = TileLayout<QT>>
 __global__ void __launch_bounds__(kTileThreads, 1)
 owner_decode_kernel_tiled(const QT* __restrict__ q,
                           const QT* __restrict__ kpool,
@@ -818,14 +783,14 @@ owner_decode_kernel_tiled(const QT* __restrict__ q,
   float qf[Lay::kPerLane];
   load_query_cols<Lay>(q, s, h, num_heads, qf);
   GroupState<Lay::kPerLane> st;
-  walk_tiles<QT, false>(
+  walk_tiles<QT>(
       (n + tile_rows - 1) / tile_rows,
       [&](int j) {
         return Tile{first + static_cast<long long>(j) * tile_rows,
                     min(tile_rows, n - j * tile_rows)};
       },
       tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
-      nullptr, nullptr, nullptr, scale, st);
+      scale, st);
   merge_store_tiled<Lay>(
       st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
@@ -834,7 +799,7 @@ owner_decode_kernel_tiled(const QT* __restrict__ q,
 // 0..min(index[s], MB * BS - 1), position p at row p % BS of block
 // tables[s, p / BS]. The table entries those positions reach are staged
 // kRound at a time.
-template <typename QT, typename Lay = TileLayout<QT, false>>
+template <typename QT, typename Lay = TileLayout<QT>>
 __global__ void __launch_bounds__(kTileThreads, 1)
 table_decode_kernel_tiled(const QT* __restrict__ q,
                           const QT* __restrict__ kpool,
@@ -870,7 +835,7 @@ table_decode_kernel_tiled(const QT* __restrict__ q,
     __syncthreads();
     // this round's positions, from e0 * BS
     const int n_round = min(count * block_size, n - e0 * block_size);
-    walk_tiles<QT, false>(
+    walk_tiles<QT>(
         (n_round + tile_rows - 1) / tile_rows,
         [&](int j) {
           const int p = j * tile_rows;
@@ -879,89 +844,7 @@ table_decode_kernel_tiled(const QT* __restrict__ q,
                       min(tile_rows, n_round - p)};
         },
         tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
-        nullptr, nullptr, nullptr, scale, st);
-  }
-  merge_store_tiled<Lay>(
-      st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
-}
-
-// K4: the stream flash decode over an int8 pool with per-token scales.
-// Each round scans kRound physical blocks of the prefix (thread t blocks
-// base + t, base + t + 256, ...) for a visible key of the slot, compacts
-// the live ones in block order, and walks their tiles; a tile's mask bytes
-// and scales come with its rows.
-template <typename QT, typename Lay = TileLayout<int8_t, true>>
-__global__ void __launch_bounds__(kTileThreads, 1)
-stream_decode_kernel_tiled(const QT* __restrict__ q,
-                           const int8_t* __restrict__ kpool,
-                           const int8_t* __restrict__ vpool,
-                           const float* __restrict__ k_scale,
-                           const float* __restrict__ v_scale,
-                           const int8_t* __restrict__ vis, QT* __restrict__ out,
-                           int num_heads, int num_blocks, int block_size,
-                           int bound, int tile_rows, int stages, int layer,
-                           float scale) {
-  __shared__ int live[kRound];
-  __shared__ int warp_live[kScan][kTileWarps];
-  const int s = blockIdx.x / num_heads;
-  const int h = blockIdx.x % num_heads;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const long long row = static_cast<long long>(num_heads) * kHeadDim;
-  const long long layer_off =
-      static_cast<long long>(layer) * num_blocks * block_size * row +
-      static_cast<long long>(h) * kHeadDim;
-  // the slot's row of the mask: one byte per key of the prefix
-  const int8_t* seen = vis + static_cast<long long>(s) * bound * block_size;
-  const int per_block = block_size / tile_rows;
-  float qf[Lay::kPerLane];
-  load_query_cols<Lay>(q, s, h, num_heads, qf);
-  GroupState<Lay::kPerLane> st;
-  for (int base = 0; base < bound; base += kRound) {
-    bool any[kScan];
-    unsigned ballot[kScan];
-#pragma unroll
-    for (int i = 0; i < kScan; ++i) {
-      const int b = base + i * kTileThreads + t;
-      any[i] = false;
-      if (b < bound) {
-        const uint4* words = reinterpret_cast<const uint4*>(
-            seen + static_cast<long long>(b) * block_size);
-        for (int k = 0; k < block_size / 16; ++k) {
-          const uint4 w = words[k];
-          any[i] |= (w.x | w.y | w.z | w.w) != 0u;
-        }
-      }
-      ballot[i] = __ballot_sync(0xffffffffu, any[i]);
-      if (lane == 0) warp_live[i][warp] = __popc(ballot[i]);
-    }
-    __syncthreads();
-    // compact the live blocks into live[0, n_live), in block order
-    int n_live = 0;
-#pragma unroll
-    for (int i = 0; i < kScan; ++i) {
-      int offset = n_live;
-#pragma unroll
-      for (int w = 0; w < kTileWarps; ++w) {
-        offset += (w < warp) ? warp_live[i][w] : 0;
-        n_live += warp_live[i][w];
-      }
-      if (any[i]) {
-        live[offset + __popc(ballot[i] & ((1u << lane) - 1u))] =
-            base + i * kTileThreads + t;
-      }
-    }
-    __syncthreads();
-    walk_tiles<int8_t, true>(
-        n_live * per_block,
-        [&](int j) {
-          return Tile{static_cast<long long>(live[j / per_block]) *
-                              block_size + (j % per_block) * tile_rows,
-                      tile_rows};
-        },
-        tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
-        k_scale, v_scale, seen, scale, st);
+        scale, st);
   }
   merge_store_tiled<Lay>(
       st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
@@ -1002,7 +885,7 @@ int launch_owner_tiled(const void* q, const void* kpool, const void* vpool,
   if (opted != 0) return opted;
   const int rows = tile_rows_for(block_size);
   size_t bytes = 0;
-  const int stages = ring_stages<TileLayout<QT, false>>(rows, &bytes);
+  const int stages = ring_stages<TileLayout<QT>>(rows, &bytes);
   if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   owner_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
                                   static_cast<cudaStream_t>(stream)>>>(
@@ -1023,7 +906,7 @@ int launch_table_tiled(const void* q, const void* kpool, const void* vpool,
   if (opted != 0) return opted;
   const int rows = tile_rows_for(block_size);
   size_t bytes = 0;
-  const int stages = ring_stages<TileLayout<QT, false>>(rows, &bytes);
+  const int stages = ring_stages<TileLayout<QT>>(rows, &bytes);
   if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   table_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
                                   static_cast<cudaStream_t>(stream)>>>(
@@ -1031,28 +914,6 @@ int launch_table_tiled(const void* q, const void* kpool, const void* vpool,
       static_cast<const QT*>(vpool), static_cast<const int*>(tables),
       static_cast<const int*>(index), static_cast<QT*>(out), num_heads,
       num_blocks, block_size, max_blocks, rows, stages, layer, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename QT>
-int launch_stream_tiled(const void* q, const void* kpool, const void* vpool,
-                        const void* k_scale, const void* v_scale,
-                        const void* vis, void* out, int num_slots,
-                        int num_heads, int num_blocks, int block_size,
-                        int bound, int layer, float scale, void* stream) {
-  static const int opted = opt_in(stream_decode_kernel_tiled<QT>);
-  if (opted != 0) return opted;
-  const int rows = tile_rows_for(block_size);
-  size_t bytes = 0;
-  const int stages = ring_stages<TileLayout<int8_t, true>>(rows, &bytes);
-  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
-  stream_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const int8_t*>(kpool),
-      static_cast<const int8_t*>(vpool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int8_t*>(vis),
-      static_cast<QT*>(out), num_heads, num_blocks, block_size, bound, rows,
-      stages, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1104,20 +965,18 @@ int stream_decode_f32(const void* q, const void* kpool, const void* vpool,
                       const void* vis, void* out, int num_slots, int num_heads,
                       int num_blocks, int block_size, int bound, int layer,
                       float scale, void* stream) {
-  return launch_stream_pipelined<float>(q, kpool, vpool, vis, out,
-                                       num_slots, num_heads, num_blocks,
-                                       block_size, bound, layer, scale,
-                                       stream);
+  return launch_stream_pipelined<float, float>(
+      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
 }
 
 int stream_decode_bf16(const void* q, const void* kpool, const void* vpool,
                        const void* vis, void* out, int num_slots,
                        int num_heads, int num_blocks, int block_size,
                        int bound, int layer, float scale, void* stream) {
-  return launch_stream_pipelined<__nv_bfloat16>(q, kpool, vpool, vis, out,
-                                               num_slots, num_heads,
-                                               num_blocks, block_size, bound,
-                                               layer, scale, stream);
+  return launch_stream_pipelined<__nv_bfloat16, __nv_bfloat16>(
+      q, kpool, vpool, nullptr, nullptr, vis, out, num_slots, num_heads,
+      num_blocks, block_size, bound, layer, scale, stream);
 }
 
 int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
@@ -1125,7 +984,7 @@ int stream_decode_q8_f32(const void* q, const void* kpool, const void* vpool,
                          const void* vis, void* out, int num_slots,
                          int num_heads, int num_blocks, int block_size,
                          int bound, int layer, float scale, void* stream) {
-  return launch_stream_tiled<float>(
+  return launch_stream_pipelined<float, int8_t>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }
@@ -1135,7 +994,7 @@ int stream_decode_q8_bf16(const void* q, const void* kpool, const void* vpool,
                           const void* vis, void* out, int num_slots,
                           int num_heads, int num_blocks, int block_size,
                           int bound, int layer, float scale, void* stream) {
-  return launch_stream_tiled<__nv_bfloat16>(
+  return launch_stream_pipelined<__nv_bfloat16, int8_t>(
       q, kpool, vpool, k_scale, v_scale, vis, out, num_slots, num_heads,
       num_blocks, block_size, bound, layer, scale, stream);
 }

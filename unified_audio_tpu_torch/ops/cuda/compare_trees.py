@@ -1,7 +1,7 @@
 """Time the decode kernels of several source trees on one CUDA card, in turns.
 
     python -m unified_audio_tpu_torch.ops.cuda.compare_trees NAME=DIR ...
-        [--kernels K1 K4] [--out RESULT.json]
+        [--kernels K1 K4] [--q bf16 fp32] [--no-check] [--out RESULT.json]
 
 Run from the repository root. Each DIR is a checkout of the repository
 (for example a ``git archive`` of another commit); its
@@ -10,7 +10,7 @@ checkout's nvcc flags and called through this checkout's wrappers, which
 take every tree's C interface. Cases: K1 and K2 at ``serving_case``, K3
 and K4 at ``stream_serving_case``, K7 at ``table_serving_case``, each with
 bf16 and fp32 q. Each tree's kernel is first held against the plain
-version (``compare_with_plain``); then the trees are timed warm (100 calls
+version (``compare_with_plain``; ``--no-check`` skips it); then the trees are timed warm (100 calls
 on layer 7) and cold (the layer cycling 0..11, each call finding its layer
 out of L2), in the order t0, t1, ..., t1, t0, by ``chip_smoke.time_ms``:
 device time from torch.profiler's records, counted by name, one decode
@@ -47,6 +47,11 @@ def main(argv=None):
     ap.add_argument("trees", nargs="+", help="NAME=DIR of a checkout")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K4"],
                     choices=sorted(CASES))
+    ap.add_argument("--q", nargs="+", default=["bf16", "fp32"],
+                    choices=["bf16", "fp32"], help="q dtypes to time")
+    ap.add_argument("--no-check", action="store_true",
+                    help="time without holding the kernels to the plain "
+                    "versions (builds that compute wrong values on purpose)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -69,7 +74,8 @@ def main(argv=None):
     for kid in args.kernels:
         wrapper, ref_name, case, li_pos = CASES[kid]
         kernel, ref = getattr(pa, wrapper), getattr(pa, ref_name)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in [{"bf16": torch.bfloat16, "fp32": torch.float32}[q]
+                      for q in args.q]:
             call_args = case(pa, dtype)
             empty = ((~(call_args[-3] != 0).any(1)) if kid in ("K3", "K4")
                      else None)
@@ -82,8 +88,8 @@ def main(argv=None):
                     return kernel(*a)
                 return call
 
-            errs = {}
-            for name in names:
+            errs = {name: None for name in names}
+            for name in names if not args.no_check else []:
                 err, ok = pa.compare_with_plain(through(libs[name]), ref,
                                                 call_args, empty)
                 if not ok:

@@ -89,8 +89,8 @@ def _window(eng, gen, n_steps, active=None):
             launches += 1
     device_us = sum(us for us, _ in by_kernel.values())
     # the attention kernels by name: owner_decode_kernel_tiled (K1),
-    # owner_decode_kernel_pipelined (K2), stream_decode_kernel_tiled (K4)
-    # and stream_decode_kernel_pipelined (K3)
+    # owner_decode_kernel_pipelined (K2) and stream_decode_kernel_pipelined
+    # (K3, K4)
     attn = [(us, n) for name, (us, n) in by_kernel.items()
             if any(k in name for k in ATTENTION_KERNELS)]
     attn_us = sum(us for us, _ in attn)
