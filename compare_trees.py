@@ -1,9 +1,11 @@
+#!/usr/bin/env python3
 """Time the decode kernels of several source trees on one CUDA card, in turns.
 
-    python -m unified_audio_tpu_torch.ops.cuda.compare_trees NAME=DIR ...
+    python3 compare_trees.py NAME=DIR ...
         [--kernels K1 K4] [--q bf16 fp32] [--no-check] [--out RESULT.json]
 
-Run from the repository root. Each DIR is a checkout of the repository
+A developer's tool beside ``chip_smoke.py``, whose timer it uses; nothing
+in the package runs it. Run from the repository root. Each DIR is a checkout of the repository
 (for example a ``git archive`` of another commit); its
 ``unified_audio_tpu_torch/csrc/paged_attention.cu`` is built with this
 checkout's nvcc flags and called through this checkout's wrappers, which
@@ -25,6 +27,8 @@ import sys
 from pathlib import Path
 
 import torch
+
+import chip_smoke
 
 CASES = {  # kernel -> (wrapper, plain version, case builder, layer position)
     "K1": ("paged_flash_decode_owner", "paged_flash_decode_owner_ref",
@@ -56,8 +60,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("compare_trees: needs a CUDA card")
-    sys.path.insert(0, str(Path.cwd()))
-    import chip_smoke
     from unified_audio_tpu_torch.ops.cuda import paged_attention as pa
     from unified_audio_tpu_torch.ops.cuda.build import load_library
 
@@ -82,10 +84,14 @@ def main(argv=None):
 
             def through(lib, layer=None):
                 def call(*_):
-                    pa._library = lambda: lib
                     a = call_args if layer is None else \
                         chip_smoke.at_layer(call_args, li_pos, layer)
-                    return kernel(*a)
+                    own = pa._library
+                    pa._library = lambda: lib
+                    try:
+                        return kernel(*a)
+                    finally:
+                        pa._library = own
                 return call
 
             errs = {name: None for name in names}

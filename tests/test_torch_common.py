@@ -221,11 +221,11 @@ class TestPortImportsNoJax:
     @staticmethod
     def _port_sources():
         files = list((REPO / "unified_audio_tpu_torch").rglob("*.py"))
-        return files + [REPO / "chip_smoke.py"]
+        return files + [REPO / "chip_smoke.py", REPO / "compare_trees.py"]
 
     def test_no_jax_import_lines(self):
-        """No module of the port, nor chip_smoke.py, has an import line
-        naming jax or flax."""
+        """No module of the port, nor chip_smoke.py or compare_trees.py,
+        has an import line naming jax or flax."""
         for f in self._port_sources():
             for line in f.read_text().splitlines():
                 s = line.strip()
@@ -234,8 +234,8 @@ class TestPortImportsNoJax:
                     f"{f}: {line}"
 
     def test_no_jax_package_import_lines(self):
-        """No module of the port, nor chip_smoke.py, imports the JAX
-        package (``unified_audio_tpu`` not followed by ``_torch``), not even
+        """No module of the port, nor chip_smoke.py or compare_trees.py,
+        imports the JAX package (``unified_audio_tpu`` not followed by ``_torch``), not even
         a numpy-only module of it."""
         pattern = re.compile(
             r"^\s*(import|from)\s+unified_audio_tpu(?!_torch)\b")

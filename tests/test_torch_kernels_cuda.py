@@ -3,7 +3,8 @@ owner flash-decode K1/K2, the stream flash-decode K3/K4 and the block-table
 flash-decode K7 at the serving shapes (K7 also against K1 and K3 where
 they compute the same function; the pipelined kernels K2/K3 also where a
 thread's keys run out, under other bounds, and call to call bit for bit;
-the tiled K1/K7 at the edges of their tiles and at a 4096-entry table, K4
+the tiled K1/K7 at the edges of their tiles, at a 4096-entry table and
+at blocks of 100 and 800 tokens, K4
 with masked blocks, the three call to call bit for bit, and three broken
 copies of the source shown to fail) and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA
 card; imports no JAX, so it also runs on a machine without it:
@@ -292,6 +293,45 @@ class TestKernelsOnCard:
         err, ok = t_pa.compare_with_plain(t_pa.paged_flash_decode,
                                           t_pa.paged_flash_decode_ref, args)
         assert ok, f"max abs err {err}"
+
+    @staticmethod
+    def _large_block_case(dtype, card, bs):
+        """K1 over a 2-layer pool of eight ``bs``-token blocks: four slots
+        with 2-block regions, slot 0 at its region's end, slot 1 on the
+        first row of its second block, slot 2 at position 70, slot 3
+        inactive; layer 1."""
+        g = torch.Generator(device=card).manual_seed(5)
+        q = torch.randn(4, 8, 64, generator=g, device=card).to(dtype)
+        k, v = (torch.randn(2, 8, bs, 8 * 64, generator=g,
+                            device=card).to(dtype) for _ in range(2))
+        start = torch.tensor([0, 2, 4, 6], dtype=torch.int32, device=card)
+        index = torch.tensor([2 * bs - 1, bs, 70, -1], dtype=torch.int32,
+                             device=card)
+        return [q, k, v, start, index, 1]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("bs", [100, 800])
+    def test_owner_and_table_large_blocks(self, card, dtype, bs):
+        """K1 and K7 at blocks of 100 tokens (64-row tiles that do not
+        divide a block) and of 800 (a block the ring could not hold twice
+        whole) within ``compare_with_plain``'s tolerance: K1 on the
+        regions, K7 on tables naming each region's blocks in reverse; K7 on
+        the regions' own tables equals K1."""
+        q, k, v, start, index, li = self._large_block_case(dtype, card, bs)
+        err, ok = t_pa.compare_with_plain(
+            t_pa.paged_flash_decode_owner, t_pa.paged_flash_decode_owner_ref,
+            [q, k, v, start, index, li])
+        assert ok, f"K1 max abs err {err}"
+        regions = (start[:, None] + torch.arange(2, device=card)).int()
+        err, ok = t_pa.compare_with_plain(
+            t_pa.paged_flash_decode, t_pa.paged_flash_decode_ref,
+            [q, k, v, regions.flip(1).contiguous(), index, li])
+        assert ok, f"K7 max abs err {err}"
+        err, ok = t_pa.compare_kernels(
+            t_pa.paged_flash_decode(q, k, v, regions, index, li),
+            t_pa.paged_flash_decode_owner(q, k, v, start, index, li),
+            index < 0)
+        assert ok, f"K7 against K1 max abs err {err}"
 
     def _k1_k4_k7_cases(self, card, dtype):
         """(wrapper, plain version, arguments, rows with no key) of K1, K4

@@ -2,9 +2,10 @@
 (owner) and K7 (block table) as the tiled CUDA kernels in
 ``csrc/paged_attention.cu`` do, in fp32:
 
-* tiles of up to 64 token rows of one physical block, from the slot's
-  region (K1) or from the table's entries, staged ``round_`` at a time
-  (K7);
+* tiles of min(BS, 64) token rows: of the slot's contiguous region (K1,
+  a tile may cross blocks), or of one physical block, from the table's
+  entries staged ``round_`` at a time, a block of more than 64 rows cut
+  into tiles that never cross it (K7);
 * lane groups over the head dimension: a group of ``lanes`` lanes holds
   one key, each lane a slice of its columns, the dot product summed over
   the lanes by an xor tree; group g takes the tile's rows g, g + G, ... in
@@ -17,7 +18,7 @@
 The mirror is held to the port's plain versions (fp32 within 1e-5 abs and
 rel) and to the JAX package's Pallas kernels in interpret mode (atol/rtol
 1e-4, the tolerance of the other parity tests: another reduction order) at
-2-3 layers, 2 heads of 64 and 16- or 64-token blocks. K4 runs the
+2-3 layers, 2 heads of 64 and 16-, 64- or 100-token blocks. K4 runs the
 pipelined design, mirrored in tests/test_torch_split.py. The CUDA kernels
 are held against the plain versions on the card in
 tests/test_torch_kernels_cuda.py.
@@ -39,8 +40,8 @@ LANES = {"fp32": 16, "bf16": 8}  # lanes holding one key
 
 
 def tile_rows_for(bs):
-    """Rows of a tile: a block's, or 64 where a block holds a multiple."""
-    return 64 if bs > 64 and bs % 64 == 0 else bs
+    """Rows of a tile: a block's, at most 64."""
+    return min(bs, 64)
 
 
 def owner_tiles(start, index, bs):
@@ -52,7 +53,8 @@ def owner_tiles(start, index, bs):
 
 def table_tiles(table, index, bs, round_=1024):
     """K7: positions 0..min(index, MB*BS - 1), entries staged ``round_`` at
-    a time; position p is row p % BS of block table[p // BS]."""
+    a time; position p is row p % BS of block table[p // BS]; a tile never
+    crosses a block."""
     rows, mb = tile_rows_for(bs), len(table)
     n = max(min(int(index) + 1, mb * bs), 0)
     n_entries = -(-n // bs)
@@ -60,8 +62,10 @@ def table_tiles(table, index, bs, round_=1024):
     for e0 in range(0, n_entries, round_):
         entries = [int(x) for x in table[e0:e0 + round_]]
         n_round = min(len(entries) * bs, n - e0 * bs)
-        tiles += [(entries[p // bs] * bs + p % bs, min(rows, n_round - p))
-                  for p in range(0, n_round, rows)]
+        for b0 in range(0, n_round, bs):
+            tiles += [(entries[b0 // bs] * bs + off,
+                       min(rows, bs - off, n_round - b0 - off))
+                      for off in range(0, min(bs, n_round - b0), rows)]
     return tiles
 
 
@@ -209,6 +213,8 @@ def test_tiles_from_regions():
     assert owner_tiles(2, 15, 16) == [(32, 16)]
     assert owner_tiles(5, -1, 64) == []
     assert owner_tiles(1, 0, 128) == [(128, 1)]
+    # 100-token blocks: 64-row tiles across the block boundary
+    assert owner_tiles(3, 129, 100) == [(300, 64), (364, 64), (428, 2)]
 
 
 def test_tiles_from_tables():
@@ -221,6 +227,14 @@ def test_tiles_from_tables():
     assert table_tiles(table, 10 ** 6, 16)[-1] == (144, 16)
     assert len(table_tiles(table, 10 ** 6, 16)) == 4
     assert table_tiles(table, -1, 16) == []
+    # 100-token blocks: two tiles a block (64 + 36 rows), none crossing it
+    assert table_tiles([4, 2], 150, 100) == [(400, 64), (464, 36),
+                                             (200, 51)]
+    assert table_tiles([4, 2], 10 ** 6, 100, round_=1) == \
+        [(400, 64), (464, 36), (200, 64), (264, 36)]
+    # 128-token blocks: 64-row tiles, as many as the positions need
+    assert table_tiles([4, 2], 130, 128) == [(512, 64), (576, 64),
+                                             (256, 3)]
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +242,7 @@ def test_tiles_from_tables():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("lanes", [LANES["fp32"], LANES["bf16"]])
-@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("bs", [16, 64, 100])
 @pytest.mark.parametrize("li", [0, 2])
 def test_owner_mirror_matches_plain(li, bs, lanes):
     """K1 by the tiled plan (fp32 and bf16 lane groups) equals the plain
@@ -244,11 +258,12 @@ def test_owner_mirror_matches_plain(li, bs, lanes):
 @pytest.mark.parametrize("lanes", [LANES["fp32"], LANES["bf16"]])
 @pytest.mark.parametrize("bs,mb,round_", [(16, 6, 1024), (16, 6, 2),
                                           (64, 3, 1), (16, 4096, 1024),
-                                          (16, 4096, 1000)])
+                                          (16, 4096, 1000), (100, 5, 2)])
 def test_table_mirror_matches_plain(bs, mb, round_, lanes):
     """K7 by the tiled plan equals the plain K7: a repeated block, an index
     past the table, trash entries x100 never read; tables of 4096 entries
-    (over the 2048 the first port's kernel took), in one round or several."""
+    (over the 2048 the first port's kernel took), in one round or several;
+    100-token blocks, two tiles each."""
     args = _table_case(bs, mb)
     got = _table_mirror(args, 1, lanes, round_)
     want = t_pa.paged_flash_decode_ref(*args, 1)

@@ -57,26 +57,31 @@
 // chunk) have no counterpart: the bound is any block count up to the
 // pool's.
 //
-// The tiled design (K1, K7). A tile is up to 64 token rows of one physical
-// block, this head's 64 columns of K and of V (bf16: 8 KB + 8 KB; fp32: 16
-// + 16 KB). The block stages its tiles in a ring of up to 16 stages (192
-// KB) of dynamic shared memory by cp.async (16 bytes a copy, one commit
-// group a tile), as many tiles ahead of the compute as the ring holds, so
-// no register holds a byte in flight and a (slot, head) waits on the
-// memory about once instead of once per key. The consumer lays lanes over
-// the head dimension: a group of lanes holds one key (8 lanes of 16 bytes
-// for a bf16 row, 16 for fp32), each lane reads its 16-byte word of the row
-// from the stage (a warp's reads are contiguous rows, free of bank
+// The tiled design (K1, K7). A tile is min(BS, 64) token rows, this
+// head's 64 columns of K and of V (bf16: 8 KB + 8 KB; fp32: 16 + 16 KB), so
+// a ring stage never holds more than 32 KB and any block size
+// double-buffers. The block stages its tiles in a ring of up to 16 stages
+// (192 KB) of dynamic shared memory by cp.async (16 bytes a copy, one
+// commit group a tile), as many tiles ahead of the compute as the ring
+// holds, so no register holds a byte in flight and a (slot, head) waits on
+// the memory about once instead of once per key. The consumer lays lanes
+// over the head dimension: a group of lanes holds one key (8 lanes of 16
+// bytes for a bf16 row, 16 for fp32), each lane reads its 16-byte word of
+// the row from the stage (a warp's reads are contiguous rows, free of bank
 // conflicts), the dot product finishes with 3-4 shuffles inside the group,
 // and each group keeps an online-softmax state over its lane's columns
 // only (8 accumulators for bf16, 4 for fp32: 68-88 registers). The groups'
 // states merge by shuffles inside each warp, then through 8 rows of shared
-// memory (max, rescale, column sum). K1's tiles are its region's rows; K7's
-// follow its table, whose entries are staged 1024 at a time, so the table's
-// width is not limited. On an H100 the tiled K1 is slower than the
-// pipelined design alone with the layer warm in L2 but faster cold and
-// inside the decode step, where it was kept; its time is nearly the same
-// warm and cold, as if one SM's load rate, not the bytes in flight, set it.
+// memory (max, rescale, column sum). K1's tiles are its region's rows
+// (contiguous, so a tile may cross blocks); K7's follow its table, a block
+// of more than 64 rows cut into tiles that never cross it, and its entries
+// are staged 1024 at a time, so the table's width is not limited. The ring
+// is opted in to once per device, on the caller's current device, which
+// must be the device of the tensors and the stream. On an H100 the tiled
+// K1 is slower than the pipelined design alone with the layer warm in L2
+// but faster cold and inside the decode step, where it was kept; its time
+// is nearly the same warm and cold, as if one SM's load rate, not the
+// bytes in flight, set it.
 //
 // The pipelined design (K2, K3, K4). A thread keeps its own online-softmax
 // state (running max, denominator, HD accumulators) in registers for keys
@@ -89,13 +94,8 @@
 // and the stream kernels load a key's mask byte beside its rows instead of
 // before them. The 256 states merge by a reduce-scatter of shuffles in each
 // warp (lane L ends with columns 2L, 2L + 1) and one shared-memory row per
-// warp. K4 was also built on the tiled design (its live blocks' tiles, the
-// scales and mask bytes staged with the rows) and lost to this one inside
-// the decode step. A split-K version of K2/K3 (a thread-block cluster of
-// blocks per slot, all heads per block, K/V tiles by cp.async.bulk, the
-// merge in distributed shared memory) beat the first port's kernels alone
-// but lost to them inside the decode step, where its blocks started
-// microseconds apart (PERF.md).
+// warp. The designs that lost to these (a tiled K4, a split-K K2/K3) are
+// recorded in PERF.md, section 6.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -516,13 +516,16 @@ struct TileLayout {
   static constexpr int kLanes = kRowBytes / 16;  // lanes holding one key
   static constexpr int kPerLane = 16 / static_cast<int>(sizeof(KT));
   static constexpr int kGroups = kTileThreads / kLanes;
+  static_assert(kMaxTileRows % kGroups == 0, "groups must divide a tile");
   // keys a group takes at once: a 64-row tile in one pass
-  static constexpr int kBatch =
-      kGroups >= kMaxTileRows ? 1 : kMaxTileRows / kGroups;
-  __host__ __device__ static int stage_bytes(int rows) {
+  static constexpr int kBatch = kMaxTileRows / kGroups;
+  __host__ __device__ static constexpr int stage_bytes(int rows) {
     return 2 * rows * kRowBytes;
   }
 };
+// the widest tile (fp32, 64 rows) is double-buffered: every block size runs
+static_assert(kRingBytes / TileLayout<float>::stage_bytes(kMaxTileRows) >= 2,
+              "the ring must hold two tiles");
 
 // One tile: its first token row in the layer and its row count.
 struct Tile {
@@ -798,7 +801,8 @@ owner_decode_kernel_tiled(const QT* __restrict__ q,
 // K7: the block-table flash decode over a bf16 or fp32 pool; positions
 // 0..min(index[s], MB * BS - 1), position p at row p % BS of block
 // tables[s, p / BS]. The table entries those positions reach are staged
-// kRound at a time.
+// kRound at a time; a block is cut into ceil(BS / tile_rows) tiles, none
+// crossing into the next block.
 template <typename QT, typename Lay = TileLayout<QT>>
 __global__ void __launch_bounds__(kTileThreads, 1)
 table_decode_kernel_tiled(const QT* __restrict__ q,
@@ -833,15 +837,25 @@ table_decode_kernel_tiled(const QT* __restrict__ q,
       entry[i] = slot_table[e0 + i];
     }
     __syncthreads();
-    // this round's positions, from e0 * BS
+    // this round's positions, from e0 * BS: per_block tiles a full block,
+    // the last block's tiles cut where its positions end
     const int n_round = min(count * block_size, n - e0 * block_size);
+    const int per_block = (block_size + tile_rows - 1) / tile_rows;
+    const int tail = n_round % block_size;
     walk_tiles<QT>(
-        (n_round + tile_rows - 1) / tile_rows,
+        n_round / block_size * per_block + (tail + tile_rows - 1) / tile_rows,
         [&](int j) {
-          const int p = j * tile_rows;
-          return Tile{static_cast<long long>(entry[p / block_size]) *
-                              block_size + p % block_size,
-                      min(tile_rows, n_round - p)};
+          // blocks of at most 64 rows: one tile a block, without the
+          // division, which cost ~1 us a call at 64-token blocks (PERF.md)
+          if (per_block == 1) {
+            return Tile{static_cast<long long>(entry[j]) * block_size,
+                        min(block_size, n_round - j * block_size)};
+          }
+          const int b = j / per_block;
+          const int off = (j % per_block) * tile_rows;
+          return Tile{static_cast<long long>(entry[b]) * block_size + off,
+                      min(min(tile_rows, block_size - off),
+                          n_round - b * block_size - off)};
         },
         tile_rows, stages, qf, kpool + layer_off, vpool + layer_off, row,
         scale, st);
@@ -850,16 +864,11 @@ table_decode_kernel_tiled(const QT* __restrict__ q,
       st, out + (static_cast<long long>(s) * num_heads + h) * kHeadDim);
 }
 
-// Rows of a tile: a physical block's, or 64 where a block holds a multiple
-// of 64 rows.
-int tile_rows_for(int block_size) {
-  return (block_size > kMaxTileRows && block_size % kMaxTileRows == 0)
-             ? kMaxTileRows
-             : block_size;
-}
+// Rows of a tile: a physical block's, at most 64.
+int tile_rows_for(int block_size) { return min(block_size, kMaxTileRows); }
 
 // The ring of a tiled launch: as many stages as kRingBytes holds, at most
-// kMaxStages; fewer than 2 (a tile too large to double-buffer) is refused.
+// kMaxStages (at least 2, by the static_assert above).
 template <typename Lay>
 int ring_stages(int tile_rows, size_t* bytes) {
   const int per_stage = Lay::stage_bytes(tile_rows);
@@ -868,12 +877,21 @@ int ring_stages(int tile_rows, size_t* bytes) {
   return stages;
 }
 
+constexpr int kMaxDevices = 64;
+
 // Opt the kernel in to the ring's dynamic shared memory (above the 48 KB a
-// block gets without asking), once per kernel.
+// block gets without asking) on the current device, once per device:
+// `opted` is the kernel's own flag per device.
 template <typename Kernel>
-int opt_in(Kernel kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes));
+int opt_in(Kernel kernel, bool* opted) {
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return static_cast<int>(got);
+  if (dev < kMaxDevices && opted[dev]) return 0;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+  if (set == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
+  return static_cast<int>(set);
 }
 
 template <typename QT>
@@ -881,12 +899,12 @@ int launch_owner_tiled(const void* q, const void* kpool, const void* vpool,
                        const void* start_block, const void* index, void* out,
                        int num_slots, int num_heads, int num_blocks,
                        int block_size, int layer, float scale, void* stream) {
-  static const int opted = opt_in(owner_decode_kernel_tiled<QT>);
-  if (opted != 0) return opted;
+  static bool opted[kMaxDevices] = {};
+  const int rc = opt_in(owner_decode_kernel_tiled<QT>, opted);
+  if (rc != 0) return rc;
   const int rows = tile_rows_for(block_size);
   size_t bytes = 0;
   const int stages = ring_stages<TileLayout<QT>>(rows, &bytes);
-  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   owner_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const QT*>(q), static_cast<const QT*>(kpool),
@@ -902,12 +920,12 @@ int launch_table_tiled(const void* q, const void* kpool, const void* vpool,
                        int num_slots, int num_heads, int num_blocks,
                        int block_size, int max_blocks, int layer, float scale,
                        void* stream) {
-  static const int opted = opt_in(table_decode_kernel_tiled<QT>);
-  if (opted != 0) return opted;
+  static bool opted[kMaxDevices] = {};
+  const int rc = opt_in(table_decode_kernel_tiled<QT>, opted);
+  if (rc != 0) return rc;
   const int rows = tile_rows_for(block_size);
   size_t bytes = 0;
   const int stages = ring_stages<TileLayout<QT>>(rows, &bytes);
-  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   table_decode_kernel_tiled<QT><<<num_slots * num_heads, kTileThreads, bytes,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const QT*>(q), static_cast<const QT*>(kpool),
