@@ -14,7 +14,9 @@ prints no result. Phases, each fatal on failure:
    per call with the host's dispatch (CUDA events around back-to-back
    calls). The timer counts the records by name: a window of N calls must
    hold N times one call's records, and one call exactly one record of the
-   kernel under test; a window that does not is timed again once, then
+   kernel under test (each window opens with a lead-in kernel, left out of
+   the count, because a profiler session can lose its first device
+   record); a window that does not is timed again once, then
    the run fails (``records`` on the kernels line: the kernel's records
    over its timed windows, so 400 for a decode kernel, four windows of
    100 calls, and 100 for K5/K6, two windows of 50). Every decode kernel (K1-K4, K7), its plain
@@ -138,6 +140,7 @@ CUDA_KERNELS = {"paged_flash_decode_owner": "owner_decode_kernel_tiled",
                 "vq": "vq_search_kernel"}
 ITERS = 100  # calls per timed window of a decode kernel (50 for K5/K6)
 PAD_S = 0.02  # idle time at each end of a profiled window
+LEAD_IN = "spin_kernel"  # the kernel of torch.cuda._sleep (ATen's Sleep.cu)
 
 
 def fail(msg):
@@ -155,12 +158,15 @@ def gpu_line():
 # kernels
 # ---------------------------------------------------------------------------
 
-def profiled(torch, fn, n):
+def profiled(torch, fn, n, lead_in=True):
     """-> (CUDA records by name, their summed us) of ``n`` calls of ``fn``
     under torch.profiler (CUPTI). The window opens PAD_S before the first
     call and closes PAD_S after the card is done: the profiler keeps only
     the device records whose timestamps, mapped to the host's clock, fall
-    inside its window."""
+    inside its window. A session can also lose its first device record, so
+    the window starts with a lead-in: one ``torch.cuda._sleep`` kernel
+    (``LEAD_IN``), waited for and left out of the result, then PAD_S more
+    (``lead_in=False`` leaves it out, for ``profiler_windows.py``)."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -168,13 +174,18 @@ def profiled(torch, fn, n):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PAD_S)
+        if lead_in:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PAD_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         time.sleep(PAD_S)
     counts, us = Counter(), 0.0
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and LEAD_IN not in ev.name):
             counts[ev.name] += 1
             us += ev.time_range.elapsed_us()
     return counts, us

@@ -221,10 +221,11 @@ class TestPortImportsNoJax:
     @staticmethod
     def _port_sources():
         files = list((REPO / "unified_audio_tpu_torch").rglob("*.py"))
-        return files + [REPO / "chip_smoke.py", REPO / "compare_trees.py"]
+        return files + [REPO / "chip_smoke.py", REPO / "compare_trees.py",
+                        REPO / "profiler_windows.py"]
 
     def test_no_jax_import_lines(self):
-        """No module of the port, nor chip_smoke.py or compare_trees.py,
+        """No module of the port, nor chip_smoke.py and the scripts beside it,
         has an import line naming jax or flax."""
         for f in self._port_sources():
             for line in f.read_text().splitlines():
@@ -234,7 +235,7 @@ class TestPortImportsNoJax:
                     f"{f}: {line}"
 
     def test_no_jax_package_import_lines(self):
-        """No module of the port, nor chip_smoke.py or compare_trees.py,
+        """No module of the port, nor chip_smoke.py and the scripts beside it,
         imports the JAX package (``unified_audio_tpu`` not followed by ``_torch``), not even
         a numpy-only module of it."""
         pattern = re.compile(
