@@ -49,7 +49,13 @@ prints no result. Phases, each fatal on failure:
    rows at M = 250 (one 10-s clip) and M = 2000 (eight), N = 1024, D = 512:
    codes equal to the plain search in >= 99.9% of places, every other one a
    near tie (fp64 distance excess <= 1e-5 (|x|^2 + max |e|^2)); K6 judged
-   layer by layer on the residuals its own codes leave.
+   layer by layer on the residuals its own codes leave. Both launch one
+   kernel (the codebook split over a cluster of 8 CTAs, the argmin merged
+   in distributed shared memory); before each M a line gives its plan:
+   rows a cluster, clusters, the clusters the card holds at once
+   (cudaOccupancyMaxActiveClusters) and the L2 bytes a call reads and
+   writes (``l2_bytes`` and ``active_clusters`` on the kernels line, at M
+   = 250).
 3. UniSE serving: serves synthetic 16 kHz requests (SE, TSE, rTSE; greedy
    and sampled; more 5-s segments than the 16 slots) at full UniSE width
    through ``unified_audio_tpu_torch.cli serve``, once with the int8 pool
@@ -523,10 +529,27 @@ def vq_bound(m, n, d, nq):
                  "fp32")
 
 
+def vq_plan_line(torch, vq, m):
+    """-> (the cluster plan of a launch of M rows at the HCodec-1.0 shapes
+    as one printable line, {"rows", "clusters", "active_clusters",
+    "l2_bytes": {nq: bytes}})."""
+    n, d, nq = VQ_SHAPES["n"], VQ_SHAPES["d"], VQ_SHAPES["nq"]
+    active = vq.active_clusters(d, vq.ROWS[-1])
+    rows = vq.plan(m, d, active)
+    plan = {"rows": rows, "clusters": -(-m // rows),
+            "active_clusters": vq.active_clusters(d, rows),
+            "l2_bytes": {q: vq.l2_bytes(m, n, d, q, rows) for q in (1, nq)}}
+    return (f"VQ plan at M={m}: {rows} rows a cluster of {vq.CLUSTER} CTAs "
+            f"(codebook chunks of {-(-n // vq.CLUSTER)}), {plan['clusters']}"
+            f" clusters, {plan['active_clusters']} active at once "
+            f"(cudaOccupancyMaxActiveClusters); L2 bytes a call: K5 "
+            f"{plan['l2_bytes'][1]}, K6 {plan['l2_bytes'][nq]}"), plan
+
+
 def check_vq(torch, vq, m):
     """K5 (layer 0) and K6 against the plain search on random rows of M at
     the HCodec-1.0 shapes -> {name: (share equal, worst excess, ms, plain
-    ms)}."""
+    ms, records)}."""
     x, cbs = vq.random_case(m, **VQ_SHAPES, seed=m)
     cb0 = cbs[0].contiguous()
     out = {}
@@ -1030,18 +1053,21 @@ def main():
             r = check(torch, pa, kernel, ref, dtype, quant)
             results[name, dtype] = r
             report(name, kernel, dtype, r, gpu)
-    vq_results = {}
+    vq_results, vq_plans = {}, {}
     for m in (250, 2000):
+        line, vq_plans[m] = vq_plan_line(torch, vq, m)
+        print(line, flush=True)
         for name, (share, worst, ms, plain_ms, n_rec) in check_vq(
                 torch, vq, m).items():
             vq_results[name, m] = (worst, ms, plain_ms, n_rec)
-            b_ms, _ = vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"],
-                               1 if name == "K5" else VQ_SHAPES["nq"])
+            nq = 1 if name == "K5" else VQ_SHAPES["nq"]
+            b_ms, _ = vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
             print(f"{name} at M={m}, N=1024, D=512"
                   f"{'' if name == 'K5' else ', nq=4'}: {share:.5f} of codes "
                   f"equal to plain, worst distance excess {worst:.3e}; kernel"
-                  f" {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                  f"{b_ms * 1e3:.1f} us | {gpu}", flush=True)
+                  f" {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+                  f"{b_ms * 1e3:.2f} us; L2 bytes "
+                  f"{vq_plans[m]['l2_bytes'][nq]} | {gpu}", flush=True)
 
     # 3. UniSE serving. From here on K7's count holds the serving paths'
     # launches; the smoke's own K7 checks go to ``tally``.
@@ -1172,7 +1198,9 @@ def main():
                         "launches": n_launch, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
-                        "records": n_rec})
+                        "records": n_rec,
+                        "l2_bytes": vq_plans[250]["l2_bytes"][nq],
+                        "active_clusters": vq_plans[250]["active_clusters"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

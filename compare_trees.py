@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Time the decode kernels of several source trees on one CUDA card, in turns.
+"""Time the CUDA kernels of several source trees on one CUDA card, in turns.
 
     python3 compare_trees.py NAME=DIR ...
-        [--kernels K1 K4] [--q bf16 fp32] [--no-check] [--out RESULT.json]
+        [--kernels K1 K4 K5 K6] [--q bf16 fp32] [--m 250 2000] [--no-check]
+        [--out RESULT.json]
 
 A developer's tool beside ``chip_smoke.py``, whose timer it uses; nothing
 in the package runs it. Run from the repository root. Each DIR is a checkout of the repository
-(for example a ``git archive`` of another commit); its
+(for example a ``git archive`` of another commit).
+
+Decode kernels (K1-K4, K7): each tree's
 ``unified_audio_tpu_torch/csrc/paged_attention.cu`` is built with this
 checkout's nvcc flags and called through this checkout's wrappers, which
 take every tree's C interface. Cases: K1 and K2 at ``serving_case``, K3
@@ -16,8 +19,21 @@ version (``compare_with_plain``; ``--no-check`` skips it); then the trees are ti
 on layer 7) and cold (the layer cycling 0..11, each call finding its layer
 out of L2), in the order t0, t1, ..., t1, t0, by ``chip_smoke.time_ms``:
 device time from torch.profiler's records, counted by name, one decode
-kernel record a call. Prints the card's name and power limit, then one
-JSON line per (kernel, dtype), and writes them all to ``--out``.
+kernel record a call.
+
+VQ kernels (K5 one codebook, K6 four residual layers): each tree's
+``csrc/vq.cu`` is built the same way and called through this checkout's
+wrapper when it has the cluster kernel's C interface (``vq_search_f32``),
+else as the earlier wrapper called it (stacked codebooks and their
+``|e|^2``, computed in the call, as that wrapper did). At each ``--m``
+(rows; N = 1024, D = 512, random rows and codebooks from a seed), each
+tree's codes are held against the plain search by ``vq.judge_codes`` (>=
+99.9% equal, every other a near tie; ``--no-check`` skips it), then the
+trees are timed in turns, 50 calls a window, one ``vq_search_kernel``
+record a call.
+
+Prints the card's name and power limit, then one JSON line per (kernel,
+dtype or M), and writes them all to ``--out``.
 """
 from __future__ import annotations
 
@@ -44,15 +60,96 @@ CASES = {  # kernel -> (wrapper, plain version, case builder, layer position)
     "K7": ("paged_flash_decode", "paged_flash_decode_ref",
            lambda pa, dt: pa.table_serving_case(dt, "cuda"), -1),
 }
+VQ_CASES = {"K5": 1, "K6": 4}  # kernel -> residual layers
+
+
+def vq_caller(vq, lib, nq):
+    """-> call(x, codebooks) through ``lib``: this checkout's wrapper for
+    the cluster kernel's C interface, else the earlier wrapper's call."""
+    if hasattr(lib, "vq_search_f32"):
+        lib = vq.typed(lib)
+        fn = vq.nearest_code if nq == 1 else vq.rvq_encode_fused
+
+        def call(x, cbs):
+            own = vq._library
+            vq._library = lambda: lib
+            try:
+                return fn(x, cbs[0] if nq == 1 else cbs)
+            finally:
+                vq._library = own
+        return call
+    import ctypes
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.vq_nearest_code_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.vq_rvq_encode_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+
+    def call(x, cbs):
+        m, d = x.shape
+        cbsq = cbs.square().sum(-1)
+        out = torch.empty(m, nq, dtype=torch.int32, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (x.data_ptr(), cbs.data_ptr(), cbsq.data_ptr(),
+                out.data_ptr(), m, cbs.shape[1], d)
+        rc = (lib.vq_nearest_code_f32(*args, stream) if nq == 1 else
+              lib.vq_rvq_encode_f32(*args, nq, stream))
+        if rc != 0:
+            raise RuntimeError(f"vq launch failed with error {rc}")
+        return out
+    return call
+
+
+def compare_vq(args, gpu, kid):
+    """K5 or K6 of every tree, checked and timed in turns at each M."""
+    from unified_audio_tpu_torch.ops.cuda import vq
+    from unified_audio_tpu_torch.ops.cuda.build import load_library
+
+    nq = VQ_CASES[kid]
+    names, calls = [], []
+    for spec in args.trees:
+        name, _, root = spec.partition("=")
+        lib = load_library(Path(root).resolve() / "unified_audio_tpu_torch"
+                           / "csrc" / "vq.cu")
+        names.append(name)
+        calls.append(vq_caller(vq, lib, nq))
+    records = []
+    for m in args.m:
+        x, cbs = vq.random_case(m, **chip_smoke.VQ_SHAPES, seed=m)
+        cbs = cbs[:nq].contiguous()
+        judged = {n: None for n in names}
+        for name, call in zip(names, [] if args.no_check else calls):
+            codes = call(x, cbs)
+            torch.cuda.synchronize()
+            share, worst, ok = vq.judge_codes(x, cbs, codes)
+            if not (share >= 0.999 and ok):
+                sys.exit(f"compare_trees: {name} {kid} at M={m}: {share:.5f}"
+                         f" of codes equal, worst excess {worst:.3e}")
+            judged[name] = (share, worst)
+        warm = chip_smoke.in_turns(
+            torch, [lambda c=c: c(x, cbs) for c in calls], iters=50,
+            kernels=[chip_smoke.CUDA_KERNELS["vq"]] * len(names))
+        rec = {"kernel": kid, "m": m, "gpu": gpu,
+               "trees": {n: {"warm_us": 1e3 * w["ms"],
+                             "records": w["records"],
+                             "share_equal": None if judged[n] is None
+                             else judged[n][0],
+                             "worst_excess": None if judged[n] is None
+                             else judged[n][1]}
+                         for n, w in zip(names, warm)}}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="NAME=DIR of a checkout")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K4"],
-                    choices=sorted(CASES))
+                    choices=sorted(CASES) + sorted(VQ_CASES))
     ap.add_argument("--q", nargs="+", default=["bf16", "fp32"],
                     choices=["bf16", "fp32"], help="q dtypes to time")
+    ap.add_argument("--m", nargs="+", type=int, default=[250, 2000],
+                    help="rows of the VQ cases")
     ap.add_argument("--no-check", action="store_true",
                     help="time without holding the kernels to the plain "
                     "versions (builds that compute wrong values on purpose)")
@@ -65,15 +162,17 @@ def main(argv=None):
 
     gpu = chip_smoke.gpu_line()
     print(gpu, flush=True)
+    records = []
+    for kid in [k for k in args.kernels if k in VQ_CASES]:
+        records += compare_vq(args, gpu, kid)
     libs = {}
-    for spec in args.trees:
+    for spec in args.trees if set(args.kernels) & set(CASES) else []:
         name, _, root = spec.partition("=")
         src = Path(root).resolve() / "unified_audio_tpu_torch" / "csrc" / \
             "paged_attention.cu"
         libs[name] = pa.typed(load_library(src))
     names = list(libs)
-    records = []
-    for kid in args.kernels:
+    for kid in [k for k in args.kernels if k in CASES]:
         wrapper, ref_name, case, li_pos = CASES[kid]
         kernel, ref = getattr(pa, wrapper), getattr(pa, ref_name)
         for dtype in [{"bf16": torch.bfloat16, "fp32": torch.float32}[q]

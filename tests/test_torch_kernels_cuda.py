@@ -6,7 +6,11 @@ thread's keys run out, under other bounds, and call to call bit for bit;
 the tiled K1/K7 at the edges of their tiles, at a 4096-entry table and
 at blocks of 100 and 800 tokens, K4
 with masked blocks, the three call to call bit for bit, and three broken
-copies of the source shown to fail) and the VQ nearest-code K5/K6 at the HCodec-1.0 shapes. Needs a CUDA
+copies of the source shown to fail) and the VQ nearest-code K5/K6 (the
+cluster-split kernel of ``csrc/vq.cu``) at the HCodec-1.0 shapes, with
+exact ties across codebook chunks, N below the cluster size, D from 16 to
+``vq.MAX_DIM``, the layers' codebooks by pointer, the wrappers' refusals
+and three broken copies of the source shown to fail. Needs a CUDA
 card; imports no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
@@ -436,3 +440,136 @@ class TestKernelsOnCard:
             assert codes.shape == (m, cbs.shape[0])
             share, worst, ok = vq.judge_codes(x, cbs, codes)
             assert share >= 0.999 and ok, (fn.__name__, share, worst)
+
+    @staticmethod
+    def _vq_tie_case(card, m, nq):
+        """Integer-valued rows and codebooks (N = 1024 in chunks of 128, D =
+        512), every distance exact: equal codebook rows on either side of
+        chunk boundaries (127|128, 511|512) and in the first and last chunk
+        (0 and 1023); the first rows of x equal to the higher of each
+        pair."""
+        g = torch.Generator().manual_seed(m + nq)
+        cbs = torch.randint(-2, 3, (nq, 1024, 512), generator=g).float()
+        for lo, hi in ((127, 128), (511, 512), (0, 1023)):
+            cbs[:, hi] = cbs[:, lo]
+        x = torch.randint(-2, 3, (m, 512), generator=g).float()
+        x[:3] = cbs[0, [128, 512, 1023]]
+        return x.to(card), cbs.to(card)
+
+    @pytest.mark.parametrize("nq", [1, 4])
+    @pytest.mark.parametrize("m", [250, 2000])
+    def test_vq_exact_ties_across_chunks(self, card, m, nq):
+        """Exact ties, in a chunk or across chunks, go to the lower code:
+        the codes equal the plain search's exactly (integer data, so both
+        sums are exact), the tied rows' codes 127, 511 and 0; at 20 rows a
+        cluster (M = 250) and 32 (M = 2000)."""
+        x, cbs = self._vq_tie_case(card, m, nq)
+        got = (vq.nearest_code(x, cbs[0])[:, None] if nq == 1
+               else vq.rvq_encode_fused(x, cbs))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), vq.rvq_encode_fused_ref(x, cbs).cpu())
+        assert got[:3, 0].tolist() == [127, 511, 0]
+
+    @pytest.mark.parametrize("m,n,d", [
+        (100, 5, 16),      # N < the cluster: three empty chunks
+        (37, 9, 64),       # chunks of 2, three empty
+        (250, 1024, 16),   # D = 16, one stage zero-padded to 32
+        (2000, 1024, 16),
+        (250, 1024, vq.MAX_DIM),
+        (600, 1024, vq.MAX_DIM),     # 16 rows: 32 rows of D = 2048 do not fit
+        (2000, 1024, vq.MAX_DIM_WIDE),  # the widest D at 32 rows
+    ])
+    def test_vq_edges_match_plain(self, card, m, n, d):
+        """K5 per layer (staged) and K6 (fused) under ``judge_codes`` at
+        the edges of the plan: N below the cluster size, the narrowest and
+        widest D each row tile size takes."""
+        x, cbs = vq.random_case(m, n=n, d=d, nq=2, device=card, seed=m + d)
+        for fn in (vq.rvq_encode_fused, vq.rvq_encode_staged):
+            codes = fn(x, cbs)
+            torch.cuda.synchronize()
+            share, worst, ok = vq.judge_codes(x, cbs, codes)
+            assert share >= 0.999 and ok, (fn.__name__, share, worst)
+
+    def test_vq_takes_layers_by_pointer(self, card):
+        """K6 over nq separately allocated codebooks (no stacked copy, as
+        ``ResidualVQ.encode`` passes them) == K6 over their stack, bit for
+        bit, and repeat calls agree."""
+        x, cbs = vq.random_case(250, device=card, seed=3)
+        apart = [cb.clone() for cb in cbs]
+        outs = [vq.rvq_encode_fused(x, apart) for _ in range(2)] + \
+            [vq.rvq_encode_fused(x, cbs)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+    def test_vq_wrappers_refuse(self, card):
+        """K5 and K6 raise ValueError before any launch on what they do not
+        take: D not a multiple of 16 or above ``MAX_DIM``, fp64 or fp16
+        inputs, a codebook on the CPU, non-contiguous or misaligned rows,
+        codebooks of unequal N, more than ``MAX_LAYERS`` layers, no rows."""
+        x, cbs = vq.random_case(64, n=128, d=64, device=card, seed=1)
+        wide = torch.zeros(64, vq.MAX_DIM + 16, device=card)
+        odd = torch.zeros(64, 24, device=card)
+        skew = torch.zeros(64 * 64 + 1, device=card)[1:].view(64, 64)
+        bad5 = ((wide, torch.zeros(128, vq.MAX_DIM + 16, device=card)),
+                (odd, torch.zeros(128, 24, device=card)),
+                (x.double(), cbs[0].double()),
+                (x, cbs[0].half()),
+                (x, cbs[0].cpu()),
+                (torch.zeros(64, 128, device=card).t(), cbs[0]),
+                (skew, cbs[0]),
+                (x[:0], cbs[0]),
+                (x[0], cbs[0]))
+        bad6 = ((x, [cbs[0], cbs[1][:64]]),
+                (x, [cbs[0]] * (vq.MAX_LAYERS + 1)),
+                (x, cbs[:, :, :32]),
+                (x, cbs.transpose(1, 2).contiguous().transpose(1, 2)))
+        before = (vq.nearest_code.launches, vq.rvq_encode_fused.launches)
+        for fn, cases in ((vq.nearest_code, bad5),
+                          (vq.rvq_encode_fused, bad6)):
+            for bad in cases:
+                with pytest.raises(ValueError):
+                    fn(*bad)
+        assert (vq.nearest_code.launches,
+                vq.rvq_encode_fused.launches) == before
+
+    # Broken copies of the VQ kernel: the cluster merge taking the higher
+    # code on an exact tie; one rank's candidates left out of the merge;
+    # every layer after the first updating the residual from layer 0's code
+    VQ_MUTANTS = {
+        "merge_tie_reversed": (
+            "          if (better(d2, i2, bd, bi)) {",
+            "          if (d2 < bd || (d2 == bd && i2 > bi)) {"),
+        "rank_skipped": (
+            "for (int q = 0; q < kCluster; ++q) {",
+            "for (int q = 0; q < kCluster; q += 1 + (q == 2)) {"),
+        "stale_code": (
+            "        chosen[t] = bi;",
+            "        if (l == 0) chosen[t] = bi;"),
+    }
+
+    @pytest.mark.parametrize("mutant", sorted(VQ_MUTANTS))
+    def test_vq_mutants_fail(self, card, mutant, tmp_path, monkeypatch):
+        """Each broken copy of ``csrc/vq.cu`` builds and fails
+        ``judge_codes`` at M = 250 or 2000 or the exact-tie case, all of
+        which the real kernel passes."""
+        old, new = self.VQ_MUTANTS[mutant]
+        src = (build.CSRC_DIR / "vq.cu").read_text()
+        assert src.count(old) == 1
+        path = tmp_path / f"vq_{mutant}.cu"
+        path.write_text(src.replace(old, new))
+        lib = vq.typed(build.load_library(path))
+        cases = [vq.random_case(m, device=card, seed=m) for m in (250, 2000)]
+        tie = self._vq_tie_case(card, 250, 4)
+
+        def passes():
+            for x, cbs in cases:
+                share, _, ok = vq.judge_codes(x, cbs,
+                                              vq.rvq_encode_fused(x, cbs))
+                if not (share >= 0.999 and ok):
+                    return False
+            return torch.equal(vq.rvq_encode_fused(*tie),
+                               vq.rvq_encode_fused_ref(*tie))
+
+        assert passes()
+        monkeypatch.setattr(vq, "_library", lambda: lib)
+        assert not passes()

@@ -4,259 +4,461 @@
 //   K5  nearest_code_pallas      (_nn_kernel):  one codebook
 //   K6  rvq_encode_fused_pallas  (_rvq_kernel): all nq residual layers in one
 //       launch
+// Both launch the one kernel below, once per call (nq = 1 for K5).
 //
 // What it computes. For each row x_i of x (M, D) fp32 and a codebook E (N, D)
 // fp32, code_i = argmin_j (|e_j|^2 - 2 x_i . e_j), ties to the lowest j (|x|^2
-// does not move the argmin; |e_j|^2 comes in precomputed, fp32, as the JAX
-// wrapper computes it). K6 runs the search nq times: after layer l the
+// does not move the argmin). K6 runs the search nq times: after layer l the
 // residual subtracts the exact fp32 codebook row it chose (a gather), which
 // is what ResidualVQ.encode computes. The TPU kernel's one-hot matmul for that
 // step was a device for the MXU and rounds at its default precision; it has
 // no counterpart here.
 //
-// Arithmetic. fp32 FMA on the CUDA cores, no TF32 and no tensor cores: the
-// JAX reference pins Precision.HIGHEST, and a TF32 dot flips near-tie codes.
-// Each thread sums x . e over D in order, so a code can differ from another
-// fp32 summation order only where two distances tie to within rounding.
+// Arithmetic. fp32 FMA on the CUDA cores, no TF32: the JAX reference pins
+// Precision.HIGHEST, and a TF32 dot moves a distance by ~1e-2 at D = 512 and
+// flips near-tie codes. Each thread sums x . e over D in order, so a code can
+// differ from another fp32 summation order only where two distances tie to
+// within rounding. |e_j|^2 is summed here, in fp32, by the same fixed plan for
+// every code, so two equal codebook rows get equal distances: an exact tie
+// goes to the lower code wherever the two rows lie.
 //
 // What bounds it on this card. 2 * nq * M * N * D operations against
 // (M * D + nq * N * D) * 4 bytes: at M = 250, N = 1024, D = 512, nq = 4 that is
 // 1.05 GFLOP (about 16 us at the data sheet's 67 TFLOP/s fp32) against 8.9 MB
-// (about 2.7 us at 3.35 TB/s), so the work is compute-bound.
+// (about 2.7 us at 3.35 TB/s): compute-bound, and one clip must use every SM.
 //
-// Design. One block of 128 threads per tile of 8 rows. The rows' residual
-// (8 x D fp32, 16 KB at D = 512) stays in shared memory for all nq layers. The
-// block walks the codebook in tiles of 512 codes x 16 dims staged in shared
-// memory, the next slice loaded into registers (coalesced, 64 bytes per row)
-// while the current one is computed; each thread owns 4 consecutive codes of
-// a tile against all 8 rows, so one 16-byte code load feeds 32 FMAs and the
-// rows are read as broadcasts.
-// Each thread keeps a running (best distance, best code) per row with a
-// strict < over ascending codes; the 128 candidates per row then reduce
-// through warp shuffles and shared memory, lower code first on equal
-// distance. Ragged M is masked: no padding of the rows.
-//
-// Known limit. The layer chain needs every code of a layer before the next
-// layer starts, so a block walks the whole codebook: at M = 250 only 32
-// blocks run on 132 SMs. Splitting the codebook across a thread block
-// cluster (with a distributed-shared-memory argmin) or across more rows per
-// launch (batching clips) is later work.
+// Design. The codebook is split across a thread block cluster of kCluster
+// CTAs: a cluster owns R rows, each of its CTAs a contiguous chunk of
+// ceil(N / kCluster) codes. R is 16 to 32 in steps of 4, the wrapper's pick:
+// the fewest rows whose clusters the card holds at once (15 clusters of 8
+// on an H100 at one CTA an SM), so one 10-s clip (M = 250) runs as 13
+// clusters of 20 rows on 104 SMs, in one wave. Inside a CTA (R / 4 warps):
+// * the R residual rows stay in shared memory for all nq layers;
+// * the chunk is walked in tiles of 128 codes x kDepth dims (16 KB), staged
+//   by cp.async into a ring of kStages buffers, one barrier per stage; the
+//   stage sequence runs on across tiles and layers (the codebook does not
+//   depend on the codes), so the next layer's first tiles load during this
+//   layer's merge;
+// * warp w owns rows 4w..4w+3 and lane l codes l, l + 32, l + 64, l + 96 of
+//   a tile: a 4 x 4 register tile, its 16 FMAs a dim fed by one 16-byte code
+//   load and one broadcast row load per 4 dims (4 FMAs per word a lane
+//   loads); the 8 steps of 4 dims of a stage are unrolled, FMAs one dim at a
+//   time across the 16 accumulators. Each thread also sums |e|^2 of its 4
+//   codes (the FMA pipe has room: the loop is bound by shared-memory
+//   bandwidth);
+// * each thread keeps a running (best distance, best code) per row, strict <
+//   over ascending codes; a warp's candidates meet by xor shuffles, lower
+//   code first on equal distance.
+// Across the cluster, per layer: each CTA writes its rows' (distance, code)
+// to an exchange slot, cluster barrier, and every CTA merges the kCluster
+// candidates of each row from the ranks' shared memory (distributed shared
+// memory) in rank order, lower code first on equal distance; rank 0 writes
+// the codes and every CTA subtracts the chosen global codebook rows from its
+// own residual copy. The slot alternates by layer parity, so a CTA never
+// overwrites a slot a neighbour may still read (it cannot pass the next
+// layer's barrier before every neighbour has arrived there, done reading); a
+// last barrier keeps every CTA's shared memory alive until all have read.
+// Ragged M and N are masked; a chunk past N (N < kCluster) walks one tile of
+// zeros that no candidate comes from.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRows = 8;                                 // rows per block
-constexpr int kThreads = 128;                            // 4 warps
-constexpr int kCodesPerThread = 4;                       // one float4
-constexpr int kTileCodes = kThreads * kCodesPerThread;   // 512 codes
-constexpr int kTileDepth = 16;                           // dims per stage
-constexpr int kTileStride = kTileCodes + 4;  // 2-way bank conflicts on store
-constexpr int kLoads = kTileCodes * kTileDepth / 4 / kThreads;  // float4s
-constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;         // CTAs per cluster: codebook chunks
+constexpr int kMaxLayers = 16;      // residual layers one launch takes
+constexpr int kMaxDim = 2048;       // the residual of 16 rows fits beside the ring
+constexpr int kMaxDimWide = 1024;   // ... of 20 to 32 rows
+constexpr int kTileCodes = 128;     // codes of a staged tile: 4 per lane
+constexpr int kCodesPerLane = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr int kDepth = 32;          // dims per stage
+constexpr int kStride = kDepth + 4; // words per staged code: conflict-free 16-byte reads
+constexpr int kStages = 5;        // 4 stages (64 KB) in flight
+constexpr int kStageWords = kTileCodes * kStride;
+constexpr int kMaxDevices = 64;
+
+struct Books {
+  const float* layer[kMaxLayers];
+};
 
 __device__ __forceinline__ bool better(float d2, int i2, float d1, int i1) {
   return d2 < d1 || (d2 == d1 && i2 < i1);
 }
 
-size_t smem_bytes(int d) {
-  return sizeof(float) * (static_cast<size_t>(d) * kRows +
-                          kTileDepth * kTileStride + kWarps * kRows) +
-         sizeof(int) * (kWarps * kRows + kRows);
-}
-
-// One stage's slice of the codebook, tile rows [base, base + kTileCodes) x
-// dims [k0, k0 + kTileDepth), into registers: four neighbouring threads read
-// one row's 64 contiguous bytes, a warp 8 rows. Rows past n read zeros.
-__device__ __forceinline__ void load_stage(float4 (&pre)[kLoads],
-                                           const float* __restrict__ book,
-                                           int n, int d, int base, int k0) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int e = t + kThreads * i, j = base + (e >> 2);
-    pre[i] = j < n ? __ldg(reinterpret_cast<const float4*>(
-                         book + static_cast<size_t>(j) * d + k0 + 4 * (e & 3)))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+// f(0), f(1), ..., f(N - 1), each call inlined with its argument a constant
+template <int N, typename F>
+__device__ __forceinline__ void unrolled(F&& f) {
+  if constexpr (N > 0) {
+    unrolled<N - 1>(f);
+    f(N - 1);
   }
 }
 
-// x (m, d); cb (nq, n, d); cbsq (nq, n); codes (m, nq) int32, row-major.
-__global__ void __launch_bounds__(kThreads)
-vq_search_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                 const float* __restrict__ cbsq, int* __restrict__ codes,
-                 int m, int n, int d, int nq) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                   // [d][kRows] residual
-  float* tile = xs + static_cast<size_t>(d) * kRows;  // [kTileDepth][kTileStride]
-  float* red_d = tile + kTileDepth * kTileStride;     // [kWarps][kRows]
-  int* red_i = reinterpret_cast<int*>(red_d + kWarps * kRows);
-  int* best_row = red_i + kWarps * kRows;             // [kRows]
+// component f of v (f a constant once the loops are unrolled)
+__device__ __forceinline__ float part(const float4& v, int f) {
+  return f == 0 ? v.x : f == 1 ? v.y : f == 2 ? v.z : v.w;
+}
 
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, m - row0);
+// books.layer[l], read with constant indices only (a dynamic index would
+// copy the parameter to local memory)
+__device__ __forceinline__ const float* layer_book(const Books& books, int l) {
+  const float* book = books.layer[0];
+#pragma unroll
+  for (int q = 1; q < kMaxLayers; ++q)
+    if (q == l) book = books.layer[q];
+  return book;
+}
 
-  for (int e = t; e < kRows * d; e += kThreads) {
-    const int r = e / d, k = e - r * d;
-    xs[k * kRows + r] = r < rows ? x[static_cast<size_t>(row0 + r) * d + k]
-                                 : 0.f;
+__host__ __device__ __forceinline__ int padded_dim(int d) {
+  return (d + kDepth - 1) / kDepth * kDepth;
+}
+
+size_t smem_bytes(int d, int rows) {
+  return sizeof(float) * (kStages * kStageWords +
+                          static_cast<size_t>(rows) * padded_dim(d) +
+                          2 * rows) +
+         sizeof(int) * 3 * rows;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most kStages - 2 groups (the newest) are in flight
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// x (m, d); books.layer[l] (n, d); codes (m, nq) int32, row-major.
+// Grid: kCluster CTAs per R-row tile, clusters of kCluster along x.
+template <int R>
+__global__ void __launch_bounds__(8 * R)
+vq_search_kernel(const float* __restrict__ x, Books books,
+                 int* __restrict__ codes, int m, int n, int d, int nq) {
+  constexpr int kThreads = 32 * R / kRowsPerWarp;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);      // [kStages][kTileCodes][kStride]
+  const int dp = padded_dim(d);
+  float* xs = ring + kStages * kStageWords;           // [R][dp] residual
+  float* xd = xs + R * dp;                            // [2][R] exchange distances
+  int* xi = reinterpret_cast<int*>(xd + 2 * R);       // [2][R] exchange codes
+  int* chosen = xi + 2 * R;                           // [R]
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = blockIdx.x / kCluster * R;
+  const int chunk = (n + kCluster - 1) / kCluster;
+  const int c0 = min(n, rank * chunk), c1 = min(n, c0 + chunk);
+  const int tiles = (chunk + kTileCodes - 1) / kTileCodes;
+  const int k_stages = dp / kDepth;
+  const int total = nq * tiles * k_stages;
+
+  // The copy side of the ring: the next stage to load is (layer fl, tile ft,
+  // dims kDepth * fk) into slot fslot. A thread copies the 16-byte piece
+  // t % 8 of codes t / 8, t / 8 + kThreads / 8, ...: 8 neighbouring threads
+  // read one code's 128 contiguous bytes.
+  int fl = 0, ft = 0, fk = 0, fslot = 0, fs = 0;
+  const float* fbook = books.layer[0];
+  const int piece = 4 * (t & 7);
+  auto issue_next = [&]() {
+    if (fs < total) {
+      float* buf = ring + fslot * kStageWords + piece;
+      const int base = c0 + ft * kTileCodes, k = fk * kDepth + piece;
+#pragma unroll
+      for (int u = 0; u < (kTileCodes * 8 + kThreads - 1) / kThreads; ++u) {
+        const int code = (t >> 3) + u * (kThreads / 8);
+        if (code >= kTileCodes) break;
+        const bool valid = base + code < c1 && k < d;
+        cp_async16(buf + code * kStride,
+                   valid ? fbook + static_cast<size_t>(base + code) * d + k
+                         : fbook,
+                   valid);
+      }
+      if (++fk == k_stages) {
+        fk = 0;
+        if (++ft == tiles) {
+          ft = 0;
+          fbook = layer_book(books, ++fl);
+        }
+      }
+    }
+    cp_async_commit();
+    fslot = fslot + 1 == kStages ? 0 : fslot + 1;
+    ++fs;
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue_next();
+
+  for (int e = t; e < R * dp / 4; e += kThreads) {
+    const int r = e / (dp / 4), k = 4 * (e % (dp / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < m && k < d)
+      v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(row0 + r) * d + k);
+    *reinterpret_cast<float4*>(xs + r * dp + k) = v;
   }
 
-  for (int l = 0; l < nq; ++l) {
-    const float* book = cb + static_cast<size_t>(l) * n * d;
-    const float* booksq = cbsq + static_cast<size_t>(l) * n;
-    float best_d[kRows];
-    int best_i[kRows];
+  float acc[kRowsPerWarp][kCodesPerLane], sq[kCodesPerLane];
+  float best_d[kRowsPerWarp];
+  int best_i[kRowsPerWarp];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      best_d[r] = INFINITY;
-      best_i[r] = 0;
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    best_d[i] = INFINITY;
+    best_i[i] = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < kCodesPerLane; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kCodesPerLane; ++j) sq[j] = 0.f;
+
+  const float* xr = xs + warp * kRowsPerWarp * dp;
+  int l = 0, tile = 0, ks = 0, slot = 0;
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait_ring();  // stage s has landed (s + 1.. may be in flight)
+    __syncthreads();       // ... for every thread; stage s - 1 is consumed
+    issue_next();          // stage s + kStages - 1, into s - 1's slot
+
+    const float* buf = ring + slot * kStageWords;
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+    const int k0 = ks * kDepth;
+    // 4 dims a step, the 8 steps of a stage unrolled by construction so
+    // that one step's loads overlap the FMAs before them
+    unrolled<kDepth / 4>([&](const int step) {
+      const int kk = 4 * step;
+      float4 c[kCodesPerLane], a[kRowsPerWarp];
+#pragma unroll
+      for (int j = 0; j < kCodesPerLane; ++j)
+        c[j] = *reinterpret_cast<const float4*>(buf + (lane + 32 * j) * kStride + kk);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        a[i] = *reinterpret_cast<const float4*>(xr + i * dp + k0 + kk);
+      // one dim at a time across the 16 accumulators: neighbouring FMAs are
+      // independent
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+          for (int j = 0; j < kCodesPerLane; ++j)
+            acc[i][j] = fmaf(part(a[i], f), part(c[j], f), acc[i][j]);
+#pragma unroll
+        for (int j = 0; j < kCodesPerLane; ++j)
+          sq[j] = fmaf(part(c[j], f), part(c[j], f), sq[j]);
+      }
+    });
+
+    if (ks + 1 == k_stages) {
+      // the tile's candidates
+      const int base = c0 + tile * kTileCodes;
+#pragma unroll
+      for (int j = 0; j < kCodesPerLane; ++j) {
+        const float e2 = sq[j];
+        sq[j] = 0.f;
+        const int code = base + lane + 32 * j;
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const float dist = e2 - 2.f * acc[i][j];
+          if (code < c1 && dist < best_d[i]) {
+            best_d[i] = dist;
+            best_i[i] = code;
+          }
+          acc[i][j] = 0.f;
+        }
+      }
     }
 
-    // stages walk the codebook tile by tile, each tile over D in
-    // kTileDepth slices; the next stage's slice is loaded into registers
-    // while the current one is computed
-    const int k_stages = d / kTileDepth;
-    const int stages = (n + kTileCodes - 1) / kTileCodes * k_stages;
-    float4 pre[kLoads];
-    load_stage(pre, book, n, d, 0, 0);
-    float acc[kRows][kCodesPerThread];
-    for (int s = 0; s < stages; ++s) {
-      const int base = s / k_stages * kTileCodes;
-      const int k0 = s % k_stages * kTileDepth;
-      if (k0 == 0) {
+    if (ks + 1 == k_stages && tile + 1 == tiles) {
+      // the layer's end: this CTA's candidate per row, then the cluster's
+      const int slot = (l & 1) * R;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        float dd = best_d[i];
+        int ii = best_i[i];
 #pragma unroll
-          for (int q = 0; q < kCodesPerThread; ++q) acc[r][q] = 0.f;
+        for (int off = 16; off > 0; off >>= 1) {
+          const float d2 = __shfl_xor_sync(0xffffffffu, dd, off);
+          const int i2 = __shfl_xor_sync(0xffffffffu, ii, off);
+          if (better(d2, i2, dd, ii)) {
+            dd = d2;
+            ii = i2;
+          }
+        }
+        if (lane == 0) {
+          xd[slot + warp * kRowsPerWarp + i] = dd;
+          xi[slot + warp * kRowsPerWarp + i] = ii;
+        }
+        best_d[i] = INFINITY;
+        best_i[i] = INT_MAX;
       }
-      __syncthreads();  // the previous stage is consumed; xs is written
+      cluster.sync();  // every rank's candidates are in its shared memory
+      if (t < R) {
+        float bd = INFINITY;
+        int bi = INT_MAX;
 #pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const int e = t + kThreads * i, code = e >> 2, quad = e & 3;
-        float* col = tile + 4 * quad * kTileStride + code;
-        col[0] = pre[i].x;
-        col[kTileStride] = pre[i].y;
-        col[2 * kTileStride] = pre[i].z;
-        col[3 * kTileStride] = pre[i].w;
+        for (int q = 0; q < kCluster; ++q) {
+          const float d2 = cluster.map_shared_rank(xd + slot, q)[t];
+          const int i2 = cluster.map_shared_rank(xi + slot, q)[t];
+          if (better(d2, i2, bd, bi)) {
+            bd = d2;
+            bi = i2;
+          }
+        }
+        chosen[t] = bi;
+        if (rank == 0 && row0 + t < m)
+          codes[static_cast<size_t>(row0 + t) * nq + l] = bi;
       }
       __syncthreads();
-      if (s + 1 < stages)
-        load_stage(pre, book, n, d, (s + 1) / k_stages * kTileCodes,
-                   (s + 1) % k_stages * kTileDepth);
-#pragma unroll
-      for (int kk = 0; kk < kTileDepth; ++kk) {
-        const float4 c = *reinterpret_cast<const float4*>(
-            tile + kk * kTileStride + t * kCodesPerThread);
-        const float4 xa =
-            *reinterpret_cast<const float4*>(xs + (k0 + kk) * kRows);
-        const float4 xb =
-            *reinterpret_cast<const float4*>(xs + (k0 + kk) * kRows + 4);
-        const float xv[kRows] = {xa.x, xa.y, xa.z, xa.w,
-                                 xb.x, xb.y, xb.z, xb.w};
-        const float cv[kCodesPerThread] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int q = 0; q < kCodesPerThread; ++q)
-            acc[r][q] = fmaf(xv[r], cv[q], acc[r][q]);
-      }
-      if (k0 + kTileDepth == d) {
-#pragma unroll
-        for (int q = 0; q < kCodesPerThread; ++q) {
-          const int j = base + t * kCodesPerThread + q;
-          if (j < n) {
-            const float sq = booksq[j];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float dist = sq - 2.f * acc[r][q];
-              if (dist < best_d[r]) {
-                best_d[r] = dist;
-                best_i[r] = j;
-              }
-            }
+      if (l + 1 < nq) {
+        // residual -= the chosen codebook row, exact fp32 (a gather)
+        const float* book = layer_book(books, l);
+        for (int e = t; e < R * d / 4; e += kThreads) {
+          const int r = e / (d / 4), k = 4 * (e % (d / 4));
+          if (row0 + r < m) {
+            const float4 b = __ldg(reinterpret_cast<const float4*>(
+                book + static_cast<size_t>(chosen[r]) * d + k));
+            float4* v = reinterpret_cast<float4*>(xs + r * dp + k);
+            v->x -= b.x;
+            v->y -= b.y;
+            v->z -= b.z;
+            v->w -= b.w;
           }
         }
       }
     }
 
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float dd = best_d[r];
-      int ii = best_i[r];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float d2 = __shfl_down_sync(0xffffffffu, dd, off);
-        const int i2 = __shfl_down_sync(0xffffffffu, ii, off);
-        if (better(d2, i2, dd, ii)) {
-          dd = d2;
-          ii = i2;
-        }
-      }
-      if (lane == 0) {
-        red_d[warp * kRows + r] = dd;
-        red_i[warp * kRows + r] = ii;
-      }
-    }
-    __syncthreads();
-    if (t < kRows) {
-      float dd = red_d[t];
-      int ii = red_i[t];
-      for (int w = 1; w < kWarps; ++w) {
-        if (better(red_d[w * kRows + t], red_i[w * kRows + t], dd, ii)) {
-          dd = red_d[w * kRows + t];
-          ii = red_i[w * kRows + t];
-        }
-      }
-      best_row[t] = ii;
-      if (t < rows) codes[static_cast<size_t>(row0 + t) * nq + l] = ii;
-    }
-    __syncthreads();
-    if (l + 1 < nq) {
-      // residual -= the chosen codebook row, exact fp32 (a gather)
-      for (int e = t; e < rows * d; e += kThreads) {
-        const int r = e / d, k = e - r * d;
-        xs[k * kRows + r] -= book[static_cast<size_t>(best_row[r]) * d + k];
+    if (++ks == k_stages) {
+      ks = 0;
+      if (++tile == tiles) {
+        tile = 0;
+        ++l;
       }
     }
   }
+  cluster.sync();  // no CTA leaves while a neighbour reads its slots
 }
 
-int launch(const void* x, const void* cb, const void* cbsq, void* codes,
-           int m, int n, int d, int nq, void* stream) {
-  const size_t bytes = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      vq_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+// Opt the kernel in to its dynamic shared memory (above the 48 KB a block
+// gets without asking) on the current device, once per device.
+template <int R>
+int opt_in() {
+  static bool opted[kMaxDevices] = {};
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return static_cast<int>(got);
+  if (dev < kMaxDevices && opted[dev]) return 0;
+  const int most = static_cast<int>(smem_bytes(R == 16 ? kMaxDim : kMaxDimWide, R));
+  const cudaError_t set = cudaFuncSetAttribute(
+      vq_search_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (set == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
+  return static_cast<int>(set);
+}
+
+void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int tiles,
+               int d, int rows, void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(kCluster * tiles);
+  cfg->blockDim = dim3(8 * rows);
+  cfg->dynamicSmemBytes = smem_bytes(d, rows);
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <int R>
+int launch(const float* x, const Books& books, int* codes, int m, int n,
+           int d, int nq, void* stream) {
+  const int rc = opt_in<R>();
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  configure(&cfg, &attr, (m + R - 1) / R, d, R, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, vq_search_kernel<R>, x,
+                                             books, codes, m, n, d, nq);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + kRows - 1) / kRows);
-  vq_search_kernel<<<grid, kThreads, bytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(cb),
-      static_cast<const float*>(cbsq), static_cast<int*>(codes), m, n, d, nq);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int active_clusters(int d, int* out) {
+  const int rc = opt_in<R>();
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  configure(&cfg, &attr, 1, d, R, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, vq_search_kernel<R>, &cfg));
+}
+
+bool valid_shape(int n, int d, int nq, int rows) {
+  const bool r = rows == 16 || rows == 20 || rows == 24 || rows == 28 ||
+                 rows == 32;
+  return r && n > 0 && d > 0 && d % 16 == 0 && nq > 0 && nq <= kMaxLayers &&
+         d <= (rows == 16 ? kMaxDim : kMaxDimWide);
+}
+
+// f(std::integral_constant<int, R>) for the R of a valid row count
+template <typename F>
+int with_rows(int rows, F&& f) {
+  switch (rows) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 20: return f(std::integral_constant<int, 20>());
+    case 24: return f(std::integral_constant<int, 24>());
+    case 28: return f(std::integral_constant<int, 28>());
+    default: return f(std::integral_constant<int, 32>());
+  }
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). Each returns cudaGetLastError().
+// Plain C interface (loaded with ctypes). Each returns a cudaError_t code,
+// cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" {
 
-int vq_smem_bytes(int d) { return static_cast<int>(smem_bytes(d)); }
+int vq_cluster_size() { return kCluster; }
 
-// K5: x (m, d), cb (n, d), cbsq (n,) -> codes (m,)
-int vq_nearest_code_f32(const void* x, const void* cb, const void* cbsq,
-                        void* codes, int m, int n, int d, void* stream) {
-  return launch(x, cb, cbsq, codes, m, n, d, 1, stream);
+int vq_max_layers() { return kMaxLayers; }
+
+int vq_smem_bytes(int d, int rows) { return static_cast<int>(smem_bytes(d, rows)); }
+
+// How many clusters of this launch the current device holds at once
+// (cudaOccupancyMaxActiveClusters).
+int vq_active_clusters(int d, int rows, int* out) {
+  if (!valid_shape(1, d, 1, rows)) return static_cast<int>(cudaErrorInvalidValue);
+  return with_rows(rows, [&](auto r) { return active_clusters<decltype(r)::value>(d, out); });
 }
 
-// K6: x (m, d), cbs (nq, n, d), cbsq (nq, n) -> codes (m, nq)
-int vq_rvq_encode_f32(const void* x, const void* cbs, const void* cbsq,
-                      void* codes, int m, int n, int d, int nq, void* stream) {
-  return launch(x, cbs, cbsq, codes, m, n, d, nq, stream);
+// K5 (nq = 1) and K6: x (m, d); books, a host array of nq device pointers,
+// each an (n, d) codebook; codes (m, nq); rows 16, 20, ..., 32 a cluster.
+int vq_search_f32(const void* x, const void* const* books, void* codes, int m,
+                  int n, int d, int nq, int rows, void* stream) {
+  if (m <= 0 || !valid_shape(n, d, nq, rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Books b = {};
+  for (int l = 0; l < nq; ++l) b.layer[l] = static_cast<const float*>(books[l]);
+  const float* xp = static_cast<const float*>(x);
+  int* out = static_cast<int*>(codes);
+  return with_rows(rows, [&](auto r) {
+    return launch<decltype(r)::value>(xp, b, out, m, n, d, nq, stream);
+  });
 }
 
 }  // extern "C"

@@ -5,24 +5,35 @@ Port of ``unified_audio_tpu/ops/pallas/vq_kernel.py``:
 * K5 :func:`nearest_code` (TPU kernel ``nearest_code_pallas``): one
   codebook, x (M, D) fp32, codebook (N, D) fp32 -> (M,) int32;
 * K6 :func:`rvq_encode_fused` (``rvq_encode_fused_pallas``): all nq residual
-  layers in one launch, codebooks (nq, N, D) -> (M, nq) int32;
+  layers in one launch, codebooks (nq, N, D), or a sequence of nq (N, D)
+  tensors, -> (M, nq) int32;
 * :func:`rvq_encode_staged` (``rvq_encode_pallas``): a host loop of K5.
 
 The code of a row is ``argmin_j(|e_j|^2 - 2 x . e_j)`` in fp32, ties to the
 lowest j, the semantics of ``ops/quant.py nearest_code`` in the JAX package.
-The kernels are CUDA C++ for sm_90a in ``csrc/vq.cu``, built with ``nvcc``
-on first use (``ops/cuda/build.py``). Each wrapper launches its kernel for
-CUDA tensors and uses the plain PyTorch version beside it only for tensors
-on the CPU; there is no fallback from a failed launch. Each wrapper counts
-its launches in ``<wrapper>.launches``.
+Both wrappers launch one kernel, CUDA C++ for sm_90a in ``csrc/vq.cu``, built
+with ``nvcc`` on first use (``ops/cuda/build.py``): a thread block cluster of
+``CLUSTER`` CTAs splits the codebook into contiguous chunks for R input
+rows (:func:`plan`), and merges its argmin in distributed shared memory. The kernel takes each layer's codebook by its pointer, so a caller's
+codebooks are never copied. Each wrapper launches its kernel for CUDA
+tensors and uses the plain PyTorch version beside it only for tensors on the
+CPU; there is no fallback from a failed launch. Each wrapper counts its
+launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-MAX_DIM = 4096  # the residual tile (8 rows x D fp32) lives in shared memory
+CLUSTER = 8  # CTAs of a cluster: codebook chunks (kCluster in csrc/vq.cu)
+MAX_LAYERS = 16  # residual layers one launch takes (kMaxLayers)
+ROWS = (16, 20, 24, 28, 32)  # the rows a cluster can own: 4 a warp
+# the residual of a cluster's rows (R x D fp32) lives in shared memory beside
+# the staged codebook tiles: up to D = 2048 at 16 rows, 1024 at 20 to 32
+MAX_DIM = 2048
+MAX_DIM_WIDE = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -50,23 +61,67 @@ def rvq_encode_fused_ref(x, codebooks):
 
 
 # ---------------------------------------------------------------------------
+# The kernel's plan
+# ---------------------------------------------------------------------------
+
+def plan(m: int, d: int, active: int) -> int:
+    """Rows a cluster owns, one of ``ROWS``: the fewest whose ceil(M / R)
+    clusters the card holds at once (``active``, from
+    ``cudaOccupancyMaxActiveClusters``), so that no cluster waits for a
+    second wave; 32 when none does; 16 when D > ``MAX_DIM_WIDE``. Fewer rows
+    mean more clusters and less work each; more rows, fewer codebook reads
+    (``l2_bytes``)."""
+    if d > MAX_DIM_WIDE:
+        return 16
+    for rows in ROWS:
+        if -(-m // rows) <= active:
+            return rows
+    return ROWS[-1]
+
+
+def l2_bytes(m: int, n: int, d: int, nq: int, rows: int) -> int:
+    """Bytes one launch reads from L2 (or HBM) and writes: every CTA reads
+    its rows once and, per layer, its chunk of the codebook and (before all
+    but the last layer) the chosen codebook rows; rank 0 writes the codes.
+    The codebook is read once per row tile of ``rows``, the rows once per
+    CTA of a cluster."""
+    tiles = -(-m // rows)
+    return 4 * (tiles * nq * n * d + CLUSTER * m * d * nq + m * nq)
+
+
+@functools.lru_cache(maxsize=None)
+def _active(index: int, d: int) -> int:
+    """Clusters of 32 rows at D the card ``index`` holds at once (the most
+    shared memory a launch at D asks for, so the fewest clusters)."""
+    with torch.cuda.device(index):
+        return active_clusters(d, 16 if d > MAX_DIM_WIDE else ROWS[-1])
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
+def typed(lib):
+    """``lib`` (a build of ``csrc/vq.cu``) with the argument types of its C
+    entry points set."""
+    if not getattr(lib, "_typed", False):
+        lib.vq_search_f32.argtypes = [_PTR, ctypes.POINTER(_PTR), _PTR] \
+            + [_INT] * 5 + [_PTR]
+        lib.vq_active_clusters.argtypes = [_INT, _INT,
+                                           ctypes.POINTER(_INT)]
+        for fn in (lib.vq_search_f32, lib.vq_active_clusters):
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
 def _library():
     from .build import load_library
 
-    lib = load_library("vq.cu")
-    if not getattr(lib, "_typed", False):
-        lib.vq_nearest_code_f32.argtypes = [_PTR] * 4 + [_INT] * 3 + [_PTR]
-        lib.vq_rvq_encode_f32.argtypes = [_PTR] * 4 + [_INT] * 4 + [_PTR]
-        lib.vq_nearest_code_f32.restype = ctypes.c_int
-        lib.vq_rvq_encode_f32.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    return typed(load_library("vq.cu"))
 
 
 def _require(cond: bool, what: str):
@@ -74,19 +129,23 @@ def _require(cond: bool, what: str):
         raise ValueError(f"VQ kernel: {what}")
 
 
-def _check(x, codebooks):
-    """codebooks (..., N, D); returns (M, N, D)."""
+def _check(x, books):
+    """books: nq (N, D) codebooks; returns (M, N, D)."""
     dev = x.device
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     _require(x.dim() == 2, f"x must be (M, D), got {tuple(x.shape)}")
+    _require(0 < len(books) <= MAX_LAYERS,
+             f"{len(books)} codebooks: 1 to {MAX_LAYERS} a launch")
     m, d = x.shape
-    n = codebooks.shape[-2]
-    _require(codebooks.shape[-1] == d,
-             f"codebook dim {codebooks.shape[-1]} != x dim {d}")
+    n = books[0].shape[0] if books[0].dim() == 2 else 0
+    for cb in books:
+        _require(cb.dim() == 2 and cb.shape == (n, d),
+                 f"codebooks must be (N, D) = ({n}, {d}) each, got "
+                 f"{tuple(cb.shape)}")
     _require(m > 0 and n > 0, f"empty input: M={m}, N={n}")
     _require(d % 16 == 0 and d <= MAX_DIM,
              f"D={d} unsupported: a multiple of 16 up to {MAX_DIM}")
-    for name, t in (("x", x), ("codebook", codebooks)):
+    for name, t in [("x", x)] + [("codebook", cb) for cb in books]:
         _require(t.dtype == torch.float32, f"{name} must be fp32, got "
                  f"{t.dtype}")
         _require(t.device == dev, f"{name} on {t.device}, x on {dev}")
@@ -96,9 +155,21 @@ def _check(x, codebooks):
     return m, n, d
 
 
-def _raise_on(rc: int, name: str):
+def _search(x, books, name):
+    """One launch over the codebooks ``books`` -> codes (M, nq) int32."""
+    m, n, d = _check(x, books)
+    nq = len(books)
+    index = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    rows = plan(m, d, _active(index, d))
+    out = torch.empty(m, nq, dtype=torch.int32, device=x.device)
+    ptrs = (_PTR * nq)(*[cb.data_ptr() for cb in books])
+    rc = _library().vq_search_f32(
+        x.data_ptr(), ptrs, out.data_ptr(), m, n, d, nq, rows,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    return out
 
 
 def nearest_code(x, codebook):
@@ -107,32 +178,20 @@ def nearest_code(x, codebook):
         return nearest_code_ref(x, codebook)
     _require(codebook.dim() == 2, f"codebook must be (N, D), got "
              f"{tuple(codebook.shape)}")
-    m, n, d = _check(x, codebook)
-    cbsq = codebook.square().sum(-1)
-    out = torch.empty(m, dtype=torch.int32, device=x.device)
-    rc = _library().vq_nearest_code_f32(
-        x.data_ptr(), codebook.data_ptr(), cbsq.data_ptr(), out.data_ptr(),
-        m, n, d, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "nearest_code")
+    out = _search(x, [codebook], "nearest_code").view(-1)
     nearest_code.launches += 1
     return out
 
 
 def rvq_encode_fused(x, codebooks):
-    """K6: x (M, D) fp32, codebooks (nq, N, D) fp32 -> codes (M, nq) int32,
-    all layers in one launch."""
+    """K6: x (M, D) fp32, codebooks (nq, N, D) fp32 or a sequence of nq
+    (N, D) fp32 tensors -> codes (M, nq) int32, all layers in one launch."""
     if x.device.type == "cpu":
         return rvq_encode_fused_ref(x, codebooks)
-    _require(codebooks.dim() == 3, f"codebooks must be (nq, N, D), got "
-             f"{tuple(codebooks.shape)}")
-    m, n, d = _check(x, codebooks)
-    nq = codebooks.shape[0]
-    cbsq = codebooks.square().sum(-1)
-    out = torch.empty(m, nq, dtype=torch.int32, device=x.device)
-    rc = _library().vq_rvq_encode_f32(
-        x.data_ptr(), codebooks.data_ptr(), cbsq.data_ptr(), out.data_ptr(),
-        m, n, d, nq, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "rvq_encode_fused")
+    if torch.is_tensor(codebooks):
+        _require(codebooks.dim() == 3, f"codebooks must be (nq, N, D), got "
+                 f"{tuple(codebooks.shape)}")
+    out = _search(x, list(codebooks), "rvq_encode_fused")
     rvq_encode_fused.launches += 1
     return out
 
@@ -141,9 +200,19 @@ nearest_code.launches = 0
 rvq_encode_fused.launches = 0
 
 
+def active_clusters(d: int, rows: int) -> int:
+    """Clusters of a launch at (D, rows) that the current card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    out = ctypes.c_int(0)
+    rc = _library().vq_active_clusters(d, rows, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"active_clusters: CUDA error {rc}")
+    return out.value
+
+
 def rvq_encode_staged(x, codebooks):
     """The residual layer loop on the host, one K5 launch per layer:
-    x (M, D), codebooks (nq, N, D) -> (M, nq) int32."""
+    x (M, D), codebooks (nq, N, D) or nq (N, D) -> (M, nq) int32."""
     residual = x
     codes = []
     for cb in codebooks:

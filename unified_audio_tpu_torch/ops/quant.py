@@ -68,12 +68,14 @@ class ResidualVQ(nn.Module):
             for _ in range(num_quantizers)])
 
     def codebooks(self):
-        """(nq, N, D), contiguous."""
-        return torch.stack([layer.embed for layer in self.layers])
+        """The layers' (N, D) codebooks, views of their buffers (no copy)."""
+        return tuple(layer.embed for layer in self.layers)
 
     def encode(self, x):
         """All layers in one K6 launch on a CUDA tensor: each layer codes
-        the residual left by the ones before it."""
+        the residual left by the ones before it. The kernel reads each
+        layer's buffer where it lies, so a ``load_state_dict`` shows in the
+        next call."""
         flat = x.reshape(-1, x.shape[-1]).float().contiguous()
         codes = vq.rvq_encode_fused(flat, self.codebooks())
         return codes.reshape(*x.shape[:-1], len(self.layers))
