@@ -74,7 +74,7 @@ def vq_caller(vq, lib, nq):
             own = vq._library
             vq._library = lambda: lib
             try:
-                return fn(x, cbs[0] if nq == 1 else cbs)
+                return fn(x, cbs[0])[:, None] if nq == 1 else fn(x, cbs)
             finally:
                 vq._library = own
         return call

@@ -457,12 +457,12 @@ class TestKernelsOnCard:
         return x.to(card), cbs.to(card)
 
     @pytest.mark.parametrize("nq", [1, 4])
-    @pytest.mark.parametrize("m", [250, 2000])
+    @pytest.mark.parametrize("m", [240, 2000])
     def test_vq_exact_ties_across_chunks(self, card, m, nq):
         """Exact ties, in a chunk or across chunks, go to the lower code:
         the codes equal the plain search's exactly (integer data, so both
-        sums are exact), the tied rows' codes 127, 511 and 0; at 20 rows a
-        cluster (M = 250) and 32 (M = 2000)."""
+        sums are exact), the tied rows' codes 127, 511 and 0; at 16 rows a
+        cluster (M = 240, 15 clusters) and 32 (M = 2000)."""
         x, cbs = self._vq_tie_case(card, m, nq)
         got = (vq.nearest_code(x, cbs[0])[:, None] if nq == 1
                else vq.rvq_encode_fused(x, cbs))

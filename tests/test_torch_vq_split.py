@@ -1,7 +1,7 @@
 """The cluster-split VQ search's plan on the CPU: ``split_search`` computes
 K5/K6 as the kernel in ``csrc/vq.cu`` does, in fp32:
 
-* rows in tiles of R (16 to 32 in steps of 4, ``vq.plan``'s pick); the
+* rows in tiles of R (16 or 32, ``vq.plan``'s pick); the
   codebook in ``vq.CLUSTER`` contiguous chunks of ceil(N / C) codes, one per
   CTA of a cluster (a chunk past N is empty and offers no candidate);
 * per chunk, |e|^2 and each row's partial argmin, the first of equal
@@ -146,11 +146,9 @@ def test_l2_bytes_counts_what_the_plan_reads(m, n, d, nq, rows):
 
 
 @pytest.mark.parametrize("m,d,active,rows", [
-    (250, 512, 15, 20),    # one 10-s clip: 13 clusters of 20 rows, one wave
+    (250, 512, 15, 32),    # one 10-s clip: 16 clusters of 16 would not fit
     (240, 512, 15, 16),    # 15 clusters of 16
     (2000, 512, 15, 32),   # eight clips: 63 clusters of 32, five waves
-    (400, 512, 15, 28),    # 15 clusters of 28
-    (481, 512, 15, 32),    # more than 15 clusters at any R
     (2000, 2048, 15, 16),  # D > 1024: 16 rows only
     (250, 512, 30, 16),    # two CTAs an SM (a small D): 16 clusters fit
 ])

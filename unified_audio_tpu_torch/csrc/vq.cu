@@ -14,41 +14,47 @@
 // step was a device for the MXU and rounds at its default precision; it has
 // no counterpart here.
 //
-// Arithmetic. fp32 FMA on the CUDA cores, no TF32: the JAX reference pins
-// Precision.HIGHEST, and a TF32 dot moves a distance by ~1e-2 at D = 512 and
-// flips near-tie codes. Each thread sums x . e over D in order, so a code can
-// differ from another fp32 summation order only where two distances tie to
-// within rounding. |e_j|^2 is summed here, in fp32, by the same fixed plan for
-// every code, so two equal codebook rows get equal distances: an exact tie
-// goes to the lower code wherever the two rows lie.
+// Arithmetic. The dot products run on the tensor cores as 3xTF32: each
+// fp32 operand is split into hi = tf32(v) and lo = tf32(v - hi), and
+// x . e = lo_x hi_e + hi_x lo_e + hi_x hi_e, summed in fp32 by mma.sync
+// (m16n8k8, .tf32); the dropped lo_x lo_e term and the tensor cores' own
+// summation move a distance by about 2^-22 of sum |x_k e_k|. Plain TF32 (hi
+// alone, a 10-bit mantissa) would move it by ~1e-2 at D = 512 and flip
+// near-tie codes, which the JAX reference (Precision.HIGHEST) does not.
+// |e_j|^2 is summed in fp32 on the CUDA cores, by the same plan for every
+// code, so two equal codebook rows get equal distances and an exact tie goes
+// to the lower code wherever the two rows lie; a code can differ from the
+// plain fp32 search only where two distances tie to within rounding.
 //
 // What bounds it on this card. 2 * nq * M * N * D operations against
 // (M * D + nq * N * D) * 4 bytes: at M = 250, N = 1024, D = 512, nq = 4 that is
 // 1.05 GFLOP (about 16 us at the data sheet's 67 TFLOP/s fp32) against 8.9 MB
-// (about 2.7 us at 3.35 TB/s): compute-bound, and one clip must use every SM.
+// (about 2.7 us at 3.35 TB/s): compute-bound, and one clip must use the
+// card. On the CUDA cores (fp32 FMA, a 4 x 4 register tile a thread) the
+// loop was bound by shared-memory bandwidth at about a quarter of that
+// peak; the tensor cores read an operand word per 16 products a lane.
 //
 // Design. The codebook is split across a thread block cluster of kCluster
-// CTAs: a cluster owns R rows, each of its CTAs a contiguous chunk of
-// ceil(N / kCluster) codes. R is 16 to 32 in steps of 4, the wrapper's pick:
-// the fewest rows whose clusters the card holds at once (15 clusters of 8
-// on an H100 at one CTA an SM), so one 10-s clip (M = 250) runs as 13
-// clusters of 20 rows on 104 SMs, in one wave. Inside a CTA (R / 4 warps):
+// CTAs: a cluster owns R rows (16 or 32: one or two m16 tiles), each of its
+// CTAs a contiguous chunk of ceil(N / kCluster) codes. R is the wrapper's
+// pick: 16 if the card holds all ceil(M / 16) clusters at once (15 clusters
+// of 8 on an H100 at one CTA an SM), else 32, so one 10-s clip (M = 250)
+// runs as 8 clusters of 32 rows in one wave. Inside a CTA (4 warps):
 // * the R residual rows stay in shared memory for all nq layers;
 // * the chunk is walked in tiles of 128 codes x kDepth dims (16 KB), staged
 //   by cp.async into a ring of kStages buffers, one barrier per stage; the
 //   stage sequence runs on across tiles and layers (the codebook does not
 //   depend on the codes), so the next layer's first tiles load during this
 //   layer's merge;
-// * warp w owns rows 4w..4w+3 and lane l codes l, l + 32, l + 64, l + 96 of
-//   a tile: a 4 x 4 register tile, its 16 FMAs a dim fed by one 16-byte code
-//   load and one broadcast row load per 4 dims (4 FMAs per word a lane
-//   loads); the 8 steps of 4 dims of a stage are unrolled, FMAs one dim at a
-//   time across the 16 accumulators. Each thread also sums |e|^2 of its 4
-//   codes (the FMA pipe has room: the loop is bound by shared-memory
-//   bandwidth);
-// * each thread keeps a running (best distance, best code) per row, strict <
-//   over ascending codes; a warp's candidates meet by xor shuffles, lower
-//   code first on equal distance.
+// * warp w owns codes 32w..32w+31 of a tile (four n8 tiles) against all R
+//   rows; per 8 dims it splits its A and B fragments, loaded from shared
+//   memory without bank conflicts (row and code strides of 4 mod 32 words),
+//   and issues 3 mma per (m16, n8) tile pair; its lanes also sum |e|^2 of
+//   their fragment's dims, the 4 lanes of a code group added by shuffles;
+// * each lane keeps a running (best distance, best code) for its 2 rows per
+//   m16 tile, strict < over ascending codes; a group's 4 lanes meet by xor
+//   shuffles, the 4 warps (in code order) through shared memory, lower code
+//   first on equal distance.
 // Across the cluster, per layer: each CTA writes its rows' (distance, code)
 // to an exchange slot, cluster barrier, and every CTA merges the kCluster
 // candidates of each row from the ranks' shared memory (distributed shared
@@ -75,10 +81,10 @@ namespace {
 constexpr int kCluster = 8;         // CTAs per cluster: codebook chunks
 constexpr int kMaxLayers = 16;      // residual layers one launch takes
 constexpr int kMaxDim = 2048;       // the residual of 16 rows fits beside the ring
-constexpr int kMaxDimWide = 1024;   // ... of 20 to 32 rows
-constexpr int kTileCodes = 128;     // codes of a staged tile: 4 per lane
-constexpr int kCodesPerLane = 4;
-constexpr int kRowsPerWarp = 4;
+constexpr int kMaxDimWide = 1024;   // ... of 32 rows
+constexpr int kThreads = 256;       // 8 warps
+constexpr int kTileCodes = 128;     // codes of a staged tile: 16 a warp
+constexpr int kTilesN = 2;          // n8 tiles of a warp's 16 codes
 constexpr int kDepth = 32;          // dims per stage
 constexpr int kStride = kDepth + 4; // words per staged code: conflict-free 16-byte reads
 constexpr int kStages = 5;        // 4 stages (64 KB) in flight
@@ -102,11 +108,6 @@ __device__ __forceinline__ void unrolled(F&& f) {
   }
 }
 
-// component f of v (f a constant once the loops are unrolled)
-__device__ __forceinline__ float part(const float4& v, int f) {
-  return f == 0 ? v.x : f == 1 ? v.y : f == 2 ? v.z : v.w;
-}
-
 // books.layer[l], read with constant indices only (a dynamic index would
 // copy the parameter to local memory)
 __device__ __forceinline__ const float* layer_book(const Books& books, int l) {
@@ -121,11 +122,36 @@ __host__ __device__ __forceinline__ int padded_dim(int d) {
   return (d + kDepth - 1) / kDepth * kDepth;
 }
 
+// words per residual row: conflict-free fragment reads
+__host__ __device__ __forceinline__ int row_stride(int d) {
+  return padded_dim(d) + 4;
+}
+
 size_t smem_bytes(int d, int rows) {
   return sizeof(float) * (kStages * kStageWords +
-                          static_cast<size_t>(rows) * padded_dim(d) +
-                          2 * rows) +
-         sizeof(int) * 3 * rows;
+                          static_cast<size_t>(rows) * row_stride(d) +
+                          (2 + kThreads / 32) * rows) +
+         sizeof(int) * (3 + kThreads / 32) * rows;
+}
+
+// v = hi + lo: hi is v cut to tf32 (a 10-bit mantissa), lo = v - hi exactly
+// in fp32, which the tensor cores read as tf32 (its top 19 bits), so hi + lo
+// is v to about 2^-20 of v. Two full-rate instructions, where a rounding
+// conversion (cvt.rna.tf32.f32) takes five
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c += a b on the tensor cores: a 16 x 8 (rows x dims), b 8 x 8 (dims x
+// codes), tf32 operands, fp32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -148,18 +174,21 @@ __device__ __forceinline__ void cp_async_wait_ring() {
 // x (m, d); books.layer[l] (n, d); codes (m, nq) int32, row-major.
 // Grid: kCluster CTAs per R-row tile, clusters of kCluster along x.
 template <int R>
-__global__ void __launch_bounds__(8 * R)
+__global__ void __launch_bounds__(kThreads)
 vq_search_kernel(const float* __restrict__ x, Books books,
                  int* __restrict__ codes, int m, int n, int d, int nq) {
-  constexpr int kThreads = 32 * R / kRowsPerWarp;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kTilesM = R / 16;  // m16 tiles of the rows
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);      // [kStages][kTileCodes][kStride]
-  const int dp = padded_dim(d);
-  float* xs = ring + kStages * kStageWords;           // [R][dp] residual
-  float* xd = xs + R * dp;                            // [2][R] exchange distances
-  int* xi = reinterpret_cast<int*>(xd + 2 * R);       // [2][R] exchange codes
-  int* chosen = xi + 2 * R;                           // [R]
+  const int dp = padded_dim(d), xstride = row_stride(d);
+  float* xs = ring + kStages * kStageWords;           // [R][xstride] residual
+  float* xd = xs + R * xstride;                       // [2][R] exchange distances
+  float* wd = xd + 2 * R;                             // [kWarps][R] warps' distances
+  int* xi = reinterpret_cast<int*>(wd + kWarps * R);  // [2][R] exchange codes
+  int* wi = xi + 2 * R;                               // [kWarps][R] warps' codes
+  int* chosen = wi + kWarps * R;                      // [R]
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int rank = static_cast<int>(cluster.block_rank());
@@ -171,20 +200,21 @@ vq_search_kernel(const float* __restrict__ x, Books books,
   const int total = nq * tiles * k_stages;
 
   // The copy side of the ring: the next stage to load is (layer fl, tile ft,
-  // dims kDepth * fk) into slot fslot. A thread copies the 16-byte piece
-  // t % 8 of codes t / 8, t / 8 + kThreads / 8, ...: 8 neighbouring threads
-  // read one code's 128 contiguous bytes.
+  // dims kDepth * fk) into slot fslot. A code's kDepth dims are kPieces
+  // 16-byte pieces; a thread copies piece t % kPieces of codes t / kPieces,
+  // t / kPieces + kThreads / kPieces, ...: neighbouring threads read one
+  // code's contiguous bytes.
+  constexpr int kPieces = kDepth / 4;
   int fl = 0, ft = 0, fk = 0, fslot = 0, fs = 0;
   const float* fbook = books.layer[0];
-  const int piece = 4 * (t & 7);
+  const int piece = 4 * (t % kPieces);
   auto issue_next = [&]() {
     if (fs < total) {
       float* buf = ring + fslot * kStageWords + piece;
       const int base = c0 + ft * kTileCodes, k = fk * kDepth + piece;
 #pragma unroll
-      for (int u = 0; u < (kTileCodes * 8 + kThreads - 1) / kThreads; ++u) {
-        const int code = (t >> 3) + u * (kThreads / 8);
-        if (code >= kTileCodes) break;
+      for (int u = 0; u < kTileCodes * kPieces / kThreads; ++u) {
+        const int code = t / kPieces + u * (kThreads / kPieces);
         const bool valid = base + code < c1 && k < d;
         cp_async16(buf + code * kStride,
                    valid ? fbook + static_cast<size_t>(base + code) * d + k
@@ -210,100 +240,142 @@ vq_search_kernel(const float* __restrict__ x, Books books,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < m && k < d)
       v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(row0 + r) * d + k);
-    *reinterpret_cast<float4*>(xs + r * dp + k) = v;
+    *reinterpret_cast<float4*>(xs + r * xstride + k) = v;
   }
 
-  float acc[kRowsPerWarp][kCodesPerLane], sq[kCodesPerLane];
-  float best_d[kRowsPerWarp];
-  int best_i[kRowsPerWarp];
+  // Fragments (PTX mma.m16n8k8 .tf32): lane = 4 g + tig holds A at rows
+  // g and g + 8, dims tig and tig + 4; B at code g, dims tig and tig + 4; C
+  // at rows g and g + 8, codes 2 tig and 2 tig + 1. Warp w owns codes
+  // 16 w..16 w + 15 of a tile, n8 tile nt its codes 8 nt..
+  const int g = lane >> 2, tig = lane & 3;
+  // acc sums hi hi, acc2 lo hi + hi lo: two chains of HMMA, not one
+  float acc[kTilesM][kTilesN][4], acc2[kTilesM][kTilesN][4], sq[kTilesN];
+  float best_d[kTilesM][2];
+  int best_i[kTilesM][2];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    best_d[i] = INFINITY;
-    best_i[i] = INT_MAX;
+  for (int mt = 0; mt < kTilesM; ++mt) {
 #pragma unroll
-    for (int j = 0; j < kCodesPerLane; ++j) acc[i][j] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      best_d[mt][h] = INFINITY;
+      best_i[mt][h] = INT_MAX;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTilesN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = acc2[mt][nt][e] = 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < kCodesPerLane; ++j) sq[j] = 0.f;
+  for (int nt = 0; nt < kTilesN; ++nt) sq[nt] = 0.f;
 
-  const float* xr = xs + warp * kRowsPerWarp * dp;
+  const float* xa = xs + g * xstride + tig;
   int l = 0, tile = 0, ks = 0, slot = 0;
   for (int s = 0; s < total; ++s) {
     cp_async_wait_ring();  // stage s has landed (s + 1.. may be in flight)
     __syncthreads();       // ... for every thread; stage s - 1 is consumed
     issue_next();          // stage s + kStages - 1, into s - 1's slot
 
-    const float* buf = ring + slot * kStageWords;
+    const float* eb = ring + slot * kStageWords + (16 * warp + g) * kStride + tig;
     slot = slot + 1 == kStages ? 0 : slot + 1;
-    const int k0 = ks * kDepth;
-    // 4 dims a step, the 8 steps of a stage unrolled by construction so
-    // that one step's loads overlap the FMAs before them
-    unrolled<kDepth / 4>([&](const int step) {
-      const int kk = 4 * step;
-      float4 c[kCodesPerLane], a[kRowsPerWarp];
+    const float* xk = xa + ks * kDepth;
+    // 8 dims a step, the 4 steps of a stage unrolled by construction: each
+    // product as 3xTF32, lo hi + hi lo + hi hi (lo lo dropped)
+    unrolled<kDepth / 8>([&](const int step) {
+      const int kk = 8 * step;
+      uint32_t ah[kTilesM][4], al[kTilesM][4];
 #pragma unroll
-      for (int j = 0; j < kCodesPerLane; ++j)
-        c[j] = *reinterpret_cast<const float4*>(buf + (lane + 32 * j) * kStride + kk);
+      for (int mt = 0; mt < kTilesM; ++mt) {
+        const float* a = xk + 16 * mt * xstride + kk;
+        split_tf32(a[0], ah[mt][0], al[mt][0]);
+        split_tf32(a[8 * xstride], ah[mt][1], al[mt][1]);
+        split_tf32(a[4], ah[mt][2], al[mt][2]);
+        split_tf32(a[8 * xstride + 4], ah[mt][3], al[mt][3]);
+      }
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        a[i] = *reinterpret_cast<const float4*>(xr + i * dp + k0 + kk);
-      // one dim at a time across the 16 accumulators: neighbouring FMAs are
-      // independent
+      for (int nt = 0; nt < kTilesN; ++nt) {
+        const float e0 = eb[8 * nt * kStride + kk];
+        const float e1 = eb[8 * nt * kStride + kk + 4];
+        sq[nt] = fmaf(e0, e0, sq[nt]);
+        sq[nt] = fmaf(e1, e1, sq[nt]);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(e0, bh0, bl0);
+        split_tf32(e1, bh1, bl1);
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-          for (int j = 0; j < kCodesPerLane; ++j)
-            acc[i][j] = fmaf(part(a[i], f), part(c[j], f), acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < kCodesPerLane; ++j)
-          sq[j] = fmaf(part(c[j], f), part(c[j], f), sq[j]);
+        for (int mt = 0; mt < kTilesM; ++mt) {
+          mma_tf32(acc2[mt][nt], al[mt], bh0, bh1);
+          mma_tf32(acc2[mt][nt], ah[mt], bl0, bl1);
+          mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
+        }
       }
     });
 
     if (ks + 1 == k_stages) {
       // the tile's candidates
-      const int base = c0 + tile * kTileCodes;
+      const int base = c0 + tile * kTileCodes + 16 * warp + 2 * tig;
 #pragma unroll
-      for (int j = 0; j < kCodesPerLane; ++j) {
-        const float e2 = sq[j];
-        sq[j] = 0.f;
-        const int code = base + lane + 32 * j;
+      for (int nt = 0; nt < kTilesN; ++nt) {
+        // |e|^2 of code 8 nt + g: the partials of group g's 4 lanes; then
+        // this lane's codes 8 nt + 2 tig (+ 1), groups 2 tig and 2 tig + 1
+        float e2 = sq[nt];
+        e2 += __shfl_xor_sync(0xffffffffu, e2, 1);
+        e2 += __shfl_xor_sync(0xffffffffu, e2, 2);
+        sq[nt] = 0.f;
+        const float e2a = __shfl_sync(0xffffffffu, e2, 8 * tig);
+        const float e2b = __shfl_sync(0xffffffffu, e2, 8 * tig + 4);
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float dist = e2 - 2.f * acc[i][j];
-          if (code < c1 && dist < best_d[i]) {
-            best_d[i] = dist;
-            best_i[i] = code;
+        for (int e = 0; e < 4; ++e) {
+          const int code = base + 8 * nt + (e & 1);
+#pragma unroll
+          for (int mt = 0; mt < kTilesM; ++mt) {
+            const float dist = ((e & 1) ? e2b : e2a) -
+                               2.f * (acc2[mt][nt][e] + acc[mt][nt][e]);
+            if (code < c1 && dist < best_d[mt][e >> 1]) {
+              best_d[mt][e >> 1] = dist;
+              best_i[mt][e >> 1] = code;
+            }
+            acc[mt][nt][e] = acc2[mt][nt][e] = 0.f;
           }
-          acc[i][j] = 0.f;
         }
       }
     }
 
     if (ks + 1 == k_stages && tile + 1 == tiles) {
-      // the layer's end: this CTA's candidate per row, then the cluster's
+      // the layer's end: each warp's candidate per row (a group's 4 lanes
+      // share its rows), the CTA's (warps in code order), then the cluster's
       const int slot = (l & 1) * R;
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        float dd = best_d[i];
-        int ii = best_i[i];
+      for (int mt = 0; mt < kTilesM; ++mt)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float d2 = __shfl_xor_sync(0xffffffffu, dd, off);
-          const int i2 = __shfl_xor_sync(0xffffffffu, ii, off);
-          if (better(d2, i2, dd, ii)) {
-            dd = d2;
-            ii = i2;
+        for (int h = 0; h < 2; ++h) {
+          float dd = best_d[mt][h];
+          int ii = best_i[mt][h];
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float d2 = __shfl_xor_sync(0xffffffffu, dd, off);
+            const int i2 = __shfl_xor_sync(0xffffffffu, ii, off);
+            if (better(d2, i2, dd, ii)) {
+              dd = d2;
+              ii = i2;
+            }
           }
+          if (tig == 0) {
+            wd[warp * R + 16 * mt + 8 * h + g] = dd;
+            wi[warp * R + 16 * mt + 8 * h + g] = ii;
+          }
+          best_d[mt][h] = INFINITY;
+          best_i[mt][h] = INT_MAX;
         }
-        if (lane == 0) {
-          xd[slot + warp * kRowsPerWarp + i] = dd;
-          xi[slot + warp * kRowsPerWarp + i] = ii;
-        }
-        best_d[i] = INFINITY;
-        best_i[i] = INT_MAX;
+      __syncthreads();
+      if (t < R) {
+        float dd = wd[t];
+        int ii = wi[t];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w)
+          if (better(wd[w * R + t], wi[w * R + t], dd, ii)) {
+            dd = wd[w * R + t];
+            ii = wi[w * R + t];
+          }
+        xd[slot + t] = dd;
+        xi[slot + t] = ii;
       }
       cluster.sync();  // every rank's candidates are in its shared memory
       if (t < R) {
@@ -324,18 +396,32 @@ vq_search_kernel(const float* __restrict__ x, Books books,
       }
       __syncthreads();
       if (l + 1 < nq) {
-        // residual -= the chosen codebook row, exact fp32 (a gather)
+        // residual -= the chosen codebook row, exact fp32 (a gather): a
+        // thread loads 8 float4s before it subtracts any
         const float* book = layer_book(books, l);
-        for (int e = t; e < R * d / 4; e += kThreads) {
-          const int r = e / (d / 4), k = 4 * (e % (d / 4));
-          if (row0 + r < m) {
-            const float4 b = __ldg(reinterpret_cast<const float4*>(
-                book + static_cast<size_t>(chosen[r]) * d + k));
-            float4* v = reinterpret_cast<float4*>(xs + r * dp + k);
-            v->x -= b.x;
-            v->y -= b.y;
-            v->z -= b.z;
-            v->w -= b.w;
+        const int q4 = d / 4, n4 = R * q4;
+        for (int e0 = t; e0 < n4; e0 += 8 * kThreads) {
+          float4 b[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads, r = e / q4;
+            b[u] = e < n4 && row0 + r < m
+                       ? __ldg(reinterpret_cast<const float4*>(
+                             book + static_cast<size_t>(chosen[r]) * d +
+                             4 * (e - r * q4)))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u * kThreads, r = e / q4;
+            if (e < n4) {
+              float4* v = reinterpret_cast<float4*>(xs + r * xstride +
+                                                    4 * (e - r * q4));
+              v->x -= b[u].x;
+              v->y -= b[u].y;
+              v->z -= b[u].z;
+              v->w -= b[u].w;
+            }
           }
         }
       }
@@ -372,7 +458,7 @@ void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int tiles,
                int d, int rows, void* stream) {
   *cfg = {};
   cfg->gridDim = dim3(kCluster * tiles);
-  cfg->blockDim = dim3(8 * rows);
+  cfg->blockDim = dim3(kThreads);
   cfg->dynamicSmemBytes = smem_bytes(d, rows);
   cfg->stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -409,22 +495,16 @@ int active_clusters(int d, int* out) {
 }
 
 bool valid_shape(int n, int d, int nq, int rows) {
-  const bool r = rows == 16 || rows == 20 || rows == 24 || rows == 28 ||
-                 rows == 32;
-  return r && n > 0 && d > 0 && d % 16 == 0 && nq > 0 && nq <= kMaxLayers &&
+  return (rows == 16 || rows == 32) && n > 0 && d > 0 && d % 16 == 0 &&
+         nq > 0 && nq <= kMaxLayers &&
          d <= (rows == 16 ? kMaxDim : kMaxDimWide);
 }
 
 // f(std::integral_constant<int, R>) for the R of a valid row count
 template <typename F>
 int with_rows(int rows, F&& f) {
-  switch (rows) {
-    case 16: return f(std::integral_constant<int, 16>());
-    case 20: return f(std::integral_constant<int, 20>());
-    case 24: return f(std::integral_constant<int, 24>());
-    case 28: return f(std::integral_constant<int, 28>());
-    default: return f(std::integral_constant<int, 32>());
-  }
+  if (rows == 16) return f(std::integral_constant<int, 16>());
+  return f(std::integral_constant<int, 32>());
 }
 
 }  // namespace

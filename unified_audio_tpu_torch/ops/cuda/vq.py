@@ -29,9 +29,9 @@ import torch
 
 CLUSTER = 8  # CTAs of a cluster: codebook chunks (kCluster in csrc/vq.cu)
 MAX_LAYERS = 16  # residual layers one launch takes (kMaxLayers)
-ROWS = (16, 20, 24, 28, 32)  # the rows a cluster can own: 4 a warp
+ROWS = (16, 32)  # the rows a cluster can own: one or two m16 tiles
 # the residual of a cluster's rows (R x D fp32) lives in shared memory beside
-# the staged codebook tiles: up to D = 2048 at 16 rows, 1024 at 20 to 32
+# the staged codebook tiles: up to D = 2048 at 16 rows, 1024 at 32
 MAX_DIM = 2048
 MAX_DIM_WIDE = 1024
 
