@@ -442,33 +442,45 @@ class TestKernelsOnCard:
             assert share >= 0.999 and ok, (fn.__name__, share, worst)
 
     @staticmethod
-    def _vq_tie_case(card, m, nq):
-        """Integer-valued rows and codebooks (N = 1024 in chunks of 128, D =
-        512), every distance exact: equal codebook rows on either side of
-        chunk boundaries (127|128, 511|512) and in the first and last chunk
-        (0 and 1023); the first rows of x equal to the higher of each
-        pair."""
+    def _vq_tie_case(card, m, nq, integer=True):
+        """Rows and codebooks (N = 1024 in chunks of 128, D = 512), integer-
+        valued (every distance exact) or normal: equal codebook rows on
+        either side of chunk boundaries (127|128, 511|512) and in the first
+        and last chunk (0 and 1023); the first rows of x equal to the higher
+        of each pair."""
         g = torch.Generator().manual_seed(m + nq)
-        cbs = torch.randint(-2, 3, (nq, 1024, 512), generator=g).float()
+        if integer:
+            cbs = torch.randint(-2, 3, (nq, 1024, 512), generator=g).float()
+            x = torch.randint(-2, 3, (m, 512), generator=g).float()
+        else:
+            cbs = torch.randn(nq, 1024, 512, generator=g)
+            x = torch.randn(m, 512, generator=g)
         for lo, hi in ((127, 128), (511, 512), (0, 1023)):
             cbs[:, hi] = cbs[:, lo]
-        x = torch.randint(-2, 3, (m, 512), generator=g).float()
         x[:3] = cbs[0, [128, 512, 1023]]
         return x.to(card), cbs.to(card)
 
+    @pytest.mark.parametrize("integer", [True, False])
     @pytest.mark.parametrize("nq", [1, 4])
     @pytest.mark.parametrize("m", [240, 2000])
-    def test_vq_exact_ties_across_chunks(self, card, m, nq):
-        """Exact ties, in a chunk or across chunks, go to the lower code:
-        the codes equal the plain search's exactly (integer data, so both
-        sums are exact), the tied rows' codes 127, 511 and 0; at 16 rows a
-        cluster (M = 240, 15 clusters) and 32 (M = 2000)."""
-        x, cbs = self._vq_tie_case(card, m, nq)
+    def test_vq_exact_ties_across_chunks(self, card, m, nq, integer):
+        """Exact ties across chunks go to the lower code: the tied rows'
+        codes are 127, 511 and 0, at 16 rows a cluster (M = 240, 15
+        clusters) and 32 (M = 2000). On integer data (both sums exact) the
+        codes equal the plain search's everywhere; on normal data equal
+        codebook rows give equal distances wherever they sit in a tile, and
+        the codes pass ``judge_codes``."""
+        x, cbs = self._vq_tie_case(card, m, nq, integer)
         got = (vq.nearest_code(x, cbs[0])[:, None] if nq == 1
                else vq.rvq_encode_fused(x, cbs))
         torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), vq.rvq_encode_fused_ref(x, cbs).cpu())
         assert got[:3, 0].tolist() == [127, 511, 0]
+        if integer:
+            assert torch.equal(got.cpu(),
+                               vq.rvq_encode_fused_ref(x, cbs).cpu())
+        else:
+            share, worst, ok = vq.judge_codes(x, cbs, got)
+            assert share >= 0.999 and ok, (share, worst)
 
     @pytest.mark.parametrize("m,n,d", [
         (100, 5, 16),      # N < the cluster: three empty chunks

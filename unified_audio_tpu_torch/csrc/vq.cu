@@ -39,34 +39,43 @@
 // CTAs a contiguous chunk of ceil(N / kCluster) codes. R is the wrapper's
 // pick: 16 if the card holds all ceil(M / 16) clusters at once (15 clusters
 // of 8 on an H100 at one CTA an SM), else 32, so one 10-s clip (M = 250)
-// runs as 8 clusters of 32 rows in one wave. Inside a CTA (4 warps):
+// runs as 8 clusters of 32 rows in one wave. Inside a CTA (8 warps):
 // * the R residual rows stay in shared memory for all nq layers;
-// * the chunk is walked in tiles of 128 codes x kDepth dims (16 KB), staged
-//   by cp.async into a ring of kStages buffers, one barrier per stage; the
-//   stage sequence runs on across tiles and layers (the codebook does not
-//   depend on the codes), so the next layer's first tiles load during this
-//   layer's merge;
-// * warp w owns codes 32w..32w+31 of a tile (four n8 tiles) against all R
-//   rows; per 8 dims it splits its A and B fragments, loaded from shared
-//   memory without bank conflicts (row and code strides of 4 mod 32 words),
-//   and issues 3 mma per (m16, n8) tile pair; its lanes also sum |e|^2 of
-//   their fragment's dims, the 4 lanes of a code group added by shuffles;
+// * the chunk is walked in tiles of 128 codes x kDepth dims (16 KB), each
+//   loaded by one TMA copy (thread 0 issues it; the slot's mbarrier counts
+//   its bytes) into a ring of kStages slots, 128-byte swizzled; one barrier
+//   per stage frees the slot the next copy reuses. The stage sequence runs
+//   on across tiles and layers (the codebook does not depend on the codes),
+//   so the next layer's first tiles load during this layer's merge. Issued
+//   by every thread as cp.async, the same copies held each stage's compute
+//   back by ~560 cycles of load-unit stalls;
+// * warp w owns codes 16w..16w+15 of a tile (two n8 tiles) against all R
+//   rows; per 8 dims it splits its A and B fragments, read from shared
+//   memory without bank conflicts (a row stride of 4 mod 32 words; codes
+//   through the swizzle), and issues 3 mma per (m16, n8) tile pair into two
+//   accumulators (hi x hi, and the two cross terms); its lanes also sum
+//   |e|^2 of their fragment's dims, the 4 lanes of a code group added by
+//   shuffles;
 // * each lane keeps a running (best distance, best code) for its 2 rows per
 //   m16 tile, strict < over ascending codes; a group's 4 lanes meet by xor
-//   shuffles, the 4 warps (in code order) through shared memory, lower code
+//   shuffles, the 8 warps (in code order) through shared memory, lower code
 //   first on equal distance.
 // Across the cluster, per layer: each CTA writes its rows' (distance, code)
 // to an exchange slot, cluster barrier, and every CTA merges the kCluster
 // candidates of each row from the ranks' shared memory (distributed shared
 // memory) in rank order, lower code first on equal distance; rank 0 writes
 // the codes and every CTA subtracts the chosen global codebook rows from its
-// own residual copy. The slot alternates by layer parity, so a CTA never
-// overwrites a slot a neighbour may still read (it cannot pass the next
-// layer's barrier before every neighbour has arrived there, done reading); a
-// last barrier keeps every CTA's shared memory alive until all have read.
+// own residual copy, each thread loading 8 float4s before it subtracts any
+// (one at a time, the gather took 4.6 us a layer). The slot alternates by
+// layer parity, so a CTA never overwrites a slot a neighbour may still read
+// (it cannot pass the next layer's barrier before every neighbour has
+// arrived there, done reading); a last barrier keeps every CTA's shared
+// memory alive until all have read.
 // Ragged M and N are masked; a chunk past N (N < kCluster) walks one tile of
 // zeros that no candidate comes from.
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -85,14 +94,23 @@ constexpr int kMaxDimWide = 1024;   // ... of 32 rows
 constexpr int kThreads = 256;       // 8 warps
 constexpr int kTileCodes = 128;     // codes of a staged tile: 16 a warp
 constexpr int kTilesN = 2;          // n8 tiles of a warp's 16 codes
-constexpr int kDepth = 32;          // dims per stage
-constexpr int kStride = kDepth + 4; // words per staged code: conflict-free 16-byte reads
-constexpr int kStages = 5;        // 4 stages (64 KB) in flight
-constexpr int kStageWords = kTileCodes * kStride;
+constexpr int kDepth = 32;          // dims per stage: a code's 128-byte row
+constexpr int kStages = 5;          // 4 stages (64 KB) in flight
+constexpr int kStageWords = kTileCodes * kDepth;
+constexpr int kStageBytes = 4 * kStageWords;
+constexpr int kAlign = 1024;        // the 128-byte swizzle's period
+constexpr int kBarWords = 8;        // 64 bits a stage's barrier, kept 16-byte aligned
+static_assert(kStages <= kBarWords, "a barrier a stage");
 constexpr int kMaxDevices = 64;
 
 struct Books {
   const float* layer[kMaxLayers];
+};
+
+// one TMA descriptor a layer: the (N, D) codebook in boxes of kTileCodes
+// codes x kDepth dims, 128-byte swizzled, zeros past N and D
+struct Maps {
+  CUtensorMap layer[kMaxLayers];
 };
 
 __device__ __forceinline__ bool better(float d2, int i2, float d1, int i1) {
@@ -128,10 +146,17 @@ __host__ __device__ __forceinline__ int row_stride(int d) {
 }
 
 size_t smem_bytes(int d, int rows) {
-  return sizeof(float) * (kStages * kStageWords +
+  return kAlign + sizeof(uint64_t) * kBarWords +
+         sizeof(float) * (kStages * kStageWords +
                           static_cast<size_t>(rows) * row_stride(d) +
                           (2 + kThreads / 32) * rows) +
          sizeof(int) * (3 + kThreads / 32) * rows;
+}
+
+// word f of code c's 32 dims in a staged tile: its 16-byte piece f / 4
+// swizzled by c % 8, as the TMA's 128-byte swizzle lays it down
+__device__ __forceinline__ int staged(int c, int f) {
+  return c * kDepth + ((f >> 2) ^ (c & 7)) * 4 + (f & 3);
 }
 
 // v = hi + lo: hi is v cut to tf32 (a 10-bit mantissa), lo = v - hi exactly
@@ -154,21 +179,45 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
 }
 
-// wait until at most kStages - 2 groups (the newest) are in flight
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+// one arrival that also expects `bytes` from the TMA
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// the box at (dim x, code y) of `map` into dst, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 // x (m, d); books.layer[l] (n, d); codes (m, nq) int32, row-major.
@@ -176,14 +225,19 @@ __device__ __forceinline__ void cp_async_wait_ring() {
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 vq_search_kernel(const float* __restrict__ x, Books books,
-                 int* __restrict__ codes, int m, int n, int d, int nq) {
+                 const __grid_constant__ Maps maps, int* __restrict__ codes,
+                 int m, int n, int d, int nq) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kTilesM = R / 16;  // m16 tiles of the rows
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);      // [kStages][kTileCodes][kStride]
+  // [kStages][kTileCodes][kDepth], swizzled, kAlign-aligned
+  float* ring = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) +
+      ((kAlign - (smem_addr(smem4) & (kAlign - 1))) & (kAlign - 1)));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageWords);
   const int dp = padded_dim(d), xstride = row_stride(d);
-  float* xs = ring + kStages * kStageWords;           // [R][xstride] residual
+  float* xs = reinterpret_cast<float*>(full + kBarWords);  // [R][xstride] residual
   float* xd = xs + R * xstride;                       // [2][R] exchange distances
   float* wd = xd + 2 * R;                             // [kWarps][R] warps' distances
   int* xi = reinterpret_cast<int*>(wd + kWarps * R);  // [2][R] exchange codes
@@ -199,41 +253,32 @@ vq_search_kernel(const float* __restrict__ x, Books books,
   const int k_stages = dp / kDepth;
   const int total = nq * tiles * k_stages;
 
-  // The copy side of the ring: the next stage to load is (layer fl, tile ft,
-  // dims kDepth * fk) into slot fslot. A code's kDepth dims are kPieces
-  // 16-byte pieces; a thread copies piece t % kPieces of codes t / kPieces,
-  // t / kPieces + kThreads / kPieces, ...: neighbouring threads read one
-  // code's contiguous bytes.
-  constexpr int kPieces = kDepth / 4;
+  // The copy side of the ring: thread 0 loads the next stage, (layer fl,
+  // tile ft, dims kDepth * fk), into slot fslot with one TMA copy; the slot's
+  // barrier completes when its bytes have landed.
   int fl = 0, ft = 0, fk = 0, fslot = 0, fs = 0;
-  const float* fbook = books.layer[0];
-  const int piece = 4 * (t % kPieces);
   auto issue_next = [&]() {
-    if (fs < total) {
-      float* buf = ring + fslot * kStageWords + piece;
-      const int base = c0 + ft * kTileCodes, k = fk * kDepth + piece;
-#pragma unroll
-      for (int u = 0; u < kTileCodes * kPieces / kThreads; ++u) {
-        const int code = t / kPieces + u * (kThreads / kPieces);
-        const bool valid = base + code < c1 && k < d;
-        cp_async16(buf + code * kStride,
-                   valid ? fbook + static_cast<size_t>(base + code) * d + k
-                         : fbook,
-                   valid);
-      }
-      if (++fk == k_stages) {
-        fk = 0;
-        if (++ft == tiles) {
-          ft = 0;
-          fbook = layer_book(books, ++fl);
-        }
+    if (t == 0 && fs < total) {
+      mbar_expect(full + fslot, kStageBytes);
+      tma_load(ring + fslot * kStageWords, &maps.layer[fl], fk * kDepth,
+               c0 + ft * kTileCodes, full + fslot);
+    }
+    if (++fk == k_stages) {
+      fk = 0;
+      if (++ft == tiles) {
+        ft = 0;
+        ++fl;
       }
     }
-    cp_async_commit();
     fslot = fslot + 1 == kStages ? 0 : fslot + 1;
     ++fs;
   };
-  for (int s = 0; s < kStages - 1; ++s) issue_next();
+  if (t == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(full + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < kStages - 1; ++i) issue_next();
 
   for (int e = t; e < R * dp / 4; e += kThreads) {
     const int r = e / (dp / 4), k = 4 * (e % (dp / 4));
@@ -270,11 +315,11 @@ vq_search_kernel(const float* __restrict__ x, Books books,
   const float* xa = xs + g * xstride + tig;
   int l = 0, tile = 0, ks = 0, slot = 0;
   for (int s = 0; s < total; ++s) {
-    cp_async_wait_ring();  // stage s has landed (s + 1.. may be in flight)
-    __syncthreads();       // ... for every thread; stage s - 1 is consumed
-    issue_next();          // stage s + kStages - 1, into s - 1's slot
+    mbar_wait(full + slot, (s / kStages) & 1);  // stage s has landed
+    __syncthreads();  // every thread is done with stage s - 1
+    issue_next();     // stage s + kStages - 1, into s - 1's slot
 
-    const float* eb = ring + slot * kStageWords + (16 * warp + g) * kStride + tig;
+    const float* eb = ring + slot * kStageWords;
     slot = slot + 1 == kStages ? 0 : slot + 1;
     const float* xk = xa + ks * kDepth;
     // 8 dims a step, the 4 steps of a stage unrolled by construction: each
@@ -292,8 +337,9 @@ vq_search_kernel(const float* __restrict__ x, Books books,
       }
 #pragma unroll
       for (int nt = 0; nt < kTilesN; ++nt) {
-        const float e0 = eb[8 * nt * kStride + kk];
-        const float e1 = eb[8 * nt * kStride + kk + 4];
+        const int c = 16 * warp + 8 * nt + g;
+        const float e0 = eb[staged(c, kk + tig)];
+        const float e1 = eb[staged(c, kk + 4 + tig)];
         sq[nt] = fmaf(e0, e0, sq[nt]);
         sq[nt] = fmaf(e1, e1, sq[nt]);
         uint32_t bh0, bl0, bh1, bl1;
@@ -469,16 +515,65 @@ void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int tiles,
   cfg->numAttrs = 1;
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda)
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The TMA descriptor of the (n, d) codebook at `book`, encoded once and kept:
+// a descriptor holds only the address and the shape.
+constexpr int kMaxMaps = 256;
+
+int tensor_map(const void* book, int n, int d, CUtensorMap* out) {
+  struct Entry {
+    const void* book;
+    int n, d;
+    CUtensorMap map;
+  };
+  static Entry cache[kMaxMaps];
+  static int used = 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].book == book && cache[i].n == n && cache[i].d == d) {
+      *out = cache[i].map;
+      return 0;
+    }
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(float)};
+  const cuuint32_t box[2] = {kDepth, kTileCodes};
+  const cuuint32_t steps[2] = {1, 1};
+  if (encode(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(book),
+             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (used == kMaxMaps) used = 0;
+  cache[used++] = {book, n, d, *out};
+  return 0;
+}
+
 template <int R>
-int launch(const float* x, const Books& books, int* codes, int m, int n,
-           int d, int nq, void* stream) {
+int launch(const float* x, const Books& books, const Maps& maps, int* codes,
+           int m, int n, int d, int nq, void* stream) {
   const int rc = opt_in<R>();
   if (rc != 0) return rc;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   configure(&cfg, &attr, (m + R - 1) / R, d, R, stream);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, vq_search_kernel<R>, x,
-                                             books, codes, m, n, d, nq);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, vq_search_kernel<R>, x, books, maps, codes, m, n, d, nq);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -527,17 +622,22 @@ int vq_active_clusters(int d, int rows, int* out) {
 }
 
 // K5 (nq = 1) and K6: x (m, d); books, a host array of nq device pointers,
-// each an (n, d) codebook; codes (m, nq); rows 16, 20, ..., 32 a cluster.
+// each an (n, d) codebook; codes (m, nq); rows 16 or 32 a cluster.
 int vq_search_f32(const void* x, const void* const* books, void* codes, int m,
                   int n, int d, int nq, int rows, void* stream) {
   if (m <= 0 || !valid_shape(n, d, nq, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   Books b = {};
-  for (int l = 0; l < nq; ++l) b.layer[l] = static_cast<const float*>(books[l]);
+  Maps maps = {};
+  for (int l = 0; l < nq; ++l) {
+    b.layer[l] = static_cast<const float*>(books[l]);
+    const int rc = tensor_map(books[l], n, d, &maps.layer[l]);
+    if (rc != 0) return rc;
+  }
   const float* xp = static_cast<const float*>(x);
   int* out = static_cast<int*>(codes);
   return with_rows(rows, [&](auto r) {
-    return launch<decltype(r)::value>(xp, b, out, m, n, d, nq, stream);
+    return launch<decltype(r)::value>(xp, b, maps, out, m, n, d, nq, stream);
   });
 }
 

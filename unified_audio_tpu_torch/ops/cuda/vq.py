@@ -14,11 +14,13 @@ lowest j, the semantics of ``ops/quant.py nearest_code`` in the JAX package.
 Both wrappers launch one kernel, CUDA C++ for sm_90a in ``csrc/vq.cu``, built
 with ``nvcc`` on first use (``ops/cuda/build.py``): a thread block cluster of
 ``CLUSTER`` CTAs splits the codebook into contiguous chunks for R input
-rows (:func:`plan`), and merges its argmin in distributed shared memory. The kernel takes each layer's codebook by its pointer, so a caller's
-codebooks are never copied. Each wrapper launches its kernel for CUDA
-tensors and uses the plain PyTorch version beside it only for tensors on the
-CPU; there is no fallback from a failed launch. Each wrapper counts its
-launches in ``<wrapper>.launches``.
+rows (:func:`plan`), stages them by TMA, takes the dot products on the
+tensor cores as 3xTF32 (fp32 to ~2^-20) and merges its argmin in
+distributed shared memory. The kernel takes each layer's codebook by its
+pointer, so a caller's codebooks are never copied. Each wrapper launches
+its kernel for CUDA tensors and uses the plain PyTorch version beside it
+only for tensors on the CPU; there is no fallback from a failed launch.
+Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
