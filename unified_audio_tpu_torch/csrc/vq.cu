@@ -30,9 +30,10 @@
 // (M * D + nq * N * D) * 4 bytes: at M = 250, N = 1024, D = 512, nq = 4 that is
 // 1.05 GFLOP (about 16 us at the data sheet's 67 TFLOP/s fp32) against 8.9 MB
 // (about 2.7 us at 3.35 TB/s): compute-bound, and one clip must use the
-// card. On the CUDA cores (fp32 FMA, a 4 x 4 register tile a thread) the
-// loop was bound by shared-memory bandwidth at about a quarter of that
-// peak; the tensor cores read an operand word per 16 products a lane.
+// card. The tensor cores, not the CUDA cores: fp32 FMA on a 4 x 4 register
+// tile a thread is bound by shared-memory bandwidth (one distinct and one
+// broadcast 16-byte load per 16 FMAs) at about a quarter of that peak on an
+// H100, where the tensor cores read an operand word per 16 products a lane.
 //
 // Design. The codebook is split across a thread block cluster of kCluster
 // CTAs: a cluster owns R rows (16 or 32: one or two m16 tiles), each of its
@@ -46,9 +47,9 @@
 //   its bytes) into a ring of kStages slots, 128-byte swizzled; one barrier
 //   per stage frees the slot the next copy reuses. The stage sequence runs
 //   on across tiles and layers (the codebook does not depend on the codes),
-//   so the next layer's first tiles load during this layer's merge. Issued
-//   by every thread as cp.async, the same copies held each stage's compute
-//   back by ~560 cycles of load-unit stalls;
+//   so the next layer's first tiles load during this layer's merge. One
+//   copy a stage, not one cp.async a thread: those stalled every thread's
+//   compute in the load unit (~560 cycles a stage on an H100);
 // * warp w owns codes 16w..16w+15 of a tile (two n8 tiles) against all R
 //   rows; per 8 dims it splits its A and B fragments, read from shared
 //   memory without bank conflicts (a row stride of 4 mod 32 words; codes
@@ -66,7 +67,8 @@
 // memory) in rank order, lower code first on equal distance; rank 0 writes
 // the codes and every CTA subtracts the chosen global codebook rows from its
 // own residual copy, each thread loading 8 float4s before it subtracts any
-// (one at a time, the gather took 4.6 us a layer). The slot alternates by
+// (a load at a time waits out L2's latency each time: 4.6 us a layer on an
+// H100). The slot alternates by
 // layer parity, so a CTA never overwrites a slot a neighbour may still read
 // (it cannot pass the next layer's barrier before every neighbour has
 // arrived there, done reading); a last barrier keeps every CTA's shared
@@ -161,8 +163,8 @@ __device__ __forceinline__ int staged(int c, int f) {
 
 // v = hi + lo: hi is v cut to tf32 (a 10-bit mantissa), lo = v - hi exactly
 // in fp32, which the tensor cores read as tf32 (its top 19 bits), so hi + lo
-// is v to about 2^-20 of v. Two full-rate instructions, where a rounding
-// conversion (cvt.rna.tf32.f32) takes five
+// is v to about 2^-20 of v. Two full-rate instructions: a rounding
+// conversion (cvt.rna.tf32.f32) compiles to five on sm_90a
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = __float_as_uint(v) & 0xffffe000u;
@@ -515,8 +517,8 @@ void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int tiles,
   cfg->numAttrs = 1;
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
-// libcuda)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library needs no link to libcuda
 PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (fn == nullptr) {
@@ -607,12 +609,6 @@ int with_rows(int rows, F&& f) {
 // Plain C interface (loaded with ctypes). Each returns a cudaError_t code,
 // cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" {
-
-int vq_cluster_size() { return kCluster; }
-
-int vq_max_layers() { return kMaxLayers; }
-
-int vq_smem_bytes(int d, int rows) { return static_cast<int>(smem_bytes(d, rows)); }
 
 // How many clusters of this launch the current device holds at once
 // (cudaOccupancyMaxActiveClusters).
