@@ -54,8 +54,7 @@ prints no result. Phases, each fatal on failure:
    in distributed shared memory); before each M a line gives its plan:
    rows a cluster, clusters, the clusters the card holds at once
    (cudaOccupancyMaxActiveClusters) and the L2 bytes a call reads and
-   writes (``l2_bytes`` and ``active_clusters`` on the kernels line, at M
-   = 250).
+   writes, reckoned from the plan (``vq.l2_bytes``).
 3. UniSE serving: serves synthetic 16 kHz requests (SE, TSE, rTSE; greedy
    and sampled; more 5-s segments than the 16 slots) at full UniSE width
    through ``unified_audio_tpu_torch.cli serve``, once with the int8 pool
@@ -128,9 +127,10 @@ K5_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:45"
 K6_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:148"
 SOURCE = "unified_audio_tpu_torch/csrc/paged_attention.cu"
 VQ_SOURCE = "unified_audio_tpu_torch/csrc/vq.cu"
-# NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor and fp32 peaks
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 and TF32 tensor and fp32
+# peaks
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 SR = 16000
 CLIP_S = 10.0  # the round trip's clip, as bench.py times it
 VQ_SHAPES = dict(n=1024, d=512, nq=4)  # HCodec-1.0: 4 x 1024 codes of 512
@@ -524,22 +524,23 @@ def table_on_live_pool(torch, pa, paged, eng, against, seed=11):
 
 def vq_bound(m, n, d, nq):
     """Bound of an nq-layer search of M rows: x and the codebooks read
-    once, the codes written once; 2 M N D operations per layer, fp32."""
-    return bound(4 * (m * d + nq * n * d + m * nq), 2 * nq * m * n * d,
-                 "fp32")
+    once, the codes written once; 2 M N D operations per layer, each taken
+    at fp32 accuracy as three TF32 products on the tensor cores (3xTF32, the
+    kernel's route: three times the work at 495 TFLOP/s takes less time
+    than fp32 at 67 TFLOP/s)."""
+    return bound(4 * (m * d + nq * n * d + m * nq), 3 * 2 * nq * m * n * d,
+                 "tf32")
 
 
 def vq_plan_line(torch, vq, m):
     """-> (the cluster plan of a launch of M rows at the HCodec-1.0 shapes
-    as one printable line, {"rows", "clusters", "active_clusters",
+    as one printable line, {"clusters", "active_clusters",
     "l2_bytes": {nq: bytes}})."""
     n, d, nq = VQ_SHAPES["n"], VQ_SHAPES["d"], VQ_SHAPES["nq"]
-    active = vq.active_clusters(d, vq.ROWS[-1])
-    rows = vq.plan(m, d, active)
-    plan = {"rows": rows, "clusters": -(-m // rows),
-            "active_clusters": vq.active_clusters(d, rows),
-            "l2_bytes": {q: vq.l2_bytes(m, n, d, q, rows) for q in (1, nq)}}
-    return (f"VQ plan at M={m}: {rows} rows a cluster of {vq.CLUSTER} CTAs "
+    plan = {"clusters": -(-m // vq.ROWS),
+            "active_clusters": vq.active_clusters(d),
+            "l2_bytes": {q: vq.l2_bytes(m, n, d, q) for q in (1, nq)}}
+    return (f"VQ plan at M={m}: {vq.ROWS} rows a cluster of {vq.CLUSTER} CTAs "
             f"(codebook chunks of {-(-n // vq.CLUSTER)}), {plan['clusters']}"
             f" clusters, {plan['active_clusters']} active at once "
             f"(cudaOccupancyMaxActiveClusters); L2 bytes a call: K5 "
@@ -1053,9 +1054,9 @@ def main():
             r = check(torch, pa, kernel, ref, dtype, quant)
             results[name, dtype] = r
             report(name, kernel, dtype, r, gpu)
-    vq_results, vq_plans = {}, {}
+    vq_results = {}
     for m in (250, 2000):
-        line, vq_plans[m] = vq_plan_line(torch, vq, m)
+        line, plan = vq_plan_line(torch, vq, m)
         print(line, flush=True)
         for name, (share, worst, ms, plain_ms, n_rec) in check_vq(
                 torch, vq, m).items():
@@ -1066,8 +1067,8 @@ def main():
                   f"{'' if name == 'K5' else ', nq=4'}: {share:.5f} of codes "
                   f"equal to plain, worst distance excess {worst:.3e}; kernel"
                   f" {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-                  f"{b_ms * 1e3:.2f} us; L2 bytes "
-                  f"{vq_plans[m]['l2_bytes'][nq]} | {gpu}", flush=True)
+                  f"{b_ms * 1e3:.2f} us (3xTF32 at 495 TFLOP/s); L2 bytes "
+                  f"{plan['l2_bytes'][nq]} | {gpu}", flush=True)
 
     # 3. UniSE serving. From here on K7's count holds the serving paths'
     # launches; the smoke's own K7 checks go to ``tally``.
@@ -1198,9 +1199,7 @@ def main():
                         "launches": n_launch, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
-                        "records": n_rec,
-                        "l2_bytes": vq_plans[250]["l2_bytes"][nq],
-                        "active_clusters": vq_plans[250]["active_clusters"]})
+                        "records": n_rec})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -2,8 +2,8 @@
 """Time the CUDA kernels of several source trees on one CUDA card, in turns.
 
     python3 compare_trees.py NAME=DIR ...
-        [--kernels K1 K4 K5 K6] [--q bf16 fp32] [--no-check]
-        [--out RESULT.json]
+        [--kernels K1 K4 K5 K6] [--q bf16 fp32] [--vq-m 250 2000]
+        [--no-check] [--out RESULT.json]
 
 A developer's tool beside ``chip_smoke.py``, whose timer it uses; nothing
 in the package runs it. Run from the repository root. Each DIR is a checkout of the repository
@@ -26,11 +26,13 @@ VQ kernels (K5 one codebook, K6 four residual layers): each tree's
 wrapper when it has the cluster kernel's C interface (``vq_search_f32``),
 else as the earlier wrapper called it (stacked codebooks and their
 ``|e|^2``, computed in the call, as that wrapper did). At M = 250 (one
-10-s clip) and 2000 rows (N = 1024, D = 512, random rows and codebooks
-from a seed), each tree's codes are held against the plain search by
+10-s clip) and 2000 rows, or the row counts of ``--vq-m`` (N = 1024,
+D = 512, random rows and codebooks from a seed), each tree's codes are held against the plain search by
 ``vq.judge_codes`` (>= 99.9% equal, every other a near tie;
 ``--no-check`` skips it), then the trees are timed in turns, 50 calls a
-window, one ``vq_search_kernel`` record a call.
+window, one ``vq_search_kernel`` record a call. Two builds of one
+design differ only in a constant when one tree is a copy of another with
+that constant edited (for example ``kRows`` in ``csrc/vq.cu``).
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 dtype or M), and writes them all to ``--out``.
@@ -61,7 +63,7 @@ CASES = {  # kernel -> (wrapper, plain version, case builder, layer position)
            lambda pa, dt: pa.table_serving_case(dt, "cuda"), -1),
 }
 VQ_CASES = {"K5": 1, "K6": 4}  # kernel -> residual layers
-VQ_ROWS = (250, 2000)  # M of the VQ cases: one clip, eight
+VQ_ROWS = [250, 2000]  # M of the VQ cases: one clip, eight
 
 
 def vq_caller(vq, lib, nq):
@@ -114,7 +116,7 @@ def compare_vq(args, gpu, kid):
         names.append(name)
         calls.append(vq_caller(vq, lib, nq))
     records = []
-    for m in VQ_ROWS:
+    for m in args.vq_m:
         x, cbs = vq.random_case(m, **chip_smoke.VQ_SHAPES, seed=m)
         cbs = cbs[:nq].contiguous()
         judged = {n: None for n in names}
@@ -149,6 +151,8 @@ def main(argv=None):
                     choices=sorted(CASES) + sorted(VQ_CASES))
     ap.add_argument("--q", nargs="+", default=["bf16", "fp32"],
                     choices=["bf16", "fp32"], help="q dtypes to time")
+    ap.add_argument("--vq-m", nargs="+", type=int, default=VQ_ROWS,
+                    help="rows M of the K5/K6 cases")
     ap.add_argument("--no-check", action="store_true",
                     help="time without holding the kernels to the plain "
                     "versions (builds that compute wrong values on purpose)")

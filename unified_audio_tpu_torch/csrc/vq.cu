@@ -28,20 +28,20 @@
 //
 // What bounds it on this card. 2 * nq * M * N * D operations against
 // (M * D + nq * N * D) * 4 bytes: at M = 250, N = 1024, D = 512, nq = 4 that is
-// 1.05 GFLOP (about 16 us at the data sheet's 67 TFLOP/s fp32) against 8.9 MB
-// (about 2.7 us at 3.35 TB/s): compute-bound, and one clip must use the
-// card. The tensor cores, not the CUDA cores: fp32 FMA on a 4 x 4 register
-// tile a thread is bound by shared-memory bandwidth (one distinct and one
-// broadcast 16-byte load per 16 FMAs) at about a quarter of that peak on an
-// H100, where the tensor cores read an operand word per 16 products a lane.
+// 1.05 GFLOP, three TF32 products each (3.1 GFLOP, about 6.4 us at the data
+// sheet's 495 TFLOP/s dense TF32; 16 us at 67 TFLOP/s fp32 on the CUDA
+// cores) against 8.9 MB (about 2.7 us at 3.35 TB/s): compute-bound, and one
+// clip must use the card. The tensor cores, not the CUDA cores: fp32 FMA
+// on a 4 x 4 register tile a thread is bound by shared-memory bandwidth (one
+// distinct and one broadcast 16-byte load per 16 FMAs) at about a quarter
+// of the fp32 peak on an H100, where the tensor cores read an operand word
+// per 16 products a lane.
 //
 // Design. The codebook is split across a thread block cluster of kCluster
-// CTAs: a cluster owns R rows (16 or 32: one or two m16 tiles), each of its
-// CTAs a contiguous chunk of ceil(N / kCluster) codes. R is the wrapper's
-// pick: 16 if the card holds all ceil(M / 16) clusters at once (15 clusters
-// of 8 on an H100 at one CTA an SM), else 32, so one 10-s clip (M = 250)
-// runs as 8 clusters of 32 rows in one wave. Inside a CTA (8 warps):
-// * the R residual rows stay in shared memory for all nq layers;
+// CTAs: a cluster owns kRows = 32 rows (two m16 tiles), each of its CTAs a
+// contiguous chunk of ceil(N / kCluster) codes, so one 10-s clip (M = 250)
+// runs as 8 clusters in one wave. Inside a CTA (8 warps):
+// * the 32 residual rows stay in shared memory for all nq layers;
 // * the chunk is walked in tiles of 128 codes x kDepth dims (16 KB), each
 //   loaded by one TMA copy (thread 0 issues it; the slot's mbarrier counts
 //   its bytes) into a ring of kStages slots, 128-byte swizzled; one barrier
@@ -50,7 +50,7 @@
 //   so the next layer's first tiles load during this layer's merge. One
 //   copy a stage, not one cp.async a thread: those stalled every thread's
 //   compute in the load unit (~560 cycles a stage on an H100);
-// * warp w owns codes 16w..16w+15 of a tile (two n8 tiles) against all R
+// * warp w owns codes 16w..16w+15 of a tile (two n8 tiles) against all 32
 //   rows; per 8 dims it splits its A and B fragments, read from shared
 //   memory without bank conflicts (a row stride of 4 mod 32 words; codes
 //   through the swizzle), and issues 3 mma per (m16, n8) tile pair into two
@@ -74,7 +74,9 @@
 // arrived there, done reading); a last barrier keeps every CTA's shared
 // memory alive until all have read.
 // Ragged M and N are masked; a chunk past N (N < kCluster) walks one tile of
-// zeros that no candidate comes from.
+// zeros that no candidate comes from. A row none of whose distances is below
+// +inf (a NaN in x) takes code 0, as an argmin over all-NaN distances does,
+// so every code, and every gather, stays inside the codebook.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -83,16 +85,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kCluster = 8;         // CTAs per cluster: codebook chunks
 constexpr int kMaxLayers = 16;      // residual layers one launch takes
-constexpr int kMaxDim = 2048;       // the residual of 16 rows fits beside the ring
-constexpr int kMaxDimWide = 1024;   // ... of 32 rows
+constexpr int kRows = 32;           // rows a cluster owns: two m16 tiles
+constexpr int kMaxDim = 1024;       // their residual fits beside the ring
 constexpr int kThreads = 256;       // 8 warps
 constexpr int kTileCodes = 128;     // codes of a staged tile: 16 a warp
 constexpr int kTilesN = 2;          // n8 tiles of a warp's 16 codes
@@ -147,12 +147,12 @@ __host__ __device__ __forceinline__ int row_stride(int d) {
   return padded_dim(d) + 4;
 }
 
-size_t smem_bytes(int d, int rows) {
+size_t smem_bytes(int d) {
   return kAlign + sizeof(uint64_t) * kBarWords +
          sizeof(float) * (kStages * kStageWords +
-                          static_cast<size_t>(rows) * row_stride(d) +
-                          (2 + kThreads / 32) * rows) +
-         sizeof(int) * (3 + kThreads / 32) * rows;
+                          static_cast<size_t>(kRows) * row_stride(d) +
+                          (2 + kThreads / 32) * kRows) +
+         sizeof(int) * (3 + kThreads / 32) * kRows;
 }
 
 // word f of code c's 32 dims in a staged tile: its 16-byte piece f / 4
@@ -223,12 +223,12 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // x (m, d); books.layer[l] (n, d); codes (m, nq) int32, row-major.
-// Grid: kCluster CTAs per R-row tile, clusters of kCluster along x.
-template <int R>
+// Grid: kCluster CTAs per kRows-row tile, clusters of kCluster along x.
 __global__ void __launch_bounds__(kThreads)
 vq_search_kernel(const float* __restrict__ x, Books books,
                  const __grid_constant__ Maps maps, int* __restrict__ codes,
                  int m, int n, int d, int nq) {
+  constexpr int R = kRows;
   constexpr int kWarps = kThreads / 32;
   constexpr int kTilesM = R / 16;  // m16 tiles of the rows
   cg::cluster_group cluster = cg::this_cluster();
@@ -438,6 +438,7 @@ vq_search_kernel(const float* __restrict__ x, Books books,
             bi = i2;
           }
         }
+        if (bi == INT_MAX) bi = 0;  // every distance NaN: argmin's code
         chosen[t] = bi;
         if (rank == 0 && row0 + t < m)
           codes[static_cast<size_t>(row0 + t) * nq + l] = bi;
@@ -488,26 +489,25 @@ vq_search_kernel(const float* __restrict__ x, Books books,
 
 // Opt the kernel in to its dynamic shared memory (above the 48 KB a block
 // gets without asking) on the current device, once per device.
-template <int R>
 int opt_in() {
   static bool opted[kMaxDevices] = {};
   int dev = 0;
   const cudaError_t got = cudaGetDevice(&dev);
   if (got != cudaSuccess) return static_cast<int>(got);
   if (dev < kMaxDevices && opted[dev]) return 0;
-  const int most = static_cast<int>(smem_bytes(R == 16 ? kMaxDim : kMaxDimWide, R));
   const cudaError_t set = cudaFuncSetAttribute(
-      vq_search_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      vq_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kMaxDim)));
   if (set == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
   return static_cast<int>(set);
 }
 
 void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int tiles,
-               int d, int rows, void* stream) {
+               int d, void* stream) {
   *cfg = {};
   cfg->gridDim = dim3(kCluster * tiles);
   cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = smem_bytes(d, rows);
+  cfg->dynamicSmemBytes = smem_bytes(d);
   cfg->stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kCluster;
@@ -566,42 +566,22 @@ int tensor_map(const void* book, int n, int d, CUtensorMap* out) {
   return 0;
 }
 
-template <int R>
 int launch(const float* x, const Books& books, const Maps& maps, int* codes,
            int m, int n, int d, int nq, void* stream) {
-  const int rc = opt_in<R>();
+  const int rc = opt_in();
   if (rc != 0) return rc;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  configure(&cfg, &attr, (m + R - 1) / R, d, R, stream);
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, vq_search_kernel<R>, x, books, maps, codes, m, n, d, nq);
+  configure(&cfg, &attr, (m + kRows - 1) / kRows, d, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, vq_search_kernel, x, books,
+                                             maps, codes, m, n, d, nq);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R>
-int active_clusters(int d, int* out) {
-  const int rc = opt_in<R>();
-  if (rc != 0) return rc;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  configure(&cfg, &attr, 1, d, R, nullptr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, vq_search_kernel<R>, &cfg));
-}
-
-bool valid_shape(int n, int d, int nq, int rows) {
-  return (rows == 16 || rows == 32) && n > 0 && d > 0 && d % 16 == 0 &&
-         nq > 0 && nq <= kMaxLayers &&
-         d <= (rows == 16 ? kMaxDim : kMaxDimWide);
-}
-
-// f(std::integral_constant<int, R>) for the R of a valid row count
-template <typename F>
-int with_rows(int rows, F&& f) {
-  if (rows == 16) return f(std::integral_constant<int, 16>());
-  return f(std::integral_constant<int, 32>());
+bool valid_shape(int n, int d, int nq) {
+  return n > 0 && d > 0 && d % 16 == 0 && d <= kMaxDim && nq > 0 &&
+         nq <= kMaxLayers;
 }
 
 }  // namespace
@@ -610,18 +590,24 @@ int with_rows(int rows, F&& f) {
 // cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" {
 
-// How many clusters of this launch the current device holds at once
+// How many clusters of a launch at width d the current device holds at once
 // (cudaOccupancyMaxActiveClusters).
-int vq_active_clusters(int d, int rows, int* out) {
-  if (!valid_shape(1, d, 1, rows)) return static_cast<int>(cudaErrorInvalidValue);
-  return with_rows(rows, [&](auto r) { return active_clusters<decltype(r)::value>(d, out); });
+int vq_active_clusters(int d, int* out) {
+  if (!valid_shape(1, d, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = opt_in();
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  configure(&cfg, &attr, 1, d, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, vq_search_kernel, &cfg));
 }
 
 // K5 (nq = 1) and K6: x (m, d); books, a host array of nq device pointers,
-// each an (n, d) codebook; codes (m, nq); rows 16 or 32 a cluster.
+// each an (n, d) codebook; codes (m, nq).
 int vq_search_f32(const void* x, const void* const* books, void* codes, int m,
-                  int n, int d, int nq, int rows, void* stream) {
-  if (m <= 0 || !valid_shape(n, d, nq, rows))
+                  int n, int d, int nq, void* stream) {
+  if (m <= 0 || !valid_shape(n, d, nq))
     return static_cast<int>(cudaErrorInvalidValue);
   Books b = {};
   Maps maps = {};
@@ -630,11 +616,8 @@ int vq_search_f32(const void* x, const void* const* books, void* codes, int m,
     const int rc = tensor_map(books[l], n, d, &maps.layer[l]);
     if (rc != 0) return rc;
   }
-  const float* xp = static_cast<const float*>(x);
-  int* out = static_cast<int*>(codes);
-  return with_rows(rows, [&](auto r) {
-    return launch<decltype(r)::value>(xp, b, maps, out, m, n, d, nq, stream);
-  });
+  return launch(static_cast<const float*>(x), b, maps,
+                static_cast<int*>(codes), m, n, d, nq, stream);
 }
 
 }  // extern "C"
