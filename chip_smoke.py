@@ -46,7 +46,9 @@ prints no result. Phases, each fatal on failure:
    output within 2 bf16 ulps of the fp32 plain result on the same
    bf16-valued inputs (ulp floored at that of 2**-8). The VQ kernels K5
    (nearest code) and K6 (fused 4-layer residual encode) run on random fp32
-   rows at M = 250 (one 10-s clip) and M = 2000 (eight), N = 1024, D = 512:
+   rows at M = 240 (a 9.6-s clip, the most rows that take 16 a cluster),
+   M = 250 (one 10-s clip, 32 a cluster) and M = 2000 (eight clips),
+   N = 1024, D = 512:
    codes equal to the plain search in >= 99.9% of places, every other one a
    near tie (fp64 distance excess <= 1e-5 (|x|^2 + max |e|^2)); K6 judged
    layer by layer on the residuals its own codes leave. Both launch one
@@ -534,13 +536,14 @@ def vq_bound(m, n, d, nq):
 
 def vq_plan_line(torch, vq, m):
     """-> (the cluster plan of a launch of M rows at the HCodec-1.0 shapes
-    as one printable line, {"clusters", "active_clusters",
+    as one printable line, {"rows", "clusters", "active_clusters",
     "l2_bytes": {nq: bytes}})."""
     n, d, nq = VQ_SHAPES["n"], VQ_SHAPES["d"], VQ_SHAPES["nq"]
-    plan = {"clusters": -(-m // vq.ROWS),
-            "active_clusters": vq.active_clusters(d),
-            "l2_bytes": {q: vq.l2_bytes(m, n, d, q) for q in (1, nq)}}
-    return (f"VQ plan at M={m}: {vq.ROWS} rows a cluster of {vq.CLUSTER} CTAs "
+    rows = vq.plan(m, vq.active_clusters(d, 16))
+    plan = {"rows": rows, "clusters": -(-m // rows),
+            "active_clusters": vq.active_clusters(d, rows),
+            "l2_bytes": {q: vq.l2_bytes(m, n, d, q, rows) for q in (1, nq)}}
+    return (f"VQ plan at M={m}: {rows} rows a cluster of {vq.CLUSTER} CTAs "
             f"(codebook chunks of {-(-n // vq.CLUSTER)}), {plan['clusters']}"
             f" clusters, {plan['active_clusters']} active at once "
             f"(cudaOccupancyMaxActiveClusters); L2 bytes a call: K5 "
@@ -1055,7 +1058,7 @@ def main():
             results[name, dtype] = r
             report(name, kernel, dtype, r, gpu)
     vq_results = {}
-    for m in (250, 2000):
+    for m in (240, 250, 2000):
         line, plan = vq_plan_line(torch, vq, m)
         print(line, flush=True)
         for name, (share, worst, ms, plain_ms, n_rec) in check_vq(

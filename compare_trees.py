@@ -27,12 +27,12 @@ wrapper when it has the cluster kernel's C interface (``vq_search_f32``),
 else as the earlier wrapper called it (stacked codebooks and their
 ``|e|^2``, computed in the call, as that wrapper did). At M = 250 (one
 10-s clip) and 2000 rows, or the row counts of ``--vq-m`` (N = 1024,
-D = 512, random rows and codebooks from a seed), each tree's codes are held against the plain search by
-``vq.judge_codes`` (>= 99.9% equal, every other a near tie;
-``--no-check`` skips it), then the trees are timed in turns, 50 calls a
-window, one ``vq_search_kernel`` record a call. Two builds of one
-design differ only in a constant when one tree is a copy of another with
-that constant edited (for example ``kRows`` in ``csrc/vq.cu``).
+D = 512, random rows and codebooks from a seed), each tree's codes are
+held against the plain search by ``vq.judge_codes`` (>= 99.9% equal,
+every other a near tie; ``--no-check`` skips it), then the trees are
+timed in turns, 50 calls a window, one ``vq_search_kernel`` record a
+call. Two builds of one design that differ in a constant are two trees,
+one a copy of the other with the constant edited in its ``csrc/vq.cu``.
 
 Prints the card's name and power limit, then one JSON line per (kernel,
 dtype or M), and writes them all to ``--out``.

@@ -10,8 +10,9 @@ copies of the source shown to fail) and the VQ nearest-code K5/K6 (the
 cluster-split kernel of ``csrc/vq.cu``) at the HCodec-1.0 shapes, with
 exact ties across codebook chunks, N below the cluster size, D from 16 to
 ``vq.MAX_DIM``, rows of NaN, the layers' codebooks by pointer, the
-wrappers' refusals and three broken copies of the source shown to fail. Needs a CUDA
-card; imports no JAX, so it also runs on a machine without it:
+wrappers' refusals and three broken copies of the source shown to fail.
+Needs a CUDA card; imports no JAX, so it also runs on a machine without
+it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
@@ -465,8 +466,8 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("m", [240, 2000])
     def test_vq_exact_ties_across_chunks(self, card, m, nq, integer):
         """Exact ties across chunks go to the lower code: the tied rows'
-        codes are 127, 511 and 0, at M = 240 (8 clusters, the last one
-        ragged) and M = 2000. On integer data (both sums exact) the
+        codes are 127, 511 and 0, at 16 rows a cluster (M = 240, 15
+        clusters) and 32 (M = 2000). On integer data (both sums exact) the
         codes equal the plain search's everywhere; on normal data equal
         codebook rows give equal distances wherever they sit in a tile, and
         the codes pass ``judge_codes``."""
@@ -487,14 +488,14 @@ class TestKernelsOnCard:
         (37, 9, 64),       # chunks of 2, three empty
         (250, 1024, 16),   # D = 16, one stage zero-padded to 32
         (2000, 1024, 16),
-        (250, 1024, vq.MAX_DIM),     # the widest D the residual takes
-        (600, 1024, vq.MAX_DIM),
+        (240, 1024, vq.MAX_DIM),     # the widest D at 16 rows
+        (250, 1024, vq.MAX_DIM),     # ... and at 32
         (2000, 1024, vq.MAX_DIM),
     ])
     def test_vq_edges_match_plain(self, card, m, n, d):
         """K5 per layer (staged) and K6 (fused) under ``judge_codes`` at
         the edges of the plan: N below the cluster size, the narrowest and
-        widest D."""
+        widest D at 16 and 32 rows a cluster."""
         x, cbs = vq.random_case(m, n=n, d=d, nq=2, device=card, seed=m + d)
         for fn in (vq.rvq_encode_fused, vq.rvq_encode_staged):
             codes = fn(x, cbs)
@@ -502,12 +503,13 @@ class TestKernelsOnCard:
             share, worst, ok = vq.judge_codes(x, cbs, codes)
             assert share >= 0.999 and ok, (fn.__name__, share, worst)
 
-    @pytest.mark.parametrize("m", [250, 2000])
+    @pytest.mark.parametrize("m", [100, 250, 2000])
     def test_vq_nan_rows_keep_codes_in_range(self, card, m):
         """Rows of x holding a NaN (every distance NaN) take code 0 in
-        every layer, as the plain argmin gives, from K5 and K6; the other
-        rows pass ``judge_codes``, and the context stays usable: a clean
-        call afterwards gives the codes it gives on a fresh case."""
+        every layer, as the plain argmin gives, from K5 and K6 at 16 (M =
+        100) and 32 rows a cluster (M = 250, 2000); the other rows pass
+        ``judge_codes``, and the context stays usable: a clean call
+        afterwards passes ``judge_codes`` too."""
         x, cbs = vq.random_case(m, device=card, seed=m + 7)
         nan = torch.tensor([0, 31, 32, m - 1], device=card)
         x[nan, 5] = float("nan")

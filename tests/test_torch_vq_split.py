@@ -1,9 +1,9 @@
 """The cluster-split VQ search's plan on the CPU: ``split_search`` computes
 K5/K6 as the kernel in ``csrc/vq.cu`` does, in fp32:
 
-* rows in tiles of ``vq.ROWS``; the codebook in ``vq.CLUSTER`` contiguous
-  chunks of ceil(N / C) codes, one per CTA of a cluster (a chunk past N is
-  empty and offers no candidate);
+* rows in tiles of R (16 or 32, ``vq.plan``'s pick); the codebook in
+  ``vq.CLUSTER`` contiguous chunks of ceil(N / C) codes, one per CTA of a
+  cluster (a chunk past N is empty and offers no candidate);
 * per chunk, |e|^2 and each row's partial argmin, the first of equal
   minima;
 * the C candidates of a row merged rank by rank, lower code first on equal
@@ -13,7 +13,7 @@ K5/K6 as the kernel in ``csrc/vq.cu`` does, in fp32:
 
 The mirror is held exactly to the port's plain versions and to the JAX
 package (``ops/quant.py nearest_code``, the Pallas K5/K6 in interpret mode)
-with ragged M and whole tiles, N not a multiple of C, N < C, exact ties
+for each R the wrapper can pick, with ragged M and whole tiles, N not a multiple of C, N < C, exact ties
 placed across chunk boundaries (integer-valued data, so that every sum is
 exact in any order) and rows of NaN. The CUDA kernel is held against
 the plain versions on the card in tests/test_torch_kernels_cuda.py.
@@ -31,7 +31,7 @@ from unified_audio_tpu_torch.ops.cuda import vq
 NO_CODE = 2 ** 31 - 1  # an empty chunk's candidate code (INT_MAX)
 
 
-def split_search(x, books, rows=vq.ROWS, cluster=vq.CLUSTER, counted=None):
+def split_search(x, books, rows, cluster=vq.CLUSTER, counted=None):
     """codes (M, nq) int32 of x (M, D) over the nq (N, D) ``books``, by the
     kernel's plan; ``counted["bytes"]`` gains the bytes it reads and
     writes."""
@@ -84,11 +84,11 @@ def _pallas(x, cbs):
         jnp.asarray(x), jnp.asarray(cbs), interpret=True))
 
 
-def _hold(x, cbs):
+def _hold(x, cbs, rows):
     """The mirror == the plain version == JAX (Pallas interpret and, for
     one codebook, ``ops/quant.py nearest_code``) -> the codes."""
     tx, tcbs = torch.as_tensor(x), torch.as_tensor(cbs)
-    got = split_search(tx, list(tcbs)).numpy()
+    got = split_search(tx, list(tcbs), rows).numpy()
     np.testing.assert_array_equal(got, vq.rvq_encode_fused_ref(tx, tcbs))
     np.testing.assert_array_equal(got, _pallas(x, cbs))
     if len(cbs) == 1:
@@ -97,6 +97,7 @@ def _hold(x, cbs):
     return got
 
 
+@pytest.mark.parametrize("rows", vq.ROWS)
 @pytest.mark.parametrize("m,n,d", [
     (37, 300, 32),   # ragged M, N = 8 chunks of 38 less 4
     (70, 1024, 16),  # HCodec's N, D below a stage
@@ -106,21 +107,23 @@ def _hold(x, cbs):
     (65, 64, 32),    # two whole tiles and one row
     (1, 7, 16),      # one row, N < C
 ])
-def test_split_k5_matches_plain_and_jax(m, n, d):
+def test_split_k5_matches_plain_and_jax(rows, m, n, d):
     x, cbs = _normal(m + n, m, n, d, 1)
-    _hold(x, cbs)
+    _hold(x, cbs, rows)
 
 
+@pytest.mark.parametrize("rows", vq.ROWS)
 @pytest.mark.parametrize("m,n,d", [(37, 300, 32), (20, 9, 16),
                                    (64, 1024, 16), (97, 61, 32)])
-def test_split_k6_matches_plain_and_jax(m, n, d):
+def test_split_k6_matches_plain_and_jax(rows, m, n, d):
     x, cbs = _normal(m + n + 1, m, n, d, 4)
-    _hold(x, cbs)
+    _hold(x, cbs, rows)
 
 
+@pytest.mark.parametrize("rows", vq.ROWS)
 @pytest.mark.parametrize("at", ["head", "tail"])
 @pytest.mark.parametrize("nq", [1, 4])
-def test_exact_ties_across_chunks_go_to_the_lower_code(nq, at):
+def test_exact_ties_across_chunks_go_to_the_lower_code(nq, at, rows):
     """Equal codebook rows on either side of a chunk boundary (7|8, 23|24)
     and in chunks far apart (10 and 60), N = 64 in chunks of 8; rows equal
     to them, at the head of the first tile of rows or at the tail of a
@@ -132,42 +135,55 @@ def test_exact_ties_across_chunks_go_to_the_lower_code(nq, at):
     for lo, hi in ((7, 8), (23, 24), (10, 60)):
         cbs[:, hi] = cbs[:, lo]
     tied = cbs[0, [8, 24, 60, 7]]
-    rest = rng.integers(-2, 3, (vq.ROWS + 3, 16)).astype(np.float32)
+    rest = rng.integers(-2, 3, (rows + 3, 16)).astype(np.float32)
     x = np.concatenate([tied, rest] if at == "head" else [rest, tied])
-    got = _hold(x, cbs)
+    got = _hold(x, cbs, rows)
     rows = slice(0, 4) if at == "head" else slice(-4, None)
     np.testing.assert_array_equal(got[rows, 0], [7, 23, 10, 7])
 
 
+@pytest.mark.parametrize("rows", vq.ROWS)
 @pytest.mark.parametrize("where", ["first", "tile_end", "all"])
 @pytest.mark.parametrize("nq", [1, 4])
-def test_nan_rows_take_code_zero(nq, where):
+def test_nan_rows_take_code_zero(nq, where, rows):
     """A row of x that holds a NaN has every distance NaN: no chunk offers
     a candidate, and the row takes code 0 in every layer, as the plain
     argmin and the JAX kernels give; the other rows keep their codes."""
     x, cbs = _normal(nq + 7, 70, 300, 32, nq)
-    nan = {"first": [0], "tile_end": [vq.ROWS - 1, 69],
+    nan = {"first": [0], "tile_end": [rows - 1, 69],
            "all": list(range(70))}[where]
     x[nan, 3] = np.nan
-    got = _hold(x, cbs)
+    got = _hold(x, cbs, rows)
     assert (got[nan] == 0).all()
     if where != "all":
         keep = np.setdiff1d(np.arange(70), nan)
         np.testing.assert_array_equal(
             got[keep], split_search(torch.as_tensor(x[keep]),
-                                    list(torch.as_tensor(cbs))).numpy())
+                                    list(torch.as_tensor(cbs)), rows).numpy())
 
 
-@pytest.mark.parametrize("m,n,d,nq", [(250, 1024, 512, 1),
-                                      (250, 1024, 512, 4),
-                                      (300, 61, 32, 4)])
-def test_l2_bytes_counts_what_the_plan_reads(m, n, d, nq):
+@pytest.mark.parametrize("m,n,d,nq,rows", [(250, 1024, 512, 1, 32),
+                                           (250, 1024, 512, 4, 32),
+                                           (240, 1024, 512, 4, 16),
+                                           (300, 61, 32, 4, 16)])
+def test_l2_bytes_counts_what_the_plan_reads(m, n, d, nq, rows):
     """``vq.l2_bytes`` == the bytes the mirror reads and writes (at one
     10-s clip: 20.9 MB for K5, 83.5 MB for K6)."""
     counted = {}
     x = torch.zeros(m, d)
-    split_search(x, [torch.zeros(n, d)] * nq, counted=counted)
-    assert vq.l2_bytes(m, n, d, nq) == counted["bytes"]
+    split_search(x, [torch.zeros(n, d)] * nq, rows, counted=counted)
+    assert vq.l2_bytes(m, n, d, nq, rows) == counted["bytes"]
+
+
+@pytest.mark.parametrize("m,active,rows", [
+    (250, 15, 32),   # one 10-s clip: 16 clusters of 16 would not fit
+    (240, 15, 16),   # 15 clusters of 16
+    (100, 15, 16),   # a 4-s clip: 7 clusters of 16
+    (2000, 15, 32),  # eight clips: 63 clusters of 32, five waves
+    (250, 30, 16),   # two CTAs an SM (a small D): 16 clusters fit
+])
+def test_plan_picks_rows(m, active, rows):
+    assert vq.plan(m, active) == rows
 
 
 def test_residual_vq_reads_its_buffers_and_follows_a_reload():

@@ -38,10 +38,13 @@
 // per 16 products a lane.
 //
 // Design. The codebook is split across a thread block cluster of kCluster
-// CTAs: a cluster owns kRows = 32 rows (two m16 tiles), each of its CTAs a
-// contiguous chunk of ceil(N / kCluster) codes, so one 10-s clip (M = 250)
-// runs as 8 clusters in one wave. Inside a CTA (8 warps):
-// * the 32 residual rows stay in shared memory for all nq layers;
+// CTAs: a cluster owns R rows (16 or 32: one or two m16 tiles), each of its
+// CTAs a contiguous chunk of ceil(N / kCluster) codes. R is the wrapper's
+// pick: 16 if the card holds all ceil(M / 16) clusters at once (15 clusters
+// of 8 on an H100 at one CTA an SM: M <= 240, where 16 rows take ~27% less
+// time than 32), else 32, so one 10-s clip (M = 250) runs as 8 clusters of
+// 32 rows in one wave. Inside a CTA (8 warps):
+// * the R residual rows stay in shared memory for all nq layers;
 // * the chunk is walked in tiles of 128 codes x kDepth dims (16 KB), each
 //   loaded by one TMA copy (thread 0 issues it; the slot's mbarrier counts
 //   its bytes) into a ring of kStages slots, 128-byte swizzled; one barrier
@@ -50,7 +53,7 @@
 //   so the next layer's first tiles load during this layer's merge. One
 //   copy a stage, not one cp.async a thread: those stalled every thread's
 //   compute in the load unit (~560 cycles a stage on an H100);
-// * warp w owns codes 16w..16w+15 of a tile (two n8 tiles) against all 32
+// * warp w owns codes 16w..16w+15 of a tile (two n8 tiles) against all R
 //   rows; per 8 dims it splits its A and B fragments, read from shared
 //   memory without bank conflicts (a row stride of 4 mod 32 words; codes
 //   through the swizzle), and issues 3 mma per (m16, n8) tile pair into two
@@ -91,8 +94,7 @@ namespace {
 
 constexpr int kCluster = 8;         // CTAs per cluster: codebook chunks
 constexpr int kMaxLayers = 16;      // residual layers one launch takes
-constexpr int kRows = 32;           // rows a cluster owns: two m16 tiles
-constexpr int kMaxDim = 1024;       // their residual fits beside the ring
+constexpr int kMaxDim = 1024;       // the residual of 32 rows fits beside the ring
 constexpr int kThreads = 256;       // 8 warps
 constexpr int kTileCodes = 128;     // codes of a staged tile: 16 a warp
 constexpr int kTilesN = 2;          // n8 tiles of a warp's 16 codes
@@ -147,12 +149,12 @@ __host__ __device__ __forceinline__ int row_stride(int d) {
   return padded_dim(d) + 4;
 }
 
-size_t smem_bytes(int d) {
+size_t smem_bytes(int d, int rows) {
   return kAlign + sizeof(uint64_t) * kBarWords +
          sizeof(float) * (kStages * kStageWords +
-                          static_cast<size_t>(kRows) * row_stride(d) +
-                          (2 + kThreads / 32) * kRows) +
-         sizeof(int) * (3 + kThreads / 32) * kRows;
+                          static_cast<size_t>(rows) * row_stride(d) +
+                          (2 + kThreads / 32) * rows) +
+         sizeof(int) * (3 + kThreads / 32) * rows;
 }
 
 // word f of code c's 32 dims in a staged tile: its 16-byte piece f / 4
@@ -223,12 +225,12 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // x (m, d); books.layer[l] (n, d); codes (m, nq) int32, row-major.
-// Grid: kCluster CTAs per kRows-row tile, clusters of kCluster along x.
+// Grid: kCluster CTAs per R-row tile, clusters of kCluster along x.
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 vq_search_kernel(const float* __restrict__ x, Books books,
                  const __grid_constant__ Maps maps, int* __restrict__ codes,
                  int m, int n, int d, int nq) {
-  constexpr int R = kRows;
   constexpr int kWarps = kThreads / 32;
   constexpr int kTilesM = R / 16;  // m16 tiles of the rows
   cg::cluster_group cluster = cg::this_cluster();
@@ -489,6 +491,7 @@ vq_search_kernel(const float* __restrict__ x, Books books,
 
 // Opt the kernel in to its dynamic shared memory (above the 48 KB a block
 // gets without asking) on the current device, once per device.
+template <int R>
 int opt_in() {
   static bool opted[kMaxDevices] = {};
   int dev = 0;
@@ -496,18 +499,18 @@ int opt_in() {
   if (got != cudaSuccess) return static_cast<int>(got);
   if (dev < kMaxDevices && opted[dev]) return 0;
   const cudaError_t set = cudaFuncSetAttribute(
-      vq_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(kMaxDim)));
+      vq_search_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kMaxDim, R)));
   if (set == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
   return static_cast<int>(set);
 }
 
 void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int tiles,
-               int d, void* stream) {
+               int d, int rows, void* stream) {
   *cfg = {};
   cfg->gridDim = dim3(kCluster * tiles);
   cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = smem_bytes(d);
+  cfg->dynamicSmemBytes = smem_bytes(d, rows);
   cfg->stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kCluster;
@@ -566,22 +569,34 @@ int tensor_map(const void* book, int n, int d, CUtensorMap* out) {
   return 0;
 }
 
+template <int R>
 int launch(const float* x, const Books& books, const Maps& maps, int* codes,
            int m, int n, int d, int nq, void* stream) {
-  const int rc = opt_in();
+  const int rc = opt_in<R>();
   if (rc != 0) return rc;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  configure(&cfg, &attr, (m + kRows - 1) / kRows, d, stream);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, vq_search_kernel, x, books,
-                                             maps, codes, m, n, d, nq);
+  configure(&cfg, &attr, (m + R - 1) / R, d, R, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, vq_search_kernel<R>, x, books, maps, codes, m, n, d, nq);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_shape(int n, int d, int nq) {
-  return n > 0 && d > 0 && d % 16 == 0 && d <= kMaxDim && nq > 0 &&
-         nq <= kMaxLayers;
+template <int R>
+int active_clusters(int d, int* out) {
+  const int rc = opt_in<R>();
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  configure(&cfg, &attr, 1, d, R, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, vq_search_kernel<R>, &cfg));
+}
+
+bool valid_shape(int n, int d, int nq, int rows) {
+  return (rows == 16 || rows == 32) && n > 0 && d > 0 && d % 16 == 0 &&
+         d <= kMaxDim && nq > 0 && nq <= kMaxLayers;
 }
 
 }  // namespace
@@ -590,24 +605,19 @@ bool valid_shape(int n, int d, int nq) {
 // cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" {
 
-// How many clusters of a launch at width d the current device holds at once
-// (cudaOccupancyMaxActiveClusters).
-int vq_active_clusters(int d, int* out) {
-  if (!valid_shape(1, d, 1)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = opt_in();
-  if (rc != 0) return rc;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  configure(&cfg, &attr, 1, d, nullptr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, vq_search_kernel, &cfg));
+// How many clusters of a launch of `rows` rows a cluster at width d the
+// current device holds at once (cudaOccupancyMaxActiveClusters).
+int vq_active_clusters(int d, int rows, int* out) {
+  if (!valid_shape(1, d, 1, rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rows == 16 ? active_clusters<16>(d, out) : active_clusters<32>(d, out);
 }
 
 // K5 (nq = 1) and K6: x (m, d); books, a host array of nq device pointers,
-// each an (n, d) codebook; codes (m, nq).
+// each an (n, d) codebook; codes (m, nq); rows 16 or 32 a cluster.
 int vq_search_f32(const void* x, const void* const* books, void* codes, int m,
-                  int n, int d, int nq, void* stream) {
-  if (m <= 0 || !valid_shape(n, d, nq))
+                  int n, int d, int nq, int rows, void* stream) {
+  if (m <= 0 || !valid_shape(n, d, nq, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   Books b = {};
   Maps maps = {};
@@ -616,8 +626,10 @@ int vq_search_f32(const void* x, const void* const* books, void* codes, int m,
     const int rc = tensor_map(books[l], n, d, &maps.layer[l]);
     if (rc != 0) return rc;
   }
-  return launch(static_cast<const float*>(x), b, maps,
-                static_cast<int*>(codes), m, n, d, nq, stream);
+  const float* xp = static_cast<const float*>(x);
+  int* out = static_cast<int*>(codes);
+  return rows == 16 ? launch<16>(xp, b, maps, out, m, n, d, nq, stream)
+                    : launch<32>(xp, b, maps, out, m, n, d, nq, stream);
 }
 
 }  // extern "C"

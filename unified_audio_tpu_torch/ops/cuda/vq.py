@@ -13,8 +13,8 @@ The code of a row is ``argmin_j(|e_j|^2 - 2 x . e_j)`` in fp32, ties to the
 lowest j, the semantics of ``ops/quant.py nearest_code`` in the JAX package.
 Both wrappers launch one kernel, CUDA C++ for sm_90a in ``csrc/vq.cu``, built
 with ``nvcc`` on first use (``ops/cuda/build.py``): a thread block cluster of
-``CLUSTER`` CTAs splits the codebook into contiguous chunks for ``ROWS``
-input rows, stages them by TMA, takes the dot products on the
+``CLUSTER`` CTAs splits the codebook into contiguous chunks for R input
+rows (:func:`plan`), stages them by TMA, takes the dot products on the
 tensor cores as 3xTF32 (fp32 to ~2^-20) and merges its argmin in
 distributed shared memory. The kernel takes each layer's codebook by its
 pointer, so a caller's codebooks are never copied. Each wrapper launches
@@ -25,14 +25,15 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 CLUSTER = 8  # CTAs of a cluster: codebook chunks (kCluster in csrc/vq.cu)
 MAX_LAYERS = 16  # residual layers one launch takes (kMaxLayers)
-ROWS = 32  # rows a cluster owns: two m16 tiles (kRows)
-# the residual of a cluster's rows (ROWS x D fp32) lives in shared memory
-# beside the staged codebook tiles (kMaxDim)
+ROWS = (16, 32)  # the rows a cluster can own: one or two m16 tiles
+# the residual of a cluster's rows (R x D fp32) lives in shared memory beside
+# the staged codebook tiles (kMaxDim)
 MAX_DIM = 1024
 
 
@@ -64,14 +65,30 @@ def rvq_encode_fused_ref(x, codebooks):
 # The kernel's plan
 # ---------------------------------------------------------------------------
 
-def l2_bytes(m: int, n: int, d: int, nq: int) -> int:
+def plan(m: int, active: int) -> int:
+    """Rows a cluster owns: 16 when the card holds all ceil(M / 16)
+    clusters of 16 rows at once (``active``, from
+    ``cudaOccupancyMaxActiveClusters``), else 32. Fewer rows mean more
+    clusters and less work each; more rows, fewer codebook reads
+    (``l2_bytes``) and, past one wave of 16-row clusters, less time."""
+    return 16 if -(-m // 16) <= active else 32
+
+
+def l2_bytes(m: int, n: int, d: int, nq: int, rows: int) -> int:
     """Bytes one launch reads from L2 (or HBM) and writes: every CTA reads
     its rows once and, per layer, its chunk of the codebook and (before all
     but the last layer) the chosen codebook rows; rank 0 writes the codes.
-    The codebook is read once per tile of ``ROWS`` rows, the rows once per
+    The codebook is read once per row tile of ``rows``, the rows once per
     CTA of a cluster."""
-    tiles = -(-m // ROWS)
+    tiles = -(-m // rows)
     return 4 * (tiles * nq * n * d + CLUSTER * m * d * nq + m * nq)
+
+
+@functools.lru_cache(maxsize=None)
+def _active(index: int, d: int) -> int:
+    """Clusters of 16 rows at D the card ``index`` holds at once."""
+    with torch.cuda.device(index):
+        return active_clusters(d, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -86,8 +103,9 @@ def typed(lib):
     entry points set."""
     if not getattr(lib, "_typed", False):
         lib.vq_search_f32.argtypes = [_PTR, ctypes.POINTER(_PTR), _PTR] \
-            + [_INT] * 4 + [_PTR]
-        lib.vq_active_clusters.argtypes = [_INT, ctypes.POINTER(_INT)]
+            + [_INT] * 5 + [_PTR]
+        lib.vq_active_clusters.argtypes = [_INT, _INT,
+                                           ctypes.POINTER(_INT)]
         for fn in (lib.vq_search_f32, lib.vq_active_clusters):
             fn.restype = ctypes.c_int
         lib._typed = True
@@ -135,10 +153,13 @@ def _search(x, books, name):
     """One launch over the codebooks ``books`` -> codes (M, nq) int32."""
     m, n, d = _check(x, books)
     nq = len(books)
+    index = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    rows = plan(m, _active(index, d))
     out = torch.empty(m, nq, dtype=torch.int32, device=x.device)
     ptrs = (_PTR * nq)(*[cb.data_ptr() for cb in books])
     rc = _library().vq_search_f32(
-        x.data_ptr(), ptrs, out.data_ptr(), m, n, d, nq,
+        x.data_ptr(), ptrs, out.data_ptr(), m, n, d, nq, rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
@@ -173,11 +194,11 @@ nearest_code.launches = 0
 rvq_encode_fused.launches = 0
 
 
-def active_clusters(d: int) -> int:
-    """Clusters of a launch at width D that the current card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+def active_clusters(d: int, rows: int) -> int:
+    """Clusters of a launch at (D, rows) that the current card holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
     out = ctypes.c_int(0)
-    rc = _library().vq_active_clusters(d, ctypes.byref(out))
+    rc = _library().vq_active_clusters(d, rows, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"active_clusters: CUDA error {rc}")
     return out.value
