@@ -14,10 +14,10 @@ prints no result. Phases, each fatal on failure:
    per call with the host's dispatch (CUDA events around back-to-back
    calls). The timer counts the records by name: a window of N calls must
    hold N times one call's records, and one call exactly one record of the
-   kernel under test (each window opens with a lead-in kernel, left out of
-   the count, because a profiler session can lose its first device
-   record); a window that does not is timed again once, then
-   the run fails (``records`` on the kernels line: the kernel's records
+   kernel under test (each window opens with ``LEAD_INS`` lead-in kernels,
+   left out of the count, because a profiler session can lose its first
+   device records); a window that does not is timed again once, then the
+   run fails (``records`` on the kernels line: the kernel's records
    over its timed windows, so 400 for a decode kernel, four windows of
    100 calls, and 100 for K5/K6, two windows of 50). Every decode kernel (K1-K4, K7), its plain
    version and its library call are timed twice more in turns with the
@@ -60,10 +60,17 @@ prints no result. Phases, each fatal on failure:
 3. UniSE serving: serves synthetic 16 kHz requests (SE, TSE, rTSE; greedy
    and sampled; more 5-s segments than the 16 slots) at full UniSE width
    through ``unified_audio_tpu_torch.cli serve``, once with the int8 pool
-   (K2) and once, shorter, with the bf16 pool (K1). Checks: 32 global and
-   250 semantic ids in range per segment, finite output wavs of the input's
-   length, each kernel launched 12 times per decode step, no plain
-   attention run. Then, on two segments in fp32, teacher-forced decode
+   (K2) and once, shorter, with the bf16 pool (K1). The int8 pass also
+   holds two "ss" lines (a 10-s and a 7.5-s mix: the separation cascade,
+   its SE phase riding the first engine run with the other lines, then TSE
+   and rTSE for every segment against enrollment rows made on the card)
+   and an SE line whose mix is a 44.1 kHz wav (resampled to 16 kHz on the
+   card). Checks: 32 global and 250 semantic ids in range per segment,
+   finite output wavs of the input's length (of the 16 kHz length for the
+   resampled line; ``<stem>_s1.wav`` and ``<stem>_s2.wav`` for each "ss"
+   line), each kernel launched 12 times per decode step, no plain
+   attention run, and every enrollment the cascades' TSE/rTSE requests
+   carried a CUDA tensor. Then, on two segments in fp32, teacher-forced decode
    steps through the kernels agree with the plain attention path: max
    |logit difference| within 1e-4. On the fp32 pools those steps leave, K7
    (a seeded random q, every layer, each engine's block tables and
@@ -79,7 +86,25 @@ prints no result. Phases, each fatal on failure:
    against K6 under the near-tie rule; and the round trip with the plain
    VQ: codes equal in >= 99.9% of places and, where all are equal, the
    waveforms within 1e-5.
-5. UniTok-audio at full width (``UniTokConfig``: 8 codebooks of 1024, LM
+5. HCodec-2.0 round trip: ``cli codec --model hcodec20`` on a synthetic
+   10-s 48 kHz wav at full width (``hcodec20_config()``: 1536-wide STFT
+   encoder and decoder, 16 x 1024 codes a stream; HuBERT-base on the
+   16-kHz resample; fp32, TF32 off) with random weights, the plain VQ
+   functions made to raise. Checks: codes (1, 16, 125) per stream in [0,
+   1024), a finite 48 kHz output of 480,000 samples, K6 launched exactly
+   twice. The encoder's STFT on the card (cuFFT) against the same frames
+   on the CPU: the DC and Nyquist bins' imaginary parts +0.0 and their
+   phase equal (the line also counts the -0.0 that cuFFT itself gives
+   there, before the STFT pins the sign). K6 at nq = 16 (every codebook
+   slot of a launch) at M = 125 (the clip) and M = 1184 (32 clips of 3 s)
+   against the plain search under ``judge_codes``, timed in turns, each M
+   after its plan line. The rtfx of one 10-s clip (median of 10
+   synchronized tokenize + detokenize runs) and of the
+   ``benchmarks/bench_hcodec20.py`` configuration (encode + decode of 32
+   clips of 142,080 samples with random HuBERT-shaped features, median of
+   5, rtfx = 32 x 3 s over it, as that script counts). The round trip with
+   the plain VQ: codes equal in >= 99.9% of places.
+6. UniTok-audio at full width (``UniTokConfig``: 8 codebooks of 1024, LM
    512 x 12 layers, 8 heads of 64; bf16) over phase 4's HCodec-1.0, the
    plain attention paths made to raise. (a) ``UniTokEngine.run`` in the
    stream mode over an int8 pool (K4): 24 requests over the 7 tasks on 5-s
@@ -96,14 +121,15 @@ prints no result. Phases, each fatal on failure:
    layer). (c) Teacher-forced fp32 decode through K3 (fp32 pool) and K4
    (int8 pool) against the plain attention: max |logit difference| within
    1e-4. Prints UniTok codes per second of engine wall time.
-6. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+7. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
-above, each kernel's time, its plain version's and its bound; K7's
-launches are those of the serving paths, 0, and the smoke's own check
-calls are printed on the line before), and as its last line the device
-JSON object.
+above, each kernel's time, its plain version's and its bound; K6's
+launches are both codecs' round trips and its ``nq16`` entry the times at
+HCodec-2.0's shapes; K7's launches are those of the serving paths, 0, and
+the smoke's own check calls are printed on the line before), and as its
+last line the device JSON object.
 """
 import dataclasses
 import itertools
@@ -134,8 +160,12 @@ VQ_SOURCE = "unified_audio_tpu_torch/csrc/vq.cu"
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 SR = 16000
+SR20 = 48000  # HCodec-2.0's rate
 CLIP_S = 10.0  # the round trip's clip, as bench.py times it
 VQ_SHAPES = dict(n=1024, d=512, nq=4)  # HCodec-1.0: 4 x 1024 codes of 512
+NQ20 = 16  # HCodec-2.0: 16 x 1024 codes of 512 a stream
+K6_20_M = (125, 1184)  # one 10-s clip; 32 clips of 3 s (bench_hcodec20.py)
+BENCH20 = dict(batch=32, seconds=3.0)  # benchmarks/bench_hcodec20.py
 # the CUDA function each wrapper launches once a call (as the profiler
 # names it), whose records the timer counts
 CUDA_KERNELS = {"paged_flash_decode_owner": "owner_decode_kernel_tiled",
@@ -149,6 +179,11 @@ CUDA_KERNELS = {"paged_flash_decode_owner": "owner_decode_kernel_tiled",
 ITERS = 100  # calls per timed window of a decode kernel (50 for K5/K6)
 PAD_S = 0.02  # idle time at each end of a profiled window
 LEAD_IN = "spin_kernel"  # the kernel of torch.cuda._sleep (ATen's Sleep.cu)
+# lead-in kernels a window opens with: sessions lost their first device
+# record (windows of plain K1 calls) and two records, a call's first two
+# kernels in a one-call window (plain K6 at nq = 16, 177 records a call;
+# H100, torch 2.11)
+LEAD_INS = 8
 
 
 def fail(msg):
@@ -172,9 +207,9 @@ def profiled(torch, fn, n, lead_in=True):
     call and closes PAD_S after the card is done: the profiler keeps only
     the device records whose timestamps, mapped to the host's clock, fall
     inside its window. A session can also lose its first device record, so
-    the window starts with a lead-in: one ``torch.cuda._sleep`` kernel
-    (``LEAD_IN``), waited for and left out of the result, then PAD_S more
-    (``lead_in=False`` leaves it out, for ``profiler_windows.py``)."""
+    the window starts with a lead-in: ``LEAD_INS`` ``torch.cuda._sleep``
+    kernels (``LEAD_IN``), waited for and left out of the result, then PAD_S
+    more (``lead_in=False`` leaves it out, for ``profiler_windows.py``)."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -183,7 +218,8 @@ def profiled(torch, fn, n, lead_in=True):
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PAD_S)
         if lead_in:
-            torch.cuda._sleep(1000)
+            for _ in range(LEAD_INS):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(PAD_S)
         for _ in range(n):
@@ -534,11 +570,11 @@ def vq_bound(m, n, d, nq):
                  "tf32")
 
 
-def vq_plan_line(torch, vq, m):
-    """-> (the cluster plan of a launch of M rows at the HCodec-1.0 shapes
-    as one printable line, {"rows", "clusters", "active_clusters",
-    "l2_bytes": {nq: bytes}})."""
-    n, d, nq = VQ_SHAPES["n"], VQ_SHAPES["d"], VQ_SHAPES["nq"]
+def vq_plan_line(torch, vq, m, nq=VQ_SHAPES["nq"]):
+    """-> (the cluster plan of a launch of M rows at N = 1024, D = 512 as
+    one printable line, {"rows", "clusters", "active_clusters",
+    "l2_bytes": {1 and nq: bytes}})."""
+    n, d = VQ_SHAPES["n"], VQ_SHAPES["d"]
     rows = vq.plan(m, vq.active_clusters(d, 16))
     plan = {"rows": rows, "clusters": -(-m // rows),
             "active_clusters": vq.active_clusters(d, rows),
@@ -550,11 +586,11 @@ def vq_plan_line(torch, vq, m):
             f"{plan['l2_bytes'][1]}, K6 {plan['l2_bytes'][nq]}"), plan
 
 
-def check_vq(torch, vq, m):
-    """K5 (layer 0) and K6 against the plain search on random rows of M at
-    the HCodec-1.0 shapes -> {name: (share equal, worst excess, ms, plain
-    ms, records)}."""
-    x, cbs = vq.random_case(m, **VQ_SHAPES, seed=m)
+def check_vq(torch, vq, m, nq=VQ_SHAPES["nq"], names=("K5", "K6")):
+    """K5 (layer 0) and K6 (nq layers) against the plain search on random
+    rows of M at N = 1024, D = 512 -> {name: (share equal, worst excess,
+    ms, plain ms, records)} for the kernels in ``names``."""
+    x, cbs = vq.random_case(m, **{**VQ_SHAPES, "nq": nq}, seed=m)
     cb0 = cbs[0].contiguous()
     out = {}
     for name, kernel, ref, books in (
@@ -562,6 +598,8 @@ def check_vq(torch, vq, m):
              lambda: vq.nearest_code_ref(x, cb0), cbs[:1]),
             ("K6", lambda: vq.rvq_encode_fused(x, cbs),
              lambda: vq.rvq_encode_fused_ref(x, cbs), cbs)):
+        if name not in names:
+            continue
         codes = kernel()
         torch.cuda.synchronize()
         share, worst, ok = vq.judge_codes(x, books, codes)
@@ -578,8 +616,8 @@ def check_vq(torch, vq, m):
 # UniSE serving
 # ---------------------------------------------------------------------------
 
-def synth_speech(rng, n):
-    t = np.arange(n) / 16000.0
+def synth_speech(rng, n, sr=SR):
+    t = np.arange(n) / sr
     f0 = rng.uniform(90, 250)
     x = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6.3)) / k
             for k in range(1, 8))
@@ -588,18 +626,20 @@ def synth_speech(rng, n):
 
 
 def write_requests(tmp, rng, write_wav, spec, name):
-    """spec: (task, mix seconds, sampled) -> JSONL file of requests with
-    synthetic mixes (speech-like tone + noise) and 5-s enrolls."""
+    """spec: (task, mix seconds, sampled[, mix rate]) -> JSONL file of
+    requests with synthetic mixes (speech-like tone + noise; 16 kHz unless
+    a rate is given) and 5-s enrolls for TSE/rTSE."""
     lines = []
-    for i, (task, secs, sampled) in enumerate(spec):
-        n = int(secs * 16000)
-        mix = 0.6 * synth_speech(rng, n) + 0.3 * rng.standard_normal(n)
+    for i, (task, secs, sampled, *rate) in enumerate(spec):
+        sr = rate[0] if rate else SR
+        n = int(secs * sr)
+        mix = 0.6 * synth_speech(rng, n, sr) + 0.3 * rng.standard_normal(n)
         line = {"task": task, "mix": str(tmp / f"{name}_mix{i}.wav"),
                 "output": str(tmp / f"{name}_out{i}.wav"),
                 "do_sample": sampled}
         write_wav(line["mix"], (0.5 * mix / np.abs(mix).max()).astype(
-            np.float32), 16000)
-        if task != "se":
+            np.float32), sr)
+        if task in ("tse", "rtse"):
             line["enroll"] = str(tmp / f"{name}_enroll{i}.wav")
             write_wav(line["enroll"], (0.4 * synth_speech(rng, 80000)).astype(
                 np.float32), 16000)
@@ -622,28 +662,76 @@ def patched(pairs):
 
 
 def serve_and_check(torch, cli, path, lines, kv_quant, records, read_wav):
+    """``cli serve`` on ``lines``; checks every output (each regular line's,
+    then each "ss" line's ``_s1``/``_s2``, the order the CLI decodes them
+    in) -> (summary, [(line, output path)])."""
     argv = ["serve", "--requests", str(path)]
     if kv_quant:
         argv += ["--kv-quant", kv_quant]
     records.clear()
     summary = cli.main(argv)
     st = summary["engine_stats"]
-    if len(records) != len(lines) or st["requests_completed"] != \
-            summary["segments"]:
+    outputs = [(l, l["output"]) for l in lines if l["task"] != "ss"]
+    for l in lines:
+        if l["task"] == "ss":
+            out = Path(l["output"])
+            outputs += [(l, str(out.with_name(f"{out.stem}_s{k}.wav")))
+                        for k in (1, 2)]
+    if len(records) != len(outputs) or st["requests_completed"] != \
+            summary["segments"] or summary["outputs"] != [
+                o for _, o in outputs]:
         fail(f"served {st['requests_completed']} of {summary['segments']} "
-             "segments")
-    for line, (g, s, wav, orig_len) in zip(lines, records):
+             f"segments; {len(records)} decodes for {len(outputs)} outputs")
+    for (line, out_path), (g, s, wav, orig_len) in zip(outputs, records):
         if g.shape[1:] != (32,) or s.shape[1:] != (250,):
             fail(f"token shapes {g.shape} {s.shape}")
         if not (0 <= g.min() and g.max() < 4096 and 0 <= s.min()
                 and s.max() < 8192):
             fail("token ids out of range")
-        out, fs = read_wav(line["output"])
-        mix, _ = read_wav(line["mix"])
+        out, fs = read_wav(out_path)
+        mix, mix_fs = read_wav(line["mix"])
+        n = -(-mix.shape[-1] * SR // mix_fs)  # the input's 16 kHz length
         if not (np.isfinite(wav).all() and wav.shape == (orig_len,)
-                and out.shape == mix.shape and fs == 16000):
-            fail(f"output {line['output']}: shape {out.shape} vs {mix.shape}")
-    return summary
+                and out.shape == (1, n) and fs == SR
+                and np.isfinite(out).all()):
+            fail(f"output {out_path}: shape {out.shape} at {fs} Hz, the "
+                 f"input {mix.shape} at {mix_fs} Hz")
+    return summary, outputs
+
+
+def check_cascades(torch, cli, lines, outputs, records, admitted, read_wav,
+                   gpu):
+    """The "ss" lines of a serve pass: prints each one's outputs, and fails
+    unless every TSE/rTSE request of the cascades (2 per 5-s segment of
+    each) carried its enrollment rows as a CUDA tensor, the rows of its
+    own cascade's SE result (one tensor a cascade), and a resampled line
+    came out at the 16 kHz length (checked by ``serve_and_check``)."""
+    ss = [l for l in lines if l["task"] == "ss"]
+    if not ss:
+        return
+    seg = 5 * SR
+    want = sum(2 * -(-read_wav(l["mix"])[0].shape[-1] // seg) for l in ss)
+    first = cli.SS_UID * 4 * 65536  # the cascades' engine uids start here
+    phase2 = [r for u, r in admitted.items()
+              if u >= first and r.task_id in (1, 2)]
+    rows = {id(r.enroll_feats) for r in phase2}
+    if len(phase2) != want or len(rows) != len(ss) or not all(
+            torch.is_tensor(r.enroll_feats)
+            and r.enroll_feats.device.type == "cuda" for r in phase2):
+        fail(f"{len(phase2)} cascade TSE/rTSE requests ({want} expected) "
+             f"over {len(rows)} enrollments, CUDA tensors: "
+             f"{[getattr(r.enroll_feats, 'device', None) for r in phase2]}")
+    for (line, out_path), (_, _, wav, _) in zip(outputs, records):
+        mix, fs = read_wav(line["mix"])
+        if line["task"] == "ss" or fs != SR:
+            print(f"{line['task']} line, {mix.shape[-1]} samples at {fs} Hz"
+                  f" -> {Path(out_path).name}: {wav.shape[0]} samples at "
+                  f"{SR} Hz, peak {np.abs(wav).max():.4f}, finite | {gpu}",
+                  flush=True)
+    print(f"cascades: {len(ss)}, their {len(phase2)} TSE/rTSE requests "
+          f"each carrying its cascade's enrollment rows, a "
+          f"{tuple(phase2[0].enroll_feats.shape)} tensor on "
+          f"{phase2[0].enroll_feats.device}", flush=True)
 
 
 def decode_agreement(torch, unise, kv_quant, steps=24):
@@ -690,14 +778,28 @@ def decode_agreement(torch, unise, kv_quant, steps=24):
 # HCodec-1.0 round trip
 # ---------------------------------------------------------------------------
 
+def median_wall(torch, fn, runs):
+    """-> (median, min, max) seconds of ``runs`` synchronized calls of
+    ``fn`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), min(times), max(times)
+
+
 def roundtrip_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
     """Steps of phase 4 -> (K5 launches and K6 launches on their paths,
     round-trip rtfx)."""
     built = []
-    build = cli._build_hcodec10
+    build = cli._build_hcodec
 
-    def recording(**kw):
-        built.append(build(**kw))
+    def recording(*args, **kw):
+        built.append(build(*args, **kw))
         return built[-1]
 
     def forbidden(*args, **kwargs):
@@ -708,7 +810,7 @@ def roundtrip_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
     wav = 0.5 * synth_speech(rng, n) + 0.05 * rng.standard_normal(n)
     wav_in, wav_out = tmp / "clip.wav", tmp / "clip_out.wav"
     write_wav(wav_in, (0.8 * wav / np.abs(wav).max()).astype(np.float32), SR)
-    guards = [(cli, "_build_hcodec10", recording),
+    guards = [(cli, "_build_hcodec", recording),
               (vq, "nearest_code_ref", forbidden),
               (vq, "rvq_encode_fused_ref", forbidden)]
     with patched(guards):
@@ -735,19 +837,12 @@ def roundtrip_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
     def roundtrip():
         return tok.detokenize(*tok.tokenize(x))
 
-    roundtrip()
-    times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = roundtrip()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    wall = float(np.median(times))
+    wall, lo, hi = median_wall(torch, roundtrip, 10)
+    out = roundtrip()
     rtfx = CLIP_S / wall
     print(f"hcodec10 round trip rtfx {rtfx:.2f} (median of 10: {wall * 1e3:.2f}"
           f" ms for {CLIP_S:.0f} s of 16 kHz audio; range "
-          f"{min(times) * 1e3:.2f}-{max(times) * 1e3:.2f} ms); K6 launches "
+          f"{lo * 1e3:.2f}-{hi * 1e3:.2f} ms); K6 launches "
           f"{k6_launches} | {gpu}", flush=True)
 
     # K5 on its own path: the staged encode of the round trip's latents
@@ -787,6 +882,147 @@ def roundtrip_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
     print(f"round trip with plain VQ: {same:.5f} of codes equal, waveform "
           f"max |diff| {diff:.3e}", flush=True)
     return k5_launches, k6_launches, rtfx, tok
+
+
+# ---------------------------------------------------------------------------
+# HCodec-2.0 round trip
+# ---------------------------------------------------------------------------
+
+def stft_edges(torch, dsp, x, n_fft, hop):
+    """The encoder's STFT of ``x`` (padded as ``CodecEncoder20`` pads it) on
+    the card against the same frames on the CPU -> (the -0.0 imaginary
+    parts cuFFT itself gives at the DC and Nyquist bins, of how many; bins
+    there with a negative real part; max |S_card - S_cpu| / max |S|).
+    Fails unless stft's DC and Nyquist bins are +0.0 and their phase
+    equals the CPU's."""
+    pad = (n_fft - hop) // 2
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    raw = torch.fft.rfft(dsp.frame(xp, n_fft, hop) * dsp.hann_window(
+        n_fft, x.device), n=n_fft, dim=-1)[..., [0, -1]]
+    card = dsp.stft(xp, n_fft, hop).cpu()
+    cpu = dsp.stft(xp.cpu(), n_fft, hop)
+    edges = (slice(None), [0, -1])
+    if torch.signbit(card[edges].imag).any() or not torch.equal(
+            card[edges].angle(), cpu[edges].angle()):
+        fail("the card's STFT phase at DC/Nyquist differs from the CPU's")
+    return (int(torch.signbit(raw.imag).sum()), raw.numel(),
+            int((cpu[edges].real < 0).sum()),
+            float((card - cpu).abs().max() / cpu.abs().max()))
+
+
+def hcodec20_phase(torch, cli, vq, dsp, gpu, tmp, write_wav, read_wav):
+    """Phase 5 -> (K6 launches on the round trip, {M: (share, worst, ms,
+    plain ms, records)} of K6 at nq = 16)."""
+    built = []
+    build = cli._build_hcodec
+
+    def recording(*args, **kw):
+        built.append(build(*args, **kw))
+        return built[-1]
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in the kernel round trip")
+
+    rng = np.random.default_rng(8)
+    n = int(CLIP_S * SR20)
+    wav = 0.5 * synth_speech(rng, n, SR20) + 0.05 * rng.standard_normal(n)
+    wav_in, wav_out = tmp / "clip48.wav", tmp / "clip48_out.wav"
+    write_wav(wav_in, (0.8 * wav / np.abs(wav).max()).astype(np.float32),
+              SR20)
+    guards = [(cli, "_build_hcodec", recording),
+              (vq, "nearest_code_ref", forbidden),
+              (vq, "rvq_encode_fused_ref", forbidden)]
+    with patched(guards):
+        vq.rvq_encode_fused.launches = 0
+        t0 = time.perf_counter()
+        summary = cli.main(["codec", "--model", "hcodec20", "--input",
+                            str(wav_in), "--output", str(wav_out)])
+        cli_s = time.perf_counter() - t0
+        k6_launches = vq.rvq_encode_fused.launches
+        if k6_launches != 2:
+            fail(f"K6 launched {k6_launches} times in one HCodec-2.0 round "
+                 "trip, not 2")
+        tok = built[0]
+        x = torch.as_tensor(read_wav(wav_in)[0], device="cuda")
+        codes = tok.tokenize(x)
+    frames = n // tok.hop_length
+    if summary["acoustic_shape"] != [1, NQ20, frames]:
+        fail(f"HCodec-2.0 acoustic codes of shape {summary['acoustic_shape']}")
+    for c in codes:
+        if tuple(c.shape) != (1, NQ20, frames) or not (
+                0 <= int(c.min()) and int(c.max()) < 1024):
+            fail(f"HCodec-2.0 codes of shape {tuple(c.shape)} in "
+                 f"[{int(c.min())}, {int(c.max())}]")
+    rec, fs = read_wav(wav_out)
+    if not (fs == SR20 and rec.shape == (1, n) and np.isfinite(rec).all()):
+        fail(f"HCodec-2.0 round-trip wav of shape {rec.shape} at {fs} Hz")
+    print(f"hcodec20 round trip through cli codec ({cli_s:.1f} s with the "
+          f"build): codes {tuple(codes[0].shape)} per stream in "
+          f"[{min(int(c.min()) for c in codes)}, "
+          f"{max(int(c.max()) for c in codes)}], {len(torch.unique(codes[0]))}"
+          f" distinct acoustic codes; output {rec.shape[1]} samples at {fs} "
+          f"Hz, finite; K6 launches {k6_launches} | {gpu}", flush=True)
+
+    neg0, n_edge, negative, rel = stft_edges(torch, dsp, x, tok.config.n_fft,
+                                             tok.config.istft_hop)
+    print(f"hcodec20 encoder STFT on the card vs the CPU: DC/Nyquist "
+          f"imaginary parts -0.0 in cuFFT's own output {neg0} of {n_edge}, "
+          f"+0.0 after stft in all; {negative} of those bins with a negative"
+          f" real part, phase equal to the CPU's in all; max |S_card - "
+          f"S_cpu| / max |S| {rel:.3e}", flush=True)
+
+    k6 = {}
+    for m in K6_20_M:
+        line, plan = vq_plan_line(torch, vq, m, NQ20)
+        print(line, flush=True)
+        share, worst, ms, plain_ms, n_rec = check_vq(torch, vq, m, NQ20,
+                                                     ("K6",))["K6"]
+        k6[m] = (share, worst, ms, plain_ms, n_rec)
+        b_ms, _ = vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"], NQ20)
+        print(f"K6 at M={m}, N=1024, D=512, nq={NQ20}: {share:.5f} of codes "
+              f"equal to plain, worst distance excess {worst:.3e}; kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.2f} us (3xTF32 at 495 TFLOP/s); L2 bytes "
+              f"{plan['l2_bytes'][NQ20]} | {gpu}", flush=True)
+
+    def roundtrip():
+        return tok.detokenize(*tok.tokenize(x))
+
+    wall, lo, hi = median_wall(torch, roundtrip, 10)
+    print(f"hcodec20 round trip rtfx {CLIP_S / wall:.2f} (median of 10: "
+          f"{wall * 1e3:.2f} ms for {CLIP_S:.0f} s of 48 kHz audio; range "
+          f"{lo * 1e3:.2f}-{hi * 1e3:.2f} ms) | {gpu}", flush=True)
+
+    # benchmarks/bench_hcodec20.py: encode + decode of a batch with random
+    # HuBERT-shaped features (no frontend), rtfx = batch x seconds / p50
+    b, secs = BENCH20["batch"], BENCH20["seconds"]
+    t = int(secs * SR20) // tok.hop_length * tok.hop_length
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bwav = torch.randn(b, t, 1, generator=g, device="cuda")
+    feat = torch.randn(b, t // 3 // 320, tok.config.feat_dim, generator=g,
+                       device="cuda")
+    codec = tok.codec
+
+    def batch_roundtrip():
+        with torch.no_grad():
+            return codec.decode(*codec.encode(bwav, feat))
+
+    wall, lo, hi = median_wall(torch, batch_roundtrip, 5)
+    print(f"hcodec20 bench_hcodec20 configuration (batch {b} x {t} samples,"
+          f" K6 at M={b * (t // tok.hop_length)}): rtfx {b * secs / wall:.2f}"
+          f" (median of 5: {wall * 1e3:.2f} ms; range {lo * 1e3:.2f}-"
+          f"{hi * 1e3:.2f} ms) | {gpu}", flush=True)
+
+    # the round trip with the plain VQ, outside the guards
+    with patched([(vq, "rvq_encode_fused", vq.rvq_encode_fused_ref)]):
+        plain_codes = tok.tokenize(x)
+    same = float(np.mean([float((a == b_).float().mean())
+                          for a, b_ in zip(plain_codes, codes)]))
+    if same < 0.999:
+        fail(f"HCodec-2.0 plain-VQ round trip: {same:.5f} of codes equal")
+    print(f"hcodec20 round trip with plain VQ: {same:.5f} of codes equal",
+          flush=True)
+    return k6_launches, k6
 
 
 # ---------------------------------------------------------------------------
@@ -1026,8 +1262,10 @@ def main():
     from unified_audio_tpu_torch.models.unise.model import UniSE
     from unified_audio_tpu_torch.ops.cuda import paged_attention as pa
     from unified_audio_tpu_torch.ops.cuda import vq
+    from unified_audio_tpu_torch.ops import dsp
     from unified_audio_tpu_torch.ops.cuda.build import load_library
     from unified_audio_tpu_torch.serve import paged
+    from unified_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
 
     # 1. device
     gpu = gpu_line()
@@ -1089,7 +1327,15 @@ def main():
     def forbidden(*args, **kwargs):
         raise AssertionError("a plain attention path ran during serving")
 
+    admitted = {}  # uid -> the request as the engine admitted it
+    admit = ContinuousBatchingEngine.admit_many
+
+    def recording_admit(self, reqs):
+        admitted.update((r.uid, r) for r in reqs)
+        return admit(self, reqs)
+
     guards = [(UniSE, "_decode_tokens", recording),
+              (ContinuousBatchingEngine, "admit_many", recording_admit),
               (paged, "_plain_attention", forbidden),
               (pa, "paged_flash_decode_owner_ref", forbidden),
               (pa, "paged_flash_decode_owner_q8_ref", forbidden)]
@@ -1099,7 +1345,9 @@ def main():
         tmp = Path(tmp)
         spec1 = ([("se", 7.5, i % 2 == 1) for i in range(8)]
                  + [("tse", 7.5, False), ("tse", 7.5, True),
-                    ("rtse", 7.5, False), ("rtse", 7.5, True)])
+                    ("rtse", 7.5, False), ("rtse", 7.5, True),
+                    ("ss", 10.0, False), ("ss", 7.5, True),
+                    ("se", 5.0, False, 44100)])
         spec2 = [("se", 5.0, False), ("se", 5.0, True), ("tse", 5.0, False),
                  ("rtse", 5.0, True)]
         for name, spec, quant, kernel in (
@@ -1108,8 +1356,9 @@ def main():
             path, lines = write_requests(tmp, rng, write_wav, spec, name)
             pa.paged_flash_decode_owner.launches = 0
             pa.paged_flash_decode_owner_q8.launches = 0
-            summary = serve_and_check(torch, cli, path, lines, quant, records,
-                                      read_wav)
+            admitted.clear()
+            summary, outputs = serve_and_check(torch, cli, path, lines, quant,
+                                               records, read_wav)
             n = kernel.launches
             launches[kernel.__name__] = n
             st = summary["engine_stats"]
@@ -1124,6 +1373,8 @@ def main():
                   f"{st['tokens_generated'] / summary['engine_s']:.0f} "
                   f"tokens/s; wall {summary['wall_s']:.2f} s; "
                   f"{kernel.__name__} launches {n} | {gpu}", flush=True)
+            check_cascades(torch, cli, lines, outputs, records, admitted,
+                           read_wav, gpu)
     unise = recording.unise
     for quant in (None, "int8"):
         worst, engines = decode_agreement(torch, unise, quant)
@@ -1151,18 +1402,26 @@ def main():
         k5_launches, k6_launches, _, tok = roundtrip_phase(
             torch, cli, vq, gpu, Path(tmp), write_wav, read_wav)
 
-    # 5. UniTok-audio in the stream mode
+    # 5. HCodec-2.0 round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        k6_20_launches, k6_20 = hcodec20_phase(torch, cli, vq, dsp, gpu,
+                                               Path(tmp), write_wav, read_wav)
+    torch.cuda.empty_cache()
+
+    # 6. UniTok-audio in the stream mode
     k3_launches, k4_launches = unitok_phase(torch, cli, pa, paged, tok, unise,
                                             gpu, tally)
 
-    # 6. nothing of JAX or the JAX package was loaded
+    # 7. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
         fail(f"the port loaded JAX-side modules: {sorted(jax_side)}")
 
     # the kernels at the main path's shapes: K1-K4 and K7 bf16 at the
-    # serving shapes, K5/K6 at one 10-s clip (M = 250). The functions of
+    # serving shapes, K5/K6 at one 10-s clip of HCodec-1.0 (M = 250; K6's
+    # ``nq16`` entry at HCodec-2.0's 16 layers, M = 125 and 1184). The
+    # functions of
     # K1, K3 and K7 are each one scaled_dot_product_attention call under a
     # boolean mask; no single PyTorch call computes the others: K2/K4
     # dequantize int8 rows by per-token scales, K5/K6 are a product and an
@@ -1194,7 +1453,8 @@ def main():
                         "records": r["records"]})
     for name, fn, tpu, n_launch, nq in (
             ("K5", vq.nearest_code, K5_TPU, k5_launches, 1),
-            ("K6", vq.rvq_encode_fused, K6_TPU, k6_launches, 4)):
+            ("K6", vq.rvq_encode_fused, K6_TPU,
+             k6_launches + k6_20_launches, 4)):
         err, ms, plain_ms, n_rec = vq_results[name, 250]
         b_ms, b_by = vq_bound(250, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
         kernels.append({"name": fn.__name__, "route": "cuda",
@@ -1203,6 +1463,11 @@ def main():
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
                         "records": n_rec})
+    kernels[-1]["nq16"] = {
+        f"M={m}": {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"],
+                                        NQ20)[0], "records": n_rec}
+        for m, (_, worst, ms, plain_ms, n_rec) in k6_20.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Count the profiler windows that lose a device record, with and without
-``chip_smoke.profiled``'s lead-in kernel, on one CUDA card.
+``chip_smoke.profiled``'s lead-in kernels, on one CUDA card.
 
     python3 profiler_windows.py [--windows 20] [--out RESULT.json]
 

@@ -197,13 +197,14 @@ def port_unise(unise):
 class TestPortImportsNoJax:
     def test_cli_imports_without_jax(self):
         """With jax and flax made unimportable, the port's CLI (and through
-        it the serving path and the HCodec round trip), the UniTok pipeline
-        and engine and the step profiler still import, and no module of the
-        JAX package is loaded."""
+        it the serving path, the SS cascade and the HCodec round trips), the
+        UniTok pipeline and engine and the step profiler still import, and
+        no module of the JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
                 "import unified_audio_tpu_torch.cli, "
                 "unified_audio_tpu_torch.serve.engine, "
+                "unified_audio_tpu_torch.serve.cascade, "
                 "unified_audio_tpu_torch.models.unise.model, "
                 "unified_audio_tpu_torch.models.hcodec.tokenizer, "
                 "unified_audio_tpu_torch.models.unitok.pipeline, "

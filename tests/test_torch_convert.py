@@ -14,7 +14,8 @@ from unified_audio_tpu.models.ssl import wav2vec2 as j_ssl
 from unified_audio_tpu.utils.convert import (convert_hf_wav2vec2,
                                              export_custom_llama_state_dict)
 from unified_audio_tpu.utils.convert_bicodec import export_bicodec_state_dict
-from unified_audio_tpu.utils.convert_hcodec import export_hcodec10_state_dict
+from unified_audio_tpu.utils.convert_hcodec import (
+    export_hcodec10_state_dict, export_hcodec20_state_dict)
 from unified_audio_tpu_torch.models.bicodec import bicodec as t_bicodec
 from unified_audio_tpu_torch.models.hcodec import codec as t_codec
 from unified_audio_tpu_torch.utils import convert as t_convert
@@ -93,13 +94,40 @@ def test_hcodec10_matches_reference_exporter():
         np.zeros((1, 8, 32), np.float32)))
     ours = t_convert.hcodec10_state_dict(variables, cfg)
     _assert_same(ours, export_hcodec10_state_dict(variables, cfg))
-    keys = t_convert.hcodec10_inference_keys(ours)
+    keys = t_convert.hcodec_inference_keys(ours)
     assert not any(k.startswith("semantic_decoder.") or "embed_avg" in k
                    for k in keys)
     module = t_codec.HCodec(t_codec.HCodecConfig(
         **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
     assert sorted(module.state_dict()) == sorted(keys)
     module.load_state_dict(to_torch(keys))
+
+
+def test_hcodec20_matches_reference_exporter():
+    """hcodec20_state_dict == export_hcodec20_state_dict key for key and
+    value for value (the encoder's transformer at ``post_net.1``, both
+    ConvNeXt stacks unstacked per block), and the port's HCodec-2.0 takes
+    exactly its inference keys with strict loading."""
+    from unified_audio_tpu.models.hcodec.codec import HCodec, hcodec20_config
+
+    cfg = hcodec20_config(
+        latent_dim=64, codebook_size=32, num_quantizers=3, decoder_dim=64,
+        decoder_intermediate_dim=128, decoder_convnext_layers=2,
+        encoder_dim=64, encoder_intermediate_dim=128,
+        encoder_convnext_layers=3, semantic_encode_channels=64, feat_dim=32)
+    variables = jax.device_get(random_variables(
+        HCodec(cfg), np.zeros((1, 3840 * 2, 1), np.float32),
+        np.zeros((1, 8, 32), np.float32)))
+    ours = t_convert.hcodec20_state_dict(variables, cfg)
+    _assert_same(ours, export_hcodec20_state_dict(variables, cfg))
+    keys = t_convert.hcodec_inference_keys(ours)
+    assert not any(k.startswith("semantic_decoder.") or "embed_avg" in k
+                   for k in keys)
+    module = t_codec.HCodec(t_codec.HCodecConfig(
+        **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
+    assert sorted(module.state_dict()) == sorted(keys)
+    module.load_state_dict(to_torch(keys))
+    assert "encoder.post_net.1.layers.0.self_attn.q_proj.weight" in keys
 
 
 def test_hubert_state_dict_has_no_rel_pos_keys():

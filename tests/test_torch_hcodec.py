@@ -1,11 +1,13 @@
-"""The HCodec-1.0 round trip of the port (``unified_audio_tpu_torch``)
-against the JAX package on the CPU, at the tiny ``small10()`` config of
-tests/test_hcodec.py with a tiny HuBERT frontend.
+"""The HCodec-1.0 and 2.0 round trips of the port
+(``unified_audio_tpu_torch``) against the JAX package on the CPU, at the
+tiny ``small10()`` and ``small20()`` configs of tests/test_hcodec.py with a
+tiny HuBERT frontend.
 
-The same numpy-seeded weights (carried over by ``hcodec10_state_dict`` and
-``hubert_state_dict``) and inputs go through both. Modules within atol/rtol
-1e-4; tokenize codes exact; detokenize within 1e-4 of the waveform's peak.
-``UniTokPipeline`` runs a tiny UniTok LM over the same tokenizer.
+The same numpy-seeded weights (carried over by ``hcodec10_state_dict`` /
+``hcodec20_state_dict`` and ``hubert_state_dict``) and inputs go through
+both. Modules within atol/rtol 1e-4; tokenize codes exact; detokenize
+within 1e-4 of the waveform's peak. ``UniTokPipeline`` runs a tiny UniTok
+LM over the 1.0 tokenizer.
 """
 import dataclasses
 import functools
@@ -42,6 +44,15 @@ def small10():
         decoder_convnext_layers=2, semantic_encode_channels=64, feat_dim=32)
 
 
+def small20():
+    return j_codec.hcodec20_config(
+        latent_dim=64, codebook_size=32, num_quantizers=2,
+        decoder_dim=64, decoder_intermediate_dim=128,
+        decoder_convnext_layers=2, encoder_dim=64,
+        encoder_intermediate_dim=128, encoder_convnext_layers=2,
+        semantic_encode_channels=64, feat_dim=32)
+
+
 def tiny_hubert(hidden=32):
     return j_ssl.SSLConfig(
         hidden_size=hidden, num_layers=2, num_heads=4, intermediate_size=32,
@@ -49,25 +60,26 @@ def tiny_hubert(hidden=32):
         num_conv_pos_embedding_groups=4)
 
 
-@pytest.fixture(scope="module")
-def models():
-    """Seeded JAX variables, the JAX tokenizer, and the port's tokenizer
-    with the same weights. The codebooks are unit normal scaled to each
-    stream's latent spread, so the codes vary from frame to frame."""
-    cfg, ssl_cfg = small10(), tiny_hubert()
-    wav = np.zeros((1, L, 1), np.float32)
-    feat = np.zeros((1, L // 320, cfg.feat_dim), np.float32)
+def seeded_models(cfg, length, seed=4):
+    """Seeded JAX variables of ``cfg`` (traced on ``length`` samples), the
+    JAX tokenizer, and the port's tokenizer with the same weights. The
+    codebooks are unit normal scaled to each stream's latent spread, so the
+    codes vary from frame to frame."""
+    ssl_cfg = tiny_hubert()
+    wav = np.zeros((1, length, 1), np.float32)
+    frames = length // (320 if cfg.version == "1.0" else 960)
+    feat = np.zeros((1, frames, cfg.feat_dim), np.float32)
     variables = jax.device_get(random_variables(
-        j_codec.HCodec(cfg), wav, feat, seed=4))
+        j_codec.HCodec(cfg), wav, feat, seed=seed))
     ssl_vars = jax.device_get(random_variables(
         j_ssl.Wav2Vec2Model(ssl_cfg), np.zeros((1, 3200), np.float32),
-        seed=5))
+        seed=seed + 1))
     jtok = HCodecTokenizer(cfg, variables, ssl_cfg, ssl_vars)
+    x = jnp.asarray(_wav(seed - 4, length, cfg.sample_rate))
     emb, sem = jtok.codec.apply(
-        variables, jnp.asarray(_wav(0))[..., None],
-        jtok.extract_features(jnp.asarray(_wav(0))),
+        variables, x[..., None], jtok.extract_features(x),
         method=j_codec.HCodec._encode_latents)
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(seed + 2)
     for name, lat in (("quantizer", emb), ("semantic_quantizer", sem)):
         for layer in variables["codebook"][name].values():
             layer["embed"] = (float(np.std(lat)) * rng.standard_normal(
@@ -77,19 +89,26 @@ def models():
         cfg, variables, ssl_cfg, ssl_vars)
 
 
+@pytest.fixture(scope="module")
+def models():
+    return seeded_models(small10(), L)
+
+
 def port_tokenizer(cfg, variables, ssl_cfg, ssl_vars):
+    export = (t_convert.hcodec10_state_dict if cfg.version == "1.0"
+              else t_convert.hcodec20_state_dict)
     codec = t_codec.HCodec(t_codec.HCodecConfig(**dataclasses.asdict(cfg)))
-    codec.load_state_dict(to_torch(t_convert.hcodec10_inference_keys(
-        t_convert.hcodec10_state_dict(variables, cfg))))
+    codec.load_state_dict(to_torch(t_convert.hcodec_inference_keys(
+        export(variables, cfg))))
     ssl = t_ssl.Wav2Vec2Model(t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg)))
     ssl.load_state_dict(to_torch(t_convert.hubert_state_dict(ssl_vars,
                                                              ssl_cfg)))
     return THCodecTokenizer(codec, ssl)
 
 
-def _wav(seed, n=L):
+def _wav(seed, n=L, sr=16000):
     rng = np.random.default_rng(seed)
-    t = np.arange(n) / 16000.0
+    t = np.arange(n) / sr
     x = 0.4 * np.sin(2 * np.pi * 180 * t) + 0.1 * rng.standard_normal(n)
     return x[None].astype(np.float32)
 
@@ -245,8 +264,8 @@ class TestRoundTrip:
         layout of ``hcodec10_state_dict`` (semantic decoder and EMA keys
         included, which the loader drops)."""
         cfg, ssl_cfg, variables, _, jtok, _ = models
-        monkeypatch.setattr(cli, "_build_hcodec10", functools.partial(
-            cli._build_hcodec10, cfg=t_codec.HCodecConfig(
+        monkeypatch.setattr(cli, "_build_hcodec", functools.partial(
+            cli._build_hcodec, cfg=t_codec.HCodecConfig(
                 **dataclasses.asdict(cfg)),
             ssl_cfg=t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg))))
         n = L - 300
@@ -269,12 +288,127 @@ class TestRoundTrip:
 
 
 @pytest.mark.parametrize("build", [
-    lambda: t_codec.HCodec(t_codec.HCodecConfig(version="2.0")),
+    lambda: t_codec.HCodec(t_codec.HCodecConfig(version="2.0", causal=True)),
     lambda: t_codec.HCodec(t_codec.HCodecConfig(causal=True)),
     lambda: t_codec.Transformer(64, 128, 1, 1, use_moe=True)])
 def test_parts_not_ported_raise(build):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build()
+
+
+L20 = 3840 * 4  # 4 tokens at 12.5 Hz, 48 kHz
+
+
+@pytest.fixture(scope="module")
+def models20():
+    return seeded_models(small20(), L20)
+
+
+class TestHCodec20:
+    def test_codec_encoder20(self, models20):
+        """The STFT encoder (log |S| and angle / pi of an uncentered STFT,
+        the (480, 480)-padded wav) at the JAX package's values."""
+        cfg, _, variables, _, _, tok = models20
+        x = _wav(20, L20, 48000)
+        want = j_codec.CodecEncoder20(
+            dim=cfg.encoder_dim, intermediate_dim=cfg.encoder_intermediate_dim,
+            dimension=cfg.latent_dim, n_fft=cfg.n_fft,
+            hop_length=cfg.istft_hop,
+            convnext_layers=cfg.encoder_convnext_layers).apply(
+                {"params": variables["params"]["encoder"]}, x)
+        with torch.no_grad():
+            got = tok.codec.encoder(torch.as_tensor(x))
+        assert got.shape == (1, 4, cfg.latent_dim)
+        _close(got, want)
+
+    def test_codec_decoder20(self, models20):
+        """Repeat-interleave x4 on time, the prior net, the ConvNeXt stack
+        and the ISTFT head (n_fft 1920, hop 960)."""
+        cfg, _, variables, _, _, tok = models20
+        x = np.random.default_rng(21).standard_normal(
+            (1, 4, 2 * cfg.latent_dim)).astype(np.float32)
+        want = j_codec.CodecDecoder20(
+            dim=cfg.decoder_dim, intermediate_dim=cfg.decoder_intermediate_dim,
+            convnext_layers=cfg.decoder_convnext_layers, n_fft=cfg.n_fft,
+            hop_length=cfg.istft_hop).apply(
+                {"params": variables["params"]["decoder"]}, x)
+        with torch.no_grad():
+            got = tok.codec.decoder(torch.as_tensor(x))
+        assert got.shape == (1, L20)
+        _close(got, want)
+
+    def test_strided_constant_pad_conv(self):
+        """The 2.0 encoder's out conv: kernel 9, stride 4, zeros (4, 4)."""
+        from unified_audio_tpu.nn.conv import CausalConv1d as JConv
+        from unified_audio_tpu_torch.nn.conv import CausalConv1d as TConv
+
+        rng = np.random.default_rng(22)
+        x = rng.standard_normal((2, 16, 6)).astype(np.float32)
+        kernel = rng.standard_normal((9, 6, 5)).astype(np.float32)
+        bias = rng.standard_normal(5).astype(np.float32)
+        want = JConv(5, 9, stride=4).apply(
+            {"params": {"kernel": kernel, "bias": bias}}, x)
+        port = TConv(6, 5, 9, stride=4)
+        port.load_state_dict({
+            "conv.weight": torch.as_tensor(kernel.transpose(2, 1, 0).copy()),
+            "conv.bias": torch.as_tensor(bias)})
+        with torch.no_grad():
+            got = port(torch.as_tensor(x))
+        assert got.shape == (2, 4, 5)
+        _close(got, want)
+
+    def test_roundtrip_48k_codes_exact(self, models20):
+        """48 kHz in, HuBERT on the resampled 16 kHz audio (L / 960 frames),
+        hop 3840: codes equal the JAX package's, the waveform within 1e-4
+        of its peak."""
+        cfg, _, _, _, jtok, tok = models20
+        wav = _wav(23, L20 - 1000, 48000)  # padded to the hop inside
+        jac, jsem = jtok.tokenize(jnp.asarray(wav))
+        ac, sem = tok.tokenize(torch.as_tensor(wav))
+        assert ac.shape == sem.shape == (1, cfg.num_quantizers, 4)
+        np.testing.assert_array_equal(ac.numpy(), np.asarray(jac))
+        np.testing.assert_array_equal(sem.numpy(), np.asarray(jsem))
+        assert len(np.unique(np.asarray(jac))) > 3, "degenerate codes"
+        feats = tok.extract_features(tok.pad_wav(torch.as_tensor(wav)))
+        assert feats.shape[1] == L20 // 960
+        want = np.asarray(jtok.detokenize(jac, jsem))
+        got = tok.detokenize(ac, sem).numpy()
+        assert got.shape == want.shape == (1, L20)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+    def test_cli_codec_hcodec20_end_to_end(self, models20, tmp_path,
+                                           monkeypatch):
+        """``main(["codec", "--model", "hcodec20", ..., "--device", "cpu"])``
+        at the tiny config on a 44.1 kHz wav: resampled to 48 kHz (said on
+        stderr), 4 codes for the 0.25 s (the input is padded to the hop), a
+        finite 48 kHz wav of the padded length out; then again from a
+        checkpoint in the layout of ``hcodec20_state_dict`` (loaded
+        strictly), which changes the output."""
+        cfg, ssl_cfg, variables = models20[:3]
+        monkeypatch.setattr(cli, "_build_hcodec", functools.partial(
+            cli._build_hcodec, cfg=t_codec.HCodecConfig(
+                **dataclasses.asdict(cfg)),
+            ssl_cfg=t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg))))
+        n_in = 11025  # 0.25 s at 44.1 kHz -> 12,000 samples at 48 kHz
+        write_wav(tmp_path / "in.wav", _wav(24, n_in, 44100)[0], 44100)
+        ckpt = tmp_path / "hcodec20.pt"
+        torch.save(to_torch(t_convert.hcodec20_state_dict(variables, cfg)),
+                   ckpt)
+        codes = []
+        monkeypatch.setattr(cli, "write_wav", lambda *a: codes.append(a))
+        for extra in ([], ["--ckpt", str(ckpt)]):
+            summary = cli.main(["codec", "--model", "hcodec20", "--input",
+                                str(tmp_path / "in.wav"), "--output",
+                                str(tmp_path / "out.wav"), "--device", "cpu",
+                                *extra])
+            assert summary["acoustic_shape"] == [1, cfg.num_quantizers, 4]
+            assert summary["tokens_per_sec"] == round(4 / 0.25, 2)
+            path, rec, fs = codes[-1]
+            assert fs == 48000 and rec.shape == (L20,)
+            assert np.isfinite(rec).all()
+        x = cli._prepare_wav(read_wav(tmp_path / "in.wav")[0], 44100, 48000)
+        assert x.shape == (1, 12000)
+        assert not np.allclose(codes[0][1], codes[1][1])
 
 
 class TestUniTokPipeline:

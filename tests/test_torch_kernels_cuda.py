@@ -7,18 +7,20 @@ the tiled K1/K7 at the edges of their tiles, at a 4096-entry table and
 at blocks of 100 and 800 tokens, K4
 with masked blocks, the three call to call bit for bit, and three broken
 copies of the source shown to fail) and the VQ nearest-code K5/K6 (the
-cluster-split kernel of ``csrc/vq.cu``) at the HCodec-1.0 shapes, with
-exact ties across codebook chunks, N below the cluster size, D from 16 to
-``vq.MAX_DIM``, rows of NaN, the layers' codebooks by pointer, the
-wrappers' refusals and three broken copies of the source shown to fail.
-Needs a CUDA card; imports no JAX, so it also runs on a machine without
-it:
+cluster-split kernel of ``csrc/vq.cu``) at the HCodec-1.0 shapes and K6
+at HCodec-2.0's 16 layers, with exact ties across codebook chunks, N below
+the cluster size, D from 16 to ``vq.MAX_DIM``, rows of NaN, the layers'
+codebooks by pointer, the wrappers' refusals and three broken copies of the
+source shown to fail; and HCodec-2.0's ``resample`` and ``stft`` (cuDNN,
+cuFFT) against the same functions on the CPU. Needs a CUDA card; imports
+no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
 import pytest
 import torch
 
+from unified_audio_tpu_torch.ops import dsp
 from unified_audio_tpu_torch.ops.cuda import build
 
 from unified_audio_tpu_torch.ops.cuda import paged_attention as t_pa
@@ -526,6 +528,57 @@ class TestKernelsOnCard:
         share, worst, ok = vq.judge_codes(y, cbs2,
                                           vq.rvq_encode_fused(y, cbs2))
         assert share >= 0.999 and ok, (share, worst)
+
+    @pytest.mark.parametrize("m,rows", [(125, 16), (1184, 32)])
+    def test_vq_sixteen_layers_match_plain(self, card, m, rows):
+        """K6 at HCodec-2.0's shapes: nq = 16 = ``MAX_LAYERS`` (every
+        codebook slot of a launch in use), N = 1024, D = 512, M = 125 (one
+        10-s clip at 12.5 Hz, 16 rows a cluster) and 1184 (32 clips of 3 s,
+        32 rows), under ``judge_codes``, one launch a call; a 17th layer
+        is refused before any launch."""
+        x, cbs = vq.random_case(m, nq=vq.MAX_LAYERS, device=card, seed=m)
+        assert vq.plan(m, vq.active_clusters(512, 16)) == rows
+        before = vq.rvq_encode_fused.launches
+        codes = vq.rvq_encode_fused(x, cbs)
+        torch.cuda.synchronize()
+        assert codes.shape == (m, 16)
+        assert vq.rvq_encode_fused.launches == before + 1
+        share, worst, ok = vq.judge_codes(x, cbs, codes)
+        assert share >= 0.999 and ok, (share, worst)
+        with pytest.raises(ValueError, match="1 to 16"):
+            vq.rvq_encode_fused(x, list(cbs) + [cbs[0]])
+        assert vq.rvq_encode_fused.launches == before + 1
+
+    @pytest.mark.parametrize("orig,new", [(48000, 16000), (44100, 16000),
+                                          (16000, 48000)])
+    def test_resample_on_card_matches_cpu(self, card, orig, new,
+                                          monkeypatch):
+        """The polyphase convolution through cuDNN (TF32 off, as the CLI
+        runs it) within 1e-5 of the CPU's, on a length the ratio does not
+        divide."""
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+        g = torch.Generator().manual_seed(orig + new)
+        x = torch.randn(2, 2 * orig + 7, generator=g)
+        got = dsp.resample(x.to(card), orig, new)
+        want = dsp.resample(x, orig, new)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+    def test_stft_on_card_matches_cpu(self, card):
+        """HCodec-2.0's STFT (n_fft 1920, hop 960, uncentered) through
+        cuFFT against the CPU's on 64 frames of noise with a negative mean:
+        bins within 1e-5 of the peak; at DC and Nyquist the imaginary part
+        +0.0 and the phase (0 or pi) equal exactly."""
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(2, 1920 * 32 + 960, generator=g) - 0.5
+        got = dsp.stft(x.to(card), 1920, 960).cpu()
+        want = dsp.stft(x, 1920, 960)
+        assert got.shape == want.shape == (2, 961, 64)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        for k in (0, -1):
+            assert not torch.signbit(got[:, k].imag).any()
+            assert torch.equal(got[:, k].angle(), want[:, k].angle())
+        assert (want[:, 0].real < 0).any()
 
     def test_vq_takes_layers_by_pointer(self, card):
         """K6 over nq separately allocated codebooks (no stacked copy, as

@@ -108,7 +108,7 @@ def test_cli_serve_bf16_end_to_end(stacks, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("line", [
-    {"task": "ss", "mix": "MIX", "output": "o.wav"},
+    {"task": "ss", "mix": "missing.wav", "output": "o.wav"},
     {"task": "tse", "mix": "MIX", "output": "o.wav"},
     {"task": "se", "mix": "missing.wav", "output": "o.wav"},
     {"task": "xx", "mix": "MIX", "output": "o.wav"}])
@@ -136,7 +136,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path, monkeypatch,
     write_wav(tmp_path / "mix.wav", np.zeros(1600, np.float32), 16000)
     built = []
     monkeypatch.setattr(cli, "_build_unise", lambda **kw: built.append(kw))
-    monkeypatch.setattr(cli, "_build_hcodec10", lambda **kw: built.append(kw))
+    monkeypatch.setattr(cli, "_build_hcodec",
+                        lambda *a, **kw: built.append(kw))
     argv = (["serve", "--requests", str(_write_requests(tmp_path, [
         {"task": "se", "mix": str(tmp_path / "mix.wav"),
          "output": str(tmp_path / "o.wav")}]))] if cmd == "serve" else

@@ -3,24 +3,32 @@
     python -m unified_audio_tpu_torch.cli serve --requests R.jsonl \
         [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0] \
         [--device cuda|cpu]
-    python -m unified_audio_tpu_torch.cli codec --model hcodec10 \
+    python -m unified_audio_tpu_torch.cli codec --model hcodec10|hcodec20 \
         --input X.wav --output Y.wav [--ckpt SD.pt] [--seed 0] \
         [--device cuda|cpu]
 
-``serve`` ports ``cmd_serve`` in ``unified_audio_tpu/cli.py`` for the tasks
-se, tse and rtse: a JSONL request file streams through the paged-KV engine.
-Each line: {"uid": int, "task": "se"|"tse"|"rtse", "mix": "path.wav",
-"enroll": "path.wav" (tse/rtse), "output": "out.wav",
-"temperature"/"top_k"/"top_p"/"do_sample" optional}. The separation cascade
-(task "ss") is not ported yet and is rejected. The stack runs at full UniSE
-width: the LM in bf16, the WavLM frontend and the BiCodec decoder in fp32.
-Weights are random unless ``--ckpt`` gives an LM state dict.
+``serve`` ports ``cmd_serve`` in ``unified_audio_tpu/cli.py``: a JSONL
+request file streams through the paged-KV engine. Each line: {"uid": int,
+"task": "se"|"tse"|"rtse"|"ss", "mix": "path.wav", "enroll": "path.wav"
+(tse/rtse), "output": "out.wav", "temperature"/"top_k"/"top_p"/"do_sample"
+optional}. An "ss" line runs the separation cascade (``serve/cascade.py``):
+its SE phase rides the first engine run with the other lines, and it writes
+``<output stem>_s1.wav`` and ``<output stem>_s2.wav``. The stack runs at
+full UniSE width: the LM in bf16, the WavLM frontend and the BiCodec decoder
+in fp32. Weights are random unless ``--ckpt`` gives an LM state dict.
 
-``codec`` ports ``cmd_codec`` for ``--model hcodec10``: a 16 kHz wav goes
-through the HCodec-1.0 tokenize -> detokenize round trip at full width in
-fp32 (HuBERT-base frontend), and the command prints the JAX package's JSON
-line. Weights are random from ``--seed`` unless ``--ckpt`` gives a codec
-state dict in the layout of ``utils/convert.py hcodec10_state_dict``.
+``codec`` ports ``cmd_codec`` for ``--model hcodec10`` (16 kHz, 25 Hz
+codes) and ``hcodec20`` (48 kHz, 12.5 Hz codes): the wav goes through the
+tokenize -> detokenize round trip at full width in fp32 (HuBERT-base
+frontend), and the command prints the JAX package's JSON line, its
+``tokens_per_sec`` the codes per second of audio of one quantizer layer.
+Weights are random from ``--seed`` unless ``--ckpt`` gives a codec state
+dict in the layout of ``utils/convert.py hcodec10_state_dict`` or
+``hcodec20_state_dict``.
+
+Input wavs at another rate are resampled to the model's (16 kHz for
+``serve`` and hcodec10, 48 kHz for hcodec20) on the device, and the command
+says so on stderr.
 
 Both run on the CUDA card and exit with an error without one, unless
 ``--device cpu`` asks for the CPU. fp32 means fp32 on the card: TF32 is off
@@ -39,8 +47,9 @@ import torch
 
 from .data.audio_io import read_wav, write_wav
 
-TARGET_SR = 16000  # UniSE and HCodec-1.0 operate on 16 kHz mono
+TARGET_SR = 16000  # UniSE operates on 16 kHz mono
 TASK_MAP = {"se": 0, "tse": 1, "rtse": 2}
+SS_UID = 10_000_000  # uid of the first cascade (regular lines count from 0)
 WEIGHT_SEED = 3407  # random weights (no checkpoint given)
 
 
@@ -92,15 +101,20 @@ def _build_unise(ckpt=None, device="cpu"):
     return UniSE(cfg, BiCodecTokenizer(bicodec), wavlm, sft)
 
 
-def _prepare_wav(wav: np.ndarray, fs: int) -> np.ndarray:
-    """(channels, T) -> (1, T) mono float32 at 16 kHz."""
+def _prepare_wav(wav: np.ndarray, fs: int, sr: int = TARGET_SR,
+                 device="cpu") -> np.ndarray:
+    """(channels, T) at ``fs`` -> (1, T') mono float32 at ``sr``, resampled
+    on ``device``."""
+    from .ops.dsp import resample
+
     if wav.ndim == 1:
         wav = wav[None]
     if wav.shape[0] > 1:
         wav = wav.mean(axis=0, keepdims=True)
-    if fs != TARGET_SR:
-        sys.exit(f"error: input is {fs} Hz; the port takes {TARGET_SR} Hz "
-                 "audio (resampling is not ported yet)")
+    if fs != sr:
+        wav = resample(torch.as_tensor(wav, dtype=torch.float32,
+                                       device=device), fs, sr).cpu().numpy()
+        print(f"resampled {fs} Hz -> {sr} Hz", file=sys.stderr)
     return wav.astype(np.float32)
 
 
@@ -113,10 +127,7 @@ def _read_requests(path):
         sys.exit("error: no requests")
     for l in lines:
         task = l.get("task", "se")
-        if task == "ss":
-            sys.exit("error: task 'ss' (the separation cascade) is not "
-                     "ported to the PyTorch package yet; use se, tse or rtse")
-        if task not in TASK_MAP:
+        if task not in TASK_MAP and task != "ss":
             sys.exit(f"error: unknown task {task!r}")
         if not Path(l["mix"]).exists():
             sys.exit(f"error: mix wav not found: {l['mix']}")
@@ -144,7 +155,9 @@ def make_engine(unise, slots: int = 16, kv_quant=None, **engine_kw):
 def serve(requests_path, unise, slots: int = 16, kv_quant=None,
           seed: int = 0, lm_dtype=torch.bfloat16) -> dict:
     """Serve a JSONL request file with ``unise``'s LM cast to ``lm_dtype``;
-    writes each line's output wav and returns the run summary."""
+    writes each line's output wav (an "ss" line's two) and returns the run
+    summary."""
+    from .serve.cascade import SSCascadeRunner
     from .serve.engine import Request
 
     t_start = time.perf_counter()
@@ -153,20 +166,32 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
     cfg = unise.config
     seg = cfg.segment_len
     sem_len = unise._semantic_len()
+    eng = make_engine(unise, slots, kv_quant)
+    runner = SSCascadeRunner(eng, unise)
+
+    def sampling(l):
+        return dict(temperature=l.get("temperature", 0.8),
+                    top_k=l.get("top_k", 50), top_p=l.get("top_p", 0.95),
+                    do_sample=l.get("do_sample", True))
 
     # one Request per 5-s segment, each line peak-normalized; the mix and
     # the enrollment (cut to one segment) ride as waveforms and the engine
-    # runs the WavLM frontend on the device at admission
-    reqs, meta = [], {}
+    # runs the WavLM frontend on the device at admission. An "ss" line
+    # becomes a cascade, its features made on the device up front.
+    reqs, meta, cascades = [], {}, {}
     for l in lines:
         wav, fs = read_wav(l["mix"])
-        wav = _prepare_wav(wav, fs)
+        wav = _prepare_wav(wav, fs, device=eng.device)
+        if l.get("task", "se") == "ss":
+            cascades[l["output"]] = runner.make(
+                wav, uid=SS_UID + len(cascades), **sampling(l))
+            continue
         segs, orig_len = unise._segment(wav)
         segs = segs / (np.abs(wav).max() or 1.0)
         enroll_wav = None
         if l.get("enroll"):
             e, efs = read_wav(l["enroll"])
-            e = _prepare_wav(e, efs)[:, :seg]
+            e = _prepare_wav(e, efs, device=eng.device)[:, :seg]
             enroll_wav = (e / (np.abs(e).max() or 1.0))[0]
         uids = []
         for i in range(segs.shape[0]):
@@ -174,26 +199,36 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
             reqs.append(Request(
                 task_id=TASK_MAP[l.get("task", "se")], mix_wav=segs[i],
                 enroll_wav=enroll_wav, global_length=cfg.global_tokens,
-                semantic_length=sem_len,
-                temperature=l.get("temperature", 0.8),
-                top_k=l.get("top_k", 50), top_p=l.get("top_p", 0.95),
-                do_sample=l.get("do_sample", True), uid=uid))
+                semantic_length=sem_len, uid=uid, **sampling(l)))
             uids.append(uid)
         meta[l["output"]] = (uids, orig_len)
 
-    eng = make_engine(unise, slots, kv_quant)
     gen = torch.Generator(device=eng.device).manual_seed(seed)
     t0 = time.perf_counter()
-    results = eng.run(reqs, gen)
+    if cascades:
+        separated, results = runner.run(list(cascades.values()), gen,
+                                        extra=reqs)
+    else:
+        results = eng.run(reqs, gen)
     engine_s = time.perf_counter() - t0
 
     for out_path, (uids, orig_len) in meta.items():
         g = np.stack([results[u].global_ids for u in uids])
         s = np.stack([results[u].semantic_ids for u in uids])
         write_wav(out_path, unise._decode_tokens(g, s, orig_len), TARGET_SR)
-    summary = {"requests": len(lines), "segments": len(reqs),
-               "outputs": list(meta), "engine_stats": eng.stats(),
-               "engine_s": engine_s,
+    outputs = list(meta)
+    for out_path, r in cascades.items():
+        out = Path(out_path)
+        for name, wav in zip(("_s1", "_s2"),
+                             runner.assemble(r, separated[r.uid])):
+            outputs.append(str(out.with_name(out.stem + name + ".wav")))
+            write_wav(outputs[-1], wav, TARGET_SR)
+    summary = {"requests": len(lines),
+               # engine requests: a cascade's SE, TSE and rTSE segments
+               "segments": len(reqs) + sum(1 + 2 * len(r.seg_feats)
+                                           for r in cascades.values()),
+               "cascades": len(cascades), "outputs": outputs,
+               "engine_stats": eng.stats(), "engine_s": engine_s,
                "wall_s": time.perf_counter() - t_start,
                "device": str(eng.device)}
     print(json.dumps(summary))
@@ -207,57 +242,68 @@ def cmd_serve(args):
                  kv_quant=args.kv_quant, seed=args.seed)
 
 
-def _build_hcodec10(ckpt=None, seed: int = 0, device="cpu", cfg=None,
-                    ssl_cfg=None):
-    """HCodec-1.0 (``cfg``, default the shipped config) with a HuBERT
-    frontend (``ssl_cfg``, default HuBERT-base) on ``device``, fp32, TF32
-    off. Random weights from ``seed`` through an explicit generator, with a
-    loud warning; ``ckpt`` replaces the codec's weights (the HuBERT
-    frontend stays random)."""
-    from .models.hcodec.codec import HCodec, hcodec10_config
+HCODEC_NAMES = {"hcodec10": "HCodec-1.0", "hcodec20": "HCodec-2.0"}
+
+
+def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
+                  device="cpu", cfg=None, ssl_cfg=None):
+    """HCodec-1.0 or -2.0 (``model``; ``cfg`` defaults to its shipped
+    config) with a HuBERT frontend (``ssl_cfg``, default HuBERT-base) on
+    ``device``, fp32, TF32 off. Random weights from ``seed`` through an
+    explicit generator, with a loud warning; ``ckpt`` replaces the codec's
+    weights with a state dict in the layout of ``utils/convert.py``
+    (``hcodec10_state_dict`` / ``hcodec20_state_dict``), loaded strictly
+    (the HuBERT frontend stays random)."""
+    from .models.hcodec.codec import HCodec, hcodec10_config, hcodec20_config
     from .models.hcodec.tokenizer import HCodecTokenizer
     from .models.ssl.wav2vec2 import Wav2Vec2Model, hubert_base_config
-    from .utils.convert import hcodec10_inference_keys
+    from .utils.convert import hcodec_inference_keys
     from .utils.initialization import init_random_
 
     _fp32_without_tf32()
+    name = HCODEC_NAMES[model]
+    cfg = cfg or (hcodec20_config() if model == "hcodec20"
+                  else hcodec10_config())
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
-        codec = HCodec(cfg or hcodec10_config())
+        codec = HCodec(cfg)
         ssl = Wav2Vec2Model(ssl_cfg or hubert_base_config())
     for module in (codec, ssl):
         init_random_(module, gen)
     if ckpt:
         blob = torch.load(ckpt, map_location=device, weights_only=True)
-        codec.load_state_dict(hcodec10_inference_keys(
+        codec.load_state_dict(hcodec_inference_keys(
             blob.get("state_dict", blob)))
-        print(f"loaded HCodec-1.0 state dict {ckpt} (the HuBERT frontend "
+        print(f"loaded {name} state dict {ckpt} (the HuBERT frontend "
               "stays random)", file=sys.stderr)
     else:
-        print("WARNING: no --ckpt given: HCodec-1.0 and HuBERT are RANDOMLY "
+        print(f"WARNING: no --ckpt given: {name} and HuBERT are RANDOMLY "
               "initialized and the reconstruction is not meaningful "
               "(smoke/benchmark use only)", file=sys.stderr)
     return HCodecTokenizer(codec, ssl)
 
 
 def cmd_codec(args):
-    """tokenize -> detokenize one wav; prints and returns the JSON line of
-    the JAX package's ``cmd_codec``."""
+    """tokenize -> detokenize one wav at the codec's rate; prints and
+    returns the JSON line of the JAX package's ``cmd_codec``."""
     if not Path(args.input).exists():
         sys.exit(f"error: input file not found: {args.input}")
     if args.ckpt and not Path(args.ckpt).exists():
         sys.exit(f"error: checkpoint not found: {args.ckpt}")
     device = _device(args.device)
+    tok = _build_hcodec(args.model, ckpt=args.ckpt, seed=args.seed,
+                        device=device)
+    sr = tok.config.sample_rate
     wav, fs = read_wav(args.input)
-    wav = _prepare_wav(wav, fs)
-    tok = _build_hcodec10(ckpt=args.ckpt, seed=args.seed, device=device)
+    wav = _prepare_wav(wav, fs, sr, device)
     acoustic, semantic = tok.tokenize(torch.as_tensor(wav, device=device))
     rec = tok.detokenize(acoustic, semantic)[0].cpu().numpy()
-    write_wav(args.output, rec, TARGET_SR)
+    write_wav(args.output, rec, sr)
     summary = {"model": args.model,
-               # codes per second of audio per quantizer layer (25 Hz)
+               # codes per second of audio per quantizer layer (25 Hz for
+               # hcodec10, 12.5 Hz for hcodec20)
                "tokens_per_sec": round(acoustic.shape[-1]
-                                       / (wav.shape[-1] / TARGET_SR), 2),
+                                       / (wav.shape[-1] / sr), 2),
                "acoustic_shape": list(acoustic.shape),
                "out": str(args.output)}
     print(json.dumps(summary))
@@ -282,14 +328,17 @@ def main(argv=None):
     t.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     t.set_defaults(fn=cmd_serve)
     c = sub.add_parser("codec")
-    c.add_argument("--model", choices=["hcodec10"], default="hcodec10",
-                   help="HCodec-1.0 (hcodec15, hcodec20 and flexicodec are "
-                        "not ported yet)")
-    c.add_argument("--input", required=True, help="16 kHz wav")
+    c.add_argument("--model", choices=list(HCODEC_NAMES),
+                   default="hcodec10",
+                   help="HCodec-1.0 (16 kHz) or HCodec-2.0 (48 kHz); "
+                        "hcodec15 and flexicodec are not ported yet")
+    c.add_argument("--input", required=True,
+                   help="wav, resampled to the codec's rate if need be")
     c.add_argument("--output", required=True)
     c.add_argument("--ckpt", default=None,
                    help="codec state dict (.pt) in the layout that "
-                        "utils/convert.py hcodec10_state_dict writes")
+                        "utils/convert.py hcodec10_state_dict or "
+                        "hcodec20_state_dict writes")
     c.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights (no --ckpt)")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

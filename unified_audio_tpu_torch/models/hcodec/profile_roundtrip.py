@@ -1,17 +1,18 @@
-"""Where the HCodec-1.0 round trip's time goes, on one CUDA card.
+"""Where an HCodec round trip's time goes, on one CUDA card.
 
     python -m unified_audio_tpu_torch.models.hcodec.profile_roundtrip \
-        [--out PROFILE.json] [--clips 1]
+        [--model hcodec10|hcodec20] [--out PROFILE.json] [--clips 1]
 
-Builds HCodec-1.0 with the HuBERT-base frontend as ``cli codec`` does (full
-width, fp32, TF32 off, random weights from seed 0) and, for ``--clips``
-10-s 16 kHz clips of unit-normal noise in one batch (bench.py's input),
-measures:
+Builds HCodec-1.0 or 2.0 (``--model``) with the HuBERT-base frontend as
+``cli codec`` does (full width, fp32, TF32 off, random weights from seed 0)
+and, for ``--clips`` 10-s clips of unit-normal noise at the codec's rate
+(16 or 48 kHz) in one batch (bench.py's input), measures:
 
 * the round trip (tokenize + detokenize), synchronized wall time over 10
   runs after a warm-up, and the rtfx (audio seconds over the median);
-* each stage alone, median of 5: HuBERT features, the two encoders, the
-  two RVQ encodes (K6), the decoder with the ISTFT head;
+* each stage alone, median of 5: HuBERT features (with the resampling to
+  16 kHz for 2.0), the two encoders, the two RVQ encodes (K6), the decoder
+  with the ISTFT head;
 * three round trips under ``torch.profiler``: device kernel time per round
   trip, the device-busy share of the unprofiled round trip, kernel launches
   per round trip, and the kernels by device time.
@@ -32,7 +33,6 @@ import torch
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 CLIP_S = 10.0
-SR = 16000
 PROFILED = 3  # round trips under the profiler
 
 
@@ -49,6 +49,8 @@ def _median_ms(fn, runs):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="profile_roundtrip")
+    p.add_argument("--model", choices=["hcodec10", "hcodec20"],
+                   default="hcodec10")
     p.add_argument("--out", default=None, help="write the results as JSON")
     p.add_argument("--clips", type=int, default=1)
     args = p.parse_args(argv)
@@ -56,12 +58,13 @@ def main(argv=None):
         sys.exit("profile_roundtrip: needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from ...cli import _build_hcodec10
+    from ...cli import _build_hcodec
 
-    tok = _build_hcodec10(device="cuda")
+    tok = _build_hcodec(args.model, device="cuda")
     codec = tok.codec
     wav = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (args.clips, int(CLIP_S * SR))).astype(np.float32), device="cuda")
+        (args.clips, int(CLIP_S * tok.config.sample_rate))).astype(
+            np.float32), device="cuda")
     results = []
 
     def emit(rec):
@@ -73,7 +76,8 @@ def main(argv=None):
 
     first_ms, _ = _median_ms(roundtrip, 1)
     wall_ms, times = _median_ms(roundtrip, 10)
-    emit({"phase": "roundtrip", "clips": args.clips, "first_ms": first_ms,
+    emit({"phase": "roundtrip", "model": args.model, "clips": args.clips,
+          "first_ms": first_ms,
           "median_ms": wall_ms, "min_ms": min(times), "max_ms": max(times),
           "rtfx": args.clips * CLIP_S / (wall_ms / 1e3),
           "device": torch.cuda.get_device_name(0)})
@@ -85,7 +89,8 @@ def main(argv=None):
             sem)
         stages = {
             "hubert_features": lambda: tok.extract_features(wav),
-            "seanet_encoder": lambda: codec.encoder(wav[..., None]),
+            "acoustic_encoder": lambda: codec.encoder(
+                wav[..., None] if codec.config.version == "1.0" else wav),
             "semantic_encoder": lambda: codec.semantic_encoder(feats),
             "rvq_encode_x2": lambda: (codec.quantizer.encode(emb),
                                       codec.semantic_quantizer.encode(sem)),

@@ -1,11 +1,11 @@
 """HCodecTokenizer: the tokenize/detokenize API over the HuBERT frontend and
-HCodec-1.0.
+HCodec-1.0 or 2.0.
 
-Port of ``unified_audio_tpu/models/hcodec/tokenizer.py`` for 16 kHz audio in
-fp32: the input is zero-padded to a multiple of the hop, the HuBERT features
-come from that input padded by (160, 160), and codes cross the API as
-(B, nq, T'). Resampling (HCodec-2.0's 48 kHz) and the bf16 serving mode are
-not ported yet.
+Port of ``unified_audio_tpu/models/hcodec/tokenizer.py`` in fp32: the input,
+at the codec's rate (16 or 48 kHz), is zero-padded to a multiple of the hop
+(640 or 3840), HuBERT runs on its 16 kHz version (resampled on the device
+for a 48 kHz codec) padded by (160, 160), and codes cross the API as
+(B, nq, T'). The bf16 serving mode is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,15 +13,15 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ...ops.dsp import resample
 from ..ssl.wav2vec2 import Wav2Vec2Model, hubert_features
 from .codec import HCodec
+
+SSL_RATE = 16000  # HuBERT's input rate
 
 
 class HCodecTokenizer:
     def __init__(self, codec: HCodec, ssl: Wav2Vec2Model):
-        if codec.config.sample_rate != 16000:
-            raise NotImplementedError("resampling is not ported yet: the "
-                                      "port's HCodec runs 16 kHz models")
         self.codec, self.ssl = codec.eval(), ssl.eval()
         self.config = codec.config
         self.hop_length = self.config.hop_length
@@ -36,7 +36,9 @@ class HCodecTokenizer:
 
     @torch.no_grad()
     def extract_features(self, wav):
-        """(B, T) -> (B, T / 320, 768) HuBERT features."""
+        """(B, T) at the codec's rate -> (B, T16 / 320, 768) HuBERT features
+        of its 16 kHz version (T16 samples)."""
+        wav = resample(wav, self.config.sample_rate, SSL_RATE)
         return hubert_features(self.ssl(F.pad(wav, (160, 160))))
 
     @torch.no_grad()

@@ -3,8 +3,9 @@
 Port of ``unified_audio_tpu/models/unise/model.py``: ``UniSEConfig``,
 ``_segment`` (wrap-pad to 5-s segments), ``_semantic_len``, the WavLM
 feature path (the wav padded by 160 samples on each side, all-layer mean),
-``_decode_tokens`` and the offline ``enhance_se`` / ``enhance_tse`` flows
-over ``LLMSFT.generate``. The SS cascade is not ported yet.
+``_decode_tokens`` and the offline ``enhance_se`` / ``enhance_tse`` /
+``separate_ss`` flows over ``LLMSFT.generate``. ``serve/cascade.py`` serves
+the SS cascade through the engine.
 """
 from __future__ import annotations
 
@@ -116,3 +117,21 @@ class UniSE:
             global_length=self.config.global_tokens,
             semantic_length=self._semantic_len(), do_sample=do_sample)
         return self._decode_tokens(g, s, t)
+
+    def separate_ss(self, wav: np.ndarray,
+                    generator: Optional[torch.Generator] = None,
+                    do_sample: bool = False):
+        """SS cascade: SE on the first segment (wrap-padded to one segment)
+        builds an enrollment, cut to one segment and scaled to a peak of
+        0.99; then TSE extracts s1 and rTSE s2 over every segment.
+        -> (s1, s2), each (T,)."""
+        seg = self.config.segment_len
+        first = np.asarray(wav)[:, :seg]
+        if first.shape[-1] < seg:
+            first = np.pad(first, [(0, 0), (0, seg - first.shape[-1])],
+                           mode="wrap")
+        enroll = self.enhance_se(first, generator, do_sample)[None, :seg]
+        enroll = enroll / (np.max(np.abs(enroll)) + 1e-5) * 0.99
+        s1 = self.enhance_tse(wav, enroll, generator, do_sample, task="tse")
+        s2 = self.enhance_tse(wav, enroll, generator, do_sample, task="rtse")
+        return s1, s2

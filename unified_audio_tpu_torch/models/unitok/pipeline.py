@@ -35,14 +35,14 @@ class UniTokPipeline:
         (default HuBERT-base) and a UniTok LM (default ``UniTokConfig`` over
         the codec's codebooks), all fp32 on ``device`` with random weights
         from ``seed``. Runs on the card unless ``device="cpu"``."""
-        from ...cli import _build_hcodec10
+        from ...cli import _build_hcodec
         from ...utils.initialization import init_random_
 
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; UniTokPipeline "
                                "runs on an NVIDIA card unless device='cpu'")
-        tok = _build_hcodec10(seed=seed, device=device, cfg=codec_config,
-                              ssl_cfg=ssl_config)
+        tok = _build_hcodec("hcodec10", seed=seed, device=device,
+                            cfg=codec_config, ssl_cfg=ssl_config)
         cfg = lm_config or UniTokConfig(
             codebook_size=tok.config.codebook_size,
             num_quantizers=tok.config.num_quantizers)

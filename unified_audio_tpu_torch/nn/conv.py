@@ -147,20 +147,22 @@ class SConv1d(nn.Module):
 
 
 class CausalConv1d(nn.Module):
-    """HCodec constant-pad conv: odd kernel, stride 1; zeros (K - 1, 0) when
+    """HCodec constant-pad conv: odd kernel; zeros (K - stride, 0) when
     causal, else (K // 2, K // 2). Weight at ``conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 causal: bool = False):
+                 causal: bool = False, stride: int = 1):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError(f"kernel_size must be odd, got {kernel_size}")
-        self.pads = ((kernel_size - 1, 0) if causal
+        self.stride = stride
+        self.pads = ((kernel_size - stride, 0) if causal
                      else (kernel_size // 2, kernel_size // 2))
         self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=0)
 
     def forward(self, x):
-        return conv1d(x, self.conv.weight, self.conv.bias, padding=self.pads)
+        return conv1d(x, self.conv.weight, self.conv.bias, self.stride,
+                      padding=self.pads)
 
 
 class SubPixelConvTranspose1d(nn.Module):

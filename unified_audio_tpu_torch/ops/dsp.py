@@ -1,24 +1,56 @@
-"""Signal ops of the HCodec decode side: the periodic Hann window,
-overlap-add and the "same"-padded ISTFT.
+"""Signal ops of HCodec and of the CLI's input preparation: the periodic
+Hann window, framing, the STFT, overlap-add, the "same"-padded ISTFT and
+windowed-sinc resampling.
 
-Port of ``hann_window``, ``overlap_add`` and ``istft_same`` in
+Port of ``hann_window``, ``frame``, ``stft``, ``overlap_add``,
+``istft_same``, ``_resample_kernel`` and ``resample`` in
 ``unified_audio_tpu/ops/dsp.py``, in fp32 with the same arithmetic order
-(overlap-add as r = L / hop shifted adds, in the JAX package's order). The
-STFT, the mel filterbanks and ``resample`` serve tokenize sides that the
-port does not run yet.
+(overlap-add as r = L / hop shifted adds, in the JAX package's order; the
+resampling lowpass as one strided convolution of the same polyphase
+table, which this module computes with its own numpy copy of the JAX
+package's formula). The mel filterbanks serve tokenize sides that the port
+does not run yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.nn import functional as F
 
 
 def hann_window(win_length: int, device=None) -> torch.Tensor:
     """Periodic Hann window, fp32: 0.5 - 0.5 cos(2 pi n / N)."""
     n = torch.arange(win_length, dtype=torch.float32, device=device)
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / win_length)
+
+
+def frame(x: torch.Tensor, frame_length: int, hop_length: int):
+    """(..., T) -> (..., 1 + (T - frame_length) // hop, frame_length)
+    overlapping frames (views of ``x``); T >= frame_length."""
+    return x.unfold(-1, frame_length, hop_length)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int):
+    """Complex STFT of (..., T) -> (..., n_fft // 2 + 1, 1 + (T - n_fft) //
+    hop), onesided, unnormalized, uncentered (the JAX package's ``stft``
+    with ``center=False``, as HCodec-2.0's encoder calls it), periodic
+    Hann window of n_fft.
+
+    A real signal's DC and Nyquist bins have an imaginary part of exactly
+    zero, and its sign decides ``angle`` where the real part is negative
+    (+pi or -pi). The sign is pinned to +0.0, what the JAX package's rfft
+    gives on the CPU, whatever FFT library computed the spectrum."""
+    spec = torch.fft.rfft(frame(x, n_fft, hop_length)
+                          * hann_window(n_fft, x.device), n=n_fft, dim=-1)
+    parts = torch.view_as_real(spec)  # a view: writes go to ``spec``
+    parts[..., 0, 1] = 0.0
+    if n_fft % 2 == 0:
+        parts[..., -1, 1] = 0.0
+    return spec.transpose(-1, -2)
 
 
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
@@ -52,3 +84,48 @@ def istft_same(spec: torch.Tensor, n_fft: int, hop_length: int,
     envelope = overlap_add((window * window)[None, :].expand(t, win_length),
                            hop_length)
     return y[..., pad:-pad] / envelope[pad:-pad].clamp(min=eps)
+
+
+LOWPASS_FILTER_WIDTH = 6  # zero crossings of the sinc on each side
+ROLLOFF = 0.99  # lowpass cutoff as a share of the lower Nyquist rate
+
+
+@functools.lru_cache(maxsize=16)
+def _resample_kernel(orig_freq: int, new_freq: int):
+    """The polyphase windowed-sinc table of ``orig_freq`` -> ``new_freq``
+    (torchaudio's ``sinc_interp_hann``), computed in fp64 on the host ->
+    (kernels (n, 2 width + o) fp32, width, o, n) with o and n the rates
+    divided by their gcd."""
+    gcd = math.gcd(orig_freq, new_freq)
+    orig_freq, new_freq = orig_freq // gcd, new_freq // gcd
+    base_freq = min(orig_freq, new_freq) * ROLLOFF
+    width = math.ceil(LOWPASS_FILTER_WIDTH * orig_freq / base_freq)
+    idx = np.arange(-width, width + orig_freq,
+                    dtype=np.float64)[None] / orig_freq
+    t = np.arange(0, -new_freq, -1, dtype=np.float64)[:, None] / new_freq \
+        + idx
+    t = np.clip(t * base_freq, -LOWPASS_FILTER_WIDTH, LOWPASS_FILTER_WIDTH)
+    window = np.cos(t * np.pi / LOWPASS_FILTER_WIDTH / 2) ** 2
+    t = t * np.pi
+    scale = base_freq / orig_freq
+    kernels = np.where(t == 0, 1.0, np.sin(t) / np.where(t == 0, 1.0, t))
+    kernels = kernels * window * scale
+    return kernels.astype(np.float32), width, orig_freq, new_freq
+
+
+def resample(x: torch.Tensor, orig_freq: int, new_freq: int):
+    """Polyphase windowed-sinc resampling of (..., T) -> (..., ceil(new T /
+    orig)), on ``x``'s device: the lowpass is one convolution of stride o
+    over ``x`` zero-padded by (width, width + o), one output channel per
+    phase (torchaudio.functional.resample semantics, the JAX package's
+    defaults)."""
+    if orig_freq == new_freq:
+        return x
+    kernels, width, o, n = _resample_kernel(orig_freq, new_freq)
+    shape, t = x.shape, x.shape[-1]
+    x2 = F.pad(x.reshape(-1, 1, t).float(), (width, width + o))
+    weight = torch.as_tensor(kernels, device=x.device)[:, None]
+    y = F.conv1d(x2, weight, stride=o)  # (B, n, T // o + 1)
+    y = y.transpose(1, 2).reshape(x2.shape[0], -1)
+    target = math.ceil(n * t / o)
+    return y[:, :target].reshape(*shape[:-1], target)

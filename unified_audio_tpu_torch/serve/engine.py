@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -50,12 +50,13 @@ MAX_TOP_K = 256  # the widest per-request top_k (one static topk per step)
 
 @dataclass
 class Request:
-    """One serving request: the mix as SSL features (``mix_feats`` (T, D))
-    or as a 16 kHz waveform (``mix_wav`` (N,), engines built with
+    """One serving request: the mix as SSL features (``mix_feats`` (T, D),
+    a numpy array or a tensor on the engine's device, taken as it is) or as
+    a 16 kHz waveform (``mix_wav`` (N,), engines built with
     ``feature_fn``); an optional enrollment the same way."""
     task_id: int
-    mix_feats: Optional[np.ndarray] = None
-    enroll_feats: Optional[np.ndarray] = None
+    mix_feats: Optional[Union[np.ndarray, torch.Tensor]] = None
+    enroll_feats: Optional[Union[np.ndarray, torch.Tensor]] = None
     mix_wav: Optional[np.ndarray] = None
     enroll_wav: Optional[np.ndarray] = None
     global_length: int = 32
@@ -195,6 +196,10 @@ class ContinuousBatchingEngine:
                              "mix_feats")
         if req.enroll_wav is not None and req.enroll_feats is not None:
             raise ValueError("request has both enroll_wav and enroll_feats")
+        for feats in (req.mix_feats, req.enroll_feats):
+            if torch.is_tensor(feats) and feats.device != self.device:
+                raise ValueError(f"feature tensor on {feats.device}, the "
+                                 f"engine on {self.device}")
         if (req.mix_wav is not None or req.enroll_wav is not None) \
                 and self.feature_fn is None:
             raise ValueError("waveform request needs an engine built with "
@@ -232,7 +237,7 @@ class ContinuousBatchingEngine:
             feats = getattr(r, f"{kind}_feats")
             if wav is not None:
                 by_len.setdefault(wav.shape[-1], []).append(i)
-            elif feats is not None:
+            elif feats is not None:  # a device tensor is copied on the card
                 out[i, :feats.shape[0]] = torch.as_tensor(
                     feats, device=self.device).to(self.kv_dtype)
         for rows in by_len.values():

@@ -17,10 +17,12 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
   ``BiCodec`` variables -> the reference layout, key for key what
   ``utils/convert_bicodec.py export_bicodec_state_dict`` writes for those
   modules (weight norm folded).
-* :func:`hcodec10_state_dict`: ``HCodec`` (1.0) variables -> the reference
-  layout, key for key what ``utils/convert_hcodec.py
-  export_hcodec10_state_dict`` writes (codebooks from the ``codebook``
-  collection).
+* :func:`hcodec10_state_dict` and :func:`hcodec20_state_dict`: ``HCodec``
+  (1.0, 2.0) variables -> the reference layout, key for key what
+  ``utils/convert_hcodec.py export_hcodec10_state_dict`` and
+  ``export_hcodec20_state_dict`` write (codebooks from the ``codebook``
+  collection); :func:`hcodec_inference_keys` keeps the keys the port's
+  ``HCodec`` loads.
 
 ``nn.scan``-stacked layers are unstacked by indexing their leading axis.
 """
@@ -342,23 +344,17 @@ def _resnet_block(p, prefix: str, out: StateDict):
         _hconv(p[conv], f"{prefix}.{conv}", out)
 
 
-def _codec_decoder10(p, prefix: str, out: StateDict):
-    emb = p["embed"]
-    out[f"{prefix}.embed.up.weight"] = _a(emb["up_kernel"]).transpose(2, 1, 0)
-    out[f"{prefix}.embed.up.bias"] = _a(emb["up_bias"])
-    out[f"{prefix}.embed.dw.weight"] = _a(emb["dw_kernel"]).transpose(2, 1, 0)
-    out[f"{prefix}.embed.dw.bias"] = _a(emb["bias"])
-    pn = p["prior_net"]
+def _prior_net(pn, prefix: str, out: StateDict):
     for ours, theirs in (("res0", 0), ("res1", 1), ("res2", 5), ("res3", 6)):
-        _resnet_block(pn[ours], f"{prefix}.prior_net.{theirs}", out)
-    _hybrid_transformer(pn["transformer"], f"{prefix}.prior_net.3", out)
-    _layernorm(pn["norm_out"], f"{prefix}.prior_net.7", out)
-    _layernorm(p["norm"], f"{prefix}.norm", out)
-    _layernorm(p["final_layer_norm"], f"{prefix}.final_layer_norm", out)
-    _linear(p["head"]["out"], f"{prefix}.head.out", out)
-    stacked = p["post_net"]["stack"]["block"]
+        _resnet_block(pn[ours], f"{prefix}.{theirs}", out)
+    _hybrid_transformer(pn["transformer"], f"{prefix}.3", out)
+    _layernorm(pn["norm_out"], f"{prefix}.7", out)
+
+
+def _convnext_stack(p, prefix: str, out: StateDict):
+    stacked = p["stack"]["block"]
     for i in range(_a(stacked["gamma"]).shape[0]):
-        block, bp = _index(stacked, i), f"{prefix}.post_net.{i}"
+        block, bp = _index(stacked, i), f"{prefix}.{i}"
         _hconv(block["dwconv"], f"{bp}.dwconv", out)
         _layernorm(block["norm"], f"{bp}.norm", out)
         _linear(block["pwconv1"], f"{bp}.pwconv1.linear", out)
@@ -366,10 +362,38 @@ def _codec_decoder10(p, prefix: str, out: StateDict):
         out[f"{bp}.gamma"] = _a(block["gamma"])
 
 
+def _decoder_tail(p, prefix: str, out: StateDict):
+    """The decoders' prior net, LayerNorms, ConvNeXt stack and ISTFT head
+    (1.0 and 2.0 alike)."""
+    _prior_net(p["prior_net"], f"{prefix}.prior_net", out)
+    _layernorm(p["norm"], f"{prefix}.norm", out)
+    _layernorm(p["final_layer_norm"], f"{prefix}.final_layer_norm", out)
+    _linear(p["head"]["out"], f"{prefix}.head.out", out)
+    _convnext_stack(p["post_net"], f"{prefix}.post_net", out)
+
+
+def _codec_decoder10(p, prefix: str, out: StateDict):
+    emb = p["embed"]
+    out[f"{prefix}.embed.up.weight"] = _a(emb["up_kernel"]).transpose(2, 1, 0)
+    out[f"{prefix}.embed.up.bias"] = _a(emb["up_bias"])
+    out[f"{prefix}.embed.dw.weight"] = _a(emb["dw_kernel"]).transpose(2, 1, 0)
+    out[f"{prefix}.embed.dw.bias"] = _a(emb["bias"])
+    _decoder_tail(p, prefix, out)
+
+
+def _codec_streams(variables, cfg, out: StateDict):
+    """Both streams' codebooks and the semantic encoder and decoder."""
+    for name in ("quantizer", "semantic_quantizer"):
+        _rvq(variables["codebook"][name], name, out)
+    for name in ("semantic_encoder", "semantic_decoder"):
+        _semantic_branch(variables["params"][name], name,
+                         cfg.semantic_strides, out)
+
+
 def hcodec10_state_dict(variables, cfg) -> StateDict:
     """HCodec-1.0 variables ({"params", "codebook"}) -> the reference
     layout. The port's ``HCodec`` loads it with ``strict=True`` after
-    :func:`hcodec10_inference_keys` drops what inference does not use."""
+    :func:`hcodec_inference_keys` drops what inference does not use."""
     p, out = variables["params"], {}
     enc = p["encoder"]
     _sconv(enc["conv_in"], "encoder.model.0", out)
@@ -383,15 +407,31 @@ def hcodec10_state_dict(variables, cfg) -> StateDict:
     _hybrid_transformer(enc["transformer"], f"encoder.model.{2 + 3 * n}",
                         out)
     _sconv(enc["conv_out"], f"encoder.model.{5 + 3 * n}", out)
-    for name in ("quantizer", "semantic_quantizer"):
-        _rvq(variables["codebook"][name], name, out)
-    for name in ("semantic_encoder", "semantic_decoder"):
-        _semantic_branch(p[name], name, cfg.semantic_strides, out)
+    _codec_streams(variables, cfg, out)
     _codec_decoder10(p["decoder"], "decoder", out)
     return out
 
 
-def hcodec10_inference_keys(sd: StateDict) -> StateDict:
+def hcodec20_state_dict(variables, cfg) -> StateDict:
+    """HCodec-2.0 variables ({"params", "codebook"}) -> the reference
+    layout (the encoder's transformer at ``encoder.post_net.1``). The
+    port's ``HCodec`` loads it with ``strict=True`` after
+    :func:`hcodec_inference_keys` drops what inference does not use."""
+    p, out = variables["params"], {}
+    enc = p["encoder"]
+    _hconv(enc["embed"], "encoder.embed", out)
+    _layernorm(enc["norm"], "encoder.norm", out)
+    _convnext_stack(enc["prior_net"], "encoder.prior_net", out)
+    _hybrid_transformer(enc["post_net"], "encoder.post_net.1", out)
+    _layernorm(enc["final_layer_norm"], "encoder.final_layer_norm", out)
+    _hconv(enc["out"], "encoder.out", out)
+    _hconv(p["decoder"]["embed"], "decoder.embed", out)
+    _decoder_tail(p["decoder"], "decoder", out)
+    _codec_streams(variables, cfg, out)
+    return out
+
+
+def hcodec_inference_keys(sd: StateDict) -> StateDict:
     """Drop the keys inference does not load: the semantic decoder (the
     training target) and the codebooks' EMA statistics."""
     drop = (".embed_avg", ".cluster_size", ".initted")
