@@ -121,11 +121,35 @@ prints no result. Phases, each fatal on failure:
    layer). (c) Teacher-forced fp32 decode through K3 (fp32 pool) and K4
    (int8 pool) against the plain attention: max |logit difference| within
    1e-4. Prints UniTok codes per second of engine wall time.
-7. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+7. UniSE SFT training at full width through ``cli train-unise`` (the LM
+   512 x 12, 8 heads of 64; XLSR-53, 24 x 1024, and WavLM-base-plus
+   frozen; the BiCodec encoder and speaker encoder; batch 32 x 5 s; fp32,
+   TF32 off). Synthetic SCP lists (4 speakers x 3 utterances of 6 s of
+   ``synth_speech``, a noise, an RIR) feed the host simulation; the config
+   is ``configs/unise.yaml`` with the SCP paths, 30 steps
+   (``samples_per_epoch``) of one epoch, a 5-step warmup, validation on
+   the same lists every 15 steps (2 batches) and the checkpoint directory
+   changed (printed). Checks: every step's loss finite, the validation
+   loss lower at step 30 than at 15, a checkpoint at step 30. Prints the
+   median step wall time over steps 5-30, training tokens/s (32 x 283
+   targets a step), the device time of the frozen tokenize + features,
+   the LM's forward + backward and the update (CUDA events), the host's
+   wait between steps, the card's busy share over profiled step 20 and
+   the peak memory allocated. Then one TSE batch of 2 x 5 s from a seed
+   through the trained stack on the card and on a CPU copy: tokens equal
+   in >= 99.9% of places, the loss within 1e-4 relative, each LM gradient
+   within 1e-3 of its largest entry. A second ``train-unise`` on the same
+   checkpoint directory must say it resumed at step 30 and run its first
+   step at the schedule's rate for step 30. Last, ``cli serve --ckpt`` on
+   the step-30 checkpoint with the int8 pool: a 10-s TSE line (2
+   segments), K2 launched 12 times a decode step, a finite output of the
+   input's length.
+8. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
-above, each kernel's time, its plain version's and its bound; K6's
+above, each kernel's time, its plain version's and its bound; K2's
+launches are phase 3's, and phase 7 prints its own serve's; K6's
 launches are both codecs' round trips and its ``nq16`` entry the times at
 HCodec-2.0's shapes; K7's launches are those of the serving paths, 0, and
 the smoke's own check calls are printed on the line before), and as its
@@ -1247,6 +1271,289 @@ def unitok_phase(torch, cli, pa, paged, tok, unise, gpu, tally):
     return k3, k4
 
 
+# ---------------------------------------------------------------------------
+# UniSE SFT training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 30  # steps of the training run (batch 32 x 5 s)
+RESUME_STEPS = 3  # steps of the resumed run
+TIMED_FROM = 5  # the median step time is over steps TIMED_FROM..TRAIN_STEPS
+PROFILED_STEP = 20  # the step traced for the device's busy share
+BATCH = 32
+
+
+def write_train_data(tmp, rng, write_wav):
+    """Synthetic SCP lists: 4 speakers x 3 utterances of 6 s (speech-like
+    tones), a 12-s noise and a 0.4-s exponentially decaying RIR."""
+    lines = []
+    for spk in range(4):
+        for u in range(3):
+            path = tmp / f"spk{spk}_{u}.wav"
+            write_wav(path, (0.5 * synth_speech(rng, 6 * SR)).astype(
+                np.float32), SR)
+            lines.append(f"spk{spk}_u{u} spk{spk} {path}")
+    (tmp / "speech.scp").write_text("\n".join(lines) + "\n")
+    noise = np.cumsum(rng.standard_normal(12 * SR)) * 0.01
+    noise -= np.convolve(noise, np.ones(400) / 400, mode="same")
+    write_wav(tmp / "noise.wav", (0.3 * noise / np.abs(noise).max()).astype(
+        np.float32), SR)
+    (tmp / "noise.scp").write_text(f"n0 {SR} 0 {12 * SR} {tmp / 'noise.wav'}\n")
+    n = int(0.4 * SR)
+    rir = rng.standard_normal(n) * np.exp(-np.arange(n) / (0.05 * SR))
+    rir[0] = 1.0
+    write_wav(tmp / "rir.wav", (0.9 * rir / np.abs(rir).max()).astype(
+        np.float32), SR)
+    (tmp / "rir.scp").write_text(f"r0 {tmp / 'rir.wav'}\n")
+    return {k: [str(tmp / f"{k}.scp")] for k in ("speech", "noise", "rir")}
+
+
+def train_config(tmp, scps, steps, name):
+    """configs/unise.yaml with the SCP paths, the run's length, a 5-step
+    warmup, validation and the checkpoint directory changed (printed)."""
+    from unified_audio_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(REPO / "configs" / "unise.yaml")
+    changes = {f"dataset.{k}_scp": v for k, v in scps.items()}
+    changes.update({"dataset.samples_per_epoch": steps * BATCH,
+                    "max_epochs": 1, "opt.warmup_steps": 5,
+                    "val_every": 15, "val_batches": 2,
+                    "ckpt_dir": str(tmp / "ckpt")})
+    for key, value in changes.items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for k in parents:
+            node = node[k]
+        node[leaf] = value
+    cfg["val_dataset"] = dict(cfg["dataset"])
+    print(f"train config {name}: configs/unise.yaml with "
+          f"{json.dumps(changes)}, val_dataset = dataset", flush=True)
+    path = tmp / f"{name}.yaml"
+    path.write_text(json.dumps(cfg))  # JSON is YAML
+    return path
+
+
+class StepRecorder:
+    """Wraps the trainer's phases for one run: each step's loss, accuracy,
+    rate and wall time (``train_step`` ends in a host sync), the host's
+    wait between steps (the data and the logging), the device time of the
+    frozen inputs, the LM's forward + backward and the update (CUDA events),
+    and a torch.profiler trace of step ``profile_at``."""
+
+    def __init__(self, torch, trainer_cls, unise_cls, profile_at=None):
+        self.torch, self.profile_at = torch, profile_at
+        self.steps, self.trainer, self.targets = [], None, None
+        self._last_end = None
+        self._events = {}
+        outer = self
+        train_step = trainer_cls.train_step
+        phases = [(unise_cls, "frozen_inputs"),
+                  (trainer_cls, "loss_backward"), (trainer_cls, "update")]
+
+        def timed(name, fn):
+            def wrapper(*args, **kw):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args, **kw)
+                b.record()
+                outer._events[name] = (a, b)
+                if name == "frozen_inputs":  # G + T + 2 targets a segment
+                    outer.targets = out[2].shape[1] + out[3].shape[1] + 2
+                return out
+            return wrapper
+
+        def step(trainer, task, *args):
+            outer.trainer = trainer
+            start = time.perf_counter()
+            wait = (None if outer._last_end is None
+                    else start - outer._last_end)
+            lr = trainer.optimizer.lr
+            prof = None
+            if trainer.step + 1 == outer.profile_at:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            loss, acc = train_step(trainer, task, *args)
+            end = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                outer.busy = busy_share(torch, prof, end - start)
+            outer.steps.append(dict(
+                step=trainer.step, task=task, loss=loss, acc=acc, lr=lr,
+                wall_s=end - start, wait_s=wait,
+                **{f"{k}_ms": a.elapsed_time(b)
+                   for k, (a, b) in outer._events.items()}))
+            outer._last_end = end
+            return loss, acc
+
+        self.patches = [(trainer_cls, "train_step", step)] + [
+            (cls, name, timed(name, getattr(cls, name)))
+            for cls, name in phases]
+
+
+def busy_share(torch, prof, wall_s):
+    """-> (the share of ``wall_s`` in which the card ran a kernel or a
+    copy, the device records' count): the union of their intervals."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy * 1e-6 / wall_s, len(spans)
+
+
+def train_phase(torch, cli, pa, gpu, tmp, write_wav, read_wav):
+    """Phase 7: UniSE's SFT training through ``cli train-unise`` at full
+    width on the card; the card against the CPU on one batch; a resume; the
+    step-30 checkpoint served through K2."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    from unified_audio_tpu_torch.models.unise.model import UniSE
+    from unified_audio_tpu_torch.train.optim import warmup_exp_decay_schedule
+    from unified_audio_tpu_torch.train.sft_trainer import SFTTrainer
+
+    rng = np.random.default_rng(9)
+    scps = write_train_data(tmp, rng, write_wav)
+    rec = StepRecorder(torch, SFTTrainer, UniSE, profile_at=PROFILED_STEP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(rec.patches):
+        trainer = cli.main(["train-unise", "--config", str(train_config(
+            tmp, scps, TRAIN_STEPS, "train"))])
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = rec.steps
+    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
+        fail(f"trained steps {[r['step'] for r in steps]}")
+    losses = [r["loss"] for r in steps]
+    if not np.isfinite(losses).all():
+        fail(f"a training loss is not finite: {losses}")
+    ckpt_dir = tmp / "ckpt"
+    records = [json.loads(l) for l in
+               (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+    val = {r["step"]: r["valid_loss"] for r in records if "valid_loss" in r}
+    if sorted(val) != [15, 30] or not val[30] < val[15]:
+        fail(f"validation loss {val}: it must fall from step 15 to step 30")
+    ckpt30 = ckpt_dir / "step_00000030.pt"
+    if not ckpt30.exists():
+        fail("no checkpoint at step 30")
+    timed_steps = [r for r in steps if r["step"] >= TIMED_FROM]
+    step_ms = 1e3 * float(np.median([r["wall_s"] for r in timed_steps]))
+    print(f"train-unise: {TRAIN_STEPS} steps of {BATCH} x 5 s at full width "
+          f"(LM 512 x 12, XLSR-53 24 x 1024, WavLM-base-plus, BiCodec "
+          f"encoder and speaker encoder; fp32, TF32 off) in {run_s:.1f} s; "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite (by "
+          f"step: {[round(x, 2) for x in losses]}); tasks "
+          f"{dict(Counter(r['task'] for r in steps))}; validation loss "
+          f"{val[15]:.4f} at step 15 -> {val[30]:.4f} at step 30 | {gpu}",
+          flush=True)
+    parts = {k: float(np.median([r[f"{k}_ms"] for r in timed_steps]))
+             for k in ("frozen_inputs", "loss_backward", "update")}
+    wait_ms = 1e3 * float(np.median([r["wait_s"] for r in timed_steps]))
+    busy, n_records = rec.busy
+    print(f"train step (median of steps {TIMED_FROM}-{TRAIN_STEPS}): wall "
+          f"{step_ms:.1f} ms = {BATCH * rec.targets / step_ms * 1e3:.0f} "
+          f"training tokens/s ({BATCH} x {rec.targets} targets a step); "
+          f"device "
+          f"time: tokenize + features (frozen) "
+          f"{parts['frozen_inputs']:.1f} ms, LM forward + backward "
+          f"{parts['loss_backward']:.1f} ms, optimizer {parts['update']:.1f} "
+          f"ms; host data wait between steps {wait_ms:.1f} ms; device busy "
+          f"{100 * busy:.1f}% of profiled step {PROFILED_STEP} "
+          f"({n_records} CUDA records); peak memory allocated "
+          f"{peak_gb:.2f} GB | {gpu}", flush=True)
+
+    agreement(torch, cli, trainer, gpu)
+
+    # resume: a few more steps on the same ckpt_dir
+    rec2 = StepRecorder(torch, SFTTrainer, UniSE)
+    err = io.StringIO()
+    with patched(rec2.patches), contextlib.redirect_stderr(err):
+        resumed = cli.main(["train-unise", "--config", str(train_config(
+            tmp, scps, RESUME_STEPS, "resume"))])
+    sys.stderr.write(err.getvalue())
+    want_lr = warmup_exp_decay_schedule(warmup_steps=5)(TRAIN_STEPS)
+    first = rec2.steps[0]
+    if "resumed from step 30" not in err.getvalue() or first["step"] != 31 \
+            or first["lr"] != want_lr or resumed.step != 33:
+        fail(f"resume: first step {first['step']} at lr {first['lr']}, "
+             f"schedule(30) = {want_lr}; stderr {err.getvalue()!r}")
+    print(f"resumed at step 30: steps 31-{resumed.step}, first lr "
+          f"{first['lr']:.9g} = schedule(30), losses "
+          f"{[round(r['loss'], 4) for r in rec2.steps]}", flush=True)
+    del trainer, resumed
+    torch.cuda.empty_cache()
+
+    # the step-30 checkpoint served through K2
+    path, lines = write_requests(tmp, rng, write_wav,
+                                 [("tse", 10.0, False)], "trained")
+    pa.paged_flash_decode_owner_q8.launches = 0
+    summary = cli.main(["serve", "--requests", str(path), "--kv-quant",
+                        "int8", "--ckpt", str(ckpt30)])
+    k2 = pa.paged_flash_decode_owner_q8.launches
+    out, fs = read_wav(lines[0]["output"])
+    st = summary["engine_stats"]
+    if summary["segments"] != 2 or k2 < L * st["decode_steps"] or \
+            out.shape != (1, 10 * SR) or not np.isfinite(out).all():
+        fail(f"serving the trained checkpoint: {summary['segments']} "
+             f"segments, K2 launches {k2}, output {out.shape}")
+    print(f"serve --ckpt step 30 --kv-quant int8: 2 segments, "
+          f"{st['decode_steps']} decode steps, K2 launches {k2}, output "
+          f"{out.shape} finite | {gpu}", flush=True)
+
+
+def agreement(torch, cli, trainer, gpu):
+    """One TSE batch of 2 segments from a seed through the trained stack
+    on the card and a CPU copy of it: tokens equal in >= 99.9% of places,
+    the loss within 1e-4 relative, each LM gradient within 1e-3 of its
+    largest entry."""
+    from unified_audio_tpu_torch.train.sft_trainer import SFTTrainer
+
+    gpu_u = trainer.unise
+    cpu_u = cli._build_unise(device="cpu", tokenize=True)
+    for name in ("sft", "wavlm"):
+        getattr(cpu_u, name).load_state_dict(getattr(gpu_u, name).state_dict())
+    cpu_u.tokenizer.model.load_state_dict(gpu_u.tokenizer.model.state_dict())
+    cpu_u.tokenizer.ssl.load_state_dict(gpu_u.tokenizer.ssl.state_dict())
+    rng = np.random.default_rng(11)
+    wavs = [np.stack([0.5 * synth_speech(rng, 5 * SR) + 0.05 *
+                      rng.standard_normal(5 * SR) for _ in range(2)]).astype(
+        np.float32) for _ in range(3)]
+    out = []
+    for u in (gpu_u, cpu_u):
+        t = SFTTrainer(u)
+        dev = t.device()
+        frozen = u.frozen_inputs(*(torch.as_tensor(w, device=dev)
+                                   for w in wavs))
+        loss, _ = t.loss_backward("tse", frozen)
+        out.append((frozen[2].cpu(), frozen[3].cpu(), loss.item(),
+                    {k: p.grad.cpu() for k, p in u.sft.named_parameters()}))
+        u.sft.zero_grad()
+    (gg, gs, gl, ggrad), (cg, cs, cl, cgrad) = out
+    same = torch.cat([(gg == cg).flatten(), (gs == cs).flatten()])
+    share = same.float().mean().item()
+    rel = abs(gl - cl) / abs(cl)
+    grad_err = max(((ggrad[k] - g).abs().max() / g.abs().max()).item()
+                   for k, g in cgrad.items())
+    print(f"card vs CPU, one TSE batch of 2 x 5 s through the trained stack: "
+          f"tokens equal {share:.5f} ({int(same.sum())} of {same.numel()}), "
+          f"loss {gl:.9g} vs {cl:.9g} (rel {rel:.2e}), LM gradients max "
+          f"|diff| / max |grad| {grad_err:.2e} | {gpu}", flush=True)
+    if share < 0.999 or rel > 1e-4 or grad_err > 1e-3:
+        fail("the card's training step disagrees with the CPU's")
+    del cpu_u
+
+
 def main():
     try:
         import torch
@@ -1412,7 +1719,11 @@ def main():
     k3_launches, k4_launches = unitok_phase(torch, cli, pa, paged, tok, unise,
                                             gpu, tally)
 
-    # 7. nothing of JAX or the JAX package was loaded
+    # 7. UniSE SFT training
+    with tempfile.TemporaryDirectory() as tmp:
+        train_phase(torch, cli, pa, gpu, Path(tmp), write_wav, read_wav)
+
+    # 8. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:

@@ -177,6 +177,96 @@ def port_bicodec(cfg, variables):
     return m.eval()
 
 
+def tiny_xlsr_config():
+    """XLSR-53's shape (a LayerNorm after every conv, conv biases, pre-LN
+    layers, the final encoder LayerNorm) at width 16, with 17 layers so
+    that layers 11, 14 and 16 are distinct."""
+    from unified_audio_tpu.models.ssl import wav2vec2 as ssl_mod
+
+    return ssl_mod.SSLConfig(
+        hidden_size=16, num_layers=17, num_heads=2, intermediate_size=32,
+        conv_dim=(16,) * 7, conv_bias=True, feat_extract_norm="layer",
+        do_stable_layer_norm=True, num_conv_pos_embeddings=16,
+        num_conv_pos_embedding_groups=4)
+
+
+def tiny_tokenizer_config():
+    """The tiny BiCodec over the 16-wide XLSR features."""
+    return dataclasses.replace(tiny_bicodec_config(), feat_dim=16)
+
+
+def bicodec_variables(cfg, seed=4):
+    """Random variables of the whole BiCodec (tokenize and detokenize),
+    BatchNorm statistics included: means small, variances in [0.5, 1.5]."""
+    from unified_audio_tpu.models.bicodec.bicodec import BiCodec
+
+    feat = np.zeros((1, 10, cfg.feat_dim), np.float32)
+    wav = np.zeros((1, cfg.latent_hop_length * 10), np.float32)
+    variables = random_variables(BiCodec(cfg), feat, wav, seed=seed,
+                                 out_gain=0.05)
+    rng = np.random.default_rng(seed + 100)
+
+    def stat(path, x):
+        if path[-1].key == "var":
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        return (0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+
+    variables["batch_stats"] = jax.tree_util.tree_map_with_path(
+        stat, variables["batch_stats"])
+    return variables
+
+
+def xlsr_variables(cfg, seed=5):
+    from unified_audio_tpu.models.ssl import wav2vec2 as ssl_mod
+
+    return random_variables(ssl_mod.Wav2Vec2Model(cfg),
+                            np.zeros((1, 3200), np.float32), seed=seed)
+
+
+def jax_tokenizer():
+    """A JAX BiCodecTokenizer of the tiny configs, with seeded weights."""
+    from unified_audio_tpu.models.bicodec.tokenizer import BiCodecTokenizer
+
+    cfg, ssl_cfg = tiny_tokenizer_config(), tiny_xlsr_config()
+    return BiCodecTokenizer(cfg, bicodec_variables(cfg), ssl_cfg,
+                            xlsr_variables(ssl_cfg))
+
+
+def port_tokenizer(tok):
+    """The port's tokenizing BiCodecTokenizer with ``tok``'s weights."""
+    from unified_audio_tpu_torch.models.bicodec import bicodec as t_bicodec
+    from unified_audio_tpu_torch.models.bicodec.tokenizer import (
+        BiCodecTokenizer)
+    from unified_audio_tpu_torch.models.ssl import wav2vec2 as t_ssl
+
+    m = t_bicodec.BiCodec(
+        t_bicodec.BiCodecConfig(**dataclasses.asdict(tok.config)),
+        tokenize=True)
+    m.load_state_dict(to_torch(t_convert.bicodec_state_dict(
+        jax.device_get(tok.variables), tok.config)))
+    ssl_cfg = tok.ssl.config
+    ssl = t_ssl.Wav2Vec2Model(t_ssl.SSLConfig(**dataclasses.asdict(ssl_cfg)))
+    ssl.load_state_dict(to_torch(t_convert.xlsr_state_dict(
+        jax.device_get(tok.ssl_variables), ssl_cfg)))
+    return BiCodecTokenizer(m, ssl).eval()
+
+
+def tiny_train_unise_jax():
+    """A tiny UniSE that can train: the tokenizing BiCodec over the tiny
+    XLSR, the tiny WavLM and LM of :func:`tiny_unise_jax`."""
+    from unified_audio_tpu.models.unise.model import UniSE, UniSEConfig
+
+    wavlm_cfg = tiny_wavlm_config()
+    cfg = UniSEConfig(
+        segment_seconds=0.4, feats_dim=24, global_tokens=4,
+        llm=LlamaConfig(global_size=64, semantic_size=64, hidden_size=32,
+                        num_layers=2, num_heads=4),
+    )
+    _, sft_vars = jax_sft(cfg.llm, cfg.feats_dim, seed=3)
+    return UniSE(cfg, jax_tokenizer(), wavlm_cfg,
+                 wavlm_variables(wavlm_cfg), sft_params=sft_vars)
+
+
 def port_unise(unise):
     """The port's UniSE (fp32, CPU) with the JAX UniSE's weights."""
     from unified_audio_tpu_torch.models.bicodec.tokenizer import (
@@ -187,19 +277,22 @@ def port_unise(unise):
     t_cfg = t_unise.UniSEConfig(
         **{**dataclasses.asdict(cfg), "llm": port_config(cfg.llm)})
     sft = port_sft(cfg.llm, jax.device_get(unise.sft_params), cfg.feats_dim)
+    tok = (port_tokenizer(unise.tokenizer)
+           if unise.tokenizer.ssl_variables is not None else
+           BiCodecTokenizer(port_bicodec(unise.tokenizer.config,
+                                         unise.tokenizer.variables)))
     return t_unise.UniSE(
-        t_cfg,
-        BiCodecTokenizer(port_bicodec(unise.tokenizer.config,
-                                      unise.tokenizer.variables)),
-        port_wavlm(unise.wavlm.config, unise.wavlm_variables), sft)
+        t_cfg, tok, port_wavlm(unise.wavlm.config, unise.wavlm_variables),
+        sft)
 
 
 class TestPortImportsNoJax:
     def test_cli_imports_without_jax(self):
         """With jax and flax made unimportable, the port's CLI (and through
         it the serving path, the SS cascade and the HCodec round trips), the
-        UniTok pipeline and engine and the step profiler still import, and
-        no module of the JAX package is loaded."""
+        UniTok pipeline and engine, the step profiler and the training
+        modules (trainer, checkpoints, data pipeline, config, logging) still
+        import, and no module of the JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
                 "import unified_audio_tpu_torch.cli, "
@@ -211,7 +304,12 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.serve.unitok_engine, "
                 "unified_audio_tpu_torch.serve.profile_step, "
                 "unified_audio_tpu_torch.utils.convert, "
-                "unified_audio_tpu_torch.utils.initialization; "
+                "unified_audio_tpu_torch.utils.initialization, "
+                "unified_audio_tpu_torch.train.sft_trainer, "
+                "unified_audio_tpu_torch.train.checkpoint, "
+                "unified_audio_tpu_torch.data.data_module, "
+                "unified_audio_tpu_torch.utils.config, "
+                "unified_audio_tpu_torch.utils.logging; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
                 "assert not shared, shared")

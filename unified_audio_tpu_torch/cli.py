@@ -1,11 +1,34 @@
-"""Command-line entry points of the port: ``serve`` and ``codec``.
+"""Command-line entry points of the port: ``train-unise``, ``serve`` and
+``codec``.
 
+    python -m unified_audio_tpu_torch.cli train-unise \
+        --config configs/unise.yaml [--ckpt LM.pt] [--bicodec-ckpt SD.pt] \
+        [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli serve --requests R.jsonl \
         [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0] \
         [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli codec --model hcodec10|hcodec20 \
         --input X.wav --output Y.wav [--ckpt SD.pt] [--seed 0] \
         [--device cuda|cpu]
+
+``train-unise`` ports ``cmd_train_unise`` in ``unified_audio_tpu/cli.py``:
+UniSE's SFT training of the LM at full width (512 x 12, 8 heads of 64),
+its data from the SCP lists of the config's ``dataset`` (simulated on the
+host). Each step tokenizes the target with the frozen BiCodec over
+XLSR-53 features (the interferer for "rtse"), extracts the frozen
+WavLM-base-plus features of the mix and the enrollment, and takes one
+clipped AdamW step on the teacher-forced LM loss under the reference
+schedule (the config's ``opt``). Every ``log_every`` steps a record goes to
+``metrics.jsonl`` in ``ckpt_dir`` (or the config's ``metrics_log``), every
+``val_every`` steps ``val_batches`` batches of the ``val_dataset`` are
+scored and a checkpoint written, and also every ``save_every`` steps; a
+run over ``max_epochs`` epochs resumes from the latest checkpoint in
+``ckpt_dir``, the optimizer's moments and the schedule included. A
+checkpoint's ``state_dict`` is the LM in the reference layout, what
+``serve --ckpt`` loads. ``--ckpt`` starts from an LM state dict;
+``--bicodec-ckpt`` loads BiCodec from a state dict in the reference layout
+(what ``export_bicodec_state_dict`` writes); XLSR-53 and WavLM are random
+from the seed.
 
 ``serve`` ports ``cmd_serve`` in ``unified_audio_tpu/cli.py``: a JSONL
 request file streams through the paged-KV engine. Each line: {"uid": int,
@@ -30,13 +53,14 @@ Input wavs at another rate are resampled to the model's (16 kHz for
 ``serve`` and hcodec10, 48 kHz for hcodec20) on the device, and the command
 says so on stderr.
 
-Both run on the CUDA card and exit with an error without one, unless
+All three run on the CUDA card and exit with an error without one, unless
 ``--device cpu`` asks for the CPU. fp32 means fp32 on the card: TF32 is off
-for matmuls and for cuDNN (convolutions and the LSTMs).
+for matmuls and for cuDNN (convolutions and the LSTMs), training included.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -67,38 +91,70 @@ def _device(name: str) -> str:
     return name
 
 
-def _build_unise(ckpt=None, device="cpu"):
+def load_lm(sft, ckpt, device="cpu"):
+    """Load an LM state dict in the reference layout into ``sft``: a raw
+    state dict, a checkpoint that holds one under "state_dict" (what
+    ``train-unise`` writes), keys prefixed "dnn." or not."""
+    blob = torch.load(ckpt, map_location=device, weights_only=True)
+    sd = blob.get("state_dict", blob)
+    sft.load_state_dict({k.replace("dnn.", ""): v for k, v in sd.items()})
+    print(f"loaded LM state dict {ckpt}", file=sys.stderr)
+
+
+def load_bicodec(bicodec, path, device="cpu"):
+    """Load a BiCodec state dict in the reference layout (what
+    ``export_bicodec_state_dict`` writes; the postnet and the codebook's
+    usage statistics, which the port does not build, are dropped) into a
+    tokenizing ``bicodec``."""
+    from .utils.convert import bicodec_tokenizer_keys
+
+    blob = torch.load(path, map_location=device, weights_only=True)
+    bicodec.load_state_dict(bicodec_tokenizer_keys(
+        blob.get("state_dict", blob)))
+    print(f"loaded BiCodec state dict {path} (XLSR-53 and WavLM stay "
+          "random)", file=sys.stderr)
+
+
+def _build_unise(ckpt=None, device="cpu", tokenize=False, bicodec_ckpt=None,
+                 seed=WEIGHT_SEED):
     """Full-size UniSE stack on ``device`` (all fp32; ``serve`` casts the
-    LM). Random weights from WEIGHT_SEED through an explicit generator, with
-    a loud warning, unless ``ckpt`` holds an LM state dict."""
+    LM). Random weights from ``seed`` through an explicit generator, with a
+    loud warning, unless ``ckpt`` holds an LM state dict. ``tokenize``
+    (training) also builds XLSR-53 and BiCodec's tokenize side, which
+    serving does not; ``bicodec_ckpt`` then loads BiCodec from a state dict
+    in the reference layout."""
     from .models.bicodec.bicodec import BiCodec, BiCodecConfig
     from .models.bicodec.tokenizer import BiCodecTokenizer
     from .models.lm.sft import LLMSFT
-    from .models.ssl.wav2vec2 import Wav2Vec2Model, wavlm_base_plus_config
+    from .models.ssl.wav2vec2 import (Wav2Vec2Model,
+                                      wav2vec2_large_xlsr53_config,
+                                      wavlm_base_plus_config)
     from .models.unise.model import UniSE, UniSEConfig
     from .utils.initialization import init_random_
 
     # fp32 means fp32: no TF32 in the frontend's and decoder's matmuls/convs
     _fp32_without_tf32()
     cfg = UniSEConfig()
-    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
         sft = LLMSFT(cfg.llm, num_tasks=len(TASK_MAP),
                      feats_dim=cfg.feats_dim)
         wavlm = Wav2Vec2Model(wavlm_base_plus_config())
-        bicodec = BiCodec(BiCodecConfig())
-    for module in (sft, wavlm, bicodec):
-        init_random_(module, gen).eval()
+        bicodec = BiCodec(BiCodecConfig(), tokenize=tokenize)
+        xlsr = (Wav2Vec2Model(wav2vec2_large_xlsr53_config()) if tokenize
+                else None)
+    for module in (sft, wavlm, bicodec, xlsr):
+        if module is not None:
+            init_random_(module, gen).eval()
+    if bicodec_ckpt:
+        load_bicodec(bicodec, bicodec_ckpt, device)
     if ckpt:
-        blob = torch.load(ckpt, map_location=device, weights_only=True)
-        sd = blob.get("state_dict", blob)
-        sft.load_state_dict({k.replace("dnn.", ""): v for k, v in sd.items()})
-        print(f"loaded LM state dict {ckpt}", file=sys.stderr)
+        load_lm(sft, ckpt, device)
     else:
         print("WARNING: no --ckpt given: UniSE is RANDOMLY initialized and "
               "the output is not meaningful (smoke/benchmark use only)",
               file=sys.stderr)
-    return UniSE(cfg, BiCodecTokenizer(bicodec), wavlm, sft)
+    return UniSE(cfg, BiCodecTokenizer(bicodec, xlsr), wavlm, sft)
 
 
 def _prepare_wav(wav: np.ndarray, fs: int, sr: int = TARGET_SR,
@@ -116,6 +172,62 @@ def _prepare_wav(wav: np.ndarray, fs: int, sr: int = TARGET_SR,
                                        device=device), fs, sr).cpu().numpy()
         print(f"resampled {fs} Hz -> {sr} Hz", file=sys.stderr)
     return wav.astype(np.float32)
+
+
+def cmd_train_unise(args):
+    """Train UniSE's LM as the config says (see the module docstring)."""
+    from .data.data_module import Prefetcher, TrainDataIterator
+    from .train.checkpoint import CheckpointManager
+    from .train.optim import Optimizer
+    from .train.sft_trainer import SFTTrainer, Validator
+    from .utils.config import load_yaml
+    from .utils.logging import MetricsLogger
+
+    for flag, path in (("--config", args.config), ("--ckpt", args.ckpt),
+                       ("--bicodec-ckpt", args.bicodec_ckpt)):
+        if path and not Path(path).exists():
+            sys.exit(f"error: {flag} file not found: {path}")
+    device = _device(args.device)
+    cfg = load_yaml(args.config)
+    unise = _build_unise(ckpt=args.ckpt, device=device, tokenize=True,
+                         bicodec_ckpt=args.bicodec_ckpt,
+                         seed=cfg.get("seed", WEIGHT_SEED))
+    trainer = SFTTrainer(unise, Optimizer(unise.sft.parameters(),
+                                          **cfg.get("opt", {})))
+    ckpt_dir = cfg.get("ckpt_dir", "./checkpoints")
+    ckpt = CheckpointManager(ckpt_dir)
+    last = ckpt.latest_step()
+    if last is not None:
+        trainer.load_state_dict(ckpt.restore(last, map_location=device))
+        print(f"resumed from step {last} at learning rate "
+              f"{trainer.optimizer.lr:.9g}", file=sys.stderr)
+
+    data = Prefetcher(TrainDataIterator(**cfg["dataset"]), device)
+    val_iter = (TrainDataIterator(**cfg["val_dataset"])
+                if "val_dataset" in cfg else None)
+    validator = Validator(unise) if val_iter is not None else None
+    val_every = cfg.get("val_every", 1000)
+    val_batches = cfg.get("val_batches", 16)
+    log_every = cfg.get("log_every", 10)
+    save_every = cfg.get("save_every", 1000)
+    log_path = cfg.get("metrics_log", str(Path(ckpt_dir) / "metrics.jsonl"))
+    with MetricsLogger(log_path) as mlog:
+        for epoch in range(cfg.get("max_epochs", 100)):
+            for mode, enroll, mix, speech, interf, *_ in data:
+                target = interf if mode == "rtse" else speech
+                lr = trainer.optimizer.lr
+                loss, acc = trainer.train_step(mode, enroll, mix, target)
+                if trainer.step % log_every == 0:
+                    mlog.log(trainer.step, epoch=epoch, task=mode,
+                             loss=loss, acc=acc, lr=lr)
+                if validator is not None and trainer.step % val_every == 0:
+                    batches = itertools.islice(
+                        iter(Prefetcher(val_iter, device)), val_batches)
+                    mlog.log(trainer.step, **validator.run(batches))
+                    ckpt.save(trainer.step, trainer.state_dict())
+                elif trainer.step % save_every == 0:
+                    ckpt.save(trainer.step, trainer.state_dict())
+    return trainer
 
 
 def _read_requests(path):
@@ -313,6 +425,17 @@ def cmd_codec(args):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="unified_audio_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    tr = sub.add_parser("train-unise")
+    tr.add_argument("--config", required=True,
+                    help="YAML training config (configs/unise.yaml)")
+    tr.add_argument("--ckpt", default=None,
+                    help="initial LM weights: a state dict in the reference "
+                         "layout, or a checkpoint this command wrote")
+    tr.add_argument("--bicodec-ckpt", default=None,
+                    help="BiCodec state dict (.pt) in the reference layout "
+                         "(what export_bicodec_state_dict writes)")
+    tr.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    tr.set_defaults(fn=cmd_train_unise)
     t = sub.add_parser("serve")
     t.add_argument("--requests", required=True,
                    help="JSONL request file (see the module docstring)")

@@ -1,11 +1,14 @@
-"""BiCodec decoder: semantic + global tokens -> waveform.
+"""BiCodec: waveform <-> (semantic, global) tokens.
 
-Port of the decode side of ``unified_audio_tpu/models/bicodec/bicodec.py``:
-``BiCodecConfig``, ``FeatDecoder`` (the prenet) and ``BiCodec.detokenize``.
-The feature encoder, the speaker encoder's tokenize side and the postnet
-serve tokenize and training and are not built. Submodule names follow the
-reference state-dict layout (``quantizer.*``, ``speaker_encoder.*``,
-``prenet.*``, ``decoder.model.*``).
+Port of ``unified_audio_tpu/models/bicodec/bicodec.py``: ``BiCodecConfig``,
+``FeatEncoder``, ``FeatDecoder`` (the prenet), ``BiCodec.mel``,
+``BiCodec.tokenize`` and ``BiCodec.detokenize``. Serving builds the decode
+side only (``BiCodec(config)``); ``BiCodec(config, tokenize=True)`` also
+builds the feature encoder, the quantizer's ``in_project`` and the speaker
+encoder's ECAPA-TDNN and Perceiver, which UniSE's training tokenizes its
+targets with. The postnet serves codec training and is not built.
+Submodule names follow the reference state-dict layout (``encoder.*``,
+``quantizer.*``, ``speaker_encoder.*``, ``prenet.*``, ``decoder.model.*``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 from torch import nn
 
 from ...nn.blocks import SamplingBlock, VocosBackbone, WaveGenerator
+from ...ops import dsp
 from ...ops.quant import FactorizedVectorQuantize
 from .speaker import SpeakerEncoder
 
@@ -50,6 +54,30 @@ class BiCodecConfig:
     wave_kernels: Tuple[int, ...] = (16, 11, 8, 4)
 
 
+class FeatEncoder(nn.Module):
+    """Vocos backbone -> (sampling block + 2-layer Vocos) per ratio ->
+    project. (B, T, in) -> (B, T, out)."""
+
+    def __init__(self, input_channels: int, vocos_dim: int,
+                 vocos_intermediate_dim: int, vocos_num_layers: int,
+                 out_channels: int, sample_ratios: Sequence[int] = (1, 1)):
+        super().__init__()
+        self.encoder = VocosBackbone(input_channels, vocos_dim,
+                                     vocos_intermediate_dim, vocos_num_layers)
+        self.downsample = nn.ModuleList([
+            nn.ModuleList([SamplingBlock(downsample_scale=r),
+                           VocosBackbone(vocos_dim, vocos_dim,
+                                         vocos_intermediate_dim, 2)])
+            for r in sample_ratios])
+        self.project = nn.Linear(vocos_dim, out_channels)
+
+    def forward(self, x):
+        x = self.encoder(x)
+        for sampler, vocos in self.downsample:
+            x = vocos(sampler(x))
+        return self.project(x)
+
+
 class FeatDecoder(nn.Module):
     """linear_pre -> (sampling block + 2-layer Vocos) per ratio ->
     conditioned Vocos backbone -> linear. (B, T, in), cond (B, C) ->
@@ -79,22 +107,43 @@ class FeatDecoder(nn.Module):
 
 
 class BiCodec(nn.Module):
-    """The decode side of BiCodec."""
+    """The decode side of BiCodec, and with ``tokenize`` its tokenize side
+    too."""
 
-    def __init__(self, config: BiCodecConfig = BiCodecConfig()):
+    def __init__(self, config: BiCodecConfig = BiCodecConfig(),
+                 tokenize: bool = False):
         super().__init__()
         cfg = self.config = config
+        if tokenize:
+            self.encoder = FeatEncoder(
+                cfg.feat_dim, cfg.vocos_dim, cfg.vocos_intermediate_dim,
+                cfg.vocos_num_layers, cfg.latent_dim, cfg.sample_ratios)
         self.quantizer = FactorizedVectorQuantize(
-            cfg.latent_dim, cfg.codebook_size, cfg.codebook_dim)
+            cfg.latent_dim, cfg.codebook_size, cfg.codebook_dim, tokenize)
         self.speaker_encoder = SpeakerEncoder(
-            out_dim=cfg.spk_out_dim, latent_dim=cfg.spk_latent_dim,
-            token_num=cfg.token_num, fsq_levels=cfg.fsq_levels)
+            input_dim=cfg.num_mels, out_dim=cfg.spk_out_dim,
+            latent_dim=cfg.spk_latent_dim, token_num=cfg.token_num,
+            fsq_levels=cfg.fsq_levels, tokenize=tokenize)
         self.prenet = FeatDecoder(
             cfg.latent_dim, cfg.vocos_dim, cfg.vocos_intermediate_dim,
             cfg.vocos_num_layers, cfg.latent_dim,
             condition_dim=cfg.spk_out_dim, sample_ratios=cfg.sample_ratios)
         self.decoder = WaveGenerator(cfg.latent_dim, cfg.wave_channels,
                                      cfg.wave_rates, cfg.wave_kernels)
+
+    def mel(self, wav):
+        """The speaker branch's mel: (B, T) -> (B, frames, num_mels), slaney
+        scale and norm."""
+        cfg = self.config
+        return dsp.mel_spectrogram(
+            wav, cfg.sample_rate, cfg.mel_n_fft, cfg.mel_win, cfg.mel_hop,
+            cfg.mel_fmin, cfg.mel_fmax, cfg.num_mels).transpose(-1, -2)
+
+    def tokenize(self, feat, ref_wav):
+        """feat (B, T, feat_dim), ref_wav (B, T_ref) -> (semantic (B, T),
+        global (B, token_num, nq)), int32."""
+        semantic = self.quantizer.tokenize(self.encoder(feat))
+        return semantic, self.speaker_encoder.tokenize(self.mel(ref_wav))
 
     def detokenize(self, semantic_tokens, global_tokens):
         """semantic (B, T), global (B, token_num, nq) -> wav (B, T * hop)."""

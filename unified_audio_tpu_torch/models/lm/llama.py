@@ -2,10 +2,12 @@
 top-k/top-p sampling.
 
 Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig``,
-``init_cache``, ``range_mask``, ``LlamaBackbone`` (the decoder stack with
-prefill and one-token decode over embeddings and a dense cache),
-``CodecLM``, ``sample_logits`` (the reference's first-crossing top-p rule)
-and the per-row ``sample_logits_vec``.
+``init_cache``, ``range_mask``, ``LlamaBackbone`` (the decoder stack: the
+uncached causal forward that training runs, and prefill and one-token
+decode over embeddings and a dense cache), ``CodecLM`` (with the
+label-smoothed loss and ``forward_embeds``), ``sample_logits`` (the
+reference's first-crossing top-p rule) and the per-row
+``sample_logits_vec``.
 
 Parameters use the reference torch layout (``codec_embedding.weight``,
 ``layers.{i}.self_attn.q_proj.weight``, ..., ``norm.weight``,
@@ -14,6 +16,7 @@ writes, so a reference state dict loads with ``load_state_dict``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -96,9 +99,10 @@ class LlamaAttention(nn.Module):
         self.o_proj = nn.Linear(d, d, bias=False)
 
     def forward(self, x, mask, cos, sin, cache, li: int):
-        """x (B, S, D). The new K/V rows are written into ``cache`` at its
-        index IN PLACE (the cache is one preallocated buffer, so no copy of
-        it is made per step) and the attention reads the whole buffer."""
+        """x (B, S, D). With a cache, the new K/V rows are written into it
+        at its index IN PLACE (the cache is one preallocated buffer, so no
+        copy of it is made per step) and the attention reads the whole
+        buffer; without one (training), it reads the S new rows."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
@@ -106,10 +110,11 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, h, hd)
         v = self.v_proj(x).view(b, s, h, hd)
         q, k = apply_rope(q, k, cos, sin)
-        idx = cache["index"]
-        cache["k"][li, :, idx:idx + s] = k.to(cache["k"].dtype)
-        cache["v"][li, :, idx:idx + s] = v.to(cache["v"].dtype)
-        k, v = cache["k"][li], cache["v"][li]
+        if cache is not None:
+            idx = cache["index"]
+            cache["k"][li, :, idx:idx + s] = k.to(cache["k"].dtype)
+            cache["v"][li, :, idx:idx + s] = v.to(cache["v"].dtype)
+            k, v = cache["k"][li], cache["v"][li]
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
         probs = torch.softmax(logits + mask, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, -1)
@@ -145,6 +150,7 @@ class LlamaLayer(nn.Module):
 
 class LlamaBackbone(nn.Module):
     """The decoder stack (``layers``, ``norm``) over input embeddings:
+    :meth:`backbone` is the full causal forward (training);
     :meth:`cached_forward` is both the prefill of a prompt and a one-token
     decode step over a dense cache."""
 
@@ -154,6 +160,19 @@ class LlamaBackbone(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaLayer(cfg) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size)
+
+    def backbone(self, embeds):
+        """(B, S, D) -> normed hidden states (B, S, D), every position
+        attending to itself and the ones before it."""
+        cfg = self.cfg
+        s = embeds.shape[1]
+        pos = torch.arange(s, device=embeds.device)
+        cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        mask = torch.where(pos[None] <= pos[:, None], 0.0, NEG_INF)
+        x = embeds
+        for li, layer in enumerate(self.layers):
+            x = layer(x, mask, cos, sin, None, li)
+        return self.norm(x)
 
     def cached_forward(self, embeds, cache):
         """Write S new positions at cache["index"]; returns the normed
@@ -185,6 +204,34 @@ class CodecLM(LlamaBackbone):
         self.codec_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.output_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias=False)
+
+    def loss_function(self, logits, targets):
+        """Label-smoothed KL divergence, averaged over tokens: the target
+        distribution is ``smoothing / (V - 1)`` everywhere and ``1 -
+        smoothing`` at the target. Computed in closed form, without the
+        (N, V) target distribution:
+        sum_j t_j (log t_j - logp_j) = C - fill sum_j logp_j
+        - (conf - fill) logp_target, C = (V - 1) fill log fill
+        + conf log conf."""
+        v = logits.shape[-1]
+        logp = torch.log_softmax(logits.reshape(-1, v).float(), dim=-1)
+        targets = targets.reshape(-1).long()
+        conf = 1.0 - self.cfg.label_smoothing
+        fill = self.cfg.label_smoothing / (v - 1)
+        const = (v - 1) * fill * math.log(fill) + conf * math.log(conf)
+        kl = (const - fill * logp.sum(dim=-1)
+              - (conf - fill) * logp.gather(-1, targets[:, None])[:, 0])
+        return kl.sum() / logp.shape[0]
+
+    def forward_embeds(self, embeds, target_ids):
+        """Training forward over an assembled embedding sequence: the loss
+        and the accuracy of the trailing ``target_ids.shape[1]`` positions
+        -> (loss, acc), fp32 scalars."""
+        t = target_ids.shape[-1]
+        logits = self.output_head(self.backbone(embeds)[:, -t:])
+        loss = self.loss_function(logits, target_ids)
+        acc = (torch.argmax(logits, dim=-1) == target_ids).float().mean()
+        return loss, acc
 
     def prefill(self, embeds, cache):
         hidden, cache = self.cached_forward(embeds, cache)

@@ -1,8 +1,12 @@
-"""UniSE task-conditioned LM (LLM_SFT): prompt assembly and two-phase
-generation.
+"""UniSE task-conditioned LM (LLM_SFT): prompt assembly, the SFT loss and
+two-phase generation.
 
 Port of ``unified_audio_tpu/models/lm/sft.py``. Prompt layout:
 [task][enroll_sos][enroll feats][mix_sos][mix feats][codec ids].
+
+The SFT loss (``forward``) teacher-forces the codec ids
+[gSOS g sSOS s] against the targets [g sSOS s sEOS]: unlike pretraining,
+the semantic EOS target is kept.
 
 Generation runs two phases over a dense KV cache:
 
@@ -54,6 +58,26 @@ class LLMSFT(CodecLM):
         parts += [self.mix_sos_embedding.weight[None].expand(b, 1, d),
                   self.adapter(mix_feats.to(dtype))]
         return torch.cat(parts, dim=1)
+
+    def forward(self, task_id, enroll_feats, mix_feats, global_ids,
+                semantic_ids):
+        """SFT loss: global_ids (B, G), semantic_ids (B, T) -> (loss, acc)
+        over the G + T + 2 targets."""
+        cfg = self.cfg
+        b, dev = global_ids.shape[0], global_ids.device
+
+        def special(i):
+            return torch.full((b, 1), i, dtype=torch.long, device=dev)
+
+        g = global_ids.long() + cfg.global_offset
+        s = semantic_ids.long() + cfg.semantic_offset
+        input_ids = torch.cat([special(cfg.global_sos), g,
+                               special(cfg.semantic_sos), s], dim=1)
+        target_ids = torch.cat([g, special(cfg.semantic_sos), s,
+                                special(cfg.semantic_eos)], dim=1)
+        embeds = torch.cat([self.prompt(task_id, enroll_feats, mix_feats),
+                            self.codec_embedding(input_ids)], dim=1)
+        return self.forward_embeds(embeds, target_ids)
 
     @torch.no_grad()
     def generate(self, task_id, enroll_feats, mix_feats,

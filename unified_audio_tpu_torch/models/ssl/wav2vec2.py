@@ -1,12 +1,16 @@
-"""WavLM and HuBERT frontends (the base-size wav2vec2-family SSL encoders).
+"""The wav2vec2-family SSL encoders: WavLM-base-plus, HuBERT-base and
+wav2vec2-large-XLSR-53.
 
-Port of the WavLM and HuBERT paths of
-``unified_audio_tpu/models/ssl/wav2vec2.py``: ``SSLConfig``, the 7-layer
-conv feature extractor (GroupNorm on layer 0, exact GELU), the grouped
-positional conv (the trailing element dropped for an even kernel), the
-T5-style relative-position buckets and the gated relative-position bias
-(WavLM only), the post-LN encoder layers, ``Wav2Vec2Model``,
-``wavlm_features`` (UniSE) and ``hubert_features`` (HCodec). Parameter names follow the HF layout
+Port of ``unified_audio_tpu/models/ssl/wav2vec2.py``: ``SSLConfig``, the
+7-layer conv feature extractor (GroupNorm on layer 0, or a LayerNorm over
+channels after every conv for XLSR-53; exact GELU), the grouped positional
+conv (the trailing element dropped for an even kernel), the T5-style
+relative-position buckets and the gated relative-position bias (WavLM
+only), the post-LN encoder layers of the base models and the pre-LN
+("stable layer norm") layers of XLSR-53 with their final encoder
+LayerNorm, ``Wav2Vec2Model``, ``wavlm_features`` (UniSE),
+``hubert_features`` (HCodec) and ``xlsr_features`` (BiCodec's semantic
+input). Parameter names follow the HF layout
 (``feature_extractor.conv_layers.{i}.conv.weight``,
 ``encoder.layers.{i}.attention.q_proj.weight``, ...), with the positional
 conv's weight norm folded into ``encoder.pos_conv_embed.conv.weight``.
@@ -33,7 +37,7 @@ class SSLConfig:
     conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
     conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
     conv_bias: bool = False
-    feat_extract_norm: str = "group"  # the serving path uses "group"
+    feat_extract_norm: str = "group"  # "group" | "layer"
     do_stable_layer_norm: bool = False
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
@@ -53,6 +57,15 @@ def wavlm_base_plus_config() -> SSLConfig:
     return SSLConfig(use_rel_pos_bias=True)
 
 
+def wav2vec2_large_xlsr53_config() -> SSLConfig:
+    """XLSR-53: 24 pre-LN layers of 1024, a LayerNorm after every conv of
+    the extractor, conv biases."""
+    return SSLConfig(
+        hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+        conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True,
+    )
+
+
 def conv_frames(cfg: SSLConfig, n_samples: int) -> int:
     """Frames the conv feature extractor makes from ``n_samples``."""
     n = n_samples
@@ -62,16 +75,22 @@ def conv_frames(cfg: SSLConfig, n_samples: int) -> int:
 
 
 class _ConvLayer(nn.Module):
+    """conv -> norm -> GELU on (B, C, T); ``norm`` is "group" (GroupNorm
+    with a group per channel), "layer" (LayerNorm over channels) or None."""
+
     def __init__(self, cin: int, cout: int, k: int, stride: int, bias: bool,
-                 group_norm: bool):
+                 norm):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, k, stride=stride, bias=bias)
-        self.layer_norm = (nn.GroupNorm(cout, cout, eps=1e-5) if group_norm
-                           else None)
+        self.layer_norm = {"group": nn.GroupNorm(cout, cout, eps=1e-5),
+                           "layer": nn.LayerNorm(cout, eps=1e-5),
+                           None: None}[norm]
 
     def forward(self, x):  # (B, C, T)
         x = self.conv(x)
-        if self.layer_norm is not None:
+        if isinstance(self.layer_norm, nn.LayerNorm):
+            x = self.layer_norm(x.transpose(1, 2)).transpose(1, 2)
+        elif self.layer_norm is not None:
             x = self.layer_norm(x)
         return F.gelu(x)
 
@@ -81,14 +100,15 @@ class FeatureExtractor(nn.Module):
 
     def __init__(self, cfg: SSLConfig):
         super().__init__()
-        if cfg.feat_extract_norm != "group" or cfg.do_stable_layer_norm:
-            raise NotImplementedError(
-                "only the post-LN, group-norm frontend (HuBERT/WavLM base) "
-                "is ported")
+        if cfg.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm {cfg.feat_extract_norm!r}")
         cin, layers = 1, []
         for i, (dim, k, s) in enumerate(
                 zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)):
-            layers.append(_ConvLayer(cin, dim, k, s, cfg.conv_bias, i == 0))
+            norm = cfg.feat_extract_norm
+            if norm == "group" and i > 0:
+                norm = None
+            layers.append(_ConvLayer(cin, dim, k, s, cfg.conv_bias, norm))
             cin = dim
         self.conv_layers = nn.ModuleList(layers)
 
@@ -196,16 +216,24 @@ class FeedForward(nn.Module):
 
 
 class SSLEncoderLayer(nn.Module):
-    """Post-LN encoder layer (base models)."""
+    """Encoder layer: post-LN (base models) or pre-LN (``do_stable_layer_norm``,
+    XLSR-53)."""
 
     def __init__(self, cfg: SSLConfig, has_relative_position_bias: bool):
         super().__init__()
+        self.pre_ln = cfg.do_stable_layer_norm
         self.attention = SSLSelfAttention(cfg, has_relative_position_bias)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.feed_forward = FeedForward(cfg)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
 
     def forward(self, x, position_bias=None):
+        if self.pre_ln:
+            h, position_bias = self.attention(self.layer_norm(x),
+                                              position_bias)
+            x = x + h
+            return x + self.feed_forward(self.final_layer_norm(x)), \
+                position_bias
         h, position_bias = self.attention(x, position_bias)
         x = self.layer_norm(x + h)
         x = self.final_layer_norm(x + self.feed_forward(x))
@@ -223,7 +251,10 @@ class Encoder(nn.Module):
 
 class Wav2Vec2Model(nn.Module):
     """Frozen SSL encoder: wav (B, N) -> tuple of num_layers + 1 hidden
-    states (B, T, C), embeddings first (the HF layout)."""
+    states (B, T, C), embeddings first (the HF layout). The post-LN models
+    normalize the embeddings; the pre-LN model applies the encoder
+    LayerNorm once, to the last layer's output, which is the last
+    element."""
 
     def __init__(self, cfg: SSLConfig):
         super().__init__()
@@ -234,13 +265,18 @@ class Wav2Vec2Model(nn.Module):
 
     def forward(self, wav):
         enc = self.encoder
+        stable = self.config.do_stable_layer_norm
         h = self.feature_projection(self.feature_extractor(wav))
-        h = enc.layer_norm(h + enc.pos_conv_embed(h))
+        h = h + enc.pos_conv_embed(h)
+        if not stable:
+            h = enc.layer_norm(h)
         hidden_states = [h]
         position_bias = None
         for layer in enc.layers:
             h, position_bias = layer(h, position_bias)
             hidden_states.append(h)
+        if stable:
+            hidden_states[-1] = enc.layer_norm(h)
         return tuple(hidden_states)
 
 
@@ -253,3 +289,11 @@ def hubert_features(hidden_states) -> torch.Tensor:
     """All-layer mean, then signed |x|^0.3 (HCodec's SSL features)."""
     mix = torch.stack(hidden_states, dim=0).mean(dim=0)
     return torch.where(mix > 0, 1.0, -1.0) * mix.abs() ** 0.3
+
+
+def xlsr_features(hidden_states, layers=(11, 14, 16)) -> torch.Tensor:
+    """(h11 + h14 + h16) / 3, BiCodec's semantic input. The indices clamp
+    to the available depth, so shallow configs stay valid."""
+    n = len(hidden_states)
+    picked = [hidden_states[min(i, n - 1)] for i in layers]
+    return sum(picked) / float(len(picked))

@@ -3,9 +3,9 @@
 Port of ``unified_audio_tpu/models/unise/model.py``: ``UniSEConfig``,
 ``_segment`` (wrap-pad to 5-s segments), ``_semantic_len``, the WavLM
 feature path (the wav padded by 160 samples on each side, all-layer mean),
-``_decode_tokens`` and the offline ``enhance_se`` / ``enhance_tse`` /
-``separate_ss`` flows over ``LLMSFT.generate``. ``serve/cascade.py`` serves
-the SS cascade through the engine.
+``_decode_tokens``, the offline ``enhance_se`` / ``enhance_tse`` /
+``separate_ss`` flows over ``LLMSFT.generate``, and the SFT training loss
+``loss_fn``. ``serve/cascade.py`` serves the SS cascade through the engine.
 """
 from __future__ import annotations
 
@@ -67,6 +67,32 @@ class UniSE:
 
     def extract_semantic_features(self, wav) -> torch.Tensor:
         return self.wavlm_feats(torch.as_tensor(np.asarray(wav, np.float32)))
+
+    # --- training ---
+
+    def frozen_inputs(self, enroll, mix, target):
+        """The frozen half of a training step: the BiCodec tokens of
+        ``target`` (XLSR-53 features, the feature encoder, the speaker
+        encoder) and the WavLM features of ``mix`` and ``enroll`` (None
+        for SE), without gradients, the tokenizer and WavLM in ``.eval()``
+        -> (enroll_feats, mix_feats, global_ids (B, G), semantic_ids
+        (B, T))."""
+        self.tokenizer.eval()
+        self.wavlm.eval()
+        global_tokens, semantic_tokens = self.tokenizer.tokenize(target)
+        enroll_feats = (self.wavlm_feats(enroll) if enroll is not None
+                        else None)
+        return (enroll_feats, self.wavlm_feats(mix), global_tokens[:, 0, :],
+                semantic_tokens)
+
+    def loss_fn(self, task: str, enroll, mix, target):
+        """Single-task SFT loss -> (loss, acc): tokenization and features
+        frozen, the LM as the caller left it (``.train()`` when training).
+        For "rtse" the caller passes the interferer as the target. enroll,
+        mix, target: (B, N) waveforms on the model's device."""
+        enroll_feats, mix_feats, g, s = self.frozen_inputs(enroll, mix,
+                                                           target)
+        return self.sft(TASK_MAP[task], enroll_feats, mix_feats, g, s)
 
     # --- inference flows ---
 

@@ -1,15 +1,16 @@
-"""Signal ops of HCodec and of the CLI's input preparation: the periodic
-Hann window, framing, the STFT, overlap-add, the "same"-padded ISTFT and
-windowed-sinc resampling.
+"""Signal ops of HCodec, of BiCodec's speaker branch and of the CLI's
+input preparation: the periodic Hann window, framing, the STFT,
+overlap-add, the "same"-padded ISTFT, windowed-sinc resampling, the
+slaney/htk mel filterbanks and the slaney mel spectrogram.
 
 Port of ``hann_window``, ``frame``, ``stft``, ``overlap_add``,
-``istft_same``, ``_resample_kernel`` and ``resample`` in
+``istft_same``, ``_resample_kernel``, ``resample``, ``_hz_to_mel``,
+``_mel_to_hz``, ``melscale_fbanks`` and ``mel_spectrogram`` in
 ``unified_audio_tpu/ops/dsp.py``, in fp32 with the same arithmetic order
 (overlap-add as r = L / hop shifted adds, in the JAX package's order; the
 resampling lowpass as one strided convolution of the same polyphase
 table, which this module computes with its own numpy copy of the JAX
-package's formula). The mel filterbanks serve tokenize sides that the port
-does not run yet.
+package's formula; the filterbanks in fp64 numpy, cast to fp32).
 """
 from __future__ import annotations
 
@@ -34,18 +35,30 @@ def frame(x: torch.Tensor, frame_length: int, hop_length: int):
     return x.unfold(-1, frame_length, hop_length)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop_length: int):
-    """Complex STFT of (..., T) -> (..., n_fft // 2 + 1, 1 + (T - n_fft) //
-    hop), onesided, unnormalized, uncentered (the JAX package's ``stft``
-    with ``center=False``, as HCodec-2.0's encoder calls it), periodic
-    Hann window of n_fft.
+def stft(x: torch.Tensor, n_fft: int, hop_length: int,
+         win_length: Optional[int] = None, center: bool = False):
+    """Complex STFT of (..., T) -> (..., n_fft // 2 + 1, frames), onesided,
+    unnormalized (torch.stft semantics): a periodic Hann window of
+    ``win_length`` (default n_fft) zero-padded to n_fft in the middle;
+    uncentered by default (1 + (T - n_fft) // hop frames, as HCodec-2.0's
+    encoder calls it), or with ``center`` the signal reflect-padded by
+    n_fft // 2 on both sides first.
 
     A real signal's DC and Nyquist bins have an imaginary part of exactly
     zero, and its sign decides ``angle`` where the real part is negative
     (+pi or -pi). The sign is pinned to +0.0, what the JAX package's rfft
     gives on the CPU, whatever FFT library computed the spectrum."""
-    spec = torch.fft.rfft(frame(x, n_fft, hop_length)
-                          * hann_window(n_fft, x.device), n=n_fft, dim=-1)
+    win_length = win_length or n_fft
+    window = hann_window(win_length, x.device)
+    if win_length < n_fft:
+        left = (n_fft - win_length) // 2
+        window = F.pad(window, (left, n_fft - win_length - left))
+    if center:
+        shape = x.shape
+        x = F.pad(x.reshape(-1, 1, shape[-1]), (n_fft // 2, n_fft // 2),
+                  mode="reflect").reshape(*shape[:-1], -1)
+    spec = torch.fft.rfft(frame(x, n_fft, hop_length) * window, n=n_fft,
+                          dim=-1)
     parts = torch.view_as_real(spec)  # a view: writes go to ``spec``
     parts[..., 0, 1] = 0.0
     if n_fft % 2 == 0:
@@ -129,3 +142,71 @@ def resample(x: torch.Tensor, orig_freq: int, new_freq: int):
     y = y.transpose(1, 2).reshape(x2.shape[0], -1)
     target = math.ceil(n * t / o)
     return y[:, :target].reshape(*shape[:-1], target)
+
+
+# ---------------------------------------------------------------------------
+# Mel filterbanks (torchaudio semantics)
+# ---------------------------------------------------------------------------
+
+def _hz_to_mel(freq, mel_scale: str):
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + freq / 700.0)
+    # slaney: linear below 1 kHz, logarithmic above
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (freq - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    if np.isscalar(freq):
+        if freq >= min_log_hz:
+            mels = min_log_mel + math.log(freq / min_log_hz) / logstep
+        return mels
+    return np.where(freq >= min_log_hz, min_log_mel + np.log(
+        np.maximum(freq, 1e-10) / min_log_hz) / logstep, mels)
+
+
+def _mel_to_hz(mels, mel_scale: str):
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(mels >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (mels - min_log_mel)),
+                    freqs)
+
+
+@functools.lru_cache(maxsize=32)
+def melscale_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+                    sample_rate: int, norm: Optional[str] = None,
+                    mel_scale: str = "htk") -> np.ndarray:
+    """Triangular mel filterbank (n_freqs, n_mels), fp32 numpy
+    (torchaudio.functional.melscale_fbanks semantics; BiCodec's speaker
+    mel uses slaney scale and slaney norm)."""
+    all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
+    m_pts = np.linspace(_hz_to_mel(f_min, mel_scale),
+                        _hz_to_mel(f_max, mel_scale), n_mels + 2)
+    f_pts = _mel_to_hz(m_pts, mel_scale)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = (-1.0 * slopes[:, :-2]) / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    return fb.astype(np.float32)
+
+
+def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
+                    win_length: int, hop_length: int, f_min: float,
+                    f_max: float, n_mels: int) -> torch.Tensor:
+    """Magnitude (power 1) mel spectrogram with slaney scale and norm, the
+    centered, reflect-padded STFT (torchaudio.transforms.MelSpectrogram as
+    BiCodec configures it). (B, T) -> (B, n_mels, frames)."""
+    mag = stft(x, n_fft, hop_length, win_length, center=True).abs()
+    fb = torch.as_tensor(melscale_fbanks(
+        n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate, norm="slaney",
+        mel_scale="slaney"), device=x.device)
+    return torch.einsum("bft,fm->bmt", mag, fb)

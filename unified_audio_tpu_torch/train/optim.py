@@ -1,0 +1,102 @@
+"""The optimizer of UniSE's SFT training: global-norm gradient clipping,
+then AdamW under the reference learning-rate schedule.
+
+Port of ``unified_audio_tpu/train/optim.py``: a peak rate of 5e-4, a
+cosine warmup over 2000 steps, then exponential decay 0.99998^(t - warmup)
+floored at 0.02 of the peak; clipping at a global norm of 5.0; AdamW with
+decoupled weight decay 0.01 on every parameter (b1 0.9, b2 0.999, eps
+1e-8). The JAX package chains optax's ``clip_by_global_norm`` and
+``adamw``; this module reproduces their arithmetic:
+
+* the clip scales by ``max_norm / norm`` only when the norm is at least
+  ``max_norm``, with no epsilon (``torch.nn.utils.clip_grad_norm_`` divides
+  by ``norm + 1e-6``);
+* the rate of update t (from 0) is ``schedule(t)``, so the first update
+  runs at ``schedule(0)``, 0 under the cosine warmup; the schedule is
+  evaluated in fp32, as the JAX package evaluates it;
+* ``torch.optim.AdamW`` updates p <- p - lr (m_hat / (sqrt(v_hat) + eps) +
+  wd p), optax's ``adamw``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Iterable
+
+import torch
+
+
+def warmup_exp_decay_schedule(peak_lr: float = 5e-4,
+                              warmup_steps: int = 2000,
+                              step_decay: float = 0.99998,
+                              min_factor: float = 0.02):
+    """-> schedule(step) -> learning rate (a Python float of an fp32
+    value)."""
+    f32 = torch.float32
+
+    def schedule(step: int) -> float:
+        t = torch.tensor(float(step), dtype=f32)
+        warm = 0.5 * (1 + torch.cos(math.pi * (1 - t / warmup_steps)))
+        decay = torch.clamp(torch.pow(torch.tensor(step_decay, dtype=f32),
+                                      t - warmup_steps), min=min_factor)
+        return float(peak_lr * torch.where(t < warmup_steps, warm, decay))
+
+    return schedule
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float):
+    """Scale ``grads`` in place by ``max_norm / norm`` when their global L2
+    norm is at least ``max_norm`` (on the device: no host sync)."""
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+class Optimizer:
+    """Global-norm clip, then AdamW at the schedule's rate. The AdamW base
+    rate is 1 and a ``LambdaLR`` sets each update's rate to
+    ``schedule(t)`` exactly; ``state_dict`` holds both, so a restored
+    optimizer continues the schedule and the moments."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 peak_lr: float = 5e-4, warmup_steps: int = 2000,
+                 step_decay: float = 0.99998, min_factor: float = 0.02,
+                 grad_clip: float = 5.0, weight_decay: float = 0.01):
+        self.params = [p for p in params if p.requires_grad]
+        self.grad_clip = grad_clip
+        self.schedule = warmup_exp_decay_schedule(peak_lr, warmup_steps,
+                                                  step_decay, min_factor)
+        self.adamw = torch.optim.AdamW(self.params, lr=1.0,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay)
+        self.lr_schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw,
+                                                             self.schedule)
+
+    @property
+    def lr(self) -> float:
+        """The rate of the next update."""
+        return self.adamw.param_groups[0]["lr"]
+
+    def zero_grad(self):
+        self.adamw.zero_grad(set_to_none=True)
+
+    def step(self):
+        """Clip the gradients, update, advance the schedule. A parameter
+        the loss did not reach (SE's enrollment SOS) takes a zero gradient,
+        as it does in optax: its moments decay and the weight decay
+        applies."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip_by_global_norm_([p.grad for p in self.params], self.grad_clip)
+        self.adamw.step()
+        self.lr_schedule.step()
+
+    def state_dict(self) -> dict:
+        return {"adamw": self.adamw.state_dict(),
+                "schedule": self.lr_schedule.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        self.adamw.load_state_dict(state["adamw"])
+        self.lr_schedule.load_state_dict(state["schedule"])

@@ -1,0 +1,42 @@
+"""YAML configs, read with PyYAML's ``safe_load``, and their validation
+against dataclasses.
+
+The port's own copy of ``unified_audio_tpu/utils/config.py``: ``load_yaml``
+and ``from_dict`` (unknown keys refused, nested dataclasses built, lists
+made tuples).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Type, TypeVar
+
+import yaml
+
+T = TypeVar("T")
+
+
+def load_yaml(path) -> Dict[str, Any]:
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
+    """Build a (possibly nested) dataclass from a dict, erroring on unknown
+    keys and coercing nested dataclass fields."""
+    if not dataclasses.is_dataclass(cls):
+        return data  # type: ignore[return-value]
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(data) - set(fields)
+    if unknown:
+        raise ValueError(f"unknown config keys for {cls.__name__}: {sorted(unknown)}")
+    kwargs = {}
+    for name, value in data.items():
+        f = fields[name]
+        ftype = f.type
+        if dataclasses.is_dataclass(ftype) and isinstance(value, dict):
+            kwargs[name] = from_dict(ftype, value)
+        elif isinstance(value, list):
+            kwargs[name] = tuple(value)
+        else:
+            kwargs[name] = value
+    return cls(**kwargs)

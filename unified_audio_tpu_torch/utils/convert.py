@@ -10,13 +10,20 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
   what ``utils/convert.py export_custom_llama_state_dict`` writes.
 * :func:`unitok_state_dict`: ``UniTokLM`` variables -> the port's
   ``UniTokLM`` (its backbone in the same reference layout).
-* :func:`wavlm_state_dict` and :func:`hubert_state_dict`:
-  ``Wav2Vec2Model`` (WavLM, HuBERT) variables -> the HF layout, which
-  ``utils/convert.py convert_hf_wav2vec2`` maps back.
+* :func:`wavlm_state_dict`, :func:`hubert_state_dict` and
+  :func:`xlsr_state_dict`: ``Wav2Vec2Model`` (WavLM, HuBERT, XLSR-53)
+  variables -> the HF layout, which ``utils/convert.py
+  convert_hf_wav2vec2`` maps back.
 * :func:`bicodec_decoder_state_dict`: the detokenize subset of
   ``BiCodec`` variables -> the reference layout, key for key what
   ``utils/convert_bicodec.py export_bicodec_state_dict`` writes for those
-  modules (weight norm folded).
+  modules (weight norm folded). :func:`bicodec_state_dict` adds the
+  tokenize side (the feature encoder, the quantizer's ``in_project``, the
+  speaker encoder's ECAPA-TDNN with its BatchNorm statistics and
+  Perceiver, the FSQ ``project_in``): the whole of what the port's
+  ``BiCodec(tokenize=True)`` loads. :func:`bicodec_tokenizer_keys` keeps
+  those keys of a full reference state dict (it drops the postnet and the
+  codebook's usage statistics).
 * :func:`hcodec10_state_dict` and :func:`hcodec20_state_dict`: ``HCodec``
   (1.0, 2.0) variables -> the reference layout, key for key what
   ``utils/convert_hcodec.py export_hcodec10_state_dict`` and
@@ -194,6 +201,15 @@ def wavlm_state_dict(variables, cfg) -> StateDict:
     return out
 
 
+def xlsr_state_dict(variables, cfg) -> StateDict:
+    """XLSR-53 variables -> HF-layout state dict: the per-conv LayerNorms
+    and conv biases of the extractor, pre-LN layers, and ``encoder.
+    layer_norm`` the final LayerNorm."""
+    if not cfg.do_stable_layer_norm or cfg.feat_extract_norm != "layer":
+        raise ValueError("not an XLSR-53 (stable layer norm) config")
+    return wavlm_state_dict(variables, cfg)
+
+
 def hubert_state_dict(variables, cfg) -> StateDict:
     """HuBERT-base variables -> HF-layout state dict: the WavLM layout
     without the relative-position keys."""
@@ -276,6 +292,89 @@ def bicodec_decoder_state_dict(variables, cfg) -> StateDict:
     _snake(w["snake_post"], f"decoder.model.{n + 1}.alpha", out)
     _conv(w["conv_post"], f"decoder.model.{n + 2}", out)
     return out
+
+
+def _batchnorm(p, stats, prefix: str, out: StateDict):
+    out[f"{prefix}.weight"] = _a(p["scale"])
+    out[f"{prefix}.bias"] = _a(p["bias"])
+    out[f"{prefix}.running_mean"] = _a(stats["mean"])
+    out[f"{prefix}.running_var"] = _a(stats["var"])
+
+
+def _conv_relu_bn(p, stats, prefix: str, out: StateDict):
+    _conv(p["conv"], f"{prefix}.conv", out)
+    _batchnorm(p["bn"], stats["bn"], f"{prefix}.bn", out)
+
+
+def _ecapa(p, stats, prefix: str, out: StateDict):
+    _conv_relu_bn(p["layer1"], stats["layer1"], f"{prefix}.layer1", out)
+    for li in (2, 3, 4):
+        lp, ls = p[f"layer{li}"], stats[f"layer{li}"]
+        pre = f"{prefix}.layer{li}.se_res2block"
+        _conv_relu_bn(lp["in_conv"], ls["in_conv"], f"{pre}.0", out)
+        n = sum(1 for k in lp["res2"] if k.startswith("conv_"))
+        for i in range(n):
+            _conv(lp["res2"][f"conv_{i}"], f"{pre}.1.convs.{i}", out)
+            _batchnorm(lp["res2"][f"bn_{i}"], ls["res2"][f"bn_{i}"],
+                       f"{pre}.1.bns.{i}", out)
+        _conv_relu_bn(lp["out_conv"], ls["out_conv"], f"{pre}.2", out)
+        _linear(lp["se"]["linear1"], f"{pre}.3.linear1", out)
+        _linear(lp["se"]["linear2"], f"{pre}.3.linear2", out)
+    _conv(p["conv"], f"{prefix}.conv", out)
+    for name in ("linear1", "linear2"):  # Dense -> 1x1 conv (out, in, 1)
+        out[f"{prefix}.pool.{name}.weight"] = _a(
+            p["pool"][name]["kernel"]).T[:, :, None]
+        out[f"{prefix}.pool.{name}.bias"] = _a(p["pool"][name]["bias"])
+    _batchnorm(p["bn"], stats["bn"], f"{prefix}.bn", out)
+    _linear(p["linear"], f"{prefix}.linear", out)
+
+
+def _perceiver(p, prefix: str, out: StateDict):
+    out[f"{prefix}.latents"] = _a(p["latents"])
+    _linear(p["proj_context"], f"{prefix}.proj_context", out)
+    out[f"{prefix}.norm.gamma"] = _a(p["norm"]["gamma"])
+    depth = sum(1 for k in p if k.startswith("attn_"))
+    for i in range(depth):
+        for name in ("to_q", "to_kv", "to_out"):
+            _linear(p[f"attn_{i}"][name], f"{prefix}.layers.{i}.0.{name}",
+                    out)
+        _linear(p[f"ff_{i}"]["proj_in"], f"{prefix}.layers.{i}.1.0", out)
+        _linear(p[f"ff_{i}"]["proj_out"], f"{prefix}.layers.{i}.1.2", out)
+
+
+def bicodec_state_dict(variables, cfg) -> StateDict:
+    """BiCodec variables ({"params", "batch_stats"}) -> the state dict of
+    the port's ``BiCodec(tokenize=True)``: the decode side of
+    :func:`bicodec_decoder_state_dict` plus the tokenize side, key for key
+    what ``export_bicodec_state_dict`` writes for those modules."""
+    p = variables["params"]
+    out = bicodec_decoder_state_dict(variables, cfg)
+    enc = p["encoder"]
+    _vocos(enc["encoder"], "encoder.encoder", out)
+    for k, ratio in enumerate(cfg.sample_ratios):
+        if ratio > 1:
+            raise NotImplementedError("only ratio-1 sampling blocks are "
+                                      "ported")
+        _vocos(enc[f"down_vocos_{k}"], f"encoder.downsample.{k}.1", out)
+    _linear(enc["project"], "encoder.project", out)
+    _conv(p["quantizer"]["in_project"], "quantizer.in_project", out)
+    spk = p["speaker_encoder"]
+    _ecapa(spk["speaker_encoder"],
+           variables["batch_stats"]["speaker_encoder"]["speaker_encoder"],
+           "speaker_encoder.speaker_encoder", out)
+    _perceiver(spk["perceiver_sampler"], "speaker_encoder.perceiver_sampler",
+               out)
+    _linear(spk["quantizer"]["project_in"],
+            "speaker_encoder.quantizer.project_in", out)
+    return out
+
+
+def bicodec_tokenizer_keys(sd: StateDict) -> StateDict:
+    """The keys of a full reference BiCodec state dict that the port's
+    ``BiCodec(tokenize=True)`` loads: the postnet (codec training's
+    feature target) and the codebook's usage statistics dropped."""
+    return {k: v for k, v in sd.items()
+            if not k.startswith("postnet.") and k != "quantizer.cluster_size"}
 
 
 # ---------------------------------------------------------------------------

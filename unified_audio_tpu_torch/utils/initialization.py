@@ -4,7 +4,8 @@ No checkpoint of the released weights is reachable, so serving runs on
 random weights made from a seed through an explicit ``torch.Generator``:
 fan-in scaled uniform weights for linear and conv layers, LSTM weights
 uniform in +-1/sqrt(hidden), zero biases, unit-normal embeddings and VQ
-codebooks; norms, Snake ``alpha`` and layer scales keep their constructor
+codebooks, Perceiver latents normal with std 0.02; norms (BatchNorm
+statistics too), Snake ``alpha`` and layer scales keep their constructor
 values.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..models.bicodec.speaker import PerceiverResampler
 from ..nn.conv import Conv1d, ConvTranspose1d
 from ..ops.quant import VectorQuantization
 
@@ -32,6 +34,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, PerceiverResampler):
+            m.latents.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, VectorQuantization):
             m._codebook.embed.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, nn.LSTM):
