@@ -144,13 +144,49 @@ prints no result. Phases, each fatal on failure:
    the step-30 checkpoint with the int8 pool: a 10-s TSE line (2
    segments), K2 launched 12 times a decode step, a finite output of the
    input's length.
-8. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+8. HCodec-1.0 GAN training at full width through ``cli train-codec``
+   (``hcodec10_config()``: the SEANet encoder's convs trained as weight
+   norm (g, v), 2 x 4 EMA codebooks of 1024 x 512 with k-means on the
+   first batch and quantizer dropout, the semantic decoder; HuBERT-base
+   frozen; MPD 2/3/5/7/11 + MS-STFT 1024/256, 2048/512, 512/128; batch 8 x
+   3 s; fp32, TF32 off), the plain VQ search made to raise. The config is
+   ``configs/hcodec10.yaml`` with only these changes (printed): a
+   ``dataset`` of synthetic domain SCP lists (6 speech-like tone wavs as
+   "speech", 6 noise wavs as "audio", 4 s each), 30 steps
+   (``max_steps``), ``train.perceptual_start_step`` 10 (steps 11-30 run
+   the adversarial terms and the discriminator) and the checkpoint
+   directory in a temporary directory. Checks: every loss finite; the mel
+   loss's mean over steps 26-30 below its mean over steps 1-5 within each
+   domain seen in both (a batch is one domain's); after step 1 all 8
+   layers initted with cluster sizes summing to the 600 rows a layer
+   searches (the EMA of k-means' bins and the batch's counts); K5
+   launched exactly 8 x 30 + 8 x 51 times (each layer's search a step,
+   k-means' 50 iterations and final bins on step 1). Prints the median
+   step wall time over steps 5-30, audio seconds trained a second (8 x 3
+   s over it), the device time (CUDA events) of the HuBERT features, the
+   generator's forward + backward, the discriminator's and the two
+   updates, the host's time between steps, the busy share of profiled
+   step 20 and the peak memory the run allocated beyond what the earlier
+   phases hold. Then one generator step with
+   the GAN terms of the trained codec on 2 x 3 s on the card and on a CPU
+   copy (the same dropout cutoffs): the card's codes under
+   ``judge_codes`` and equal to the CPU's in >= 99.9% of places, the
+   losses within 1e-4 relative, each generator gradient within 1e-3 of
+   its largest entry. K5 on the first layer's k-means start (600 rows
+   against 1024 rows drawn from them with replacement, duplicates in
+   different CTAs) equal to the plain search exactly, timed against it.
+   Last, ``cli codec --ckpt`` on the step-30 checkpoint (weight norm
+   folded on load) with a 10-s clip: K6 launched twice, codes (1, 4, 250)
+   in [0, 1024), a finite output of the input's length.
+9. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
 above, each kernel's time, its plain version's and its bound; K2's
-launches are phase 3's, and phase 7 prints its own serve's; K6's
-launches are both codecs' round trips and its ``nq16`` entry the times at
+launches are phase 3's, and phase 7 prints its own serve's; K5's are
+phase 4's staged encode and phase 8's training, and its ``kmeans_m600``
+entry the times on k-means' start at M = 600; K6's are the three round
+trips' (phases 4, 5 and 8) and its ``nq16`` entry the times at
 HCodec-2.0's shapes; K7's launches are those of the serving paths, 0, and
 the smoke's own check calls are printed on the line before), and as its
 last line the device JSON object.
@@ -206,7 +242,9 @@ LEAD_IN = "spin_kernel"  # the kernel of torch.cuda._sleep (ATen's Sleep.cu)
 # lead-in kernels a window opens with: sessions lost their first device
 # record (windows of plain K1 calls) and two records, a call's first two
 # kernels in a one-call window (plain K6 at nq = 16, 177 records a call;
-# H100, torch 2.11)
+# H100, torch 2.11); ~300 s into a run (phase 8) windows lost records past
+# the 8 lead-ins: 4 and 5 of the plain K5 search's 8 in one-call windows,
+# in another the K5 kernel's one record
 LEAD_INS = 8
 
 
@@ -230,33 +268,45 @@ def profiled(torch, fn, n, lead_in=True):
     under torch.profiler (CUPTI). The window opens PAD_S before the first
     call and closes PAD_S after the card is done: the profiler keeps only
     the device records whose timestamps, mapped to the host's clock, fall
-    inside its window. A session can also lose its first device record, so
-    the window starts with a lead-in: ``LEAD_INS`` ``torch.cuda._sleep``
+    inside its window. A session can also lose its first device records,
+    so the window starts with a lead-in: ``LEAD_INS`` ``torch.cuda._sleep``
     kernels (``LEAD_IN``), waited for and left out of the result, then PAD_S
-    more (``lead_in=False`` leaves it out, for ``profiler_windows.py``)."""
+    more (``lead_in=False`` leaves it out, for ``profiler_windows.py``).
+    The loss takes the first records, so a window that kept a lead-in
+    record kept every call's; one that kept none is opened again with 8
+    times the lead-ins (twice at most)."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PAD_S)
-        if lead_in:
-            for _ in range(LEAD_INS):
-                torch.cuda._sleep(1000)
+    tries = (LEAD_INS, 8 * LEAD_INS, 64 * LEAD_INS) if lead_in else (0,)
+    for lead_ins in tries:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PAD_S)
+            if lead_ins:
+                for _ in range(lead_ins):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                time.sleep(PAD_S)
+            for _ in range(n):
+                fn()
             torch.cuda.synchronize()
             time.sleep(PAD_S)
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(PAD_S)
-    counts, us = Counter(), 0.0
-    for ev in prof.events():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and LEAD_IN not in ev.name):
-            counts[ev.name] += 1
-            us += ev.time_range.elapsed_us()
-    return counts, us
+        counts, us, leads = Counter(), 0.0, 0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if LEAD_IN in ev.name:
+                leads += 1
+            else:
+                counts[ev.name] += 1
+                us += ev.time_range.elapsed_us()
+        if leads or not lead_ins:
+            return counts, us
+        print(f"chip_smoke: a window lost all {lead_ins} lead-in records",
+              flush=True)
+    fail(f"windows lost all of {tries} lead-in records")
 
 
 def time_ms(torch, fn, iters, kernel=None):
@@ -1554,6 +1604,392 @@ def agreement(torch, cli, trainer, gpu):
     del cpu_u
 
 
+# ---------------------------------------------------------------------------
+# HCodec-1.0 GAN training
+# ---------------------------------------------------------------------------
+
+CODEC_STEPS = 30  # steps of the codec training run
+CODEC_ADV_FROM = 10  # perceptual_start_step: steps 11-30 run the GAN terms
+CODEC_BATCH, CODEC_SEG = 8, 48000  # configs/hcodec10.yaml: 8 x 3 s
+CODEC_PROFILED_STEP = 20  # an adversarial step, traced for the busy share
+# K5 launches the run implies: each of the 2 x 4 layers searches once a
+# step, and on the first step its k-means searches 50 times plus once for
+# the final bins
+CODEC_K5 = 8 * CODEC_STEPS + 8 * (50 + 1)
+
+
+def write_domain_data(tmp, rng, write_wav):
+    """Synthetic domain SCP lists: 6 speech-like tone wavs ("speech") and 6
+    band-limited noise wavs ("audio"), 4 s each at 16 kHz."""
+    scps = {}
+    for domain in ("speech", "audio"):
+        lines = []
+        for i in range(6):
+            n = 4 * SR
+            if domain == "speech":
+                x = 0.5 * synth_speech(rng, n)
+            else:
+                x = np.convolve(rng.standard_normal(n), np.ones(8) / 8,
+                                mode="same")
+                x = 0.3 * x / np.abs(x).max()
+            path = tmp / f"{domain}{i}.wav"
+            write_wav(path, x.astype(np.float32), SR)
+            lines.append(f"{domain}{i} s{i} {path}")
+        (tmp / f"{domain}.scp").write_text("\n".join(lines) + "\n")
+        scps[domain] = [str(tmp / f"{domain}.scp")]
+    return scps
+
+
+def codec_train_config(tmp, scps):
+    """configs/hcodec10.yaml with the synthetic domains as its dataset, 30
+    steps, the GAN terms from step 10 and the checkpoint directory in
+    ``tmp`` (printed)."""
+    from unified_audio_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(REPO / "configs" / "hcodec10.yaml")
+    changes = {"dataset": {"domain_scps": scps}, "max_steps": CODEC_STEPS,
+               "train.perceptual_start_step": CODEC_ADV_FROM,
+               "ckpt_dir": str(tmp / "codec_ckpt")}
+    for key, value in changes.items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for k in parents:
+            node = node[k]
+        node[leaf] = value
+    print(f"train config codec: configs/hcodec10.yaml with "
+          f"{json.dumps(changes)}", flush=True)
+    path = tmp / "codec.yaml"
+    path.write_text(json.dumps(cfg))  # JSON is YAML
+    return path
+
+
+class CodecStepRecorder:
+    """Wraps codec training for one run: each step's metrics, domain and
+    wall time (``train_step`` ends in one host read), the device time (CUDA
+    events)
+    of the HuBERT features, the generator's forward + backward, the
+    discriminator's and each side's update, a torch.profiler trace of step
+    ``profile_at``, the codebooks' state after step 1 and the first layer's
+    k-means rows and initial codebook."""
+
+    def __init__(self, torch, modules, profile_at):
+        trainer_cls, optim_cls, ssl_cls, quant, data_cls = modules
+        self.torch, self.profile_at = torch, profile_at
+        self.steps, self.after_first, self.kmeans0 = [], None, None
+        self.domains = []  # each batch's domain, in the order of the steps
+        self._events, self._last_end = {}, None
+        outer = self
+
+        def timed(name, fn):
+            def wrapper(self_, *args, **kw):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(self_, *args, **kw)
+                b.record()
+                key = name
+                if name == "update":
+                    key = ("gen_update" if self_ is outer.trainer.gen_opt
+                           else "disc_update")
+                outer._events[key] = (a, b)
+                return out
+            return wrapper
+
+        train_step = trainer_cls.train_step
+        outer.trainer = None
+
+        def step(trainer, wav, feat):
+            outer.trainer = trainer
+            start = time.perf_counter()
+            wait = None if outer._last_end is None else start - outer._last_end
+            prof = None
+            if trainer.step + 1 == outer.profile_at:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            outer._events.pop("disc_step", None)
+            metrics = train_step(trainer, wav, feat)
+            end = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                outer.busy = busy_share(torch, prof, end - start)
+            ms = {f"{k}_ms": a.elapsed_time(b)
+                  for k, (a, b) in outer._events.items()}
+            outer.steps.append(dict(step=trainer.step, wall_s=end - start,
+                                    wait_s=wait, **metrics, **ms))
+            if trainer.step == 1:
+                outer.after_first = [
+                    (q._codebook.initted.item(),
+                     q._codebook.cluster_size.sum().item())
+                    for rvq in (trainer.codec.quantizer,
+                                trainer.codec.semantic_quantizer)
+                    for q in rvq.layers]
+            outer._last_end = end
+            return metrics
+
+        sample_vectors = quant.sample_vectors
+
+        def recording_rows(samples, num, generator=None):
+            out = sample_vectors(samples, num, generator)
+            if outer.kmeans0 is None:
+                outer.kmeans0 = (samples.clone(), out.clone())
+            return out
+
+        batches = data_cls._batches
+
+        def recording_batches(self_):
+            for wav, domain in batches(self_):
+                outer.domains.append(domain)
+                yield wav, domain
+
+        self.patches = [
+            (data_cls, "_batches", recording_batches),
+            (trainer_cls, "train_step", step),
+            (trainer_cls, "generator_step",
+             timed("gen_step", trainer_cls.generator_step)),
+            (trainer_cls, "discriminator_step",
+             timed("disc_step", trainer_cls.discriminator_step)),
+            (optim_cls, "step", timed("update", optim_cls.step)),
+            (ssl_cls, "forward", timed("hubert", ssl_cls.forward)),
+            (quant, "sample_vectors", recording_rows)]
+
+
+def codec_train_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
+    """Phase 8: HCodec-1.0 GAN training through ``cli train-codec`` at full
+    width on the card, the plain search made to raise; the card against
+    the CPU on one step; K5 on k-means' duplicated codebook; the final
+    checkpoint through ``cli codec --ckpt`` -> (K5's launches on the
+    training path, K6's in that round trip, K5's times on k-means' start
+    for the kernels line)."""
+    from unified_audio_tpu_torch.data.hcodec_data import DomainWeightedIterator
+    from unified_audio_tpu_torch.models.ssl.wav2vec2 import Wav2Vec2Model
+    from unified_audio_tpu_torch.ops import quant
+    from unified_audio_tpu_torch.train.codec_trainer import CodecGANTrainer
+    from unified_audio_tpu_torch.train.optim import Optimizer
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in codec training")
+
+    rng = np.random.default_rng(13)
+    config = codec_train_config(tmp, write_domain_data(tmp, rng, write_wav))
+    rec = CodecStepRecorder(torch, (CodecGANTrainer, Optimizer,
+                                    Wav2Vec2Model, quant,
+                                    DomainWeightedIterator),
+                            CODEC_PROFILED_STEP)
+    guards = rec.patches + [(vq, "nearest_code_ref", forbidden),
+                            (vq, "rvq_encode_fused_ref", forbidden)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors
+    vq.nearest_code.launches = 0
+    t0 = time.perf_counter()
+    with patched(guards):
+        trainer = cli.main(["train-codec", "--config", str(config)])
+    run_s = time.perf_counter() - t0
+    k5 = vq.nearest_code.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    steps = rec.steps
+    if [r["step"] for r in steps] != list(range(1, CODEC_STEPS + 1)):
+        fail(f"codec training steps {[r['step'] for r in steps]}")
+    names = ("mel", "commit", "semantic", "adv", "fm", "gen_loss",
+             "disc_loss")
+    values = np.array([[r[k] for k in names] for r in steps])
+    if not np.isfinite(values).all():
+        fail(f"a codec training loss is not finite: {values.tolist()}")
+    mel = values[:, 0]
+    # a batch is one domain's, and the noise domain's mel loss is the
+    # larger: steps 26-30 against steps 1-5 within each domain
+    domains = np.array(rec.domains[:CODEC_STEPS])
+    falls = {}
+    for d in sorted(set(domains)):
+        first, last = mel[:5][domains[:5] == d], mel[-5:][domains[-5:] == d]
+        if len(first) and len(last):
+            falls[d] = (float(first.mean()), float(last.mean()))
+    if not falls or any(b >= a for a, b in falls.values()):
+        fail(f"mel loss (mean of steps 1-5, of 26-30) by domain: {falls}")
+    adv_on = [r["step"] for r in steps if r["adv"] != 0.0]
+    if adv_on != list(range(CODEC_ADV_FROM + 1, CODEC_STEPS + 1)):
+        fail(f"the GAN terms ran at steps {adv_on}")
+    m = CODEC_BATCH * CODEC_SEG // 640  # rows a layer searches: 8 x 75
+    first = rec.after_first
+    if len(first) != 8 or any(i != 1.0 or abs(n - m) > 1e-3 * m
+                              for i, n in first):
+        fail(f"after step 1 (initted, sum of cluster sizes) per layer: "
+             f"{first}; want (1, {m}) each")
+    if k5 != CODEC_K5:
+        fail(f"K5 launched {k5} times in codec training, not {CODEC_K5}")
+    ckpt = tmp / "codec_ckpt" / f"step_{CODEC_STEPS:08d}.pt"
+    if not ckpt.exists():
+        fail(f"no codec checkpoint at step {CODEC_STEPS}")
+    print(f"train-codec: {CODEC_STEPS} steps of HCodec-1.0 at full width "
+          f"({CODEC_BATCH} x 3 s, MPD 2/3/5/7/11 + MS-STFT "
+          f"1024/2048/512, HuBERT-base frozen; fp32, TF32 off) in "
+          f"{run_s:.1f} s; mel loss (mean of steps 1-5 -> of 26-30) by "
+          f"domain {json.dumps(falls)}; every loss finite; by step domain "
+          f"{''.join(d[0] for d in domains)}, mel "
+          f"{[round(float(x), 3) for x in mel]}, gen "
+          f"{[round(r['gen_loss'], 3) for r in steps]}, disc "
+          f"{[round(r['disc_loss'], 3) for r in steps]}; after step 1 all 8 "
+          f"layers initted, cluster sizes summing to "
+          f"{[round(n, 3) for _, n in first]} (M = {m}); K5 launches {k5} "
+          f"= {CODEC_K5} (8 a step + 8 x 51 for k-means), the plain search "
+          f"unused | {gpu}", flush=True)
+
+    timed_steps = [r for r in steps if r["step"] >= TIMED_FROM]
+    step_ms = 1e3 * float(np.median([r["wall_s"] for r in timed_steps]))
+    adv = [r for r in steps if r["step"] > CODEC_ADV_FROM]
+    pre = [r for r in steps if TIMED_FROM <= r["step"] <= CODEC_ADV_FROM]
+    med = lambda rows, k: float(np.median([r[k] for r in rows]))
+    wait_ms = 1e3 * med(timed_steps, "wait_s")
+    gen_fb = [r["gen_step_ms"] - r["gen_update_ms"] for r in adv]
+    disc_fb = [r["disc_step_ms"] - r["disc_update_ms"] for r in adv]
+    busy, n_records = rec.busy
+    print(f"codec train step (median of steps {TIMED_FROM}-{CODEC_STEPS}): "
+          f"wall {step_ms:.1f} ms = "
+          f"{CODEC_BATCH * CODEC_SEG / SR / step_ms * 1e3:.1f} audio seconds"
+          f" trained a second ({CODEC_BATCH} x 3 s a step); device time "
+          f"(medians of the adversarial steps {CODEC_ADV_FROM + 1}-"
+          f"{CODEC_STEPS}): HuBERT features {med(adv, 'hubert_ms'):.1f} ms, "
+          f"generator forward + backward {float(np.median(gen_fb)):.1f} ms "
+          f"({med(pre, 'gen_step_ms') - med(pre, 'gen_update_ms'):.1f} ms "
+          f"before step {CODEC_ADV_FROM + 1}, without the GAN terms), "
+          f"discriminator forward + backward {float(np.median(disc_fb)):.1f}"
+          f" ms, generator update {med(adv, 'gen_update_ms'):.1f} ms, "
+          f"discriminator update {med(adv, 'disc_update_ms'):.1f} ms; host "
+          f"between steps {wait_ms:.1f} ms; device busy {100 * busy:.1f}% "
+          f"of profiled step {CODEC_PROFILED_STEP} ({n_records} CUDA "
+          f"records); peak memory allocated by the run {peak_gb:.2f} GB "
+          f"(beside {held_gb:.2f} GB the earlier phases hold) | {gpu}",
+          flush=True)
+
+    codec_agreement(torch, vq, quant, trainer, gpu)
+
+    # K5 on the first layer's k-means start: M = 600 rows against 1024 rows
+    # drawn from them with replacement (duplicates in different CTAs)
+    samples, init = (t.contiguous() for t in rec.kmeans0)
+    got = vq.nearest_code(samples, init)
+    want = vq.nearest_code_ref(samples, init)
+    dups = init.shape[0] - torch.unique(init, dim=0).shape[0]
+    if samples.shape[0] != m or not torch.equal(got, want):
+        fail(f"K5 on k-means' initial codebook: {samples.shape[0]} rows, "
+             f"codes equal {float((got == want).float().mean()):.5f}")
+    plain, kern = in_turns(torch, [lambda: vq.nearest_code_ref(samples, init),
+                                   lambda: vq.nearest_code(samples, init)],
+                           iters=50, kernels=[None, CUDA_KERNELS["vq"]])
+    b_ms, _ = vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"], 1)
+    print(f"K5 on k-means' initial codebook at M={m}, N=1024, D=512 "
+          f"({dups} duplicate rows): codes equal to plain exactly; kernel "
+          f"{kern['ms'] * 1e3:.2f} us, plain {plain['ms'] * 1e3:.2f} us, "
+          f"bound {b_ms * 1e3:.2f} us (3xTF32 at 495 TFLOP/s) | {gpu}",
+          flush=True)
+
+    # the final checkpoint served by the round trip through K6
+    n = int(CLIP_S * SR)
+    wav = 0.5 * synth_speech(rng, n) + 0.05 * rng.standard_normal(n)
+    wav_in, wav_out = tmp / "codec_in.wav", tmp / "codec_out.wav"
+    write_wav(wav_in, (0.8 * wav / np.abs(wav).max()).astype(np.float32), SR)
+    from unified_audio_tpu_torch.models.hcodec.codec import HCodec
+    codes = []
+    encode = HCodec.encode
+
+    def recording(self, w, f):
+        codes.append(encode(self, w, f))
+        return codes[-1]
+
+    vq.rvq_encode_fused.launches = 0
+    with patched([(HCodec, "encode", recording),
+                  (vq, "nearest_code_ref", forbidden),
+                  (vq, "rvq_encode_fused_ref", forbidden)]):
+        summary = cli.main(["codec", "--model", "hcodec10", "--input",
+                            str(wav_in), "--output", str(wav_out),
+                            "--ckpt", str(ckpt)])
+    k6 = vq.rvq_encode_fused.launches
+    out, fs = read_wav(wav_out)
+    ranges = [(int(c.min()), int(c.max())) for c in codes[0]]
+    if k6 != 2 or summary["acoustic_shape"] != [1, 4, 250] or not all(
+            0 <= lo and hi < 1024 for lo, hi in ranges) or \
+            out.shape != (1, n) or not np.isfinite(out).all():
+        fail(f"codec --ckpt of the trained checkpoint: K6 launches {k6}, "
+             f"codes {summary['acoustic_shape']} in {ranges}, output "
+             f"{out.shape}")
+    print(f"codec --ckpt step {CODEC_STEPS}: codes (1, 4, 250) a stream in "
+          f"{ranges}, K6 launches {k6}, a finite output of {n} samples | "
+          f"{gpu}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return k5, k6, {"max_abs_err": 0.0, "ms": kern["ms"],
+                    "plain_ms": plain["ms"], "bound_ms": b_ms,
+                    "records": kern["records"]}
+
+
+def codec_agreement(torch, vq, quant, trainer, gpu):
+    """One generator step (the GAN terms on) of the trained codec on 2 x 3 s
+    from a seed, on the card and on a CPU copy of the codec and the
+    discriminators, the same dropout cutoffs: the card's codes under
+    ``judge_codes`` and equal to the CPU's in >= 99.9% of places, each loss
+    within 1e-4 relative, each generator gradient within 1e-3 of its
+    largest entry."""
+    from unified_audio_tpu_torch.models.hcodec.codec import HCodec
+    from unified_audio_tpu_torch.train.codec_trainer import CodecGANTrainer
+    from unified_audio_tpu_torch.train.discriminators import (
+        CodecDiscriminator)
+
+    rng = np.random.default_rng(12)
+    wav = np.stack([0.5 * synth_speech(rng, CODEC_SEG) + 0.05 *
+                    rng.standard_normal(CODEC_SEG) for _ in range(2)])
+    feat = 0.5 * rng.standard_normal((2, CODEC_SEG // 320, 768))
+    codec_cpu = HCodec(trainer.codec.config, trainable=True)
+    codec_cpu.load_state_dict(trainer.codec.state_dict())
+    disc_cpu = CodecDiscriminator()
+    disc_cpu.load_state_dict(trainer.disc.state_dict())
+    out = []
+    for codec, disc in ((trainer.codec, trainer.disc), (codec_cpu, disc_cpu)):
+        dev = next(codec.parameters()).device
+        searches = []
+        search = quant.nearest_code
+
+        def recording(x, codebook):
+            codes = search(x, codebook)
+            searches.append((x.detach().reshape(-1, x.shape[-1]),
+                             codebook.clone(), codes.reshape(-1)))
+            return codes
+
+        t = CodecGANTrainer(codec, trainer.cfg, disc,
+                            torch.Generator().manual_seed(5))
+        codec.zero_grad(set_to_none=True)  # the last update's gradients
+        with patched([(quant, "nearest_code", recording)]):
+            loss, scalars, _ = t.generator_loss(
+                torch.as_tensor(wav, dtype=torch.float32, device=dev),
+                torch.as_tensor(feat, dtype=torch.float32, device=dev), True)
+        loss.backward()
+        out.append(({k: v.item() for k, v in scalars.items()},
+                    {k: p.grad.cpu() for k, p in codec.named_parameters()},
+                    searches))
+        codec.zero_grad(set_to_none=True)
+    (g_s, g_grad, g_codes), (c_s, c_grad, c_codes) = out
+    worst, equal, total = 0.0, 0, 0
+    for (x, cb, codes), (_, _, cpu) in zip(g_codes, c_codes):
+        _, w, ok = vq.judge_codes(x, [cb], codes[:, None])
+        if not ok:
+            fail(f"a card code of the training step is no near tie: {w}")
+        worst = max(worst, w)
+        equal += int((codes.cpu() == cpu).sum())
+        total += codes.numel()
+    rel = max(abs(g_s[k] - c_s[k]) / max(abs(c_s[k]), 1e-30) for k in c_s)
+    grad_err = max(((g_grad[k] - g).abs().max() / g.abs().max()).item()
+                   for k, g in c_grad.items() if g.abs().max() > 0)
+    print(f"card vs CPU, one generator step (GAN terms on) of the trained "
+          f"codec on 2 x 3 s: {len(g_codes)} searches, codes equal "
+          f"{equal / total:.5f} ({equal} of {total}), worst distance excess "
+          f"{worst:.3e}; losses max rel diff {rel:.2e} (gen "
+          f"{g_s['gen_loss']:.6f} vs {c_s['gen_loss']:.6f}); generator "
+          f"gradients max |diff| / max |grad| {grad_err:.2e} | {gpu}",
+          flush=True)
+    if equal / total < 0.999 or rel > 1e-4 or grad_err > 1e-3:
+        fail("the card's codec training step disagrees with the CPU's")
+
+
 def main():
     try:
         import torch
@@ -1723,7 +2159,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         train_phase(torch, cli, pa, gpu, Path(tmp), write_wav, read_wav)
 
-    # 8. nothing of JAX or the JAX package was loaded
+    # 8. HCodec-1.0 GAN training
+    with tempfile.TemporaryDirectory() as tmp:
+        k5_train_launches, k6_train_launches, k5_train = codec_train_phase(
+            torch, cli, vq, gpu, Path(tmp), write_wav, read_wav)
+
+    # 9. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
@@ -1763,9 +2204,10 @@ def main():
                         "cold_library_ms": r["cold_library_ms"],
                         "records": r["records"]})
     for name, fn, tpu, n_launch, nq in (
-            ("K5", vq.nearest_code, K5_TPU, k5_launches, 1),
+            ("K5", vq.nearest_code, K5_TPU, k5_launches + k5_train_launches,
+             1),
             ("K6", vq.rvq_encode_fused, K6_TPU,
-             k6_launches + k6_20_launches, 4)):
+             k6_launches + k6_20_launches + k6_train_launches, 4)):
         err, ms, plain_ms, n_rec = vq_results[name, 250]
         b_ms, b_by = vq_bound(250, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
         kernels.append({"name": fn.__name__, "route": "cuda",
@@ -1774,6 +2216,7 @@ def main():
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
                         "records": n_rec})
+    kernels[-2]["kmeans_m600"] = k5_train
     kernels[-1]["nq16"] = {
         f"M={m}": {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"],

@@ -291,8 +291,9 @@ class TestPortImportsNoJax:
         """With jax and flax made unimportable, the port's CLI (and through
         it the serving path, the SS cascade and the HCodec round trips), the
         UniTok pipeline and engine, the step profiler and the training
-        modules (trainer, checkpoints, data pipeline, config, logging) still
-        import, and no module of the JAX package is loaded."""
+        modules (the UniSE and codec trainers, the discriminators,
+        checkpoints, both data pipelines, config, logging) still import,
+        and no module of the JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
                 "import unified_audio_tpu_torch.cli, "
@@ -306,6 +307,9 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.utils.convert, "
                 "unified_audio_tpu_torch.utils.initialization, "
                 "unified_audio_tpu_torch.train.sft_trainer, "
+                "unified_audio_tpu_torch.train.codec_trainer, "
+                "unified_audio_tpu_torch.train.discriminators, "
+                "unified_audio_tpu_torch.data.hcodec_data, "
                 "unified_audio_tpu_torch.train.checkpoint, "
                 "unified_audio_tpu_torch.data.data_module, "
                 "unified_audio_tpu_torch.utils.config, "

@@ -230,3 +230,136 @@ def test_unitok_forward_matches_jax():
     assert got.shape == (2, 6 + k - 1, k, cfg.layer_vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+def _tagged(tree):
+    """``tree`` with every entry replaced by its own index (float64)."""
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    out, start = [], 0
+    for leaf in leaves:
+        n = int(np.size(leaf))
+        out.append(np.arange(start, start + n, dtype=np.float64).reshape(
+            np.shape(leaf)))
+        start += n
+    return jax.tree_util.tree_unflatten(treedef, out), start
+
+
+def _covers_once(sd, n):
+    tags = np.sort(np.concatenate([np.asarray(v).ravel() for v in sd.values()]))
+    np.testing.assert_array_equal(tags, np.arange(n, dtype=np.float64))
+
+
+@pytest.mark.parametrize("version", ["1.0", "2.0"])
+def test_hcodec_train_state_dict_carries_every_leaf(version):
+    """``hcodec10_train_state_dict`` / ``hcodec20_train_state_dict`` put
+    every entry of every JAX leaf (the params, weight norm unfolded as
+    ``weight_g`` (out, 1, 1) and ``weight_v``; the ``codebook``
+    collection's embed, embed_avg, cluster_size and inited; the semantic
+    decoder) in exactly one place, and ``HCodec(trainable=True)`` takes
+    exactly those keys with strict loading."""
+    from unified_audio_tpu.models.hcodec.codec import (HCodec, hcodec10_config,
+                                                       hcodec20_config)
+
+    small = dict(latent_dim=64, codebook_size=32, num_quantizers=2,
+                 decoder_dim=64, decoder_intermediate_dim=128,
+                 decoder_convnext_layers=2, semantic_encode_channels=64,
+                 feat_dim=32)
+    if version == "1.0":
+        cfg, n = hcodec10_config(seanet_filters=4, **small), 640 * 4
+        export = t_convert.hcodec10_train_state_dict
+    else:
+        cfg, n = hcodec20_config(encoder_dim=64, encoder_intermediate_dim=128,
+                                 encoder_convnext_layers=2, **small), 3840 * 2
+        export = t_convert.hcodec20_train_state_dict
+    variables = jax.device_get(random_variables(
+        HCodec(cfg), np.zeros((1, n, 1), np.float32),
+        np.zeros((1, 8, 32), np.float32)))
+    tagged, total = _tagged(variables)
+    _covers_once(export(tagged, cfg), total)
+    ours = export(variables, cfg)
+    n_g = sum(1 for path, _ in jax.tree_util.tree_flatten_with_path(
+        variables)[0] if path[-1].key == "kernel_g")
+    assert sum(k.endswith(".weight_g") for k in ours) == n_g
+    assert (n_g > 0) == (version == "1.0")
+    for k in ours:
+        if k.endswith(".weight_g"):
+            assert ours[k].shape[1:] == (1, 1)
+    assert any(k.startswith("semantic_decoder.") for k in ours)
+    for buf in ("embed", "embed_avg", "cluster_size", "initted"):
+        assert sum(k.endswith(f"._codebook.{buf}") for k in ours) == \
+            2 * cfg.num_quantizers
+    module = t_codec.HCodec(t_codec.HCodecConfig(
+        **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__}),
+        trainable=True)
+    assert sorted(module.state_dict()) == sorted(ours)
+    module.load_state_dict(to_torch(ours))
+
+
+def test_codec_discriminator_state_dict_carries_every_leaf():
+    """``codec_discriminator_state_dict`` puts every entry of a
+    ``CodecDiscriminator``'s params in exactly one place, with the port's
+    keys and shapes, for a small ensemble (values) and the default one
+    (every conv of the 5 period and 3 STFT discriminators, shapes)."""
+    from unified_audio_tpu.train.discriminators import CodecDiscriminator
+    from unified_audio_tpu_torch.train import discriminators as t_disc
+
+    small = dict(periods=(2, 3), stft_resolutions=((256, 64),))
+    x = np.zeros((1, 2048, 1), np.float32)
+    params = random_variables(CodecDiscriminator(**small), x)
+    tagged, total = _tagged(params)
+    _covers_once(t_convert.codec_discriminator_state_dict(tagged), total)
+    t_disc.CodecDiscriminator(**small).load_state_dict(to_torch(
+        t_convert.codec_discriminator_state_dict(params)))
+    shapes = jax.eval_shape(lambda: CodecDiscriminator().init(
+        jax.random.PRNGKey(0), x))
+    empty = jax.tree_util.tree_map(lambda s: np.empty(s.shape, s.dtype),
+                                   shapes)
+    sd = t_convert.codec_discriminator_state_dict(empty)
+    with torch.device("meta"):
+        want = t_disc.CodecDiscriminator().state_dict()
+    assert sorted(sd) == sorted(want)
+    assert len(sd) == 2 * (5 * 6 + 3 * 5)
+    for k, v in want.items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+
+
+def test_raw_weight_norm_checkpoint_codes_equal_folded(tmp_path,
+                                                        monkeypatch):
+    """``cli codec --ckpt`` on a raw training state dict (``weight_g`` /
+    ``weight_v``, EMA buffers, semantic decoder; what ``train-codec``
+    saves under "gen") and on its folded twin (``hcodec10_state_dict``)
+    gives the same codes and the same waveform within 1e-6 of its peak."""
+    import dataclasses
+    import functools
+
+    from test_torch_hcodec import L, _wav, small10, tiny_hubert
+    from unified_audio_tpu.models.hcodec.codec import HCodec
+    from unified_audio_tpu_torch import cli
+    from unified_audio_tpu_torch.data.audio_io import write_wav
+    from unified_audio_tpu_torch.models.ssl import wav2vec2 as t_ssl
+
+    cfg = small10()
+    variables = jax.device_get(random_variables(
+        HCodec(cfg), np.zeros((1, L, 1), np.float32),
+        np.zeros((1, L // 320, 32), np.float32), seed=7))
+    monkeypatch.setattr(cli, "_build_hcodec", functools.partial(
+        cli._build_hcodec, cfg=t_codec.HCodecConfig(
+            **dataclasses.asdict(cfg)),
+        ssl_cfg=t_ssl.SSLConfig(**dataclasses.asdict(tiny_hubert()))))
+    seen, wavs = [], []
+    encode = t_codec.HCodec.encode
+    monkeypatch.setattr(t_codec.HCodec, "encode", lambda self, w, f: (
+        seen.append(encode(self, w, f)) or seen[-1]))
+    monkeypatch.setattr(cli, "write_wav", lambda *a: wavs.append(a[1]))
+    write_wav(tmp_path / "in.wav", _wav(3)[0], 16000)
+    for name, export in (("raw", t_convert.hcodec10_train_state_dict),
+                         ("folded", t_convert.hcodec10_state_dict)):
+        ckpt = tmp_path / f"{name}.pt"
+        torch.save({"gen": to_torch(export(variables, cfg))}, ckpt)
+        cli.main(["codec", "--model", "hcodec10", "--input",
+                  str(tmp_path / "in.wav"), "--output",
+                  str(tmp_path / "o.wav"), "--ckpt", str(ckpt), "--device",
+                  "cpu"])
+    (a0, s0), (a1, s1) = seen
+    assert torch.equal(a0, a1) and torch.equal(s0, s1)
+    assert np.abs(wavs[0] - wavs[1]).max() <= 1e-6 * np.abs(wavs[1]).max()

@@ -1,9 +1,11 @@
-"""Command-line entry points of the port: ``train-unise``, ``serve`` and
-``codec``.
+"""Command-line entry points of the port: ``train-unise``, ``train-codec``,
+``serve`` and ``codec``.
 
     python -m unified_audio_tpu_torch.cli train-unise \
         --config configs/unise.yaml [--ckpt LM.pt] [--bicodec-ckpt SD.pt] \
         [--device cuda|cpu]
+    python -m unified_audio_tpu_torch.cli train-codec \
+        --config configs/hcodec10.yaml [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli serve --requests R.jsonl \
         [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0] \
         [--device cuda|cpu]
@@ -30,6 +32,21 @@ checkpoint's ``state_dict`` is the LM in the reference layout, what
 (what ``export_bicodec_state_dict`` writes); XLSR-53 and WavLM are random
 from the seed.
 
+``train-codec`` ports ``cmd_train_codec``: HCodec's GAN training (the
+config's ``model``, ``hcodec10`` or ``hcodec20``, at its ``codec`` widths)
+against the MPD + MS-STFT discriminators, ``batch_size`` segments of
+``segment_samples`` a step from the config's ``dataset`` (the
+``DomainWeightedIterator`` arguments: ``domain_scps`` and the rest; it
+must be there). The semantic targets are the frozen HuBERT-base's features
+(the config's ``ssl`` section sets another size) of the 16 kHz (re)sample,
+edge-padded or trimmed to ``segment_samples * 50 / sample_rate`` frames.
+Every ``log_every`` steps a record goes to ``metrics.jsonl`` in
+``ckpt_dir`` (or the config's ``metrics_log``), and every ``save_every``
+steps and at the end a checkpoint holds the generator ("gen", which
+``codec --ckpt`` loads), the discriminator ("disc") and the step. The
+codec, the discriminators and HuBERT are random from the config's
+``seed``, as in the JAX CLI. A run does not resume.
+
 ``serve`` ports ``cmd_serve`` in ``unified_audio_tpu/cli.py``: a JSONL
 request file streams through the paged-KV engine. Each line: {"uid": int,
 "task": "se"|"tse"|"rtse"|"ss", "mix": "path.wav", "enroll": "path.wav"
@@ -47,13 +64,14 @@ frontend), and the command prints the JAX package's JSON line, its
 ``tokens_per_sec`` the codes per second of audio of one quantizer layer.
 Weights are random from ``--seed`` unless ``--ckpt`` gives a codec state
 dict in the layout of ``utils/convert.py hcodec10_state_dict`` or
-``hcodec20_state_dict``.
+``hcodec20_state_dict``, weight norm folded or as ``weight_g``/``weight_v``,
+or a checkpoint ``train-codec`` wrote.
 
 Input wavs at another rate are resampled to the model's (16 kHz for
 ``serve`` and hcodec10, 48 kHz for hcodec20) on the device, and the command
 says so on stderr.
 
-All three run on the CUDA card and exit with an error without one, unless
+All four run on the CUDA card and exit with an error without one, unless
 ``--device cpu`` asks for the CPU. fp32 means fp32 on the card: TF32 is off
 for matmuls and for cuDNN (convolutions and the LSTMs), training included.
 """
@@ -230,6 +248,97 @@ def cmd_train_unise(args):
     return trainer
 
 
+def cmd_train_codec(args):
+    """Train HCodec as the config says (see the module docstring)."""
+    from .data.data_module import Prefetcher
+    from .data.hcodec_data import DomainWeightedIterator
+    from .models.hcodec.codec import HCodec, hcodec10_config, hcodec20_config
+    from .models.hcodec.tokenizer import SSL_RATE
+    from .models.ssl.wav2vec2 import (SSLConfig, Wav2Vec2Model,
+                                      hubert_base_config, hubert_features)
+    from .ops.dsp import resample
+    from .train.checkpoint import CheckpointManager
+    from .train.codec_trainer import CodecGANTrainer, CodecTrainConfig
+    from .train.discriminators import CodecDiscriminator
+    from .utils.config import load_yaml
+    from .utils.initialization import init_random_
+    from .utils.logging import MetricsLogger
+
+    if not Path(args.config).exists():
+        sys.exit(f"error: --config file not found: {args.config}")
+    device = _device(args.device)
+    cfg = load_yaml(args.config) or {}
+    model = cfg.get("model", "hcodec10")
+    if model not in HCODEC_NAMES:
+        sys.exit(f"error: unknown codec model {model!r}; choose from "
+                 f"{list(HCODEC_NAMES)}")
+    if "dataset" not in cfg:
+        sys.exit("error: config needs a 'dataset' section "
+                 "(data.hcodec_data.DomainWeightedIterator kwargs: "
+                 "domain_scps, batch_size, cut_seconds, ...)")
+    build = hcodec20_config if model == "hcodec20" else hcodec10_config
+    codec_cfg = build(**cfg.get("codec", {}))
+    sr = codec_cfg.sample_rate
+    b, t = cfg.get("batch_size", 8), cfg.get("segment_samples", 48000)
+    want_frames = t * 50 // sr  # 50 Hz SSL frames of the segment
+
+    _fp32_without_tf32()
+    seed = cfg.get("seed", 0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        codec = HCodec(codec_cfg, trainable=True)
+        disc = CodecDiscriminator()
+        ssl = Wav2Vec2Model(SSLConfig(**cfg["ssl"]) if "ssl" in cfg
+                            else hubert_base_config())
+    for module in (codec, disc, ssl):
+        init_random_(module, gen)
+    ssl.eval().requires_grad_(False)
+    for m in codec.modules():
+        if isinstance(m, torch.nn.LSTM):
+            m.flatten_parameters()  # one weight buffer for cuDNN
+    print(f"WARNING: {HCODEC_NAMES[model]}, its discriminators and the "
+          "HuBERT feature extractor are RANDOMLY initialized (the JAX CLI "
+          "trains against a random HuBERT too)", file=sys.stderr)
+    trainer = CodecGANTrainer(codec, CodecTrainConfig(**cfg.get("train", {})),
+                              disc, torch.Generator().manual_seed(seed))
+
+    @torch.no_grad()
+    def features(wav):
+        """HuBERT features of the 16 kHz (re)sample, edge-padded or
+        trimmed to ``want_frames``."""
+        f = hubert_features(ssl(resample(wav, sr, SSL_RATE)))
+        if f.shape[1] < want_frames:
+            f = torch.cat([f, f[:, -1:].expand(
+                -1, want_frames - f.shape[1], -1)], 1)
+        return f[:, :want_frames]
+
+    data = Prefetcher(DomainWeightedIterator(
+        sample_rate=sr, batch_size=b, cut_seconds=t / sr, **cfg["dataset"]),
+        device)
+    ckpt_dir = cfg.get("ckpt_dir", "./codec_checkpoints")
+    ckpt = CheckpointManager(ckpt_dir)
+    log_every = cfg.get("log_every", 10)
+    save_every = cfg.get("save_every", 1000)
+    max_steps = cfg.get("max_steps", 1_000_000)
+    log_path = cfg.get("metrics_log", str(Path(ckpt_dir) / "metrics.jsonl"))
+    print("codec GAN training started", file=sys.stderr)
+    with MetricsLogger(log_path) as mlog:
+        for epoch in range(cfg.get("max_epochs", 100)):
+            for wav, _ in data:
+                metrics = trainer.train_step(wav, features(wav))
+                if trainer.step % log_every == 0:
+                    mlog.log(trainer.step, epoch=epoch,
+                             **{k: round(v, 5) for k, v in metrics.items()})
+                if trainer.step % save_every == 0:
+                    ckpt.save(trainer.step, trainer.state_dict())
+                if trainer.step >= max_steps:
+                    break
+            if trainer.step >= max_steps:
+                break
+    ckpt.save(trainer.step, trainer.state_dict())
+    return trainer
+
+
 def _read_requests(path):
     if not Path(path).exists():
         sys.exit(f"error: request file not found: {path}")
@@ -364,8 +473,10 @@ def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
     ``device``, fp32, TF32 off. Random weights from ``seed`` through an
     explicit generator, with a loud warning; ``ckpt`` replaces the codec's
     weights with a state dict in the layout of ``utils/convert.py``
-    (``hcodec10_state_dict`` / ``hcodec20_state_dict``), loaded strictly
-    (the HuBERT frontend stays random)."""
+    (``hcodec10_state_dict`` / ``hcodec20_state_dict``, or a training
+    state dict, under "gen" in a ``train-codec`` checkpoint), loaded
+    strictly after ``hcodec_inference_keys`` (the HuBERT frontend stays
+    random)."""
     from .models.hcodec.codec import HCodec, hcodec10_config, hcodec20_config
     from .models.hcodec.tokenizer import HCodecTokenizer
     from .models.ssl.wav2vec2 import Wav2Vec2Model, hubert_base_config
@@ -383,9 +494,11 @@ def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
     for module in (codec, ssl):
         init_random_(module, gen)
     if ckpt:
-        blob = torch.load(ckpt, map_location=device, weights_only=True)
-        codec.load_state_dict(hcodec_inference_keys(
-            blob.get("state_dict", blob)))
+        # on the host: hcodec_inference_keys folds weight norm in numpy
+        blob = torch.load(ckpt, map_location="cpu", weights_only=True)
+        sd = blob.get("gen", blob.get("state_dict", blob))
+        codec.load_state_dict({k: torch.as_tensor(v) for k, v in
+                               hcodec_inference_keys(sd).items()})
         print(f"loaded {name} state dict {ckpt} (the HuBERT frontend "
               "stays random)", file=sys.stderr)
     else:
@@ -436,6 +549,12 @@ def main(argv=None):
                          "(what export_bicodec_state_dict writes)")
     tr.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     tr.set_defaults(fn=cmd_train_unise)
+    tc = sub.add_parser("train-codec")
+    tc.add_argument("--config", required=True,
+                    help="YAML training config (configs/hcodec10.yaml plus "
+                         "a 'dataset' section)")
+    tc.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    tc.set_defaults(fn=cmd_train_codec)
     t = sub.add_parser("serve")
     t.add_argument("--requests", required=True,
                    help="JSONL request file (see the module docstring)")

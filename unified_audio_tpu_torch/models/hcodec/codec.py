@@ -8,15 +8,17 @@
 
 Port of ``PriorNet``, ``CodecDecoder10``, ``CodecEncoder20``,
 ``CodecDecoder20``, ``HCodecConfig``, ``hcodec10_config``,
-``hcodec20_config`` and the inference methods of ``HCodec`` in
+``hcodec20_config`` and ``HCodec`` in
 ``unified_audio_tpu/models/hcodec/codec.py``: an acoustic and a semantic
 encoder, a ``ResidualVQ`` per stream, and a ConvNeXt/ISTFT decoder of the
-two streams' concatenated embeddings. Channels-last. Parameter names follow
-the reference layout that ``export_hcodec10_state_dict`` and
-``export_hcodec20_state_dict`` write (``encoder.model.{i}`` or
-``encoder.prior_net.{i}``, ``quantizer.layers.{i}._codebook.embed``,
-``decoder.prior_net.{i}``, ``decoder.post_net.{i}``). The training forward
-(``SemanticDecoder``, losses) and the causal variant are not ported yet.
+two streams' concatenated embeddings; built with ``trainable`` also the
+training forward (``HCodec.forward``: the EMA quantizers with quantizer
+dropout, the ``SemanticDecoder`` target and the commitment losses).
+Channels-last. Parameter names follow the reference layout that
+``export_hcodec10_state_dict`` and ``export_hcodec20_state_dict`` write
+(``encoder.model.{i}`` or ``encoder.prior_net.{i}``,
+``quantizer.layers.{i}._codebook.embed``, ``decoder.prior_net.{i}``,
+``decoder.post_net.{i}``). The causal variant is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from ...nn.heads import ISTFTHead
 from ...nn.transformer import Transformer
 from ...ops import dsp
 from ...ops.quant import ResidualVQ
-from .semantic import SemanticEncoder
+from .semantic import SemanticDecoder, SemanticEncoder
 
 
 class PriorNet(nn.Sequential):
@@ -183,13 +185,21 @@ def hcodec20_config(**kw) -> HCodecConfig:
 
 
 class HCodec(nn.Module):
-    """Dual-stream codec at inference.
+    """Dual-stream codec.
 
     encode(wav (B, L, 1), feat (B, Tf, feat_dim)) -> (acoustic, semantic)
     codes, each (B, T, nq); decode(acoustic, semantic) -> wav (B, L). Tf is
-    2 T for 1.0 and 4 T for 2.0 (50 Hz SSL frames of the 16 kHz audio)."""
+    2 T for 1.0 and 4 T for 2.0 (50 Hz SSL frames of the 16 kHz audio).
 
-    def __init__(self, config: HCodecConfig = HCodecConfig()):
+    ``trainable`` builds the training state as the JAX package trains it:
+    the SEANet encoder's convs as weight norm (g, v), the codebooks' EMA
+    buffers and the ``semantic_decoder``; ``forward(wav, feat, train)``
+    then gives (recon, pred_feat, commit). Without it the codec is the
+    inference model (weight norm folded, no EMA state, no semantic
+    decoder), what ``utils/convert.py hcodec_inference_keys`` loads."""
+
+    def __init__(self, config: HCodecConfig = HCodecConfig(),
+                 trainable: bool = False):
         super().__init__()
         cfg = self.config = config
         if cfg.version not in ("1.0", "2.0") or cfg.causal:
@@ -199,7 +209,8 @@ class HCodec(nn.Module):
                 "non-causal HCodec-1.0 and 2.0")
         if cfg.version == "1.0":
             self.encoder = SEANetEncoder(cfg.latent_dim, cfg.seanet_filters,
-                                         cfg.seanet_ratios)
+                                         cfg.seanet_ratios,
+                                         weight_norm=trainable)
             self.decoder = CodecDecoder10(
                 2 * cfg.latent_dim, cfg.decoder_dim,
                 cfg.decoder_intermediate_dim, cfg.decoder_convnext_layers,
@@ -213,14 +224,34 @@ class HCodec(nn.Module):
                 2 * cfg.latent_dim, cfg.decoder_dim,
                 cfg.decoder_intermediate_dim, cfg.decoder_convnext_layers,
                 cfg.n_fft, cfg.istft_hop, cfg.target_frame_rate)
+        vq = dict(ema=trainable, quantize_dropout=cfg.quantize_dropout)
         self.quantizer = ResidualVQ(cfg.latent_dim, cfg.codebook_size,
-                                    cfg.num_quantizers)
+                                    cfg.num_quantizers, **vq)
         self.semantic_quantizer = ResidualVQ(cfg.latent_dim,
                                              cfg.codebook_size,
-                                             cfg.num_quantizers)
+                                             cfg.num_quantizers, **vq)
         self.semantic_encoder = SemanticEncoder(
             cfg.feat_dim, cfg.semantic_encode_channels, cfg.latent_dim,
             cfg.semantic_ratios, cfg.semantic_strides)
+        if trainable:
+            self.semantic_decoder = SemanticDecoder(
+                cfg.latent_dim, cfg.feat_dim, cfg.semantic_encode_channels,
+                cfg.semantic_ratios, cfg.semantic_strides)
+
+    def forward(self, wav, feat, train: bool = True, generator=None):
+        """wav (B, L, 1), feat (B, Tf, feat_dim) -> (recon (B, L'),
+        pred_feat (B, Tf, feat_dim), commit ()): commit is the mean of the
+        acoustic layers' commitment losses plus the mean of the semantic
+        layers' (a dropped layer counts as a zero). In training the
+        quantizers update their EMA buffers and ``generator`` draws
+        k-means' rows and the dropout cutoffs."""
+        emb, semantic_emb = self.encode_latents(wav, feat)
+        quantized, _, commit = self.quantizer(emb, train, generator)
+        quantized_sem, _, commit_sem = self.semantic_quantizer(
+            semantic_emb, train, generator)
+        recon = self.decoder(torch.cat([quantized, quantized_sem], dim=-1))
+        return (recon, self.semantic_decoder(quantized_sem),
+                commit.mean() + commit_sem.mean())
 
     def encode_latents(self, wav, feat):
         """-> (acoustic latents, semantic latents), each (B, T, latent_dim);

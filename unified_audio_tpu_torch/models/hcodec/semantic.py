@@ -1,11 +1,14 @@
-"""Semantic encoder of HCodec: conv residual stacks mapping SSL features to
-the codec's latent rate, channels-last.
+"""Semantic encoder and decoder of HCodec: conv residual stacks mapping SSL
+features to the codec's latent rate and back, channels-last.
 
-Port of ``ResidualUnit``, ``EncoderBlock`` and ``SemanticEncoder`` in
+Port of ``ResidualUnit``, ``EncoderBlock``, ``SemanticEncoder``,
+``DecoderBlock`` and ``SemanticDecoder`` in
 ``unified_audio_tpu/models/hcodec/semantic.py``. Parameter names follow the
 reference layout (``conv.conv.weight``, ``conv_blocks.{i}.res_units.{j}``,
-``conv2.conv.weight``). ``SemanticDecoder`` only produces the training target
-``pred_feat`` and is not ported yet; the weight loader skips its keys.
+``conv2.conv.weight``; the decoder's ``conv1.conv.weight`` and, for a
+strided block, ``conv_blocks.{i}.conv.deconv``). The decoder only produces
+``pred_feat``, the training target, so only a codec built for training has
+one.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Sequence
 from torch import nn
 from torch.nn import functional as F
 
-from ...nn.conv import Conv1d, Wrapped
+from ...nn.conv import Conv1d, ConvTranspose1d, Wrapped
 
 
 class ResidualUnit(nn.Module):
@@ -71,6 +74,57 @@ class SemanticEncoder(nn.Module):
 
     def forward(self, x):
         x = self.conv(x)
+        for block in self.conv_blocks:
+            x = block(x)
+        return self.conv2(x)
+
+
+class DecoderBlock(nn.Module):
+    """A conv k3 (stride 1) or a transposed conv of kernel 2 * stride
+    (torch padding), then residual units at ``out_channels``."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 dilations: Sequence[int] = (1, 1), unit_kernel_size: int = 3):
+        super().__init__()
+        if stride == 1:
+            self.conv = Wrapped("conv", Conv1d(in_channels, out_channels, 3))
+        else:
+            self.conv = Wrapped("deconv", ConvTranspose1d(
+                in_channels, out_channels, 2 * stride, stride=stride))
+        self.res_units = nn.ModuleList([
+            ResidualUnit(out_channels, unit_kernel_size, d)
+            for d in dilations])
+
+    def forward(self, x):
+        x = self.conv(x)
+        for unit in self.res_units:
+            x = unit(x)
+        return x
+
+
+class SemanticDecoder(nn.Module):
+    """Latents (B, T, code_dim) -> SSL features (B, T prod(strides),
+    output_channels)."""
+
+    def __init__(self, code_dim: int, output_channels: int,
+                 decode_channels: int, channel_ratios: Sequence[float] = (1, 1),
+                 strides: Sequence[int] = (2, 1), kernel_size: int = 3):
+        super().__init__()
+        cin = int(decode_channels * channel_ratios[0])
+        self.conv1 = Wrapped("conv", Conv1d(code_dim, cin, kernel_size,
+                                            bias=False))
+        blocks, n = [], len(strides)
+        for i, stride in enumerate(strides):
+            cout = (int(decode_channels * channel_ratios[i + 1])
+                    if i < n - 1 else decode_channels)
+            blocks.append(DecoderBlock(cin, cout, stride))
+            cin = cout
+        self.conv_blocks = nn.ModuleList(blocks)
+        self.conv2 = Wrapped("conv", Conv1d(cin, output_channels,
+                                            kernel_size, bias=False))
+
+    def forward(self, z):
+        x = self.conv1(z)
         for block in self.conv_blocks:
             x = block(x)
         return self.conv2(x)

@@ -220,7 +220,8 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x):
         h = self.conv1(swish(self.norm1(x)))
-        return x + self.conv2(swish(self.norm2(h)))  # dropout: training only
+        # no dropout: the JAX package keeps it deterministic, in training too
+        return x + self.conv2(swish(self.norm2(h)))
 
 
 class SEANetResnetBlock(nn.Module):
@@ -228,12 +229,12 @@ class SEANetResnetBlock(nn.Module):
     plus a 1x1 SConv shortcut (``true_skip=False``). Convs at ``block.1``,
     ``block.3`` and ``shortcut``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, weight_norm: bool = False):
         super().__init__()
         self.block = nn.Sequential(
-            nn.ELU(), SConv1d(dim, dim // 2, 3),
-            nn.ELU(), SConv1d(dim // 2, dim, 1))
-        self.shortcut = SConv1d(dim, dim, 1)
+            nn.ELU(), SConv1d(dim, dim // 2, 3, weight_norm=weight_norm),
+            nn.ELU(), SConv1d(dim // 2, dim, 1, weight_norm=weight_norm))
+        self.shortcut = SConv1d(dim, dim, 1, weight_norm=weight_norm)
 
     def forward(self, x):
         return self.shortcut(x) + self.block(x)
@@ -250,20 +251,24 @@ class SEANetEncoder(nn.Module):
 
     The layers sit at the reference's ``model.{i}`` indices; the
     reference's layout transposes around the transformer (13, 15) have no
-    work to do channels-last and are ``Identity``."""
+    work to do channels-last and are ``Identity``. ``weight_norm`` trains
+    every SConv as (g, v), as the JAX package's encoder does."""
 
     def __init__(self, dimension: int = 512, n_filters: int = 32,
-                 ratios: Tuple[int, ...] = (8, 5, 4, 2)):
+                 ratios: Tuple[int, ...] = (8, 5, 4, 2),
+                 weight_norm: bool = False):
         super().__init__()
+        wn = dict(weight_norm=weight_norm)
         width = n_filters
-        layers = [SConv1d(1, width, 7)]
+        layers = [SConv1d(1, width, 7, **wn)]
         for ratio in reversed(ratios):
-            layers += [SEANetResnetBlock(width), nn.ELU(),
-                       SConv1d(width, width * 2, ratio * 2, stride=ratio)]
+            layers += [SEANetResnetBlock(width, **wn), nn.ELU(),
+                       SConv1d(width, width * 2, ratio * 2, stride=ratio,
+                               **wn)]
             width *= 2
         layers += [nn.Identity(), Transformer(dimension, dimension * 4, 8, 2),
                    nn.Identity(), nn.ELU(),
-                   SConv1d(width, dimension, 4, stride=2)]
+                   SConv1d(width, dimension, 4, stride=2, **wn)]
         self.model = nn.Sequential(*layers)
 
     def forward(self, x):

@@ -7,9 +7,12 @@ padding/output_padding trim) and, for HCodec, the EnCodec padding math
 and ``SubPixelConvTranspose1d``, with the padding arithmetic unchanged.
 Public functions keep the JAX package's channels-last layout; weights use
 torch's layouts (Conv1d (out, in/groups, K), ConvTranspose1d (in, out, K)).
-Weight norm is folded into ``weight`` when the weights are loaded
-(``utils/convert.py``: ``g * v / sqrt(sum v^2 + 1e-12)`` over (K, Cin) per
-output channel, the JAX epsilon), as the reference does for inference.
+At inference weight norm is folded into ``weight`` when the weights are
+loaded (``utils/convert.py``), as the reference does. For training,
+``Conv1d(weight_norm=True)`` (and ``SConv1d``, which passes it on) keeps
+the parametrization trainable as ``weight_g`` (out, 1, 1) and ``weight_v``
+(out, in/groups, K), the reference's names, and builds its kernel each call
+(:func:`weight_norm_kernel`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,14 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+
+def weight_norm_kernel(g, v):
+    """``g * v / sqrt(sum(v^2) + 1e-12)``, the sum over (in, K) per output
+    channel: the JAX package's weight norm, its epsilon inside the root
+    (``torch.nn.utils.weight_norm`` has none)."""
+    return v * (g / torch.sqrt(v.square().sum(dim=(1, 2), keepdim=True)
+                               + 1e-12))
 
 
 def conv1d(x, weight, bias=None, stride: int = 1, dilation: int = 1,
@@ -35,22 +46,35 @@ def conv1d(x, weight, bias=None, stride: int = 1, dilation: int = 1,
 
 class Conv1d(nn.Module):
     """Conv with torch-style symmetric ``padding`` (None -> (K-1)//2 *
-    dilation), channels-last in and out."""
+    dilation), channels-last in and out. ``weight_norm`` trains the kernel
+    as ``weight_g`` and ``weight_v`` (``kernel`` builds it)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
-                 bias: bool = True, padding: Optional[int] = None):
+                 bias: bool = True, padding: Optional[int] = None,
+                 weight_norm: bool = False):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
         self.padding = ((kernel_size - 1) // 2 * dilation if padding is None
                         else padding)
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels // groups, kernel_size))
+        self.weight_norm = weight_norm
+        shape = (out_channels, in_channels // groups, kernel_size)
+        if weight_norm:
+            self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1))
+            self.weight_v = nn.Parameter(torch.empty(shape))
+        else:
+            self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
+    def kernel(self):
+        """The (out, in/groups, K) kernel of this call."""
+        if self.weight_norm:
+            return weight_norm_kernel(self.weight_g, self.weight_v)
+        return self.weight
+
     def forward(self, x):
-        return conv1d(x, self.weight, self.bias, self.stride, self.dilation,
-                      self.groups, (self.padding, self.padding))
+        return conv1d(x, self.kernel(), self.bias, self.stride,
+                      self.dilation, self.groups, (self.padding, self.padding))
 
 
 class ConvTranspose1d(nn.Module):
@@ -128,15 +152,16 @@ def pad1d(x, paddings: Tuple[int, int]):
 class SConv1d(nn.Module):
     """EnCodec conv, non-causal: asymmetric reflect pad of kernel - stride
     (the larger half on the left) plus the extra right pad for a full last
-    window. Weight at ``conv.conv``."""
+    window. Weight at ``conv.conv`` (``weight_g``/``weight_v`` with
+    ``weight_norm``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1):
+                 stride: int = 1, weight_norm: bool = False):
         super().__init__()
         self.kernel_size, self.stride = kernel_size, stride
         self.conv = Wrapped("conv", Conv1d(in_channels, out_channels,
                                            kernel_size, stride=stride,
-                                           padding=0))
+                                           padding=0, weight_norm=weight_norm))
 
     def forward(self, x):
         total = self.kernel_size - self.stride

@@ -204,9 +204,20 @@ def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
                     f_max: float, n_mels: int) -> torch.Tensor:
     """Magnitude (power 1) mel spectrogram with slaney scale and norm, the
     centered, reflect-padded STFT (torchaudio.transforms.MelSpectrogram as
-    BiCodec configures it). (B, T) -> (B, n_mels, frames)."""
+    BiCodec configures it; differentiable, as codec training's multi-scale
+    mel loss needs). (B, T) -> (B, n_mels, frames)."""
     mag = stft(x, n_fft, hop_length, win_length, center=True).abs()
-    fb = torch.as_tensor(melscale_fbanks(
-        n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate, norm="slaney",
-        mel_scale="slaney"), device=x.device)
+    fb = _slaney_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate,
+                        x.device)
     return torch.einsum("bft,fm->bmt", mag, fb)
+
+
+@functools.lru_cache(maxsize=64)
+def _slaney_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+                   sample_rate: int, device) -> torch.Tensor:
+    """:func:`melscale_fbanks` with slaney scale and norm as a tensor on
+    ``device``, copied there once (a copy from pageable host memory waits
+    for the card)."""
+    return torch.as_tensor(melscale_fbanks(
+        n_freqs, f_min, f_max, n_mels, sample_rate, norm="slaney",
+        mel_scale="slaney"), device=device)

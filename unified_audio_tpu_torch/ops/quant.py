@@ -1,21 +1,35 @@
-"""Quantizers at inference: BiCodec's tokenize and decode paths and HCodec's
-residual VQ.
+"""Quantizers: BiCodec's tokenize and decode paths, HCodec's residual VQ
+at inference and in training.
 
 Port of parts of ``unified_audio_tpu/ops/quant.py``: ``cosine_nearest_code``,
 ``FactorizedVectorQuantize.tokenize`` (the 1x1 ``in_project`` and the cosine
 search) and ``detokenize`` (codebook lookup plus the 1x1 ``out_project``),
 ``FSQ`` (``bound``, ``quantize``, ``codes_to_indices``,
 ``indices_to_codes``), ``ResidualFSQ`` (the residual quantization into
-indices and ``get_output_from_indices``), ``nearest_code``, and the encode
-and decode of ``VectorQuantization`` and ``ResidualVQ``. On a CUDA tensor the
-nearest-code search runs the hand-written kernels of ``ops/cuda/vq.py``
-(K5 for one codebook, K6 for all residual layers in one launch); on the CPU
-their plain versions. BiCodec's quantizers are frozen: the cosine search
-and FSQ run plain, as in the JAX package. The EMA codebook updates, k-means
-and quantizer dropout serve codec training and are not ported. Parameter
-names follow the reference layouts (``codebook.weight``,
+indices and ``get_output_from_indices``), ``nearest_code``,
+``sample_vectors``, ``kmeans``, and ``VectorQuantization`` and
+``ResidualVQ``: encode and decode, and the training forward (k-means
+initialization on the first batch, the EMA codebook update with Laplace
+smoothing, the commitment loss, the straight-through output, structured
+quantizer dropout). On a CUDA tensor every nearest-code search, those of
+the training forward and of k-means included, runs the hand-written
+kernels of ``ops/cuda/vq.py`` (K5 for one codebook, K6 for all residual
+layers in one launch); on the CPU their plain versions. BiCodec's
+quantizers are frozen: the cosine search and FSQ run plain, as in the JAX
+package.
+
+Random draws (k-means' initial rows, the dropout cutoff) each come from
+one small function (:func:`sample_rows`, :func:`dropout_cutoff`) of an
+explicit ``torch.Generator``. The JAX package's dead-code expiry is left
+out: it writes replacement rows into the codebook that the EMA update
+overwrites a few lines later (as in the upstream EnCodec ``core_vq``), so
+the codebook comes out the same without it.
+
+Parameter names follow the reference layouts (``codebook.weight``,
 ``in_project.weight``, ``out_project.weight``, ``project_in.weight``,
-``project_out.weight``, ``layers.{i}._codebook.embed`` of shape (1, N, D)).
+``project_out.weight``, ``layers.{i}._codebook.embed`` of shape (1, N, D);
+for training also ``_codebook.embed_avg`` (1, N, D), ``cluster_size`` (1,
+N) and ``initted`` (1,)).
 """
 from __future__ import annotations
 
@@ -32,7 +46,7 @@ from .cuda import vq
 def nearest_code(x, codebook):
     """argmin_j |x_i - e_j|^2 for x (..., D), codebook (N, D) -> (...,)
     int32, ties to the lowest j, fp32."""
-    flat = x.reshape(-1, x.shape[-1]).float().contiguous()
+    flat = x.detach().reshape(-1, x.shape[-1]).float().contiguous()
     return vq.nearest_code(flat, codebook.contiguous()).reshape(x.shape[:-1])
 
 
@@ -45,18 +59,91 @@ def cosine_nearest_code(x, codebook):
     return torch.argmax(torch.einsum("...d,nd->...n", xn, cn), dim=-1).int()
 
 
+def sample_rows(m: int, num: int, generator=None):
+    """Indices (num,) int64 of rows among M, on the generator's device:
+    the first ``num`` of a random permutation when M >= num, else ``num``
+    uniform draws with replacement (``sample_vectors``' draw)."""
+    if m >= num:
+        return torch.randperm(m, generator=generator)[:num]
+    return torch.randint(0, m, (num,), generator=generator)
+
+
+def dropout_cutoff(nq: int, generator=None) -> int:
+    """The last residual layer kept by quantizer dropout, uniform in
+    [0, nq)."""
+    return int(torch.randint(0, nq, (), generator=generator))
+
+
+def sample_vectors(samples, num: int, generator=None):
+    """``num`` rows of ``samples`` (M, D) (:func:`sample_rows`)."""
+    idx = sample_rows(samples.shape[0], num, generator)
+    return samples[idx.to(samples.device)]
+
+
+def _bins_and_sums(samples, codes, num_clusters: int):
+    """Per cluster the rows it takes (fp32) and their sum (N, D)."""
+    codes = codes.long()
+    bins = torch.bincount(codes, minlength=num_clusters).to(samples.dtype)
+    sums = samples.new_zeros(num_clusters, samples.shape[1]).index_add_(
+        0, codes, samples)
+    return bins, sums
+
+
+@torch.no_grad()
+def kmeans(samples, num_clusters: int, num_iters: int = 10, generator=None):
+    """Lloyd's k-means of ``samples`` (M, D) from :func:`sample_vectors`'
+    rows -> (means (N, D), bins (N,) fp32). An empty cluster keeps its
+    mean. Each iteration's search and the final bins' go through
+    :func:`nearest_code` (K5 on a CUDA tensor)."""
+    means = sample_vectors(samples, num_clusters, generator)
+    for _ in range(num_iters):
+        bins, sums = _bins_and_sums(
+            samples, nearest_code(samples, means), num_clusters)
+        new = sums / bins.clamp(min=1.0)[:, None]
+        means = torch.where((bins == 0)[:, None], means, new)
+    bins, _ = _bins_and_sums(samples, nearest_code(samples, means),
+                             num_clusters)
+    return means, bins
+
+
 class _Codebook(nn.Module):
-    def __init__(self, codebook_size: int, dim: int):
+    """The codebook's buffers; with ``ema`` also the EMA statistics and the
+    k-means flag, which the host tracks once it has read it."""
+
+    def __init__(self, codebook_size: int, dim: int, ema: bool = False):
         super().__init__()
         self.register_buffer("embed", torch.zeros(1, codebook_size, dim))
+        if ema:
+            self.register_buffer("embed_avg",
+                                 torch.zeros(1, codebook_size, dim))
+            self.register_buffer("cluster_size",
+                                 torch.zeros(1, codebook_size))
+            self.register_buffer("initted", torch.zeros(1))
+        self._initted = None  # the host's copy of ``initted``
+
+    def is_initted(self) -> bool:
+        if self._initted is None:
+            self._initted = bool(self.initted.item())
+        return self._initted
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._initted = None
+
+
+EMA_DECAY = 0.99  # the JAX package's VectorQuantization defaults
+LAPLACE_EPSILON = 1e-5
+KMEANS_ITERS = 50
 
 
 class VectorQuantization(nn.Module):
-    """One Euclidean codebook (N, D), kept as the reference stores it."""
+    """One Euclidean codebook (N, D), kept as the reference stores it.
+    ``ema`` builds the training state."""
 
-    def __init__(self, dim: int, codebook_size: int):
+    def __init__(self, dim: int, codebook_size: int, ema: bool = False):
         super().__init__()
-        self._codebook = _Codebook(codebook_size, dim)
+        self._codebook = _Codebook(codebook_size, dim, ema)
+        self.kmeans_iters = KMEANS_ITERS
 
     @property
     def embed(self):
@@ -70,16 +157,79 @@ class VectorQuantization(nn.Module):
         """codes (...) -> (..., D), an exact row gather."""
         return self.embed[indices.long()]
 
+    def forward(self, x, train: bool = False, generator=None):
+        """x (..., D) -> (quantized, codes (...) int32, loss ()).
+
+        In training: k-means' means on the first batch (``generator``
+        draws its rows), the search in the codebook as it was before this
+        batch, the EMA update of the buffers from this batch's codes
+        (decay 0.99, Laplace smoothing 1e-5), the commitment loss
+        ``mean((sg(q) - x)^2)`` (weight 1) and the straight-through output
+        ``x + sg(q - x)``."""
+        if not train:
+            idx = self.encode(x)
+            return self.decode(idx), idx, x.new_zeros(())
+        cb, n_codes = self._codebook, self.embed.shape[0]
+        flat = x.detach().reshape(-1, x.shape[-1])
+        with torch.no_grad():
+            if not cb.is_initted():
+                means, bins = kmeans(flat, n_codes, self.kmeans_iters,
+                                     generator)
+                cb.embed[0] = means
+                cb.embed_avg[0] = means
+                cb.cluster_size[0] = bins
+            idx = nearest_code(flat, self.embed)
+            quantized = self.decode(idx)
+            counts, embed_sum = _bins_and_sums(flat, idx, n_codes)
+            d, eps = EMA_DECAY, LAPLACE_EPSILON
+            size = cb.cluster_size[0] * d + counts * (1 - d)
+            avg = cb.embed_avg[0] * d + embed_sum * (1 - d)
+            total = size.sum()
+            smoothed = (size + eps) / (total + n_codes * eps) * total
+            cb.embed[0] = avg / smoothed[:, None]
+            cb.embed_avg[0] = avg
+            cb.cluster_size[0] = size
+            cb.initted.fill_(1.0)
+            cb._initted = True
+        quantized = quantized.view(x.shape)
+        loss = (quantized - x).square().mean()
+        return (x + (quantized - x).detach(), idx.view(x.shape[:-1]), loss)
+
 
 class ResidualVQ(nn.Module):
-    """Residual VQ stack at inference: ``encode`` (B, T, D) -> codes
-    (B, T, nq), ``decode`` codes -> (B, T, D)."""
+    """Residual VQ stack: ``encode`` (B, T, D) -> codes (B, T, nq),
+    ``decode`` codes -> (B, T, D); with ``ema`` also the training
+    ``forward``, with structured quantizer dropout if
+    ``quantize_dropout``."""
 
-    def __init__(self, dim: int, codebook_size: int, num_quantizers: int):
+    def __init__(self, dim: int, codebook_size: int, num_quantizers: int,
+                 ema: bool = False, quantize_dropout: bool = False):
         super().__init__()
+        self.quantize_dropout = quantize_dropout
         self.layers = nn.ModuleList([
-            VectorQuantization(dim, codebook_size)
+            VectorQuantization(dim, codebook_size, ema=ema)
             for _ in range(num_quantizers)])
+
+    def forward(self, x, train: bool = False, generator=None):
+        """x (B, T, D) -> (quantized (B, T, D), codes (B, T, nq), losses
+        (nq,)). Each layer quantizes the residual the layers before it
+        leave. In training with quantizer dropout one cutoff is drawn a
+        batch (:func:`dropout_cutoff`); the layers past it still search and
+        update their codebooks but give zeros, codes -1 and a zero loss."""
+        nq = len(self.layers)
+        cutoff = (dropout_cutoff(nq, generator)
+                  if train and self.quantize_dropout and nq > 1 else nq - 1)
+        out, residual, codes, losses = 0.0, x, [], []
+        for i, layer in enumerate(self.layers):
+            q, idx, loss = layer(residual, train=train, generator=generator)
+            if i > cutoff:
+                q, idx = torch.zeros_like(q), torch.full_like(idx, -1)
+                loss = torch.zeros_like(loss)
+            residual = residual - q.detach()
+            out = out + q
+            codes.append(idx)
+            losses.append(loss)
+        return out, torch.stack(codes, -1), torch.stack(losses)
 
     def codebooks(self):
         """The layers' (N, D) codebooks, views of their buffers (no copy)."""

@@ -1,5 +1,6 @@
-"""The optimizer of UniSE's SFT training: global-norm gradient clipping,
-then AdamW under the reference learning-rate schedule.
+"""The optimizer of UniSE's SFT training and of codec training: global-norm
+gradient clipping, then AdamW under the reference learning-rate schedule
+or at a constant rate.
 
 Port of ``unified_audio_tpu/train/optim.py``: a peak rate of 5e-4, a
 cosine warmup over 2000 steps, then exponential decay 0.99998^(t - warmup)
@@ -16,11 +17,15 @@ decoupled weight decay 0.01 on every parameter (b1 0.9, b2 0.999, eps
   evaluated in fp32, as the JAX package evaluates it;
 * ``torch.optim.AdamW`` updates p <- p - lr (m_hat / (sqrt(v_hat) + eps) +
   wd p), optax's ``adamw``.
+
+Codec training (``train/codec_trainer.py``) chains the same clip with
+optax's ``adamw`` at a constant rate and its default weight decay, 1e-4:
+``Optimizer(params, lr=2e-4, weight_decay=1e-4)``.
 """
 from __future__ import annotations
 
 import math
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -54,19 +59,23 @@ def clip_by_global_norm_(grads, max_norm: float):
 
 
 class Optimizer:
-    """Global-norm clip, then AdamW at the schedule's rate. The AdamW base
-    rate is 1 and a ``LambdaLR`` sets each update's rate to
-    ``schedule(t)`` exactly; ``state_dict`` holds both, so a restored
-    optimizer continues the schedule and the moments."""
+    """Global-norm clip, then AdamW at the schedule's rate, or at ``lr``
+    for every update when it is given. The AdamW base rate is 1 and a
+    ``LambdaLR`` sets each update's rate to ``schedule(t)`` exactly;
+    ``state_dict`` holds both, so a restored optimizer continues the
+    schedule and the moments."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  peak_lr: float = 5e-4, warmup_steps: int = 2000,
                  step_decay: float = 0.99998, min_factor: float = 0.02,
-                 grad_clip: float = 5.0, weight_decay: float = 0.01):
+                 grad_clip: float = 5.0, weight_decay: float = 0.01,
+                 lr: Optional[float] = None):
         self.params = [p for p in params if p.requires_grad]
         self.grad_clip = grad_clip
-        self.schedule = warmup_exp_decay_schedule(peak_lr, warmup_steps,
-                                                  step_decay, min_factor)
+        self.schedule = (
+            warmup_exp_decay_schedule(peak_lr, warmup_steps, step_decay,
+                                      min_factor)
+            if lr is None else lambda step: lr)
         self.adamw = torch.optim.AdamW(self.params, lr=1.0,
                                        betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)

@@ -29,7 +29,12 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
   ``utils/convert_hcodec.py export_hcodec10_state_dict`` and
   ``export_hcodec20_state_dict`` write (codebooks from the ``codebook``
   collection); :func:`hcodec_inference_keys` keeps the keys the port's
-  ``HCodec`` loads.
+  ``HCodec`` loads, weight norm folded. :func:`hcodec10_train_state_dict`
+  and :func:`hcodec20_train_state_dict` give what ``HCodec(trainable=True)``
+  loads: weight norm kept as ``weight_g`` (out, 1, 1) and ``weight_v``,
+  the codebooks' EMA buffers, the semantic decoder.
+* :func:`codec_discriminator_state_dict`: ``CodecDiscriminator`` params
+  -> the port's ``CodecDiscriminator`` (Conv2d weights (out, in, kh, kw)).
 
 ``nn.scan``-stacked layers are unstacked by indexing their leading axis.
 """
@@ -66,8 +71,14 @@ def _folded(p) -> np.ndarray:
     return v * (g / norm)
 
 
-def _conv(p, prefix: str, out: StateDict):
-    out[f"{prefix}.weight"] = _folded(p).transpose(2, 1, 0)
+def _conv(p, prefix: str, out: StateDict, unfold: bool = False):
+    """Conv params -> ``weight`` (out, in, K), or with ``unfold`` a
+    weight-normed conv's ``weight_g`` (out, 1, 1) and ``weight_v``."""
+    if unfold and "kernel_v" in p:
+        out[f"{prefix}.weight_g"] = _a(p["kernel_g"]).reshape(-1, 1, 1)
+        out[f"{prefix}.weight_v"] = _a(p["kernel_v"]).transpose(2, 1, 0)
+    else:
+        out[f"{prefix}.weight"] = _folded(p).transpose(2, 1, 0)
     if "bias" in p:
         out[f"{prefix}.bias"] = _a(p["bias"])
 
@@ -381,8 +392,8 @@ def bicodec_tokenizer_keys(sd: StateDict) -> StateDict:
 # HCodec-1.0 (reference layout)
 # ---------------------------------------------------------------------------
 
-def _sconv(p, prefix: str, out: StateDict):
-    _conv(p, f"{prefix}.conv.conv", out)
+def _sconv(p, prefix: str, out: StateDict, unfold: bool = False):
+    _conv(p, f"{prefix}.conv.conv", out, unfold)
 
 
 def _hconv(p, prefix: str, out: StateDict):
@@ -489,26 +500,40 @@ def _codec_streams(variables, cfg, out: StateDict):
                          cfg.semantic_strides, out)
 
 
-def hcodec10_state_dict(variables, cfg) -> StateDict:
-    """HCodec-1.0 variables ({"params", "codebook"}) -> the reference
-    layout. The port's ``HCodec`` loads it with ``strict=True`` after
-    :func:`hcodec_inference_keys` drops what inference does not use."""
+def _hcodec10(variables, cfg, unfold: bool) -> StateDict:
     p, out = variables["params"], {}
     enc = p["encoder"]
-    _sconv(enc["conv_in"], "encoder.model.0", out)
+    _sconv(enc["conv_in"], "encoder.model.0", out, unfold)
     n = len(cfg.seanet_ratios)
     for i in range(n):
         res = enc[f"res_{i}_0"]
         for ours, theirs in (("block_0", "block.1"), ("block_1", "block.3"),
                              ("shortcut", "shortcut")):
-            _sconv(res[ours], f"encoder.model.{1 + 3 * i}.{theirs}", out)
-        _sconv(enc[f"down_{i}"], f"encoder.model.{3 + 3 * i}", out)
+            _sconv(res[ours], f"encoder.model.{1 + 3 * i}.{theirs}", out,
+                   unfold)
+        _sconv(enc[f"down_{i}"], f"encoder.model.{3 + 3 * i}", out, unfold)
     _hybrid_transformer(enc["transformer"], f"encoder.model.{2 + 3 * n}",
                         out)
-    _sconv(enc["conv_out"], f"encoder.model.{5 + 3 * n}", out)
+    _sconv(enc["conv_out"], f"encoder.model.{5 + 3 * n}", out, unfold)
     _codec_streams(variables, cfg, out)
     _codec_decoder10(p["decoder"], "decoder", out)
     return out
+
+
+def hcodec10_state_dict(variables, cfg) -> StateDict:
+    """HCodec-1.0 variables ({"params", "codebook"}) -> the reference
+    layout, weight norm folded. The port's ``HCodec`` loads it with
+    ``strict=True`` after :func:`hcodec_inference_keys` drops what
+    inference does not use."""
+    return _hcodec10(variables, cfg, unfold=False)
+
+
+def hcodec10_train_state_dict(variables, cfg) -> StateDict:
+    """HCodec-1.0 variables (``CodecGANTrainer.gen_vars``) -> the state
+    dict of the port's ``HCodec(trainable=True)``: the SEANet encoder's
+    weight norm as ``weight_g``/``weight_v``, the four codebook buffers,
+    the semantic decoder."""
+    return _hcodec10(variables, cfg, unfold=True)
 
 
 def hcodec20_state_dict(variables, cfg) -> StateDict:
@@ -530,9 +555,56 @@ def hcodec20_state_dict(variables, cfg) -> StateDict:
     return out
 
 
+def hcodec20_train_state_dict(variables, cfg) -> StateDict:
+    """HCodec-2.0 variables -> the state dict of the port's
+    ``HCodec(trainable=True)``. The 2.0 codec has no weight-normed conv,
+    so it is :func:`hcodec20_state_dict`, whose codebook buffers and
+    semantic decoder training loads."""
+    return hcodec20_state_dict(variables, cfg)
+
+
 def hcodec_inference_keys(sd: StateDict) -> StateDict:
-    """Drop the keys inference does not load: the semantic decoder (the
-    training target) and the codebooks' EMA statistics."""
+    """The keys the port's inference ``HCodec`` loads: the semantic decoder
+    (the training target) and the codebooks' EMA statistics dropped, and
+    each ``weight_g``/``weight_v`` pair (a training state dict) folded
+    into ``weight`` = g v / sqrt(sum v^2 + 1e-12), the sum over (in, K)
+    (numpy values, fp32)."""
     drop = (".embed_avg", ".cluster_size", ".initted")
-    return {k: v for k, v in sd.items()
-            if not k.startswith("semantic_decoder.") and not k.endswith(drop)}
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("semantic_decoder.") or k.endswith(drop) \
+                or k.endswith(".weight_v"):
+            continue
+        if k.endswith(".weight_g"):
+            stem = k[:-len("_g")]
+            g = np.asarray(v, np.float32)
+            w = np.asarray(sd[stem + "_v"], np.float32)
+            norm = np.sqrt((w ** 2).sum(axis=(1, 2), keepdims=True)
+                           + np.float32(1e-12))
+            out[stem] = w * (g / norm)
+        else:
+            out[k] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Codec GAN discriminators
+# ---------------------------------------------------------------------------
+
+def _conv2d(p, prefix: str, out: StateDict):
+    out[f"{prefix}.weight"] = _a(p["kernel"]).transpose(3, 2, 0, 1)
+    out[f"{prefix}.bias"] = _a(p["bias"])
+
+
+def codec_discriminator_state_dict(params) -> StateDict:
+    """``CodecDiscriminator`` params (``{"params": {"mpd_{p}": ...,
+    "stft_{n_fft}": ...}}``) -> the port's ``CodecDiscriminator``: flax's
+    (kh, kw, in, out) kernels as (out, in, kh, kw), ``conv_{i}`` at
+    ``convs.{i}``."""
+    out: StateDict = {}
+    for name, sub in params["params"].items():
+        for conv, p in sub.items():
+            key = (f"convs.{conv.split('_')[1]}" if conv[-1].isdigit()
+                   and not conv.startswith("conv_post") else conv)
+            _conv2d(p, f"{name}.{key}", out)
+    return out

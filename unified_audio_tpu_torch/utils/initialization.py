@@ -2,7 +2,8 @@
 
 No checkpoint of the released weights is reachable, so serving runs on
 random weights made from a seed through an explicit ``torch.Generator``:
-fan-in scaled uniform weights for linear and conv layers, LSTM weights
+fan-in scaled uniform weights for linear and conv layers (a weight-normed
+conv's v, its g the norm of v), LSTM weights
 uniform in +-1/sqrt(hidden), zero biases, unit-normal embeddings and VQ
 codebooks, Perceiver latents normal with std 0.02; norms (BatchNorm
 statistics too), Snake ``alpha`` and layer scales keep their constructor
@@ -24,12 +25,15 @@ from ..ops.quant import VectorQuantization
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize ``module``'s weights in place from ``generator`` (which
     must live on the parameters' device)."""
-    fan_in_types = (nn.Linear, nn.Conv1d, Conv1d, ConvTranspose1d)
+    fan_in_types = (nn.Linear, nn.Conv1d, nn.Conv2d, Conv1d, ConvTranspose1d)
     for m in module.modules():
         if isinstance(m, fan_in_types):
-            w = m.weight
+            wn = getattr(m, "weight_norm", False)
+            w = m.weight_v if wn else m.weight
             bound = 1.0 / math.sqrt(w[0].numel())
             w.uniform_(-bound, bound, generator=generator)
+            if wn:  # g = |v|: the kernel starts as v
+                m.weight_g.copy_(w.square().sum((1, 2), keepdim=True).sqrt())
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
