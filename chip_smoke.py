@@ -178,15 +178,36 @@ prints no result. Phases, each fatal on failure:
    Last, ``cli codec --ckpt`` on the step-30 checkpoint (weight norm
    folded on load) with a 10-s clip: K6 launched twice, codes (1, 4, 250)
    in [0, 1024), a finite output of the input's length.
-9. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+9. The JAX CLI's remaining commands at full width, random weights. (a)
+   ``cli enhance --mode se`` on a 7.5-s synthetic noisy wav (2 segments;
+   the LM fp32), then ``--mode ss`` on it: outputs finite at the input's
+   length, tokens in range; the generated tokens per second. The SE
+   tokens are teacher-forced through a CPU copy of the WavLM and LM: every
+   card token within 1e-4 (relative) of the CPU's top logit in its range;
+   prints the share equal to the CPU's argmax and the first step where
+   they part. (b) ``cli codec --dtype bfloat16`` for ``hcodec10`` and
+   ``hcodec20`` on 10-s clips, the plain VQ made to raise: K6 twice a
+   round trip, the codec and its LSTMs in bf16, a finite output; the codes
+   of a fp32 build of the same seed equal in >= 0.75 of places; K6's codes
+   on the bf16 path's own fp32-cast latents under ``judge_codes``; their
+   agreement with a bf16-rounded residual (the JAX package's bf16 encode;
+   K6 keeps it fp32), by layer; the decode SNR of the same codes, bf16
+   against fp32, above 15 dB; fp32 and bf16 round trips timed in turns,
+   median of 10. (c) ``cli eval --mode se --spk-sim --utmos-ckpt`` (a
+   random UTMOS head the smoke writes) over 4 noisy/clean pairs of 5 s:
+   every metric finite; seconds an utterance. Then
+   ``roundtrip_codec_eval`` through the bf16 HCodec-1.0 on the clean
+   clips: K6 twice a clip.
+10. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
 above, each kernel's time, its plain version's and its bound; K2's
 launches are phase 3's, and phase 7 prints its own serve's; K5's are
 phase 4's staged encode and phase 8's training, and its ``kmeans_m600``
-entry the times on k-means' start at M = 600; K6's are the three round
-trips' (phases 4, 5 and 8) and its ``nq16`` entry the times at
+entry the times on k-means' start at M = 600; K6's are the round trips'
+(phases 4, 5, 8 and 9's two bf16 ones and ``roundtrip_codec_eval``) and
+its ``nq16`` entry the times at
 HCodec-2.0's shapes; K7's launches are those of the serving paths, 0, and
 the smoke's own check calls are printed on the line before), and as its
 last line the device JSON object.
@@ -1990,6 +2011,313 @@ def codec_agreement(torch, vq, quant, trainer, gpu):
         fail("the card's codec training step disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# The JAX CLI's remaining commands: enhance, codec --dtype bfloat16, eval
+# ---------------------------------------------------------------------------
+
+ENHANCE_S = 7.5  # cli enhance's clip: two 5-s segments
+EVAL_PAIRS = 4  # cli eval's noisy/clean pairs of 5 s
+BF16_AGREE = 0.75  # bf16 codes against fp32 (the JAX package's bound)
+NEAR_TIE = 1e-4  # a card token's gap to the CPU's top logit, relative
+SNR_DB = 15.0  # decode SNR of the same codes, bf16 against fp32
+
+
+def noisy_clean(rng, n, sr=SR):
+    """A synthetic speech-like clip and a noisy copy, the same peak scale
+    (0.8 at the noisy one's peak)."""
+    clean = 0.5 * synth_speech(rng, n, sr)
+    noisy = clean + 0.1 * rng.standard_normal(n)
+    scale = 0.8 / np.abs(noisy).max()
+    return ((noisy * scale).astype(np.float32),
+            (clean * scale).astype(np.float32))
+
+
+def teacher_forced_gaps(torch, unise, wav, g, s):
+    """The card's greedy SE tokens ``g`` (B, 32) and ``s`` (B, 250) of
+    ``wav`` (1, T), teacher-forced through a CPU copy of ``unise``'s WavLM
+    and LM (fp32) -> (each card token's gap to the CPU's top logit of its
+    range, relative to |top| floored at 1, (B, 282); whether the CPU's
+    argmax is the card's token, (B, 282))."""
+    import copy
+
+    from unified_audio_tpu_torch.models.lm.llama import range_mask
+    from unified_audio_tpu_torch.models.unise.model import TASK_MAP
+
+    sft = copy.deepcopy(unise.sft).cpu().float()
+    cpu = type(unise)(unise.config, unise.tokenizer,
+                      copy.deepcopy(unise.wavlm).cpu(), sft)
+    cfg = sft.cfg
+    segs, _ = cpu._segment(wav)
+    segs = segs / np.max(np.abs(wav), axis=-1, keepdims=True)
+    g = torch.as_tensor(g).long() + cfg.global_offset
+    s = torch.as_tensor(s).long() + cfg.semantic_offset
+    b, n_g = g.shape
+
+    def col(i):
+        return torch.full((b, 1), i, dtype=torch.long)
+
+    # fed: [gSOS g1..g32 sSOS s1..s249]; position 32 predicts the discarded
+    # 33rd global sample
+    fed = torch.cat([col(cfg.global_sos), g, col(cfg.semantic_sos),
+                     s[:, :-1]], 1)
+    with torch.no_grad():
+        embeds = torch.cat([sft.prompt(TASK_MAP["se"], None,
+                                       cpu.extract_semantic_features(segs)),
+                            sft.codec_embedding(fed)], 1)
+        logits = sft.output_head(sft.backbone(embeds)[:, -fed.shape[1]:])
+    ranged = torch.cat([
+        logits[:, :n_g] + range_mask(cfg, cfg.global_offset, cfg.global_size),
+        logits[:, n_g + 1:] + range_mask(cfg, cfg.semantic_offset,
+                                         cfg.semantic_size)], 1).float()
+    tokens = torch.cat([g, s], 1)
+    top = ranged.max(-1).values
+    mine = ranged.gather(-1, tokens[..., None])[..., 0]
+    gap = (top - mine) / top.abs().clamp(min=1.0)
+    return gap.numpy(), (ranged.argmax(-1) == tokens).numpy()
+
+
+def enhance_phase(torch, cli, gpu, tmp, write_wav, read_wav):
+    """Phase 9a: ``cli enhance --mode se``, then ``--mode ss``, on a 7.5-s
+    noisy clip; the SE tokens held to a CPU run of the same model."""
+    from unified_audio_tpu_torch.models.unise.model import UniSE
+
+    noisy, _ = noisy_clean(np.random.default_rng(9), int(ENHANCE_S * SR))
+    write_wav(tmp / "noisy.wav", noisy, SR)
+    built, calls = [], []
+    build, decode = cli._build_unise, UniSE._decode_tokens
+
+    def once(**kw):  # the stack is built by the first command only
+        if not built:
+            t0 = time.perf_counter()
+            built.append(build(**kw))
+            built.append(time.perf_counter() - t0)
+        return built[0]
+
+    def recording(self, g, s, orig_len):
+        calls.append((torch.as_tensor(g).cpu().numpy(),
+                      torch.as_tensor(s).cpu().numpy()))
+        return decode(self, g, s, orig_len)
+
+    tokens = {}
+    with patched([(cli, "_build_unise", once),
+                  (UniSE, "_decode_tokens", recording)]):
+        for mode in ("se", "ss"):
+            calls.clear()
+            out = tmp / f"enhanced_{mode}.wav"
+            t0 = time.perf_counter()
+            cli.main(["enhance", "--mode", mode, "--input",
+                      str(tmp / "noisy.wav"), "--output", str(out)])
+            wall = time.perf_counter() - t0
+            unise, build_s = built
+            cfg = unise.sft.cfg
+            n_seg = unise._segment(noisy[None])[0].shape[0]
+            outs = ([out] if mode == "se" else
+                    [out.with_name(out.stem + f"_s{i}.wav") for i in (1, 2)])
+            for path in outs:
+                rec, fs = read_wav(path)
+                if not (fs == SR and rec.shape == (1, noisy.size)
+                        and np.isfinite(rec).all()):
+                    fail(f"enhance {mode}: {path.name} of shape {rec.shape}"
+                         f" at {fs} Hz")
+            for g, s in calls:
+                # ss's first call: SE of the first segment alone
+                if not (g.shape[0] == s.shape[0] in (1, n_seg)
+                        and g.shape[1] == unise.config.global_tokens
+                        and s.shape[1] == unise._semantic_len()
+                        and 0 <= g.min() and g.max() < cfg.global_size
+                        and 0 <= s.min() and s.max() < cfg.semantic_size):
+                    fail(f"enhance {mode}: tokens {g.shape} {s.shape} out "
+                         "of range")
+            n_tok = sum(g.size + s.size for g, s in calls)
+            secs = wall - (build_s if mode == "se" else 0.0)
+            print(f"cli enhance --mode {mode} ({ENHANCE_S} s, {n_seg} "
+                  "segments): "
+                  f"{len(calls)} generate call(s), {n_tok} tokens in "
+                  f"{secs:.2f} s = {n_tok / secs:.0f} tokens/s (wall "
+                  f"{wall:.2f} s{f' with the {build_s:.1f} s build' if mode == 'se' else ''}"
+                  f"); outputs {[p.name for p in outs]} finite | {gpu}",
+                  flush=True)
+            tokens[mode] = list(calls)
+    g, s = tokens["se"][0]
+    gap, same = teacher_forced_gaps(torch, unise, noisy[None], g, s)
+    parted = np.argwhere(~same)
+    print(f"enhance se tokens teacher-forced through the CPU's LM: "
+          f"{same.mean():.5f} equal to the CPU's argmax, largest gap to the "
+          f"top logit {gap.max():.3e} (relative; limit {NEAR_TIE}); first "
+          f"step where they part: "
+          f"{tuple(int(i) for i in parted[0]) if parted.size else 'none'} "
+          "(segment, step)", flush=True)
+    if not gap.max() <= NEAR_TIE:
+        fail(f"a card token is {gap.max():.3e} below the CPU's top logit")
+    return unise
+
+
+def bf16_residual_codes(torch, vq, lat, books):
+    """The JAX package's bf16 encode: each layer's search on the fp32
+    values, the residual rounded to bf16 after each layer -> (M, nq)."""
+    residual, codes = lat, []
+    for cb in books:
+        idx = vq.nearest_code_ref(residual.float(), cb.float())
+        residual = residual - cb[idx.long()]
+        codes.append(idx)
+    return torch.stack(codes, -1)
+
+
+def codec_bf16_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
+    """Phase 9b: ``cli codec --dtype bfloat16`` for HCodec-1.0 and 2.0 on
+    10-s clips -> K6 launches of the two round trips."""
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in the kernel round trip")
+
+    k6_launches = 0
+    for model, sr in (("hcodec10", SR), ("hcodec20", SR20)):
+        n = int(CLIP_S * sr)
+        wav, _ = noisy_clean(np.random.default_rng(10), n, sr)
+        clip, out = tmp / f"{model}.wav", tmp / f"{model}_bf16.wav"
+        write_wav(clip, wav, sr)
+        built = []
+        build = cli._build_hcodec
+
+        def recording(*args, **kw):
+            built.append(build(*args, **kw))
+            return built[-1]
+
+        with patched([(cli, "_build_hcodec", recording),
+                      (vq, "nearest_code_ref", forbidden),
+                      (vq, "rvq_encode_fused_ref", forbidden)]):
+            vq.rvq_encode_fused.launches = 0
+            summary = cli.main(["codec", "--model", model, "--dtype",
+                                "bfloat16", "--input", str(clip),
+                                "--output", str(out)])
+            k6 = vq.rvq_encode_fused.launches
+        if k6 != 2:
+            fail(f"{model} bf16: K6 launched {k6} times in a round trip")
+        k6_launches += k6
+        t16 = built[0]
+        lstm_dtypes = {p.dtype for m in t16.codec.modules()
+                       if isinstance(m, torch.nn.LSTM)
+                       for p in m.parameters()}
+        if t16.dtype != torch.bfloat16 or lstm_dtypes != {torch.bfloat16}:
+            fail(f"{model} bf16: codec {t16.dtype}, LSTMs {lstm_dtypes}")
+        rec, fs = read_wav(out)
+        if not (fs == sr and rec.shape == (1, n) and np.isfinite(rec).all()):
+            fail(f"{model} bf16 output of shape {rec.shape} at {fs} Hz")
+        t32 = cli._build_hcodec(model, device="cuda")  # same seed, fp32
+        x = torch.as_tensor(read_wav(clip)[0], device="cuda")
+        c32, c16 = t32.tokenize(x), t16.tokenize(x)
+        nq = c16[0].shape[1]
+        agree = float(np.mean([float((a == b).float().mean())
+                               for a, b in zip(c32, c16)]))
+        # K6 on the bf16 path's own fp32 latents against the plain search,
+        # and against the JAX package's bf16-rounded residual
+        worst, dev, first = 0.0, [], None
+        for lat, rvq, codes in zip(t16.latents(x), (
+                t16.codec.quantizer, t16.codec.semantic_quantizer), c16):
+            lat = lat.reshape(-1, lat.shape[-1])
+            flat = codes.transpose(-1, -2).reshape(-1, nq)
+            share, w, ok = vq.judge_codes(lat.float().contiguous(),
+                                          rvq.fp32_codebooks(), flat)
+            worst = max(worst, w)
+            if not ok:
+                fail(f"{model} bf16: K6 codes off the plain search ({w})")
+            per_layer = (bf16_residual_codes(torch, vq, lat, rvq.codebooks())
+                         == flat).float().mean(0).cpu().numpy()
+            dev.append(per_layer)
+            parted = np.flatnonzero(per_layer < 1.0)
+            if parted.size and (first is None or parted[0] < first):
+                first = int(parted[0])
+        dev = np.concatenate(dev)
+        r32 = t32.detokenize(*c32)
+        r16 = t16.detokenize(*c32)
+        if r16.dtype != torch.float32:
+            fail(f"{model} bf16 decode gave {r16.dtype}")
+        snr = float(10 * torch.log10(r32.square().mean()
+                                     / (r16 - r32).square().mean()))
+        print(f"{model} bf16 through cli codec: codes "
+              f"{summary['acoustic_shape']}, K6 launches {k6}; codes equal "
+              f"to fp32 {agree:.5f} (limit {BF16_AGREE}); K6 on the bf16 "
+              f"latents vs the plain search: worst distance excess "
+              f"{worst:.3e}; vs a bf16-rounded residual (the JAX package's "
+              f"encode) {dev.mean():.5f} equal over {nq} layers x 2 streams,"
+              f" layer 0 {min(dev[0], dev[nq]):.5f}, first layer below 1: "
+              f"{first}; decode SNR of the fp32 codes, bf16 vs fp32 "
+              f"{snr:.2f} dB (limit {SNR_DB}) | {gpu}", flush=True)
+        if agree < BF16_AGREE or not snr > SNR_DB:
+            fail(f"{model} bf16: agreement {agree}, SNR {snr}")
+
+        def roundtrip(tok):
+            return lambda: tok.detokenize(*tok.tokenize(x))
+
+        walls = {"fp32": [], "bf16": []}
+        for tok in (t32, t16):
+            roundtrip(tok)()
+        for _ in range(10):  # in turns
+            for name, tok in (("fp32", t32), ("bf16", t16)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                roundtrip(tok)()
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        print(f"{model} round trip of {CLIP_S:.0f} s, fp32 and bf16 in "
+              f"turns, median of 10: fp32 {med['fp32'] * 1e3:.2f} ms (rtfx "
+              f"{CLIP_S / med['fp32']:.2f}), bf16 {med['bf16'] * 1e3:.2f} ms "
+              f"(rtfx {CLIP_S / med['bf16']:.2f}) | {gpu}", flush=True)
+        del t32, t16
+        built.clear()
+        torch.cuda.empty_cache()
+    return k6_launches
+
+
+def eval_phase(torch, cli, vq, gpu, tmp, write_wav):
+    """Phase 9c: ``cli eval --mode se --spk-sim --utmos-ckpt`` over 4
+    noisy/clean pairs, then ``roundtrip_codec_eval`` through the bf16
+    HCodec-1.0 -> K6 launches of the round trips."""
+    from unified_audio_tpu_torch.eval.runner import roundtrip_codec_eval
+    from unified_audio_tpu_torch.eval.utmos import UTMOSConfig, UTMOSHead
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    rng = np.random.default_rng(11)
+    for d in ("noisy", "clean"):
+        (tmp / d).mkdir()
+    for i in range(EVAL_PAIRS):
+        noisy, clean = noisy_clean(rng, 5 * SR)
+        write_wav(tmp / "noisy" / f"u{i}.wav", noisy, SR)
+        write_wav(tmp / "clean" / f"u{i}.wav", clean, SR)
+    head = init_random_(UTMOSHead(UTMOSConfig()),
+                        torch.Generator().manual_seed(12))
+    torch.save(head.state_dict(), tmp / "utmos.pt")
+    t0 = time.perf_counter()
+    summary = cli.main(["eval", "--mode", "se", "--test-dir",
+                        str(tmp / "noisy"), "--tgt-dir", str(tmp / "clean"),
+                        "--spk-sim", "--utmos-ckpt", str(tmp / "utmos.pt")])
+    wall = time.perf_counter() - t0
+    want = {"num_utts", "stoi", "pesq", "pesq_mos_lqo", "utmos_learned",
+            "si_snr", "lsd", "spk_sim"}
+    if set(summary) != want or summary["num_utts"] != EVAL_PAIRS or not all(
+            np.isfinite(v) for v in summary.values()):
+        fail(f"cli eval summary {summary}")
+    print(f"cli eval --mode se --spk-sim --utmos-ckpt over {EVAL_PAIRS} "
+          f"pairs of 5 s: {json.dumps(summary)}; {wall:.2f} s with the "
+          f"build, {wall / EVAL_PAIRS:.2f} s an utterance | {gpu}",
+          flush=True)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in roundtrip_codec_eval")
+
+    tok = cli._build_hcodec("hcodec10", device="cuda", dtype=torch.bfloat16)
+    with patched([(vq, "rvq_encode_fused_ref", forbidden)]):
+        vq.rvq_encode_fused.launches = 0
+        rt = roundtrip_codec_eval(tok, sorted((tmp / "clean").glob("*.wav")))
+        k6 = vq.rvq_encode_fused.launches
+    if k6 != 2 * EVAL_PAIRS or not all(np.isfinite(v) for v in rt.values()):
+        fail(f"roundtrip_codec_eval: K6 launches {k6}, summary {rt}")
+    print(f"roundtrip_codec_eval, bf16 HCodec-1.0, {EVAL_PAIRS} clips: "
+          f"{json.dumps(rt)}; K6 launches {k6}", flush=True)
+    return k6
+
+
 def main():
     try:
         import torch
@@ -2164,7 +2492,19 @@ def main():
         k5_train_launches, k6_train_launches, k5_train = codec_train_phase(
             torch, cli, vq, gpu, Path(tmp), write_wav, read_wav)
 
-    # 9. nothing of JAX or the JAX package was loaded
+    # 9. the JAX CLI's remaining commands: enhance, codec --dtype bfloat16,
+    # eval
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        enhance_phase(torch, cli, gpu, Path(tmp), write_wav, read_wav)
+        k6_cli_launches = codec_bf16_phase(torch, cli, vq, gpu, Path(tmp),
+                                           write_wav, read_wav)
+        k6_cli_launches += eval_phase(torch, cli, vq, gpu, Path(tmp),
+                                      write_wav)
+        print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
@@ -2207,7 +2547,8 @@ def main():
             ("K5", vq.nearest_code, K5_TPU, k5_launches + k5_train_launches,
              1),
             ("K6", vq.rvq_encode_fused, K6_TPU,
-             k6_launches + k6_20_launches + k6_train_launches, 4)):
+             k6_launches + k6_20_launches + k6_train_launches
+             + k6_cli_launches, 4)):
         err, ms, plain_ms, n_rec = vq_results[name, 250]
         b_ms, b_by = vq_bound(250, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
         kernels.append({"name": fn.__name__, "route": "cuda",

@@ -289,7 +289,9 @@ def port_unise(unise):
 class TestPortImportsNoJax:
     def test_cli_imports_without_jax(self):
         """With jax and flax made unimportable, the port's CLI (and through
-        it the serving path, the SS cascade and the HCodec round trips), the
+        it the serving path, the SS cascade, offline enhancement, the
+        evaluation modules, the bf16 precision helper and the HCodec round
+        trips), the
         UniTok pipeline and engine, the step profiler and the training
         modules (the UniSE and codec trainers, the discriminators,
         checkpoints, both data pipelines, config, logging) still import,
@@ -313,7 +315,11 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.train.checkpoint, "
                 "unified_audio_tpu_torch.data.data_module, "
                 "unified_audio_tpu_torch.utils.config, "
-                "unified_audio_tpu_torch.utils.logging; "
+                "unified_audio_tpu_torch.utils.logging, "
+                "unified_audio_tpu_torch.utils.precision, "
+                "unified_audio_tpu_torch.eval.metrics, "
+                "unified_audio_tpu_torch.eval.runner, "
+                "unified_audio_tpu_torch.eval.utmos; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
                 "assert not shared, shared")

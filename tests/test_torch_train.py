@@ -211,6 +211,28 @@ def test_trainer_three_steps_and_validator(stacks):
         np.testing.assert_allclose(tv[k], jv[k], rtol=1e-5, atol=1e-7)
 
 
+def test_trainer_eight_steps_past_the_warmup(stacks):
+    """Eight steps of both trainers, a 2-step warmup to the 5e-4 peak, the
+    tasks in turn, the same seeds and batches: the losses agree step by
+    step within 1e-4 (relative), past the warmup where the card's smoke
+    saw a one-step spike, so such a spike is Adam's on random weights and
+    not the port's."""
+    unise, _ = stacks
+    tunise = port_unise(unise)
+    jt = JSFTTrainer(unise, optimizer=j_optim.make_optimizer(
+        peak_lr=5e-4, warmup_steps=2))
+    tt = SFTTrainer(tunise, t_optim.Optimizer(
+        tunise.sft.parameters(), peak_lr=5e-4, warmup_steps=2))
+    losses = []
+    for i in range(8):
+        batch = _batch(("se", "tse", "rtse")[i % 3], 40 + i)
+        jl, _ = jt.train_step(*batch)
+        tl, _ = tt.train_step(*batch)
+        losses.append((tl, jl))
+    got, want = np.array(losses).T
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+
 def _trainer(unise, state=None):
     tunise = port_unise(unise)
     t = SFTTrainer(tunise, t_optim.Optimizer(tunise.sft.parameters(),

@@ -1,5 +1,5 @@
 """Command-line entry points of the port: ``train-unise``, ``train-codec``,
-``serve`` and ``codec``.
+``serve``, ``enhance``, ``codec`` and ``eval``.
 
     python -m unified_audio_tpu_torch.cli train-unise \
         --config configs/unise.yaml [--ckpt LM.pt] [--bicodec-ckpt SD.pt] \
@@ -9,9 +9,17 @@
     python -m unified_audio_tpu_torch.cli serve --requests R.jsonl \
         [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0] \
         [--device cuda|cpu]
+    python -m unified_audio_tpu_torch.cli enhance --mode se|tse|ss \
+        --input X.wav --output Y.wav [--enroll E.wav] [--ckpt LM.pt] \
+        [--bicodec-ckpt SD.safetensors] [--sample] [--seed 0] \
+        [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli codec --model hcodec10|hcodec20 \
         --input X.wav --output Y.wav [--ckpt SD.pt] [--seed 0] \
-        [--device cuda|cpu]
+        [--dtype float32|bfloat16] [--device cuda|cpu]
+    python -m unified_audio_tpu_torch.cli eval --test-dir DIR \
+        [--tgt-dir DIR] [--enroll-dir DIR] [--mode se|tse|ss] [--ckpt LM.pt] \
+        [--bicodec-ckpt SD] [--spk-sim] [--utmos-ckpt U.pt] \
+        [--save-enhanced DIR] [--max-items N] [--seed 0] [--device cuda|cpu]
 
 ``train-unise`` ports ``cmd_train_unise`` in ``unified_audio_tpu/cli.py``:
 UniSE's SFT training of the LM at full width (512 x 12, 8 heads of 64),
@@ -57,10 +65,32 @@ its SE phase rides the first engine run with the other lines, and it writes
 full UniSE width: the LM in bf16, the WavLM frontend and the BiCodec decoder
 in fp32. Weights are random unless ``--ckpt`` gives an LM state dict.
 
+``enhance`` ports ``cmd_enhance``: one wav through UniSE's offline
+``enhance_se`` (se), ``enhance_tse`` with ``--enroll`` (tse) or the
+``separate_ss`` cascade (ss, writing ``<stem>_s1.wav`` and
+``<stem>_s2.wav``), greedy unless ``--sample`` (draws from a generator
+seeded by ``--seed``), the LM in fp32. It prints "done", with " (random
+weights)" without ``--ckpt``.
+
+``eval`` ports ``cmd_eval``: UniSE over a directory of wavs
+(``eval/runner.py``), scored against the clean references of ``--tgt-dir``;
+SPK-SIM with ``--bicodec-ckpt`` or ``--spk-sim`` (BiCodec's speaker side is
+then built, without XLSR-53), learned UTMOS with ``--utmos-ckpt``; one JSON
+line of the averaged metrics.
+
+``--ckpt`` takes a reference LM state dict, "dnn."-prefixed or not, raw or
+under "state_dict" (a Lightning checkpoint's, or ``train-unise``'s): the
+keys the JAX package's ``convert_custom_llama`` reads are loaded, a missing
+one is an error, the others (the reference's bypassed conformer) are named
+on stderr. ``--bicodec-ckpt`` takes a ``.pt`` or the reference's
+``.safetensors`` file.
+
 ``codec`` ports ``cmd_codec`` for ``--model hcodec10`` (16 kHz, 25 Hz
 codes) and ``hcodec20`` (48 kHz, 12.5 Hz codes): the wav goes through the
 tokenize -> detokenize round trip at full width in fp32 (HuBERT-base
-frontend), and the command prints the JAX package's JSON line, its
+frontend), or with ``--dtype bfloat16`` in the bf16 serving mode
+(``models/hcodec/tokenizer.py``), and the command prints the JAX package's
+JSON line, its
 ``tokens_per_sec`` the codes per second of audio of one quantizer layer.
 Weights are random from ``--seed`` unless ``--ckpt`` gives a codec state
 dict in the layout of ``utils/convert.py hcodec10_state_dict`` or
@@ -71,7 +101,7 @@ Input wavs at another rate are resampled to the model's (16 kHz for
 ``serve`` and hcodec10, 48 kHz for hcodec20) on the device, and the command
 says so on stderr.
 
-All four run on the CUDA card and exit with an error without one, unless
+All six run on the CUDA card and exit with an error without one, unless
 ``--device cpu`` asks for the CPU. fp32 means fp32 on the card: TF32 is off
 for matmuls and for cuDNN (convolutions and the LSTMs), training included.
 """
@@ -109,38 +139,87 @@ def _device(name: str) -> str:
     return name
 
 
+def _key_groups(keys) -> str:
+    """Keys named by their first component: "conformer.* (12), postnet.*
+    (4)"."""
+    groups = {}
+    for k in keys:
+        head = k.split(".")[0]
+        name = f"{head}.*" if "." in k else k
+        groups[name] = groups.get(name, 0) + 1
+    return ", ".join(f"{g} ({n})" for g, n in sorted(groups.items()))
+
+
+def load_state(module, sd, what: str):
+    """Load into ``module`` the entries of the state dict ``sd`` that it
+    has, and no other. A key the module needs and ``sd`` lacks ends the
+    command with an error; the keys it ignores are named on stderr."""
+    have = set(module.state_dict())
+    missing = module.load_state_dict(
+        {k: v for k, v in sd.items() if k in have}, strict=False).missing_keys
+    if missing:
+        sys.exit(f"error: {what} lacks {len(missing)} key(s) the model "
+                 f"needs: {', '.join(missing[:8])}"
+                 f"{' ...' if len(missing) > 8 else ''}")
+    ignored = [k for k in sd if k not in have]
+    if ignored:
+        print(f"{what}: ignored {len(ignored)} key(s) the model does not "
+              f"use: {_key_groups(ignored)}", file=sys.stderr)
+
+
+def _torch_state_dict(path, device="cpu"):
+    """A raw state dict, or the one a checkpoint holds under "state_dict"
+    (a Lightning checkpoint's, beside its epoch, step, hyper-parameters
+    and optimizer states, or what ``train-unise`` writes). Read with
+    ``weights_only=True``: tensors and plain Python types only."""
+    blob = torch.load(path, map_location=device, weights_only=True)
+    return blob.get("state_dict", blob)
+
+
 def load_lm(sft, ckpt, device="cpu"):
-    """Load an LM state dict in the reference layout into ``sft``: a raw
-    state dict, a checkpoint that holds one under "state_dict" (what
-    ``train-unise`` writes), keys prefixed "dnn." or not."""
-    blob = torch.load(ckpt, map_location=device, weights_only=True)
-    sd = blob.get("state_dict", blob)
-    sft.load_state_dict({k.replace("dnn.", ""): v for k, v in sd.items()})
+    """Load an LM state dict in the reference layout into ``sft``, keys
+    prefixed "dnn." or not. It takes exactly the keys the JAX package's
+    ``convert_custom_llama`` reads (the embeddings, the layers, the norm,
+    the output head, the task and sos embeddings, the adapter); the
+    reference's bypassed conformer (``conformer.*``) and any other key are
+    ignored and named on stderr."""
+    sd = {k.replace("dnn.", ""): v
+          for k, v in _torch_state_dict(ckpt, device).items()}
+    load_state(sft, sd, f"LM state dict {ckpt}")
     print(f"loaded LM state dict {ckpt}", file=sys.stderr)
 
 
 def load_bicodec(bicodec, path, device="cpu"):
     """Load a BiCodec state dict in the reference layout (what
-    ``export_bicodec_state_dict`` writes; the postnet and the codebook's
-    usage statistics, which the port does not build, are dropped) into a
-    tokenizing ``bicodec``."""
-    from .utils.convert import bicodec_tokenizer_keys
-
-    blob = torch.load(path, map_location=device, weights_only=True)
-    bicodec.load_state_dict(bicodec_tokenizer_keys(
-        blob.get("state_dict", blob)))
+    ``export_bicodec_state_dict`` writes, or the reference's
+    ``.safetensors`` file) into ``bicodec``: the keys of the modules it
+    builds (the decoder, and with ``tokenize`` the encoder and the speaker
+    encoder); the postnet and the codebook's usage statistics, which the
+    port does not build, are ignored."""
+    if Path(path).suffix == ".safetensors":
+        try:
+            from safetensors.torch import load_file
+        except ImportError:
+            sys.exit(f"error: reading {path} needs the 'safetensors' "
+                     "package, which is not installed")
+        sd = load_file(str(path), device=str(device))
+    else:
+        sd = _torch_state_dict(path, device)
+    load_state(bicodec, sd, f"BiCodec state dict {path}")
     print(f"loaded BiCodec state dict {path} (XLSR-53 and WavLM stay "
           "random)", file=sys.stderr)
 
 
 def _build_unise(ckpt=None, device="cpu", tokenize=False, bicodec_ckpt=None,
-                 seed=WEIGHT_SEED):
+                 seed=WEIGHT_SEED, speaker=False):
     """Full-size UniSE stack on ``device`` (all fp32; ``serve`` casts the
     LM). Random weights from ``seed`` through an explicit generator, with a
     loud warning, unless ``ckpt`` holds an LM state dict. ``tokenize``
     (training) also builds XLSR-53 and BiCodec's tokenize side, which
-    serving does not; ``bicodec_ckpt`` then loads BiCodec from a state dict
-    in the reference layout."""
+    serving does not; ``speaker`` (``eval``'s SPK-SIM) builds BiCodec's
+    tokenize side, its mel and speaker encoder among it, without XLSR-53.
+    ``bicodec_ckpt`` loads BiCodec from a state dict in the reference
+    layout."""
     from .models.bicodec.bicodec import BiCodec, BiCodecConfig
     from .models.bicodec.tokenizer import BiCodecTokenizer
     from .models.lm.sft import LLMSFT
@@ -158,7 +237,7 @@ def _build_unise(ckpt=None, device="cpu", tokenize=False, bicodec_ckpt=None,
         sft = LLMSFT(cfg.llm, num_tasks=len(TASK_MAP),
                      feats_dim=cfg.feats_dim)
         wavlm = Wav2Vec2Model(wavlm_base_plus_config())
-        bicodec = BiCodec(BiCodecConfig(), tokenize=tokenize)
+        bicodec = BiCodec(BiCodecConfig(), tokenize=tokenize or speaker)
         xlsr = (Wav2Vec2Model(wav2vec2_large_xlsr53_config()) if tokenize
                 else None)
     for module in (sft, wavlm, bicodec, xlsr):
@@ -201,10 +280,8 @@ def cmd_train_unise(args):
     from .utils.config import load_yaml
     from .utils.logging import MetricsLogger
 
-    for flag, path in (("--config", args.config), ("--ckpt", args.ckpt),
-                       ("--bicodec-ckpt", args.bicodec_ckpt)):
-        if path and not Path(path).exists():
-            sys.exit(f"error: {flag} file not found: {path}")
+    _require_files(("--config", args.config), ("--ckpt", args.ckpt),
+                   ("--bicodec-ckpt", args.bicodec_ckpt))
     device = _device(args.device)
     cfg = load_yaml(args.config)
     unise = _build_unise(ckpt=args.ckpt, device=device, tokenize=True,
@@ -463,11 +540,135 @@ def cmd_serve(args):
                  kv_quant=args.kv_quant, seed=args.seed)
 
 
+def _require_files(*pairs):
+    """Exit with an error naming the flag of the first given path that does
+    not exist; ``pairs`` are (flag, path or None)."""
+    for flag, path in pairs:
+        if path and not Path(path).exists():
+            sys.exit(f"error: {flag} file not found: {path}")
+
+
+def cmd_enhance(args):
+    """Enhance (se), extract the enrolled speaker (tse) or separate two
+    speakers (ss) of one wav offline, through UniSE's ``LLMSFT.generate``
+    (greedy unless ``--sample``); "ss" writes ``<stem>_s1.wav`` and
+    ``<stem>_s2.wav``. The LM runs fp32 (TF32 off), as the JAX package's
+    ``cmd_enhance`` runs its converted fp32 parameters."""
+    # validate the inputs before the model build, as the JAX CLI does
+    _require_files(("--input", args.input))
+    if args.mode == "tse" and not args.enroll:
+        sys.exit("error: --mode tse requires --enroll <wav>")
+    _require_files(("--enroll", args.enroll), ("--ckpt", args.ckpt),
+                   ("--bicodec-ckpt", args.bicodec_ckpt))
+    device = _device(args.device)
+    wav, fs = read_wav(args.input)
+    wav = _prepare_wav(wav, fs, device=device)
+    enroll = None
+    if args.enroll:
+        e, efs = read_wav(args.enroll)
+        enroll = _prepare_wav(e, efs, device=device)
+
+    unise = _build_unise(ckpt=args.ckpt, device=device,
+                         bicodec_ckpt=args.bicodec_ckpt)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.mode == "se":
+        write_wav(args.output, unise.enhance_se(wav, gen, args.sample),
+                  TARGET_SR)
+    elif args.mode == "tse":
+        write_wav(args.output, unise.enhance_tse(wav, enroll, gen,
+                                                 args.sample), TARGET_SR)
+    else:
+        out = Path(args.output)
+        for name, est in zip(("_s1", "_s2"),
+                             unise.separate_ss(wav, gen, args.sample)):
+            write_wav(out.with_name(out.stem + name + ".wav"), est,
+                      TARGET_SR)
+    print("done" + ("" if args.ckpt else " (random weights)"))
+    return unise
+
+
+def _build_utmos(path, device="cpu", cfg=None, ssl_cfg=None):
+    """The learned UTMOS predictor from a checkpoint (``eval/utmos.py``):
+    its head (``cfg``, default ``UTMOSConfig()``) from the canonical or the
+    UTMOS22 layout, and its HuBERT (``ssl_cfg``, default HuBERT-base) from
+    the ``ssl_model.*`` keys, random from seed 0 if there are none (with a
+    warning), on ``device``."""
+    from .eval.utmos import (UTMOSConfig, UTMOSHead, UTMOSPredictor,
+                             utmos_head_keys, utmos_ssl_keys)
+    from .models.ssl.wav2vec2 import Wav2Vec2Model, hubert_base_config
+    from .utils.initialization import init_random_
+
+    sd = _torch_state_dict(path, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.device(device):
+        head = UTMOSHead(cfg or UTMOSConfig())
+        ssl = Wav2Vec2Model(ssl_cfg or hubert_base_config())
+    init_random_(ssl, gen)
+    ssl_sd = utmos_ssl_keys(sd)
+    load_state(head, utmos_head_keys(
+        {k: v for k, v in sd.items() if not k.startswith("ssl_model.")}),
+        f"UTMOS state dict {path}")
+    if ssl_sd:
+        load_state(ssl, ssl_sd, f"UTMOS ssl_model.* of {path}")
+        print(f"loaded UTMOS head + SSL backbone from {path}",
+              file=sys.stderr)
+    else:
+        print("WARNING: UTMOS ckpt has no ssl_model.* weights: the SSL "
+              "backbone stays random; convert it separately",
+              file=sys.stderr)
+    return UTMOSPredictor(ssl, head)
+
+
+def cmd_eval(args):
+    """Evaluate UniSE over a directory of wavs (``eval/runner.py``): the
+    enhanced outputs scored against the clean references of ``--tgt-dir``
+    (STOI, PESQ, MOS-LQO, SI-SNR, LSD, the UTMOS proxy or, with
+    ``--utmos-ckpt``, learned UTMOS, and SPK-SIM through BiCodec's speaker
+    encoder with ``--bicodec-ckpt`` or ``--spk-sim``); prints the summary as
+    one JSON line and returns it."""
+    from .eval.metrics import make_spk_embed_fn
+    from .eval.runner import EvalConfig, evaluate
+
+    _require_files(("--test-dir", args.test_dir), ("--ckpt", args.ckpt),
+                   ("--bicodec-ckpt", args.bicodec_ckpt),
+                   ("--utmos-ckpt", args.utmos_ckpt))
+    device = _device(args.device)
+    # SPK-SIM scores through the BiCodec ECAPA x-vector branch: meaningful
+    # only with converted speaker weights, so it is gated on
+    # --bicodec-ckpt (or forced with --spk-sim, which warns loudly)
+    spk_sim = bool(args.bicodec_ckpt or args.spk_sim)
+    unise = _build_unise(ckpt=args.ckpt, device=device,
+                         bicodec_ckpt=args.bicodec_ckpt, speaker=spk_sim)
+    cfg = EvalConfig(mode=args.mode, data_src_dir=args.test_dir,
+                     data_tgt_dir=args.tgt_dir,
+                     data_enroll_dir=args.enroll_dir,
+                     save_enhanced=args.save_enhanced, limit=args.max_items)
+    utmos_pred = (_build_utmos(args.utmos_ckpt, device)
+                  if args.utmos_ckpt else None)
+    spk = None
+    if spk_sim:
+        if not args.bicodec_ckpt:
+            print("WARNING: --spk-sim without --bicodec-ckpt: SPK-SIM will "
+                  "be computed with RANDOM ECAPA weights and is meaningless",
+                  file=sys.stderr)
+        spk = make_spk_embed_fn(unise.tokenizer.model)
+    else:
+        print("note: SPK-SIM skipped (pass --bicodec-ckpt for converted "
+              "speaker weights, or --spk-sim to force)", file=sys.stderr)
+    stats = evaluate(unise, cfg, seed=args.seed, spk_embed_fn=spk,
+                     utmos_predictor=utmos_pred)
+    print(json.dumps(stats))
+    return stats
+
+
 HCODEC_NAMES = {"hcodec10": "HCodec-1.0", "hcodec20": "HCodec-2.0"}
+# ``codec --dtype``: float32 keeps the modules as built, bfloat16 is the
+# serving mode
+DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
-                  device="cpu", cfg=None, ssl_cfg=None):
+                  device="cpu", cfg=None, ssl_cfg=None, dtype=None):
     """HCodec-1.0 or -2.0 (``model``; ``cfg`` defaults to its shipped
     config) with a HuBERT frontend (``ssl_cfg``, default HuBERT-base) on
     ``device``, fp32, TF32 off. Random weights from ``seed`` through an
@@ -476,7 +677,8 @@ def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
     (``hcodec10_state_dict`` / ``hcodec20_state_dict``, or a training
     state dict, under "gen" in a ``train-codec`` checkpoint), loaded
     strictly after ``hcodec_inference_keys`` (the HuBERT frontend stays
-    random)."""
+    random). ``dtype`` (``torch.bfloat16``: the serving mode) casts codec
+    and HuBERT after the weights are in place."""
     from .models.hcodec.codec import HCodec, hcodec10_config, hcodec20_config
     from .models.hcodec.tokenizer import HCodecTokenizer
     from .models.ssl.wav2vec2 import Wav2Vec2Model, hubert_base_config
@@ -505,7 +707,7 @@ def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
         print(f"WARNING: no --ckpt given: {name} and HuBERT are RANDOMLY "
               "initialized and the reconstruction is not meaningful "
               "(smoke/benchmark use only)", file=sys.stderr)
-    return HCodecTokenizer(codec, ssl)
+    return HCodecTokenizer(codec, ssl, dtype=dtype)
 
 
 def cmd_codec(args):
@@ -517,7 +719,7 @@ def cmd_codec(args):
         sys.exit(f"error: checkpoint not found: {args.ckpt}")
     device = _device(args.device)
     tok = _build_hcodec(args.model, ckpt=args.ckpt, seed=args.seed,
-                        device=device)
+                        device=device, dtype=DTYPES[args.dtype])
     sr = tok.config.sample_rate
     wav, fs = read_wav(args.input)
     wav = _prepare_wav(wav, fs, sr, device)
@@ -569,6 +771,26 @@ def main(argv=None):
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     t.set_defaults(fn=cmd_serve)
+    e = sub.add_parser("enhance")
+    e.add_argument("--mode", choices=["se", "tse", "ss"], default="se")
+    e.add_argument("--input", required=True,
+                   help="wav, resampled to 16 kHz if need be")
+    e.add_argument("--output", required=True,
+                   help="output wav; --mode ss writes <stem>_s1.wav and "
+                        "<stem>_s2.wav beside it")
+    e.add_argument("--enroll", default=None,
+                   help="enrollment wav of the target speaker (tse)")
+    e.add_argument("--ckpt", default=None,
+                   help="LM state dict (.pt) in the reference layout; "
+                        "omitted, the weights are random (with a warning)")
+    e.add_argument("--bicodec-ckpt", default=None,
+                   help="BiCodec state dict (.safetensors or .pt) in the "
+                        "reference layout")
+    e.add_argument("--sample", action="store_true",
+                   help="sample the tokens (greedy by default)")
+    e.add_argument("--seed", type=int, default=0)
+    e.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    e.set_defaults(fn=cmd_enhance)
     c = sub.add_parser("codec")
     c.add_argument("--model", choices=list(HCODEC_NAMES),
                    default="hcodec10",
@@ -583,8 +805,38 @@ def main(argv=None):
                         "hcodec20_state_dict writes")
     c.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights (no --ckpt)")
+    c.add_argument("--dtype", choices=list(DTYPES), default="float32",
+                   help="bfloat16 = the serving mode: bf16 weights and "
+                        "activations, the VQ search (K6), the norm "
+                        "statistics, softmax, HCodec-2.0's STFT and the "
+                        "ISTFT head in fp32")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     c.set_defaults(fn=cmd_codec)
+    ev = sub.add_parser("eval")
+    ev.add_argument("--test-dir", required=True,
+                    help="directory of the input wavs (*.wav)")
+    ev.add_argument("--tgt-dir", default=None,
+                    help="clean references of the same names (enables "
+                         "STOI/PESQ/SI-SNR and the rest)")
+    ev.add_argument("--enroll-dir", default=None,
+                    help="enrollment wavs of the same names (tse)")
+    ev.add_argument("--mode", choices=["se", "tse", "ss"], default="se")
+    ev.add_argument("--ckpt", default=None,
+                    help="LM state dict (.pt) in the reference layout")
+    ev.add_argument("--bicodec-ckpt", default=None,
+                    help="BiCodec state dict (.safetensors or .pt); "
+                         "enables a meaningful SPK-SIM")
+    ev.add_argument("--spk-sim", action="store_true",
+                    help="force SPK-SIM even with random speaker weights")
+    ev.add_argument("--utmos-ckpt", default=None,
+                    help="UTMOS state dict (torch); switches the MOS column "
+                         "from the proxy to learned UTMOS")
+    ev.add_argument("--save-enhanced", default=None,
+                    help="directory to write the enhanced wavs into")
+    ev.add_argument("--max-items", type=int, default=None)
+    ev.add_argument("--seed", type=int, default=0)
+    ev.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ev.set_defaults(fn=cmd_eval)
     args = p.parse_args(argv)
     return args.fn(args)
 

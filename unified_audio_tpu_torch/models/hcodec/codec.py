@@ -98,11 +98,14 @@ class CodecEncoder20(nn.Module):
         self.out = CausalConv1d(dim, dimension, 2 * stride + 1, stride=stride)
 
     def forward(self, x):
+        # the STFT and its features are an fp32 island: a bf16 wav enters as
+        # its fp32 values and the features leave in the wav's dtype
         pad = (self.n_fft - self.hop_length) // 2
-        spec = dsp.stft(F.pad(x, (pad, pad)), self.n_fft,
+        spec = dsp.stft(F.pad(x.float(), (pad, pad)), self.n_fft,
                         self.hop_length)  # (B, F, T)
         h = torch.cat([spec.abs().clamp(min=1e-5).log(),
                        spec.angle() / math.pi], dim=-2).transpose(1, 2)
+        h = h.to(x.dtype)
         h = self.prior_net(self.norm(self.embed(h)))
         return self.out(self.final_layer_norm(self.post_net(h)))
 

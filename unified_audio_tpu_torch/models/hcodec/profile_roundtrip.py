@@ -1,11 +1,12 @@
 """Where an HCodec round trip's time goes, on one CUDA card.
 
     python -m unified_audio_tpu_torch.models.hcodec.profile_roundtrip \
-        [--model hcodec10|hcodec20] [--out PROFILE.json] [--clips 1]
+        [--model hcodec10|hcodec20] [--dtype float32|bfloat16] \
+        [--out PROFILE.json] [--clips 1]
 
 Builds HCodec-1.0 or 2.0 (``--model``) with the HuBERT-base frontend as
-``cli codec`` does (full width, fp32, TF32 off, random weights from seed 0)
-and, for ``--clips`` 10-s clips of unit-normal noise at the codec's rate
+``cli codec`` does (full width, fp32 with TF32 off or, with ``--dtype
+bfloat16``, the bf16 serving mode; random weights from seed 0) and, for ``--clips`` 10-s clips of unit-normal noise at the codec's rate
 (16 or 48 kHz) in one batch (bench.py's input), measures:
 
 * the round trip (tokenize + detokenize), synchronized wall time over 10
@@ -53,14 +54,16 @@ def main(argv=None):
                    default="hcodec10")
     p.add_argument("--out", default=None, help="write the results as JSON")
     p.add_argument("--clips", type=int, default=1)
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_roundtrip: needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from ...cli import _build_hcodec
+    from ...cli import DTYPES, _build_hcodec
 
-    tok = _build_hcodec(args.model, device="cuda")
+    tok = _build_hcodec(args.model, device="cuda", dtype=DTYPES[args.dtype])
     codec = tok.codec
     wav = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (args.clips, int(CLIP_S * tok.config.sample_rate))).astype(
@@ -77,20 +80,23 @@ def main(argv=None):
     first_ms, _ = _median_ms(roundtrip, 1)
     wall_ms, times = _median_ms(roundtrip, 10)
     emit({"phase": "roundtrip", "model": args.model, "clips": args.clips,
+          "dtype": args.dtype,
           "first_ms": first_ms,
           "median_ms": wall_ms, "min_ms": min(times), "max_ms": max(times),
           "rtfx": args.clips * CLIP_S / (wall_ms / 1e3),
           "device": torch.cuda.get_device_name(0)})
 
     with torch.no_grad():
-        feats = tok.extract_features(wav)
+        feats = tok.extract_features(wav).to(tok.dtype)
         emb, sem = tok.latents(wav)
+        wav_in = wav.to(tok.dtype)
         ac, sc = codec.quantizer.encode(emb), codec.semantic_quantizer.encode(
             sem)
         stages = {
             "hubert_features": lambda: tok.extract_features(wav),
             "acoustic_encoder": lambda: codec.encoder(
-                wav[..., None] if codec.config.version == "1.0" else wav),
+                wav_in[..., None] if codec.config.version == "1.0"
+                else wav_in),
             "semantic_encoder": lambda: codec.semantic_encoder(feats),
             "rvq_encode_x2": lambda: (codec.quantizer.encode(emb),
                                       codec.semantic_quantizer.encode(sem)),

@@ -1,11 +1,18 @@
 """HCodecTokenizer: the tokenize/detokenize API over the HuBERT frontend and
 HCodec-1.0 or 2.0.
 
-Port of ``unified_audio_tpu/models/hcodec/tokenizer.py`` in fp32: the input,
-at the codec's rate (16 or 48 kHz), is zero-padded to a multiple of the hop
-(640 or 3840), HuBERT runs on its 16 kHz version (resampled on the device
-for a 48 kHz codec) padded by (160, 160), and codes cross the API as
-(B, nq, T'). The bf16 serving mode is not ported yet.
+Port of ``unified_audio_tpu/models/hcodec/tokenizer.py``: the input, at the
+codec's rate (16 or 48 kHz), is zero-padded to a multiple of the hop (640
+or 3840), HuBERT runs on its 16 kHz version (resampled on the device for a
+48 kHz codec) padded by (160, 160), and codes cross the API as (B, nq, T').
+
+``dtype=torch.bfloat16`` is the bf16 serving mode: the codec's and HuBERT's
+floating parameters and buffers are cast (``utils/precision.py``), the wav
+and the features enter in bf16, and the fp32 islands stay fp32: the
+nearest-code search (K6 on fp32 copies of the bf16 latents and codebooks,
+``ops/quant.py``), softmax and norm statistics, HCodec-2.0's STFT
+(``models/hcodec/codec.py``) and the ISTFT head (``nn/heads.py``).
+``detokenize`` returns fp32 in either mode.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops.dsp import resample
+from ...utils.precision import cast_floating
 from ..ssl.wav2vec2 import Wav2Vec2Model, hubert_features
 from .codec import HCodec
 
@@ -21,8 +29,14 @@ SSL_RATE = 16000  # HuBERT's input rate
 
 
 class HCodecTokenizer:
-    def __init__(self, codec: HCodec, ssl: Wav2Vec2Model):
+    def __init__(self, codec: HCodec, ssl: Wav2Vec2Model, dtype=None):
+        """``dtype`` None keeps the modules as they are (fp32); a dtype
+        casts both in place."""
+        if dtype is not None:
+            cast_floating(codec, dtype)
+            cast_floating(ssl, dtype)
         self.codec, self.ssl = codec.eval(), ssl.eval()
+        self.dtype = next(codec.parameters()).dtype
         self.config = codec.config
         self.hop_length = self.config.hop_length
         for m in codec.modules():
@@ -39,21 +53,24 @@ class HCodecTokenizer:
         """(B, T) at the codec's rate -> (B, T16 / 320, 768) HuBERT features
         of its 16 kHz version (T16 samples)."""
         wav = resample(wav, self.config.sample_rate, SSL_RATE)
-        return hubert_features(self.ssl(F.pad(wav, (160, 160))))
+        return hubert_features(self.ssl(F.pad(wav.to(self.dtype),
+                                              (160, 160))))
 
     @torch.no_grad()
     def latents(self, wav):
         """(B, T) -> the codec's (acoustic, semantic) latents before VQ."""
         wav = self.pad_wav(wav)
-        return self.codec.encode_latents(wav[..., None],
-                                         self.extract_features(wav))
+        return self.codec.encode_latents(
+            wav.to(self.dtype)[..., None],
+            self.extract_features(wav).to(self.dtype))
 
     @torch.no_grad()
     def tokenize(self, wav):
         """(B, T) -> (acoustic, semantic) codes, each (B, nq, T')."""
         wav = self.pad_wav(wav)
-        acoustic, semantic = self.codec.encode(wav[..., None],
-                                               self.extract_features(wav))
+        acoustic, semantic = self.codec.encode(
+            wav.to(self.dtype)[..., None],
+            self.extract_features(wav).to(self.dtype))
         return acoustic.transpose(-1, -2), semantic.transpose(-1, -2)
 
     @torch.no_grad()

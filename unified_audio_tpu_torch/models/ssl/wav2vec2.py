@@ -140,7 +140,15 @@ class PositionalConvEmbedding(nn.Module):
                               groups=cfg.num_conv_pos_embedding_groups)
 
     def forward(self, x):
-        h = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        x = x.transpose(1, 2)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            # oneDNN's bf16 grouped conv1d is wrong on the CPU at some
+            # shapes (16 taps in 4 groups: ~100% relative error, torch
+            # 2.13); the native kernel is right
+            with torch.backends.mkldnn.flags(enabled=False):
+                h = self.conv(x).transpose(1, 2)
+        else:
+            h = self.conv(x).transpose(1, 2)
         if self.conv.kernel_size[0] % 2 == 0:
             h = h[:, :-1]
         return F.gelu(h)
@@ -288,7 +296,8 @@ def wavlm_features(hidden_states) -> torch.Tensor:
 def hubert_features(hidden_states) -> torch.Tensor:
     """All-layer mean, then signed |x|^0.3 (HCodec's SSL features)."""
     mix = torch.stack(hidden_states, dim=0).mean(dim=0)
-    return torch.where(mix > 0, 1.0, -1.0) * mix.abs() ** 0.3
+    sign = torch.where(mix > 0, 1.0, -1.0).to(mix.dtype)
+    return sign * mix.abs() ** 0.3
 
 
 def xlsr_features(hidden_states, layers=(11, 14, 16)) -> torch.Tensor:

@@ -235,18 +235,35 @@ class ResidualVQ(nn.Module):
         """The layers' (N, D) codebooks, views of their buffers (no copy)."""
         return tuple(layer.embed for layer in self.layers)
 
+    def fp32_codebooks(self):
+        """The codebooks as K5/K6 take them, fp32: the buffers themselves in
+        fp32, else fp32 copies of them (bf16 serving), made again only when
+        a buffer changes."""
+        books = self.codebooks()
+        if all(cb.dtype == torch.float32 for cb in books):
+            return books
+        key = tuple((cb.data_ptr(), cb._version, cb.dtype) for cb in books)
+        if getattr(self, "_fp32_key", None) != key:
+            self._fp32_key = key
+            self._fp32_books = tuple(cb.float() for cb in books)
+        return self._fp32_books
+
     def encode(self, x):
         """All layers in one K6 launch on a CUDA tensor: each layer codes
-        the residual left by the ones before it. The kernel reads each
-        layer's buffer where it lies, so a ``load_state_dict`` shows in the
-        next call."""
+        the residual left by the ones before it, in fp32 whatever the
+        model's dtype (bf16 latents and codebooks enter as their exact fp32
+        values; the residual stays fp32 between the layers, where the JAX
+        package rounds it to bf16). The kernel reads each fp32 layer's
+        buffer where it lies, so a ``load_state_dict`` shows in the next
+        call."""
         flat = x.reshape(-1, x.shape[-1]).float().contiguous()
-        codes = vq.rvq_encode_fused(flat, self.codebooks())
+        codes = vq.rvq_encode_fused(flat, self.fp32_codebooks())
         return codes.reshape(*x.shape[:-1], len(self.layers))
 
     def decode(self, codes):
-        """codes (..., nq) -> (..., D); a code of -1 (quantizer dropout)
-        contributes zero."""
+        """codes (..., nq) -> (..., D) in the codebooks' dtype (summed in
+        bf16 in the bf16 mode, as in the JAX package); a code of -1
+        (quantizer dropout) contributes zero."""
         out = 0.0
         for i, layer in enumerate(self.layers):
             idx = codes[..., i]

@@ -21,9 +21,8 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
   tokenize side (the feature encoder, the quantizer's ``in_project``, the
   speaker encoder's ECAPA-TDNN with its BatchNorm statistics and
   Perceiver, the FSQ ``project_in``): the whole of what the port's
-  ``BiCodec(tokenize=True)`` loads. :func:`bicodec_tokenizer_keys` keeps
-  those keys of a full reference state dict (it drops the postnet and the
-  codebook's usage statistics).
+  ``BiCodec(tokenize=True)`` loads (a full reference state dict also
+  holds the postnet and the codebook's usage statistics).
 * :func:`hcodec10_state_dict` and :func:`hcodec20_state_dict`: ``HCodec``
   (1.0, 2.0) variables -> the reference layout, key for key what
   ``utils/convert_hcodec.py export_hcodec10_state_dict`` and
@@ -378,14 +377,6 @@ def bicodec_state_dict(variables, cfg) -> StateDict:
     _linear(spk["quantizer"]["project_in"],
             "speaker_encoder.quantizer.project_in", out)
     return out
-
-
-def bicodec_tokenizer_keys(sd: StateDict) -> StateDict:
-    """The keys of a full reference BiCodec state dict that the port's
-    ``BiCodec(tokenize=True)`` loads: the postnet (codec training's
-    feature target) and the codebook's usage statistics dropped."""
-    return {k: v for k, v in sd.items()
-            if not k.startswith("postnet.") and k != "quantizer.cluster_size"}
 
 
 # ---------------------------------------------------------------------------
