@@ -181,11 +181,12 @@ prints no result. Phases, each fatal on failure:
 9. The JAX CLI's remaining commands at full width, random weights. (a)
    ``cli enhance --mode se`` on a 7.5-s synthetic noisy wav (2 segments;
    the LM fp32), then ``--mode ss`` on it: outputs finite at the input's
-   length, tokens in range; the generated tokens per second. The SE
-   tokens are teacher-forced through a CPU copy of the WavLM and LM: every
-   card token within 1e-4 (relative) of the CPU's top logit in its range;
-   prints the share equal to the CPU's argmax and the first step where
-   they part. (b) ``cli codec --dtype bfloat16`` for ``hcodec10`` and
+   length, tokens in range; the generated tokens per second. The tokens
+   of every generate call (SE; ss's SE, TSE and rTSE, the latter two with
+   the enrollment the card's SE made) are teacher-forced through a CPU
+   copy of the WavLM and LM: every card token within 1e-4 (relative) of
+   the CPU's top logit in its range; prints the share equal to the CPU's
+   argmax and the first step where they part. (b) ``cli codec --dtype bfloat16`` for ``hcodec10`` and
    ``hcodec20`` on 10-s clips, the plain VQ made to raise: K6 twice a
    round trip, the codec and its LSTMs in bf16, a finite output; the codes
    of a fp32 build of the same seed equal in >= 0.75 of places; K6's codes
@@ -2032,12 +2033,13 @@ def noisy_clean(rng, n, sr=SR):
             (clean * scale).astype(np.float32))
 
 
-def teacher_forced_gaps(torch, unise, wav, g, s):
-    """The card's greedy SE tokens ``g`` (B, 32) and ``s`` (B, 250) of
-    ``wav`` (1, T), teacher-forced through a CPU copy of ``unise``'s WavLM
-    and LM (fp32) -> (each card token's gap to the CPU's top logit of its
-    range, relative to |top| floored at 1, (B, 282); whether the CPU's
-    argmax is the card's token, (B, 282))."""
+def teacher_forced_gaps(torch, unise, wav, g, s, task="se", enroll=None):
+    """The card's greedy tokens ``g`` (B, 32) and ``s`` (B, 250) of
+    ``task`` on ``wav`` (1, T), with the enrollment ``enroll`` (1, T_e)
+    for "tse" and "rtse", teacher-forced through a CPU copy of ``unise``'s
+    WavLM and LM (fp32) -> (each card token's gap to the CPU's top logit
+    of its range, relative to |top| floored at 1, (B, 282); whether the
+    CPU's argmax is the card's token, (B, 282))."""
     import copy
 
     from unified_audio_tpu_torch.models.lm.llama import range_mask
@@ -2048,7 +2050,12 @@ def teacher_forced_gaps(torch, unise, wav, g, s):
                       copy.deepcopy(unise.wavlm).cpu(), sft)
     cfg = sft.cfg
     segs, _ = cpu._segment(wav)
-    segs = segs / np.max(np.abs(wav), axis=-1, keepdims=True)
+    enroll_feats = None
+    if enroll is None:  # SE peak-normalizes its segments, TSE does not
+        segs = segs / np.max(np.abs(wav), axis=-1, keepdims=True)
+    else:
+        enroll_feats = cpu.extract_semantic_features(enroll).expand(
+            segs.shape[0], -1, -1)
     g = torch.as_tensor(g).long() + cfg.global_offset
     s = torch.as_tensor(s).long() + cfg.semantic_offset
     b, n_g = g.shape
@@ -2061,7 +2068,7 @@ def teacher_forced_gaps(torch, unise, wav, g, s):
     fed = torch.cat([col(cfg.global_sos), g, col(cfg.semantic_sos),
                      s[:, :-1]], 1)
     with torch.no_grad():
-        embeds = torch.cat([sft.prompt(TASK_MAP["se"], None,
+        embeds = torch.cat([sft.prompt(TASK_MAP[task], enroll_feats,
                                        cpu.extract_semantic_features(segs)),
                             sft.codec_embedding(fed)], 1)
         logits = sft.output_head(sft.backbone(embeds)[:, -fed.shape[1]:])
@@ -2078,7 +2085,8 @@ def teacher_forced_gaps(torch, unise, wav, g, s):
 
 def enhance_phase(torch, cli, gpu, tmp, write_wav, read_wav):
     """Phase 9a: ``cli enhance --mode se``, then ``--mode ss``, on a 7.5-s
-    noisy clip; the SE tokens held to a CPU run of the same model."""
+    noisy clip; every generate call's tokens (SE; ss's SE, TSE and rTSE)
+    held to a CPU run of the same model."""
     from unified_audio_tpu_torch.models.unise.model import UniSE
 
     noisy, _ = noisy_clean(np.random.default_rng(9), int(ENHANCE_S * SR))
@@ -2094,9 +2102,10 @@ def enhance_phase(torch, cli, gpu, tmp, write_wav, read_wav):
         return built[0]
 
     def recording(self, g, s, orig_len):
+        est = decode(self, g, s, orig_len)
         calls.append((torch.as_tensor(g).cpu().numpy(),
-                      torch.as_tensor(s).cpu().numpy()))
-        return decode(self, g, s, orig_len)
+                      torch.as_tensor(s).cpu().numpy(), est))
+        return est
 
     tokens = {}
     with patched([(cli, "_build_unise", once),
@@ -2119,7 +2128,7 @@ def enhance_phase(torch, cli, gpu, tmp, write_wav, read_wav):
                         and np.isfinite(rec).all()):
                     fail(f"enhance {mode}: {path.name} of shape {rec.shape}"
                          f" at {fs} Hz")
-            for g, s in calls:
+            for g, s, _ in calls:
                 # ss's first call: SE of the first segment alone
                 if not (g.shape[0] == s.shape[0] in (1, n_seg)
                         and g.shape[1] == unise.config.global_tokens
@@ -2128,7 +2137,7 @@ def enhance_phase(torch, cli, gpu, tmp, write_wav, read_wav):
                         and 0 <= s.min() and s.max() < cfg.semantic_size):
                     fail(f"enhance {mode}: tokens {g.shape} {s.shape} out "
                          "of range")
-            n_tok = sum(g.size + s.size for g, s in calls)
+            n_tok = sum(g.size + s.size for g, s, _ in calls)
             secs = wall - (build_s if mode == "se" else 0.0)
             print(f"cli enhance --mode {mode} ({ENHANCE_S} s, {n_seg} "
                   "segments): "
@@ -2138,17 +2147,29 @@ def enhance_phase(torch, cli, gpu, tmp, write_wav, read_wav):
                   f"); outputs {[p.name for p in outs]} finite | {gpu}",
                   flush=True)
             tokens[mode] = list(calls)
-    g, s = tokens["se"][0]
-    gap, same = teacher_forced_gaps(torch, unise, noisy[None], g, s)
-    parted = np.argwhere(~same)
-    print(f"enhance se tokens teacher-forced through the CPU's LM: "
-          f"{same.mean():.5f} equal to the CPU's argmax, largest gap to the "
-          f"top logit {gap.max():.3e} (relative; limit {NEAR_TIE}); first "
-          f"step where they part: "
-          f"{tuple(int(i) for i in parted[0]) if parted.size else 'none'} "
-          "(segment, step)", flush=True)
-    if not gap.max() <= NEAR_TIE:
-        fail(f"a card token is {gap.max():.3e} below the CPU's top logit")
+    # ss: SE of the first segment, whose output (cut to one segment and
+    # scaled to a 0.99 peak, as separate_ss does) is TSE's and rTSE's
+    # enrollment over every segment
+    ss_se, ss_tse, ss_rtse = tokens["ss"]
+    seg = unise.config.segment_len
+    est = ss_se[2][:seg]
+    enroll = est[None] / (np.max(np.abs(est)) + 1e-5) * 0.99
+    for name, wav, (g, s, _), task, enr in (
+            ("se", noisy[None], tokens["se"][0], "se", None),
+            ("ss se", noisy[None, :seg], ss_se, "se", None),
+            ("ss tse", noisy[None], ss_tse, "tse", enroll),
+            ("ss rtse", noisy[None], ss_rtse, "rtse", enroll)):
+        gap, same = teacher_forced_gaps(torch, unise, wav, g, s, task, enr)
+        parted = np.argwhere(~same)
+        print(f"enhance {name} tokens teacher-forced through the CPU's LM: "
+              f"{same.mean():.5f} equal to the CPU's argmax, largest gap to "
+              f"the top logit {gap.max():.3e} (relative; limit {NEAR_TIE}); "
+              "first step where they part: "
+              f"{tuple(int(i) for i in parted[0]) if parted.size else 'none'}"
+              " (segment, step)", flush=True)
+        if not gap.max() <= NEAR_TIE:
+            fail(f"enhance {name}: a card token is {gap.max():.3e} below the "
+                 "CPU's top logit")
     return unise
 
 

@@ -3,8 +3,9 @@ the tiny UniSE stack (both ``_build_unise`` replaced by it).
 
 Greedy: the tokens each mode decodes must be identical and the wavs it
 writes agree within 1e-4 (both are PCM16 files, so within a step of the
-16-bit grid). The error paths exit before a model is built, and without a
-card the command exits unless ``--device cpu`` is given.
+16-bit grid). A 48-kHz input is resampled after the build. The error
+paths exit before a model is built, and without a card the command exits
+unless ``--device cpu`` is given.
 """
 import numpy as np
 import pytest
@@ -77,6 +78,46 @@ def test_enhance_matches_jax(stacks, wavs, tmp_path, monkeypatch, capsys,
         (pw, pfs), (jw, jfs) = read_wav(p), read_wav(j)
         assert pfs == jfs == 16000 and pw.shape == jw.shape == (1, 9600)
         np.testing.assert_allclose(pw, jw, **TOL)
+
+
+def test_enhance_resamples_a_48k_input_after_the_build(stacks, tmp_path,
+                                                      monkeypatch):
+    """A 48-kHz input (and enrollment) is resampled to 16 kHz only after
+    the model build, which turns TF32 off for the resampling conv on the
+    card; the tokens equal JAX's and the output is 16 kHz."""
+    unise, tunise = stacks
+    rng = np.random.default_rng(6)
+    for name, n in (("mix48.wav", 28800), ("enroll48.wav", 15000)):
+        write_wav(tmp_path / name, (0.3 * rng.standard_normal(n)).astype(
+            np.float32), 48000)
+    events, got, want = [], [], []
+    prepare = cli._prepare_wav
+
+    def build(**kw):
+        events.append("build")
+        return _recording(tunise, got)
+
+    def recorded_prepare(wav, fs, *a, **kw):
+        events.append(("prepare", fs))
+        return prepare(wav, fs, *a, **kw)
+
+    monkeypatch.setattr(cli, "_build_unise", build)
+    monkeypatch.setattr(cli, "_prepare_wav", recorded_prepare)
+    monkeypatch.setattr(jcli, "_build_unise",
+                        lambda **kw: _recording(unise, want))
+    argv = ["enhance", "--mode", "tse", "--input", str(tmp_path / "mix48.wav"),
+            "--enroll", str(tmp_path / "enroll48.wav")]
+    cli.main(argv + ["--output", str(tmp_path / "port.wav"), "--device",
+                     "cpu"])
+    assert events == ["build", ("prepare", 48000), ("prepare", 48000)]
+    jcli.main(argv + ["--output", str(tmp_path / "jax.wav")])
+    for (tg, ts), (jg, js) in zip(got, want, strict=True):
+        np.testing.assert_array_equal(tg, jg)
+        np.testing.assert_array_equal(ts, js)
+    (pw, pfs), (jw, jfs) = (read_wav(tmp_path / "port.wav"),
+                            read_wav(tmp_path / "jax.wav"))
+    assert pfs == jfs == 16000 and pw.shape == jw.shape == (1, 9600)
+    np.testing.assert_allclose(pw, jw, **TOL)
 
 
 def test_enhance_with_a_reference_checkpoint(stacks, wavs, tmp_path,

@@ -561,15 +561,15 @@ def cmd_enhance(args):
     _require_files(("--enroll", args.enroll), ("--ckpt", args.ckpt),
                    ("--bicodec-ckpt", args.bicodec_ckpt))
     device = _device(args.device)
+    unise = _build_unise(ckpt=args.ckpt, device=device,
+                         bicodec_ckpt=args.bicodec_ckpt)
+    # resampled after the build, which turns TF32 off for its conv
     wav, fs = read_wav(args.input)
     wav = _prepare_wav(wav, fs, device=device)
     enroll = None
     if args.enroll:
         e, efs = read_wav(args.enroll)
         enroll = _prepare_wav(e, efs, device=device)
-
-    unise = _build_unise(ckpt=args.ckpt, device=device,
-                         bicodec_ckpt=args.bicodec_ckpt)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.mode == "se":
         write_wav(args.output, unise.enhance_se(wav, gen, args.sample),

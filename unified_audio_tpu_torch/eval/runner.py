@@ -23,6 +23,8 @@ import numpy as np
 from ..data.audio_io import read_wav, write_wav
 from . import metrics as M
 
+ENROLL_S = 5.0  # enrollments are wrap-padded or cut to this length
+
 
 @dataclass
 class EvalConfig:
@@ -31,7 +33,6 @@ class EvalConfig:
     data_tgt_dir: Optional[str] = None
     data_enroll_dir: Optional[str] = None
     save_enhanced: Optional[str] = None
-    enroll_duration: float = 5.0
     limit: Optional[int] = None
 
 
@@ -53,7 +54,7 @@ def iter_test_dir(cfg: EvalConfig):
             ep = Path(cfg.data_enroll_dir) / f.name
             if ep.exists():
                 enroll, _ = read_wav(ep)
-                n = int(cfg.enroll_duration * fs)
+                n = int(ENROLL_S * fs)
                 if enroll.shape[-1] < n:
                     enroll = np.pad(enroll, [(0, 0), (0, n - enroll.shape[-1])],
                                     mode="wrap")
@@ -124,17 +125,14 @@ def evaluate(unise, cfg: EvalConfig, seed: int = 0,
     return summary
 
 
-def roundtrip_codec_eval(tokenizer, wav_paths, sample_rate=16000,
-                         limit: Optional[int] = None,
-                         spk_embed_fn=None,
-                         utmos_predictor=None) -> Dict[str, float]:
+def roundtrip_codec_eval(tokenizer, wav_paths) -> Dict[str, float]:
     """Codec reconstruction benchmark (the H-Codec table 2 protocol:
-    tokenize -> detokenize, score vs the original)."""
+    tokenize -> detokenize, score vs the original at each file's own rate)."""
     import torch
 
     device = next(tokenizer.codec.parameters()).device
     stats: List[Dict[str, float]] = []
-    for p in list(wav_paths)[:limit]:
+    for p in wav_paths:
         wav, fs = read_wav(p)
         x = torch.as_tensor(wav[:1], device=device)
         g, s = tokenizer.tokenize(x)
@@ -142,16 +140,12 @@ def roundtrip_codec_eval(tokenizer, wav_paths, sample_rate=16000,
         ref = wav[0][: len(rec)]
         # codec round trips are sample-aligned by construction
         raw_pesq = M.pesq(rec[: len(ref)], ref, fs, assume_aligned=True)
-        utt = {
+        stats.append({
             "stoi": M.stoi(rec[: len(ref)], ref, fs),
             "pesq": raw_pesq,
             "pesq_mos_lqo": M.pesq_mos_lqo(raw_pesq),
-            **dict([M.utmos(rec, fs, predictor=utmos_predictor)[::-1]]),
+            "utmos_proxy": M.utmos_proxy(rec, fs),
             "si_snr": M.si_snr(rec[: len(ref)], ref),
             "mcd": M.mcd(rec[: len(ref)], ref, fs),
-        }
-        if spk_embed_fn is not None:
-            utt["spk_sim"] = M.spk_sim(
-                spk_embed_fn(rec[None, : len(ref)]), spk_embed_fn(ref[None]))
-        stats.append(utt)
+        })
     return {k: float(np.mean([s[k] for s in stats])) for k in stats[0]}

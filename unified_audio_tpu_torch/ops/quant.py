@@ -237,16 +237,9 @@ class ResidualVQ(nn.Module):
 
     def fp32_codebooks(self):
         """The codebooks as K5/K6 take them, fp32: the buffers themselves in
-        fp32, else fp32 copies of them (bf16 serving), made again only when
-        a buffer changes."""
-        books = self.codebooks()
-        if all(cb.dtype == torch.float32 for cb in books):
-            return books
-        key = tuple((cb.data_ptr(), cb._version, cb.dtype) for cb in books)
-        if getattr(self, "_fp32_key", None) != key:
-            self._fp32_key = key
-            self._fp32_books = tuple(cb.float() for cb in books)
-        return self._fp32_books
+        fp32, fp32 copies of them made each call in the bf16 serving
+        mode."""
+        return tuple(cb.float() for cb in self.codebooks())
 
     def encode(self, x):
         """All layers in one K6 launch on a CUDA tensor: each layer codes
