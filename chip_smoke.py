@@ -199,7 +199,27 @@ prints no result. Phases, each fatal on failure:
    every metric finite; seconds an utterance. Then
    ``roundtrip_codec_eval`` through the bf16 HCodec-1.0 on the clean
    clips: K6 twice a clip.
-10. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+10. HCodec-1.5 adaptive and FlexiCodec at full width, random weights, fp32
+   with TF32 off, one 10-s 16 kHz clip each. (a) ``cli codec --model
+   hcodec15`` (``adaptive15_config()``, XLSR-53), the plain VQ made to
+   raise: K6 twice a round trip; codes (1, 4, 250) with the group lengths
+   injected (lengths summing to 250, at most 8, -1 at the padding groups
+   after the last valid one), the token rate the groups over 10 s, the
+   output finite at the input's length; K6 on the live aggregated groups
+   (M = 250, the padding groups' rows zero) under ``judge_codes`` and equal
+   to tokenize's codes, timed against the plain search; the round trip's
+   median wall of 5, its device time, busy share and kernel launches
+   (``profile_roundtrip.profile_calls``); a CPU copy of the same weights:
+   the group ids equal up to the first similarity within 1e-5 of the
+   threshold (the count of such similarities printed), and, with none,
+   the codes equal in >= 99.5% of places. (b) ``cli codec --model
+   flexicodec`` with each semantic stream: the log-fbank fallback,
+   ``--cmvn`` (a synthetic 560-dim ``am.mvn`` the smoke writes) and
+   ``--cmvn --sensevoice-ckpt`` (a random funasr-layout SenseVoiceSmall
+   state dict the smoke writes at ``sensevoice_small_config()`` width):
+   codes (1, 312, 9), a finite output; the FSQ and DAC codes of a CPU copy
+   equal in >= 99.9% of places; the round trip timed as in (a).
+11. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
@@ -207,11 +227,12 @@ above, each kernel's time, its plain version's and its bound; K2's
 launches are phase 3's, and phase 7 prints its own serve's; K5's are
 phase 4's staged encode and phase 8's training, and its ``kmeans_m600``
 entry the times on k-means' start at M = 600; K6's are the round trips'
-(phases 4, 5, 8 and 9's two bf16 ones and ``roundtrip_codec_eval``) and
-its ``nq16`` entry the times at
-HCodec-2.0's shapes; K7's launches are those of the serving paths, 0, and
-the smoke's own check calls are printed on the line before), and as its
-last line the device JSON object.
+(phases 4, 5, 8, 9's two bf16 ones and ``roundtrip_codec_eval``, and
+10's HCodec-1.5 one), its ``nq16`` entry the times at HCodec-2.0's shapes
+and its ``hcodec15_groups`` entry those at HCodec-1.5's aggregated
+groups; K7's launches are those of the serving paths, 0, and the smoke's
+own check calls are printed on the line before), and as its last line
+the device JSON object.
 """
 import dataclasses
 import itertools
@@ -2339,6 +2360,309 @@ def eval_phase(torch, cli, vq, gpu, tmp, write_wav):
     return k6
 
 
+# ---------------------------------------------------------------------------
+# HCodec-1.5 adaptive and FlexiCodec through cli codec
+# ---------------------------------------------------------------------------
+
+NEAR_SIM = 1e-5  # |similarity - threshold| within which a boundary may flip
+GROUP_CODES_AGREE = 0.995  # card codes equal to the CPU's (a near tie at one
+# layer parts the rest of its row)
+FLEXI_AGREE = 0.999  # FlexiCodec's card codes equal to the CPU's
+ROUNDTRIP_RUNS = 5  # round trips a median wall is taken over
+
+
+def write_am_mvn(path, dim=560, seed=0):
+    """A synthetic Kaldi nnet CMVN file: shifts near minus a log-mel mean,
+    rescales near one over its spread."""
+    rng = np.random.default_rng(seed)
+
+    def row(v):
+        return " ".join(f"{x:.6f}" for x in v)
+
+    path.write_text(
+        f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n<AddShift> {dim} {dim}\n"
+        f"<LearnRateCoef> 0 [ {row(-(12.0 + rng.standard_normal(dim)))} ]\n"
+        f"<Rescale> {dim} {dim}\n<LearnRateCoef> 0 [ "
+        f"{row(0.3 + 0.05 * rng.random(dim))} ]\n</Nnet>\n")
+    return path
+
+
+def cpu_copy(torch, module):
+    """An eval copy of ``module`` on the CPU (same weights)."""
+    import copy
+
+    return copy.deepcopy(module).to("cpu").eval()
+
+
+def timed_roundtrip(torch, fn, label, gpu):
+    """Median wall of ROUNDTRIP_RUNS calls of ``fn`` (one warm-up), then two
+    calls under torch.profiler (CUPTI: device time, kernel launches, busy
+    share) -> (rtfx, the profile dict); prints one line."""
+    from unified_audio_tpu_torch.models.hcodec.profile_roundtrip import (
+        profile_calls)
+
+    wall, lo, hi = median_wall(torch, fn, ROUNDTRIP_RUNS)
+    prof = profile_calls(fn, 2, wall * 1e3)
+    rtfx = CLIP_S / wall
+    dev = prof["device_ms"]
+    print(f"{label} round trip of {CLIP_S:.0f} s: rtfx {rtfx:.2f} (median of "
+          f"{ROUNDTRIP_RUNS}: {wall * 1e3:.2f} ms, range {lo * 1e3:.2f}-"
+          f"{hi * 1e3:.2f}); device "
+          f"{'not measured' if dev is None else f'{dev:.2f} ms'}, busy "
+          f"{prof['device_busy_share'] or 0:.3f}, {prof['launches']:.0f} "
+          f"kernel launches; top kernels "
+          f"{[(k['name'][:40], round(k['ms'], 3)) for k in prof['top_kernels'][:3]]}"
+          f" | {gpu}", flush=True)
+    return rtfx, prof
+
+
+def hcodec15_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
+    """Phase 10a: ``cli codec --model hcodec15`` on a 10-s clip at
+    ``adaptive15_config()`` width -> (K6 launches of the round trip, K6's
+    timing at the aggregated rows)."""
+    from unified_audio_tpu_torch.models.hcodec import adaptive
+    from unified_audio_tpu_torch.models.hcodec.adaptive_tokenizer import (
+        AdaptiveHCodecTokenizer)
+
+    rng = np.random.default_rng(13)
+    n = int(CLIP_S * SR)
+    wav = 0.5 * synth_speech(rng, n) + 0.05 * rng.standard_normal(n)
+    clip, out = tmp / "clip15.wav", tmp / "clip15_out.wav"
+    write_wav(clip, (0.8 * wav / np.abs(wav).max()).astype(np.float32), SR)
+    built = []
+    build = cli._build_hcodec15
+
+    def recording(*args, **kw):
+        built.append(build(*args, **kw))
+        return built[-1]
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in the kernel round trip")
+
+    with patched([(cli, "_build_hcodec15", recording),
+                  (vq, "nearest_code_ref", forbidden),
+                  (vq, "rvq_encode_fused_ref", forbidden)]):
+        vq.rvq_encode_fused.launches = 0
+        t0 = time.perf_counter()
+        summary = cli.main(["codec", "--model", "hcodec15", "--input",
+                            str(clip), "--output", str(out)])
+        cli_s = time.perf_counter() - t0
+        k6_launches = vq.rvq_encode_fused.launches
+    if k6_launches != 2:
+        fail(f"hcodec15: K6 launched {k6_launches} times in one round trip, "
+             "not 2")
+    t = int(CLIP_S * SR) // 640
+    if summary["acoustic_shape"] != [1, 4, t]:
+        fail(f"hcodec15: acoustic codes of shape {summary['acoustic_shape']}")
+    rec, fs = read_wav(out)
+    if not (fs == SR and rec.shape == (1, n) and np.isfinite(rec).all()):
+        fail(f"hcodec15: round-trip wav of shape {rec.shape} at {fs} Hz")
+    tok = built[0]
+    codec, cfg = tok.codec, tok.codec.config
+    x = torch.as_tensor(read_wav(clip)[0], device="cuda")
+    xp = tok.pad_wav(x)
+    with torch.no_grad():
+        feats = tok.extract_features(xp)
+        a_groups, s_groups, gid, counts = codec.align(xp[..., None], feats)
+        codes = tok.tokenize(x)
+    size = cfg.base.codebook_size
+    groups = int((counts > 0).sum())
+    for name in ("acoustic_codes", "semantic_codes"):
+        c = codes[name].transpose(-1, -2)
+        plain, lengths = adaptive.extract_length(c, size)
+        valid = lengths[0] > 0
+        if not (c.shape == (1, t, 4) and int(lengths.sum()) == t
+                and int(valid.sum()) == groups
+                and bool(valid[:groups].all())
+                and bool(((c >= 0) == valid[None, :, None]).all())
+                and int(lengths.max()) <= cfg.max_group_len
+                and 0 <= int(plain[0, :groups].min())
+                and int(plain.max()) < size):
+            fail(f"hcodec15 {name}: shape {tuple(c.shape)}, lengths summing "
+                 f"to {int(lengths.sum())}, {int(valid.sum())} groups "
+                 f"({groups} aggregated)")
+    rate = float(codes["token_rate_hz"][0])
+    if not (abs(rate - groups / CLIP_S) < 1e-4
+            and summary["tokens_per_sec"] == round(rate, 2)):
+        fail(f"hcodec15: token rate {rate} for {groups} groups, JSON line "
+             f"{summary['tokens_per_sec']}")
+    # K6 on the live aggregated groups (zero rows at the padding groups)
+    worst, timing = 0.0, None
+    for rows, rvq, c in ((a_groups, codec.quantizer, codes["acoustic_codes"]),
+                         (s_groups, codec.semantic_quantizer,
+                          codes["semantic_codes"])):
+        flat = rows.reshape(-1, rows.shape[-1]).contiguous()
+        pad = (counts == 0).reshape(-1)
+        if not bool((flat[pad] == 0).all()):
+            fail("hcodec15: a padding group's row is not zero")
+        books = rvq.fp32_codebooks()
+        got = vq.rvq_encode_fused(flat, books)
+        share, w, ok = vq.judge_codes(flat, books, got)
+        worst = max(worst, w)
+        kept = c.transpose(-1, -2).reshape(-1, 4)[~pad] % size
+        if not (ok and share >= 0.999
+                and torch.equal(got[~pad].long(), kept.long())):
+            fail(f"hcodec15: K6 on the aggregated groups: {share:.5f} equal "
+                 f"to the plain search, worst excess {w:.3e}, or not the "
+                 "codes of tokenize")
+        if timing is None:
+            plain_t, kern_t = in_turns(
+                torch, [lambda: vq.rvq_encode_fused_ref(flat, books),
+                        lambda: vq.rvq_encode_fused(flat, books)],
+                iters=50, kernels=[None, CUDA_KERNELS["vq"]])
+            timing = {"M": flat.shape[0], "padding_rows": int(pad.sum()),
+                      "ms": kern_t["ms"], "plain_ms": plain_t["ms"],
+                      "bound_ms": vq_bound(flat.shape[0], VQ_SHAPES["n"],
+                                           VQ_SHAPES["d"], 4)[0],
+                      "records": kern_t["records"], "max_abs_err": worst}
+    timing["max_abs_err"] = worst
+    print(f"hcodec15 through cli codec ({cli_s:.1f} s with the build): codes "
+          f"{summary['acoustic_shape']}, {groups} groups of {t} frames "
+          f"(token rate {rate:.2f} Hz), K6 launches {k6_launches}; K6 on the "
+          f"aggregated groups (M={timing['M']}, {timing['padding_rows']} zero "
+          f"padding rows) vs the plain search: worst distance excess "
+          f"{worst:.3e}; kernel {timing['ms'] * 1e3:.2f} us, plain "
+          f"{timing['plain_ms'] * 1e3:.2f} us, bound "
+          f"{timing['bound_ms'] * 1e3:.2f} us | {gpu}", flush=True)
+
+    def roundtrip():
+        c = tok.tokenize(x)
+        return tok.detokenize(c["acoustic_codes"], c["semantic_codes"])
+
+    timed_roundtrip(torch, roundtrip, "hcodec15", gpu)
+
+    # the card against a CPU copy of the same weights: group ids where no
+    # similarity lies within NEAR_SIM of the threshold, then the codes
+    cpu_tok = AdaptiveHCodecTokenizer(cpu_copy(torch, codec),
+                                      cpu_copy(torch, tok.ssl))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        feats_c = cpu_tok.extract_features(xp.cpu())
+        sem_c = cpu_tok.codec.semantic_encoder(feats_c)
+        sem_g = codec.semantic_encoder(feats)
+    thr = cfg.similarity_threshold
+    sims_c = adaptive.consecutive_similarities(sem_c)[0]
+    sims_g = adaptive.consecutive_similarities(sem_g)[0].cpu()
+    near = ((sims_c - thr).abs() <= NEAR_SIM) | ((sims_g - thr).abs()
+                                                  <= NEAR_SIM)
+    gid_c = adaptive.similarity_group_ids(sem_c, thr, cfg.max_group_len)[0]
+    upto = int(near.nonzero()[0]) + 1 if bool(near.any()) else t
+    same_ids = torch.equal(gid_c[:upto], gid[0, :upto].cpu())
+    feat_err = float((feats_c - feats.cpu()).abs().max()
+                     / feats_c.abs().max())
+    print(f"hcodec15 card vs CPU: XLSR features max |diff| / max "
+          f"{feat_err:.2e}; similarities max |diff| "
+          f"{float((sims_c - sims_g).abs().max()):.2e}, {int(near.sum())} "
+          f"within {NEAR_SIM} of the threshold {thr}, smallest margin "
+          f"{float((sims_c - thr).abs().min()):.3e}; group ids equal over "
+          f"{upto} of {t} frames: {same_ids}", flush=True)
+    if not same_ids:
+        fail("hcodec15: the card's group ids differ from the CPU's away from "
+             "the threshold")
+    if upto == t:
+        with torch.no_grad():
+            codes_c = cpu_tok.tokenize(x.cpu())
+        eq = [float((codes_c[k] == codes[k].cpu()).float().mean())
+              for k in ("acoustic_codes", "semantic_codes")]
+        print(f"hcodec15 card vs CPU codes (CPU {time.perf_counter() - t0:.1f}"
+              f" s): acoustic {eq[0]:.5f}, semantic {eq[1]:.5f} equal "
+              f"(limit {GROUP_CODES_AGREE})", flush=True)
+        if min(eq) < GROUP_CODES_AGREE:
+            fail(f"hcodec15: card codes equal to the CPU's in {eq}")
+    else:
+        print("hcodec15 card vs CPU codes: not compared (a similarity lies "
+              f"within {NEAR_SIM} of the threshold)", flush=True)
+    del cpu_tok, tok, built[:]
+    torch.cuda.empty_cache()
+    return k6_launches, timing
+
+
+def flexicodec_phase(torch, cli, gpu, tmp, write_wav, read_wav):
+    """Phase 10b: ``cli codec --model flexicodec`` on a 10-s clip with each
+    semantic stream (log-fbank, ``--cmvn``, ``--cmvn --sensevoice-ckpt``),
+    each run's codes held to a CPU copy of the same model."""
+    from unified_audio_tpu_torch.models.hcodec.flexicodec import (
+        match_frame_rate)
+    from unified_audio_tpu_torch.models.ssl.sanm import (
+        SenseVoiceSemanticEncoder, sensevoice_small_config)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    rng = np.random.default_rng(14)
+    n = int(CLIP_S * SR)
+    wav = 0.5 * synth_speech(rng, n) + 0.05 * rng.standard_normal(n)
+    clip, out = tmp / "clip_flexi.wav", tmp / "clip_flexi_out.wav"
+    write_wav(clip, (0.8 * wav / np.abs(wav).max()).astype(np.float32), SR)
+    am = write_am_mvn(tmp / "am.mvn")
+    with torch.device("cuda"):
+        teacher = SenseVoiceSemanticEncoder(sensevoice_small_config())
+    init_random_(teacher, torch.Generator(device="cuda").manual_seed(21))
+    sv = tmp / "sensevoice.pt"
+    torch.save({k: v.cpu() for k, v in teacher.state_dict().items()}, sv)
+    del teacher
+    built = []
+    build = cli._build_flexicodec
+
+    def recording(*args, **kw):
+        built.append(build(*args, **kw))
+        return built[-1]
+
+    x = torch.as_tensor(read_wav(clip)[0], device="cuda")
+    for name, cmvn, ckpt in (("log-fbank", None, None), ("cmvn", am, None),
+                             ("SAN-M teacher", am, sv)):
+        extra = ((["--cmvn", str(cmvn)] if cmvn else [])
+                 + (["--sensevoice-ckpt", str(ckpt)] if ckpt else []))
+        built.clear()
+        with patched([(cli, "_build_flexicodec", recording)]):
+            t0 = time.perf_counter()
+            summary = cli.main(["codec", "--model", "flexicodec", "--input",
+                                str(clip), "--output", str(out), *extra])
+            cli_s = time.perf_counter() - t0
+        model = built[0]
+        mcfg = model.config
+        t = n // mcfg.hop_length
+        rec, fs = read_wav(out)
+        if not (summary["acoustic_shape"] == [1, t, mcfg.n_codebooks]
+                and fs == SR and rec.shape == (1, t * mcfg.hop_length)
+                and np.isfinite(rec).all()):
+            fail(f"flexicodec {name}: codes {summary['acoustic_shape']}, wav "
+                 f"of shape {rec.shape}")
+        cmvn_s = str(cmvn) if cmvn else None
+        teacher = cli._build_sensevoice(ckpt, "cuda") if ckpt else None
+
+        def semantic(x, teacher):
+            return match_frame_rate(cli.flexicodec_semantic(
+                x, mcfg.ssl_dim, cmvn_s, teacher), 2 * t)
+
+        with torch.no_grad():
+            sem_g = semantic(x, teacher)
+            ac_g, sc_g = model.encode(x, sem_g)
+            cpu = cpu_copy(torch, model)
+            sem_c = semantic(x.cpu(), teacher and cpu_copy(torch, teacher))
+            ac_c, sc_c = cpu.encode(x.cpu(), sem_c)
+        sem_err = float((sem_g.cpu() - sem_c).abs().max()
+                        / sem_c.abs().max())
+        eq_a = float((ac_g.cpu() == ac_c).float().mean())
+        eq_s = float((sc_g.cpu() == sc_c).float().mean())
+        print(f"flexicodec ({name} stream) through cli codec ({cli_s:.1f} s "
+              f"with the build): codes {summary['acoustic_shape']} + "
+              f"semantic {list(sc_g.shape)}, {summary['tokens_per_sec']} "
+              f"frames/s; card vs CPU: semantic stream max |diff| / max "
+              f"{sem_err:.2e}, FSQ codes {eq_s:.5f} and DAC codes {eq_a:.5f} "
+              f"equal (limit {FLEXI_AGREE}) | {gpu}", flush=True)
+        if min(eq_a, eq_s) < FLEXI_AGREE:
+            fail(f"flexicodec {name}: card codes equal to the CPU's in "
+                 f"{eq_a}, {eq_s}")
+        del cpu
+
+        def roundtrip():
+            return model.decode(*model.encode(x, semantic(x, teacher)))
+
+        with torch.no_grad():
+            timed_roundtrip(torch, roundtrip, f"flexicodec ({name})", gpu)
+    built.clear()
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -2525,7 +2849,15 @@ def main():
                                       write_wav)
         print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 10. nothing of JAX or the JAX package was loaded
+    # 10. HCodec-1.5 adaptive and FlexiCodec through cli codec
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        k6_15_launches, k6_15 = hcodec15_phase(torch, cli, vq, gpu, Path(tmp),
+                                               write_wav, read_wav)
+        flexicodec_phase(torch, cli, gpu, Path(tmp), write_wav, read_wav)
+        print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
@@ -2569,7 +2901,7 @@ def main():
              1),
             ("K6", vq.rvq_encode_fused, K6_TPU,
              k6_launches + k6_20_launches + k6_train_launches
-             + k6_cli_launches, 4)):
+             + k6_cli_launches + k6_15_launches, 4)):
         err, ms, plain_ms, n_rec = vq_results[name, 250]
         b_ms, b_by = vq_bound(250, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
         kernels.append({"name": fn.__name__, "route": "cuda",
@@ -2584,6 +2916,7 @@ def main():
                    "bound_ms": vq_bound(m, VQ_SHAPES["n"], VQ_SHAPES["d"],
                                         NQ20)[0], "records": n_rec}
         for m, (_, worst, ms, plain_ms, n_rec) in k6_20.items()}
+    kernels[-1]["hcodec15_groups"] = k6_15
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -291,7 +291,8 @@ class TestPortImportsNoJax:
         """With jax and flax made unimportable, the port's CLI (and through
         it the serving path, the SS cascade, offline enhancement, the
         evaluation modules, the bf16 precision helper and the HCodec round
-        trips), the
+        trips), HCodec-1.5 adaptive and FlexiCodec with the Mimi
+        transformer, the fbank frontend and the SAN-M teacher, the
         UniTok pipeline and engine, the step profiler and the training
         modules (the UniSE and codec trainers, the discriminators,
         checkpoints, both data pipelines, config, logging) still import,
@@ -319,7 +320,13 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.utils.precision, "
                 "unified_audio_tpu_torch.eval.metrics, "
                 "unified_audio_tpu_torch.eval.runner, "
-                "unified_audio_tpu_torch.eval.utmos; "
+                "unified_audio_tpu_torch.eval.utmos, "
+                "unified_audio_tpu_torch.nn.mimi, "
+                "unified_audio_tpu_torch.models.hcodec.adaptive, "
+                "unified_audio_tpu_torch.models.hcodec.adaptive_tokenizer, "
+                "unified_audio_tpu_torch.models.hcodec.flexicodec, "
+                "unified_audio_tpu_torch.models.ssl.sanm, "
+                "unified_audio_tpu_torch.ops.fbank; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
                 "assert not shared, shared")

@@ -15,7 +15,8 @@ from unified_audio_tpu.utils.convert import (convert_hf_wav2vec2,
                                              export_custom_llama_state_dict)
 from unified_audio_tpu.utils.convert_bicodec import export_bicodec_state_dict
 from unified_audio_tpu.utils.convert_hcodec import (
-    export_hcodec10_state_dict, export_hcodec20_state_dict)
+    export_hcodec10_state_dict, export_hcodec15_state_dict,
+    export_hcodec20_state_dict)
 from unified_audio_tpu_torch.models.bicodec import bicodec as t_bicodec
 from unified_audio_tpu_torch.models.hcodec import codec as t_codec
 from unified_audio_tpu_torch.utils import convert as t_convert
@@ -363,3 +364,111 @@ def test_raw_weight_norm_checkpoint_codes_equal_folded(tmp_path,
     (a0, s0), (a1, s1) = seen
     assert torch.equal(a0, a1) and torch.equal(s0, s1)
     assert np.abs(wavs[0] - wavs[1]).max() <= 1e-6 * np.abs(wavs[1]).max()
+
+
+def _unfolded(sd, keep, names=("weight_g", "weight_v"), dim=0):
+    """``sd`` with each conv weight whose key passes ``keep`` split into a
+    weight-norm pair: v twice the weight, g its norm over every axis but
+    ``dim`` (0: a conv's out channels; a transposed conv's in channels)."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight") and np.ndim(v) == 3 and keep(k):
+            w = np.asarray(v, np.float32)
+            axes = tuple(i for i in range(3) if i != dim)
+            stem = k[:-len("weight")]
+            out[stem + names[0]] = np.sqrt((w ** 2).sum(axes, keepdims=True))
+            out[stem + names[1]] = 2.0 * w
+        else:
+            out[k] = v
+    return out
+
+
+def _assert_folds_back(sd, folded):
+    assert sorted(folded) == sorted(sd)
+    for k in sd:
+        np.testing.assert_allclose(np.asarray(folded[k]), np.asarray(sd[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+def test_hcodec15_reference_layout():
+    """The port's AdaptiveHCodec takes exactly the keys of
+    export_hcodec15_state_dict (the SEANet encoder, aggregators,
+    bottleneck, both codebooks, the semantic encoder and decoder, the
+    decoder) with the EMA statistics dropped, strictly; the JAX package's
+    convert_hcodec15 reads the same file back to the same variables; a
+    weight-norm (g, v) twin of the SEANet convs folds to the same
+    weights."""
+    import dataclasses
+
+    from test_torch_hcodec import small10
+    from unified_audio_tpu.models.hcodec import adaptive as j_adaptive
+    from unified_audio_tpu.utils.convert_hcodec import convert_hcodec15
+    from unified_audio_tpu_torch.models.hcodec import adaptive as t_adaptive
+
+    cfg = j_adaptive.AdaptiveConfig(
+        base=small10(), aggregator_layers=2, aggregator_ff=64,
+        bottleneck_layers=3, bottleneck_ff=64)
+    variables = jax.device_get(random_variables(
+        j_adaptive.AdaptiveHCodec(cfg), np.zeros((1, 640 * 4, 1), np.float32),
+        np.zeros((1, 8, 32), np.float32)))
+    sd = export_hcodec15_state_dict(variables, cfg)
+    keys = t_convert.hcodec15_inference_keys(sd)
+    assert not any(k.endswith(("embed_avg", "cluster_size", "initted"))
+                   for k in keys)
+    module = t_adaptive.AdaptiveHCodec(t_adaptive.AdaptiveConfig(
+        base=t_codec.HCodecConfig(**dataclasses.asdict(cfg.base)),
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+           if f.name != "base"}))
+    assert sorted(module.state_dict()) == sorted(keys)
+    module.load_state_dict(to_torch(keys))
+    assert "bottleneck_transformer.transformer.layers.2.self_attn." \
+        "in_proj_weight" in keys
+    assert keys["acoustic_aggregator.query_embedding"].shape == (1, 64, 1)
+    back = convert_hcodec15(sd, cfg)
+    np.testing.assert_array_equal(
+        back["params"]["acoustic_aggregator"]["query_embedding"],
+        variables["params"]["acoustic_aggregator"]["query_embedding"])
+    raw = _unfolded(sd, lambda k: k.startswith("encoder.model."))
+    assert any(k.endswith("weight_v") for k in raw)
+    _assert_folds_back(keys, t_convert.hcodec15_inference_keys(raw))
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_flexicodec_reference_layout(aligned):
+    """The port's FlexiCodec takes exactly the keys of
+    export_flexicodec_state_dict (``dac.*``, the ConvNeXt adapters without
+    gamma, ``semantic_vq.fsq.*``, and in the aligned mode the aggregators
+    and the bottleneck), strictly; weight-norm twins of the DAC and
+    adapter convs, in the legacy names and in torch's parametrization
+    names (the transposed convs normed per input channel), fold to the
+    same weights."""
+    import dataclasses
+
+    from test_torch_flexicodec import aligned_cfg, tiny_cfg
+    from unified_audio_tpu.models.hcodec.flexicodec import FlexiCodec
+    from unified_audio_tpu.utils.convert_hcodec import (
+        export_flexicodec_state_dict)
+    from unified_audio_tpu_torch.models.hcodec import flexicodec as t_flexi
+
+    cfg = aligned_cfg() if aligned else tiny_cfg()
+    variables = jax.device_get(random_variables(
+        FlexiCodec(cfg), np.zeros((1, 512 * 4), np.float32),
+        np.zeros((1, 8, cfg.ssl_dim), np.float32)))
+    sd = export_flexicodec_state_dict(variables, cfg)
+    keys = t_convert.flexicodec_inference_keys(sd)
+    module = t_flexi.FlexiCodec(t_flexi.FlexiCodecConfig(
+        **dataclasses.asdict(cfg)))
+    assert sorted(module.state_dict()) == sorted(keys)
+    module.load_state_dict(to_torch(keys))
+    assert ("semantic_aggregator.query_embedding" in keys) == aligned
+    upconv = "dac.decoder.model.1.block.1.weight"
+    for names in (("weight_g", "weight_v"),
+                  ("parametrizations.weight.original0",
+                   "parametrizations.weight.original1")):
+        raw = _unfolded({k: v for k, v in sd.items() if k != upconv},
+                        lambda k: k.startswith(("dac.", "convnext_")),
+                        names)
+        raw.update(_unfolded({upconv: sd[upconv]}, lambda k: True, names,
+                             dim=0))
+        assert any(k.endswith(names[1]) for k in raw)
+        _assert_folds_back(keys, t_convert.flexicodec_inference_keys(raw))

@@ -11,7 +11,8 @@ cluster-split kernel of ``csrc/vq.cu``) at the HCodec-1.0 shapes and K6
 at HCodec-2.0's 16 layers, with exact ties across codebook chunks, N below
 the cluster size, D from 16 to ``vq.MAX_DIM``, rows of NaN, the layers'
 codebooks by pointer, the wrappers' refusals and three broken copies of the
-source shown to fail; and HCodec-2.0's ``resample`` and ``stft`` (cuDNN,
+source shown to fail; K6 on HCodec-1.5's aggregated groups with their
+zero padding rows; and HCodec-2.0's ``resample`` and ``stft`` (cuDNN,
 cuFFT) against the same functions on the CPU. Needs a CUDA card; imports
 no JAX, so it also runs on a machine without it:
 
@@ -590,6 +591,40 @@ class TestKernelsOnCard:
             [vq.rvq_encode_fused(x, cbs)]
         torch.cuda.synchronize()
         assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+    @pytest.mark.parametrize("threshold", [0.0, 0.3])
+    def test_k6_on_aggregated_groups(self, card, threshold):
+        """K6 on HCodec-1.5's rows: a 2-layer query-token aggregator at the
+        shipped width (512) over 250 frames grouped by similarity, the
+        padding groups' rows zero. One launch; the codes pass
+        ``judge_codes`` on all 250 rows, padding included, also against a
+        codebook whose two smallest rows tie in norm (a zero row's exact
+        tie)."""
+        from unified_audio_tpu_torch.models.hcodec import adaptive
+        from unified_audio_tpu_torch.utils.initialization import init_random_
+
+        g = torch.Generator(device=card).manual_seed(0)
+        agg = init_random_(adaptive.QueryTokenAggregator(512).to(card),
+                           g).eval()
+        frames = torch.randn(1, 250, 512, device=card, generator=g)
+        frames[:, 1:] += 0.8 * frames[:, :-1].clone()
+        gid = adaptive.similarity_group_ids(frames, threshold)
+        with torch.no_grad():
+            groups, counts = agg(frames, gid)
+        pad = counts[0] == 0
+        assert 0 < int(pad.sum()) < 250
+        rows = groups.reshape(-1, 512).contiguous()
+        assert bool((rows[pad] == 0).all())
+        _, cbs = vq.random_case(1, device=card, seed=5)
+        tie = cbs.clone()
+        small = tie[0].square().sum(-1).argmin()
+        tie[0, (small + 7) % 1024] = tie[0, small].flip(0)  # equal norm
+        for books in (cbs, tie):
+            before = vq.rvq_encode_fused.launches
+            codes = vq.rvq_encode_fused(rows, books)
+            assert vq.rvq_encode_fused.launches == before + 1
+            share, worst, ok = vq.judge_codes(rows, books, codes)
+            assert ok, f"share {share}, worst excess {worst}"
 
     def test_vq_wrappers_refuse(self, card):
         """K5 and K6 raise ValueError before any launch on what they do not

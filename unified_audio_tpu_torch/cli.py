@@ -13,9 +13,11 @@
         --input X.wav --output Y.wav [--enroll E.wav] [--ckpt LM.pt] \
         [--bicodec-ckpt SD.safetensors] [--sample] [--seed 0] \
         [--device cuda|cpu]
-    python -m unified_audio_tpu_torch.cli codec --model hcodec10|hcodec20 \
+    python -m unified_audio_tpu_torch.cli codec \
+        --model hcodec10|hcodec20|hcodec15|flexicodec \
         --input X.wav --output Y.wav [--ckpt SD.pt] [--seed 0] \
-        [--dtype float32|bfloat16] [--device cuda|cpu]
+        [--dtype float32|bfloat16] [--cmvn am.mvn] \
+        [--sensevoice-ckpt SV.pt] [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli eval --test-dir DIR \
         [--tgt-dir DIR] [--enroll-dir DIR] [--mode se|tse|ss] [--ckpt LM.pt] \
         [--bicodec-ckpt SD] [--spk-sim] [--utmos-ckpt U.pt] \
@@ -85,8 +87,8 @@ one is an error, the others (the reference's bypassed conformer) are named
 on stderr. ``--bicodec-ckpt`` takes a ``.pt`` or the reference's
 ``.safetensors`` file.
 
-``codec`` ports ``cmd_codec`` for ``--model hcodec10`` (16 kHz, 25 Hz
-codes) and ``hcodec20`` (48 kHz, 12.5 Hz codes): the wav goes through the
+``codec`` ports ``cmd_codec``. For ``--model hcodec10`` (16 kHz, 25 Hz
+codes) and ``hcodec20`` (48 kHz, 12.5 Hz codes) the wav goes through the
 tokenize -> detokenize round trip at full width in fp32 (HuBERT-base
 frontend), or with ``--dtype bfloat16`` in the bf16 serving mode
 (``models/hcodec/tokenizer.py``), and the command prints the JAX package's
@@ -97,9 +99,23 @@ dict in the layout of ``utils/convert.py hcodec10_state_dict`` or
 ``hcodec20_state_dict``, weight norm folded or as ``weight_g``/``weight_v``,
 or a checkpoint ``train-codec`` wrote.
 
+``codec --model hcodec15`` is HCodec-1.5 adaptive (``adaptive15_config``,
+XLSR-53 frontend, random unless ``--ckpt`` gives the codec in the layout of
+``export_hcodec15_state_dict``; XLSR-53 stays random): its codes are (1, 4,
+G) group codes with the group lengths injected, ``tokens_per_sec`` the
+realised group rate. ``codec --model flexicodec`` is FlexiCodec in the
+DualCodec mode at 16 kHz (``--ckpt`` a ``.pt`` or ``.safetensors`` state
+dict in the layout of ``export_flexicodec_state_dict``; its
+``convnext_encoder.0`` width sets ``ssl_dim``). Its semantic stream is the
+SAN-M teacher with ``--sensevoice-ckpt`` (a funasr SenseVoiceSmall state
+dict; needs ``--cmvn``), the teacher's fbank + LFR + CMVN frontend with
+``--cmvn`` alone, else a log-fbank fallback; it is resampled to twice the
+acoustic frame count. Both run in fp32 only: ``--dtype bfloat16`` with them
+is an error.
+
 Input wavs at another rate are resampled to the model's (16 kHz for
-``serve`` and hcodec10, 48 kHz for hcodec20) on the device, and the command
-says so on stderr.
+``serve``, hcodec10, hcodec15 and flexicodec, 48 kHz for hcodec20) on the
+device, and the command says so on stderr.
 
 All six run on the CUDA card and exit with an error without one, unless
 ``--device cpu`` asks for the CPU. fp32 means fp32 on the card: TF32 is off
@@ -189,6 +205,19 @@ def load_lm(sft, ckpt, device="cpu"):
     print(f"loaded LM state dict {ckpt}", file=sys.stderr)
 
 
+def _read_state_dict(path, device="cpu"):
+    """A ``.safetensors`` file, or a torch state dict (raw or under
+    "state_dict")."""
+    if Path(path).suffix == ".safetensors":
+        try:
+            from safetensors.torch import load_file
+        except ImportError:
+            sys.exit(f"error: reading {path} needs the 'safetensors' "
+                     "package, which is not installed")
+        return load_file(str(path), device=str(device))
+    return _torch_state_dict(path, device)
+
+
 def load_bicodec(bicodec, path, device="cpu"):
     """Load a BiCodec state dict in the reference layout (what
     ``export_bicodec_state_dict`` writes, or the reference's
@@ -196,16 +225,8 @@ def load_bicodec(bicodec, path, device="cpu"):
     builds (the decoder, and with ``tokenize`` the encoder and the speaker
     encoder); the postnet and the codebook's usage statistics, which the
     port does not build, are ignored."""
-    if Path(path).suffix == ".safetensors":
-        try:
-            from safetensors.torch import load_file
-        except ImportError:
-            sys.exit(f"error: reading {path} needs the 'safetensors' "
-                     "package, which is not installed")
-        sd = load_file(str(path), device=str(device))
-    else:
-        sd = _torch_state_dict(path, device)
-    load_state(bicodec, sd, f"BiCodec state dict {path}")
+    load_state(bicodec, _read_state_dict(path, device),
+               f"BiCodec state dict {path}")
     print(f"loaded BiCodec state dict {path} (XLSR-53 and WavLM stay "
           "random)", file=sys.stderr)
 
@@ -710,6 +731,166 @@ def _build_hcodec(model: str = "hcodec10", ckpt=None, seed: int = 0,
     return HCodecTokenizer(codec, ssl, dtype=dtype)
 
 
+def _build_hcodec15(ckpt=None, seed: int = 0, device="cpu", cfg=None,
+                    ssl_cfg=None):
+    """HCodec-1.5 adaptive (``cfg`` defaults to ``adaptive15_config()``)
+    over XLSR-53 (``ssl_cfg``) on ``device``, fp32, TF32 off. Random
+    weights from ``seed`` through an explicit generator, with a loud
+    warning; ``ckpt`` loads a state dict in the reference layout (what
+    ``export_hcodec15_state_dict`` writes; weight norm folded or as
+    ``weight_g``/``weight_v``, folded on the host) into the codec, and
+    XLSR-53 stays random, as in the JAX package."""
+    from .models.hcodec.adaptive import AdaptiveHCodec, adaptive15_config
+    from .models.hcodec.adaptive_tokenizer import AdaptiveHCodecTokenizer
+    from .models.ssl.wav2vec2 import (Wav2Vec2Model,
+                                      wav2vec2_large_xlsr53_config)
+    from .utils.convert import hcodec15_inference_keys
+    from .utils.initialization import init_random_
+
+    _fp32_without_tf32()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        codec = AdaptiveHCodec(cfg or adaptive15_config())
+        ssl = Wav2Vec2Model(ssl_cfg or wav2vec2_large_xlsr53_config())
+    for module in (codec, ssl):
+        init_random_(module, gen)
+    if ckpt:
+        sd = hcodec15_inference_keys(_torch_state_dict(ckpt))
+        load_state(codec, {k: torch.as_tensor(v) for k, v in sd.items()},
+                   f"HCodec-1.5 state dict {ckpt}")
+        print(f"loaded HCodec-1.5 state dict {ckpt} (XLSR-53 stays random)",
+              file=sys.stderr)
+    else:
+        print("WARNING: no --ckpt given: HCodec-1.5 and XLSR-53 are RANDOMLY "
+              "initialized and the reconstruction is not meaningful "
+              "(smoke/benchmark use only)", file=sys.stderr)
+    return AdaptiveHCodecTokenizer(codec, ssl)
+
+
+def _build_flexicodec(ckpt=None, seed: int = 0, device="cpu", cfg=None):
+    """FlexiCodec in the DualCodec mode at 16 kHz (``cfg`` defaults to
+    ``FlexiCodecConfig(sample_rate=16000)``) on ``device``, fp32, TF32 off.
+    Random weights from ``seed`` with a loud warning, or ``ckpt`` (``.pt``
+    or ``.safetensors``, the reference layout that
+    ``export_flexicodec_state_dict`` writes, weight norm folded on the
+    host); the checkpoint's ``convnext_encoder.0`` input width sets
+    ``ssl_dim``."""
+    import dataclasses
+
+    from .models.hcodec.flexicodec import FlexiCodec, FlexiCodecConfig
+    from .utils.convert import flexicodec_inference_keys
+    from .utils.initialization import init_random_
+
+    _fp32_without_tf32()
+    sd, kw = None, dict(sample_rate=TARGET_SR)
+    if ckpt:
+        sd = flexicodec_inference_keys(_read_state_dict(ckpt))
+        w = sd.get("convnext_encoder.0.weight")
+        if w is not None:
+            kw["ssl_dim"] = int(w.shape[1])
+    cfg = dataclasses.replace(cfg or FlexiCodecConfig(), **kw)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        model = init_random_(FlexiCodec(cfg), gen).eval()
+    if sd is not None:
+        load_state(model, {k: torch.as_tensor(v) for k, v in sd.items()},
+                   f"FlexiCodec state dict {ckpt}")
+        print(f"loaded FlexiCodec state dict {ckpt} (ssl_dim="
+              f"{cfg.ssl_dim})", file=sys.stderr)
+    else:
+        print("WARNING: no --ckpt given: FlexiCodec is RANDOMLY initialized "
+              "and the reconstruction is not meaningful (smoke/benchmark use "
+              "only)", file=sys.stderr)
+    return model
+
+
+def _build_sensevoice(path, device="cpu", cfg=None):
+    """The SAN-M teacher (``SenseVoiceSemanticEncoder``, ``cfg`` defaults
+    to ``sensevoice_small_config()``) from a funasr SenseVoiceSmall state
+    dict, on ``device``, fp32."""
+    from .models.ssl.sanm import (SenseVoiceSemanticEncoder,
+                                  sensevoice_small_config)
+    from .utils.convert import sensevoice_keys
+
+    cfg = cfg or sensevoice_small_config()
+    with torch.device(device):
+        enc = SenseVoiceSemanticEncoder(cfg)
+    sd = sensevoice_keys(_torch_state_dict(path), cfg)
+    load_state(enc, {k: torch.as_tensor(v) for k, v in sd.items()},
+               f"SenseVoice state dict {path}")
+    return enc.eval()
+
+
+def flexicodec_semantic(x, ssl_dim: int, cmvn=None, teacher=None):
+    """The semantic stream of wav x (B, T), in the JAX package's order: the
+    SAN-M ``teacher`` (a ``SenseVoiceSemanticEncoder``; needs ``cmvn``),
+    else the teacher's frontend alone (``cmvn``), else the log-fbank
+    fallback; at its own frame rate, ``ssl_dim`` wide."""
+    from .models.hcodec.flexicodec import (fbank_semantic,
+                                           sensevoice_semantic,
+                                           sensevoice_teacher_semantic)
+
+    if teacher is not None:
+        return sensevoice_teacher_semantic(teacher, x, cmvn, TARGET_SR,
+                                           ssl_dim)
+    if cmvn:
+        return sensevoice_semantic(x, cmvn, ssl_dim, TARGET_SR)
+    return fbank_semantic(x, TARGET_SR, out_dim=ssl_dim)
+
+
+def _codec_summary(model, rate, acoustic, output):
+    summary = {"model": model, "tokens_per_sec": round(rate, 2),
+               "acoustic_shape": list(acoustic.shape), "out": str(output)}
+    print(json.dumps(summary))
+    return summary
+
+
+def _codec_hcodec15(args, device):
+    """The HCodec-1.5 round trip; tokens_per_sec is the realised group
+    rate."""
+    tok = _build_hcodec15(ckpt=args.ckpt, seed=args.seed, device=device)
+    wav, fs = read_wav(args.input)
+    x = torch.as_tensor(_prepare_wav(wav, fs, TARGET_SR, device),
+                        device=device)
+    codes = tok.tokenize(x)
+    rec = tok.detokenize(codes["acoustic_codes"], codes["semantic_codes"])
+    write_wav(args.output, rec[0].cpu().numpy(), TARGET_SR)
+    return _codec_summary(args.model, float(codes["token_rate_hz"].mean()),
+                          codes["acoustic_codes"], args.output)
+
+
+def _codec_flexicodec(args, device):
+    """The FlexiCodec round trip on the semantic stream of
+    :func:`flexicodec_semantic`, rate-matched to twice the frames."""
+    from .models.hcodec.flexicodec import match_frame_rate
+
+    if args.sensevoice_ckpt and not args.cmvn:
+        sys.exit("error: --sensevoice-ckpt needs the teacher's CMVN stats "
+                 "(--cmvn am.mvn)")
+    _require_files(("--cmvn", args.cmvn),
+                   ("--sensevoice-ckpt", args.sensevoice_ckpt))
+    model = _build_flexicodec(ckpt=args.ckpt, seed=args.seed, device=device)
+    teacher = None
+    if args.sensevoice_ckpt:
+        teacher = _build_sensevoice(args.sensevoice_ckpt, device)
+        print(f"SAN-M teacher semantic stream from {args.sensevoice_ckpt}",
+              file=sys.stderr)
+    wav, fs = read_wav(args.input)
+    wav = _prepare_wav(wav, fs, TARGET_SR, device)
+    x = torch.as_tensor(wav, device=device)
+    with torch.no_grad():
+        sem = flexicodec_semantic(x, model.config.ssl_dim, args.cmvn,
+                                  teacher)
+        sem = match_frame_rate(
+            sem, 2 * (wav.shape[-1] // model.config.hop_length))
+        acoustic, semantic = model.encode(x, sem)
+        rec = model.decode(acoustic, semantic)
+    write_wav(args.output, rec[0].cpu().numpy(), TARGET_SR)
+    return _codec_summary(args.model,
+                          acoustic.shape[1] / (wav.shape[-1] / TARGET_SR),
+                          acoustic, args.output)
+
+
 def cmd_codec(args):
     """tokenize -> detokenize one wav at the codec's rate; prints and
     returns the JSON line of the JAX package's ``cmd_codec``."""
@@ -717,7 +898,18 @@ def cmd_codec(args):
         sys.exit(f"error: input file not found: {args.input}")
     if args.ckpt and not Path(args.ckpt).exists():
         sys.exit(f"error: checkpoint not found: {args.ckpt}")
+    if args.dtype != "float32" and args.model not in HCODEC_NAMES:
+        sys.exit(f"error: --dtype {args.dtype} is the serving mode of "
+                 f"{' and '.join(HCODEC_NAMES)}; {args.model} runs in "
+                 "float32")
+    if (args.cmvn or args.sensevoice_ckpt) and args.model != "flexicodec":
+        sys.exit("error: --cmvn and --sensevoice-ckpt choose FlexiCodec's "
+                 "semantic stream (--model flexicodec)")
     device = _device(args.device)
+    if args.model == "hcodec15":
+        return _codec_hcodec15(args, device)
+    if args.model == "flexicodec":
+        return _codec_flexicodec(args, device)
     tok = _build_hcodec(args.model, ckpt=args.ckpt, seed=args.seed,
                         device=device, dtype=DTYPES[args.dtype])
     sr = tok.config.sample_rate
@@ -726,15 +918,11 @@ def cmd_codec(args):
     acoustic, semantic = tok.tokenize(torch.as_tensor(wav, device=device))
     rec = tok.detokenize(acoustic, semantic)[0].cpu().numpy()
     write_wav(args.output, rec, sr)
-    summary = {"model": args.model,
-               # codes per second of audio per quantizer layer (25 Hz for
-               # hcodec10, 12.5 Hz for hcodec20)
-               "tokens_per_sec": round(acoustic.shape[-1]
-                                       / (wav.shape[-1] / sr), 2),
-               "acoustic_shape": list(acoustic.shape),
-               "out": str(args.output)}
-    print(json.dumps(summary))
-    return summary
+    # codes per second of audio per quantizer layer (25 Hz for hcodec10,
+    # 12.5 Hz for hcodec20)
+    return _codec_summary(args.model,
+                          acoustic.shape[-1] / (wav.shape[-1] / sr),
+                          acoustic, args.output)
 
 
 def main(argv=None):
@@ -792,24 +980,33 @@ def main(argv=None):
     e.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     e.set_defaults(fn=cmd_enhance)
     c = sub.add_parser("codec")
-    c.add_argument("--model", choices=list(HCODEC_NAMES),
-                   default="hcodec10",
-                   help="HCodec-1.0 (16 kHz) or HCodec-2.0 (48 kHz); "
-                        "hcodec15 and flexicodec are not ported yet")
+    c.add_argument("--model", choices=[*HCODEC_NAMES, "hcodec15",
+                                       "flexicodec"], default="hcodec10",
+                   help="HCodec-1.0 (16 kHz), HCodec-2.0 (48 kHz), "
+                        "HCodec-1.5 adaptive or FlexiCodec (16 kHz)")
     c.add_argument("--input", required=True,
                    help="wav, resampled to the codec's rate if need be")
     c.add_argument("--output", required=True)
     c.add_argument("--ckpt", default=None,
-                   help="codec state dict (.pt) in the layout that "
-                        "utils/convert.py hcodec10_state_dict or "
-                        "hcodec20_state_dict writes")
+                   help="codec state dict in the reference layout: .pt "
+                        "(hcodec10/hcodec20 as utils/convert.py writes "
+                        "them, hcodec15 as export_hcodec15_state_dict), or "
+                        ".pt/.safetensors for flexicodec")
     c.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights (no --ckpt)")
     c.add_argument("--dtype", choices=list(DTYPES), default="float32",
                    help="bfloat16 = the serving mode: bf16 weights and "
                         "activations, the VQ search (K6), the norm "
                         "statistics, softmax, HCodec-2.0's STFT and the "
-                        "ISTFT head in fp32")
+                        "ISTFT head in fp32 (hcodec10 and hcodec20 only)")
+    c.add_argument("--cmvn", default=None,
+                   help="flexicodec: the SenseVoice teacher's am.mvn; the "
+                        "semantic stream is then its fbank+LFR+CMVN "
+                        "frontend (without it, a log-fbank fallback)")
+    c.add_argument("--sensevoice-ckpt", default=None,
+                   help="flexicodec: a funasr SenseVoiceSmall state dict; "
+                        "the semantic stream is then the SAN-M teacher's "
+                        "(needs --cmvn)")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     c.set_defaults(fn=cmd_codec)
     ev = sub.add_parser("eval")

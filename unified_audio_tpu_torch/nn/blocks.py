@@ -45,10 +45,12 @@ class ConvNeXtBlock(nn.Module):
     """Depthwise k7 conv -> LN (or AdaLN) -> pointwise MLP -> gamma,
     residual. ``wrapped`` puts the weights where HCodec's reference keeps
     them (``dwconv.conv``, ``pwconv1.linear``, ``pwconv2.linear``); the
-    non-causal k7 zero pad (3, 3) is HCodec's constant-pad conv."""
+    non-causal k7 zero pad (3, 3) is HCodec's constant-pad conv. A
+    ``layer_scale_init_value`` of None builds no gamma (FlexiCodec's
+    adapters)."""
 
     def __init__(self, dim: int, intermediate_dim: int,
-                 layer_scale_init_value: float,
+                 layer_scale_init_value: Optional[float],
                  condition_dim: Optional[int] = None, wrapped: bool = False):
         super().__init__()
         self.dwconv = Conv1d(dim, dim, 7, groups=dim, padding=3)
@@ -60,14 +62,16 @@ class ConvNeXtBlock(nn.Module):
             self.dwconv = Wrapped("conv", self.dwconv)
             self.pwconv1 = Wrapped("linear", self.pwconv1)
             self.pwconv2 = Wrapped("linear", self.pwconv2)
-        self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init_value))
+        self.gamma = (None if layer_scale_init_value is None else
+                      nn.Parameter(torch.full((dim,),
+                                              layer_scale_init_value)))
 
     def forward(self, x, cond=None):
         h = self.dwconv(x)
         h = self.norm(h, cond) if isinstance(self.norm, AdaLayerNorm) \
             else self.norm(h)
         h = self.pwconv2(F.gelu(self.pwconv1(h)))
-        return x + self.gamma * h
+        return x + (h if self.gamma is None else self.gamma * h)
 
 
 class VocosBackbone(nn.Module):

@@ -32,6 +32,13 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
   and :func:`hcodec20_train_state_dict` give what ``HCodec(trainable=True)``
   loads: weight norm kept as ``weight_g`` (out, 1, 1) and ``weight_v``,
   the codebooks' EMA buffers, the semantic decoder.
+* :func:`fold_weight_norm` folds ``weight_g``/``weight_v`` pairs;
+  :func:`hcodec15_inference_keys` and :func:`flexicodec_inference_keys`
+  take the reference HCodec-1.5 and FlexiCodec layouts (what
+  ``export_hcodec15_state_dict`` and ``export_flexicodec_state_dict``
+  write) to the port's ``AdaptiveHCodec`` and ``FlexiCodec``;
+  :func:`sensevoice_keys` takes funasr's SenseVoiceSmall layout (what
+  ``convert_sensevoice`` reads) to ``SenseVoiceSemanticEncoder``.
 * :func:`codec_discriminator_state_dict`: ``CodecDiscriminator`` params
   -> the port's ``CodecDiscriminator`` (Conv2d weights (out, in, kh, kw)).
 
@@ -554,27 +561,74 @@ def hcodec20_train_state_dict(variables, cfg) -> StateDict:
     return hcodec20_state_dict(variables, cfg)
 
 
+_WN_NAMES = ((".weight_g", ".weight_v"),
+             (".parametrizations.weight.original0",
+              ".parametrizations.weight.original1"))
+
+
+def fold_weight_norm(sd: StateDict) -> StateDict:
+    """Each weight-normed conv of a state dict (``weight_g``/``weight_v``,
+    or torch's ``parametrizations.weight.original0/1``) folded into
+    ``weight`` = g v / sqrt(sum v^2 + 1e-12), the sum over every axis where
+    g has length 1 (in and K for a conv, out and K for a transposed conv),
+    numpy fp32; every other entry as it is."""
+    out = {}
+    for k, v in sd.items():
+        for g_name, v_name in _WN_NAMES:
+            if k.endswith(v_name):
+                break
+            if k.endswith(g_name):
+                stem = k[:-len(g_name)]
+                g = np.asarray(v, np.float32)
+                w = np.asarray(sd[stem + v_name], np.float32)
+                axes = tuple(i for i in range(w.ndim) if g.shape[i] == 1)
+                norm = np.sqrt((w ** 2).sum(axis=axes, keepdims=True)
+                               + np.float32(1e-12))
+                out[stem + ".weight"] = w * (g / norm)
+                break
+        else:
+            out[k] = v
+    return out
+
+
+_EMA_KEYS = (".embed_avg", ".cluster_size", ".initted", ".inited")
+
+
 def hcodec_inference_keys(sd: StateDict) -> StateDict:
     """The keys the port's inference ``HCodec`` loads: the semantic decoder
     (the training target) and the codebooks' EMA statistics dropped, and
-    each ``weight_g``/``weight_v`` pair (a training state dict) folded
-    into ``weight`` = g v / sqrt(sum v^2 + 1e-12), the sum over (in, K)
-    (numpy values, fp32)."""
-    drop = (".embed_avg", ".cluster_size", ".initted")
-    out = {}
-    for k, v in sd.items():
-        if k.startswith("semantic_decoder.") or k.endswith(drop) \
-                or k.endswith(".weight_v"):
-            continue
-        if k.endswith(".weight_g"):
-            stem = k[:-len("_g")]
-            g = np.asarray(v, np.float32)
-            w = np.asarray(sd[stem + "_v"], np.float32)
-            norm = np.sqrt((w ** 2).sum(axis=(1, 2), keepdims=True)
-                           + np.float32(1e-12))
-            out[stem] = w * (g / norm)
-        else:
-            out[k] = v
+    weight norm folded (:func:`fold_weight_norm`)."""
+    return {k: v for k, v in fold_weight_norm(sd).items()
+            if not k.startswith("semantic_decoder.")
+            and not k.endswith(_EMA_KEYS)}
+
+
+def hcodec15_inference_keys(sd: StateDict) -> StateDict:
+    """A state dict in the reference HCodec-1.5 layout (what
+    ``export_hcodec15_state_dict`` writes, or the released checkpoint) ->
+    the keys of the port's ``AdaptiveHCodec``: weight norm folded, the
+    codebooks' EMA statistics dropped (the semantic decoder stays, for the
+    eval forward)."""
+    return {k: v for k, v in fold_weight_norm(sd).items()
+            if not k.endswith(_EMA_KEYS)}
+
+
+def flexicodec_inference_keys(sd: StateDict) -> StateDict:
+    """A FlexiCodec state dict in the reference layout (what
+    ``export_flexicodec_state_dict`` writes, or the released safetensors)
+    -> the port's ``FlexiCodec`` keys: the DAC and adapter convs' weight
+    norm folded."""
+    return fold_weight_norm(sd)
+
+
+def sensevoice_keys(sd: StateDict, cfg) -> StateDict:
+    """A funasr SenseVoiceSmall state dict -> the port's
+    ``SenseVoiceSemanticEncoder``: the ``encoder.*`` entries and the first
+    ``cfg.embed_vocab`` rows of ``embed.weight`` (the keys the JAX package's
+    ``convert_sensevoice`` reads); the ASR head and the rest are left
+    out."""
+    out = {k: v for k, v in sd.items() if k.startswith("encoder.")}
+    out["embed.weight"] = sd["embed.weight"][:cfg.embed_vocab]
     return out
 
 

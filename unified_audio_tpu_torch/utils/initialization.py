@@ -5,9 +5,10 @@ random weights made from a seed through an explicit ``torch.Generator``:
 fan-in scaled uniform weights for linear and conv layers (a weight-normed
 conv's v, its g the norm of v), LSTM weights
 uniform in +-1/sqrt(hidden), zero biases, unit-normal embeddings and VQ
-codebooks, Perceiver latents normal with std 0.02; norms (BatchNorm
-statistics too), Snake ``alpha`` and layer scales keep their constructor
-values.
+codebooks, Perceiver latents normal with std 0.02; the Mimi attention's
+fused ``in_proj_weight`` fan-in uniform and the query-token aggregators'
+``query_embedding`` unit normal; norms (BatchNorm statistics too), Snake
+``alpha`` and layer scales keep their constructor values.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ import torch
 from torch import nn
 
 from ..models.bicodec.speaker import PerceiverResampler
+from ..models.hcodec.adaptive import QueryTokenAggregator
 from ..nn.conv import Conv1d, ConvTranspose1d
+from ..nn.mimi import MimiAttention
 from ..ops.quant import VectorQuantization
 
 
@@ -38,6 +41,12 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, MimiAttention):
+            w = m.in_proj_weight
+            bound = 1.0 / math.sqrt(w.shape[1])
+            w.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, QueryTokenAggregator):
+            m.query_embedding.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, PerceiverResampler):
             m.latents.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, VectorQuantization):
