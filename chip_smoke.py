@@ -219,16 +219,59 @@ prints no result. Phases, each fatal on failure:
    state dict the smoke writes at ``sensevoice_small_config()`` width):
    codes (1, 312, 9), a finite output; the FSQ and DAC codes of a CPU copy
    equal in >= 99.9% of places; the round trip timed as in (a).
-11. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+11. The causal codecs and the remaining training objectives at full
+   width, random weights, fp32 with TF32 off. (a) ``cli train-codec`` of
+   ``configs/hcodec10.yaml`` plus ``codec: {causal: true}``, 10 steps of
+   8 x 3 s on phase 8's synthetic domains (the GAN terms from step 6), the
+   plain search made to raise: a causal encoder built, every loss finite,
+   K5 launched 8 x 10 + 8 x 51 times; the median step wall, audio s/s and
+   the busy share of profiled step 8; then ``codec_agreement`` on the
+   trained causal codec. (b) A 10-s 16 kHz clip through a causal
+   HCodec-1.0 and a 10-s 48 kHz clip through a causal HCodec-2.0
+   (``HCodecTokenizer``): K6 twice a round trip, codes (1, 4, 250) and (1,
+   16, 125); a CPU copy's search, layer by layer on its own latents with
+   the card's earlier codes, equal to the card's codes in >= 99.5% of
+   places and every other one a near tie (``judge_codes``); the rtfx,
+   median of 5; the acoustic encoder's latents, with the clip's second
+   half replaced, unmoved (<= 1e-5 of their max) for the frames whose
+   receptive field ends before it and moved (> 1e-3) for the others. (c)
+   HCodec-1.5's training forward + backward (``adaptive15_config()``,
+   ``trainable``) on 4 x 3 s with XLSR-53 features, three steps (k-means
+   on the first: K5 8 x 52, then 8 a step): steps 1 and 2 profiled
+   (device time, launches), step 3's wall unprofiled; row 0
+   from the initial state with the same k-means rows and dropout cutoffs
+   on the card and on a CPU copy: the loss terms within 1e-4 relative, the
+   gradient norms of the encoder, the aggregators, the bottleneck and the
+   decoder within 1e-3, the group ids equal up to the first similarity
+   within 1e-5 of the threshold. (d) FlexiCodec's training forward +
+   backward on 4 x 3 s (the log-fbank stream, a random HuBERT-base's
+   ``teacher_features`` as the distillation target) in the DualCodec and
+   the aligned mode: wall (median of 3), device time, busy share, launches;
+   row 0 on a CPU copy: commit and distill losses within 1e-4 relative,
+   ``recons`` within 1e-4 of its peak, DAC codes >= 99.9% equal. (e) 16
+   synthetic 5-s wavs through ``tokenize_corpus`` on the card's BiCodec
+   tokenizer (one shard), then 20 ``PretrainTrainer`` steps at
+   ``LlamaConfig()`` width fed by ``TokenCorpusIterator`` (batch 16 x (32
+   + 250)): the step wall, training tokens/s, the loss and accuracy; step
+   1's loss within 1e-4 of a CPU copy's. (f) ``UniTokPipeline.train_loss``
+   forward + backward with the full-width UniTok LM (fp32) over phase 4's
+   HCodec-1.0 tokenizer, tasks "codec" and "tse" (a reference wav), 4 x 5
+   s: K6 twice a call (the target's tokenize), the wall;
+   row 0's loss and accuracy within 1e-4 of a CPU copy of the LM on the
+   same codes and features, the CPU tokenizer's target codes >= 99.5%
+   equal to the card's.
+12. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
 above, each kernel's time, its plain version's and its bound; K2's
 launches are phase 3's, and phase 7 prints its own serve's; K5's are
-phase 4's staged encode and phase 8's training, and its ``kmeans_m600``
+phase 4's staged encode, phase 8's training and phase 11's causal
+training and HCodec-1.5 training forwards, and its ``kmeans_m600``
 entry the times on k-means' start at M = 600; K6's are the round trips'
-(phases 4, 5, 8, 9's two bf16 ones and ``roundtrip_codec_eval``, and
-10's HCodec-1.5 one), its ``nq16`` entry the times at HCodec-2.0's shapes
+(phases 4, 5, 8, 9's two bf16 ones and ``roundtrip_codec_eval``, 10's
+HCodec-1.5 one and 11's causal ones) and phase 11's UniTok
+``train_loss`` tokenizes, its ``nq16`` entry the times at HCodec-2.0's shapes
 and its ``hcodec15_groups`` entry those at HCodec-1.5's aggregated
 groups; K7's launches are those of the serving paths, 0, and the smoke's
 own check calls are printed on the line before), and as its last line
@@ -2663,6 +2706,645 @@ def flexicodec_phase(torch, cli, gpu, tmp, write_wav, read_wav):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the causal codecs and the remaining training objectives
+# ---------------------------------------------------------------------------
+
+CAUSAL_STEPS = 10  # steps of the causal codec training run
+CAUSAL_ADV_FROM = 5  # perceptual_start_step: steps 6-10 run the GAN terms
+CAUSAL_PROFILED_STEP = 8
+CAUSAL_K5 = 8 * CAUSAL_STEPS + 8 * (50 + 1)
+TRAIN_BATCH = 4  # phase 11's training forwards: 4 clips a batch
+TRAIN_SEG_S = 3.0
+PRETRAIN_WAVS = 16  # 5-s wavs tokenized into the pretraining shards
+PRETRAIN_STEPS = 20
+UNITOK_SEG_S = 5.0
+
+
+def hold(what, got, want, rel):
+    """Fail unless |got - want| <= rel |want|; -> the relative gap."""
+    gap = abs(got - want) / max(abs(want), 1e-30)
+    if not gap <= rel:
+        fail(f"{what}: card {got!r} against the CPU's {want!r} (relative "
+             f"gap {gap:.2e} > {rel})")
+    return gap
+
+
+def clips(rng, b, n, sr=SR):
+    """(b, n) synthetic speech-like clips, fp32 numpy."""
+    return np.stack([0.5 * synth_speech(rng, n, sr) + 0.05 *
+                     rng.standard_normal(n) for _ in range(b)]).astype(
+                         np.float32)
+
+
+def causal_train_phase(torch, cli, vq, gpu, tmp, write_wav):
+    """Phase 11a: ``cli train-codec`` of a causal HCodec-1.0
+    (``configs/hcodec10.yaml`` plus ``codec: {causal: true}``) for
+    ``CAUSAL_STEPS`` steps of 8 x 3 s, the plain search made to raise;
+    one generator step of the trained codec against a CPU copy
+    (``codec_agreement``) -> K5's launches on the training path."""
+    from unified_audio_tpu_torch.data.hcodec_data import DomainWeightedIterator
+    from unified_audio_tpu_torch.models.ssl.wav2vec2 import Wav2Vec2Model
+    from unified_audio_tpu_torch.ops import quant
+    from unified_audio_tpu_torch.train.codec_trainer import CodecGANTrainer
+    from unified_audio_tpu_torch.train.optim import Optimizer
+    from unified_audio_tpu_torch.utils.config import load_yaml
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in codec training")
+
+    rng = np.random.default_rng(31)
+    cfg = load_yaml(REPO / "configs" / "hcodec10.yaml")
+    changes = {"codec": {"causal": True}, "max_steps": CAUSAL_STEPS,
+               "dataset": {"domain_scps": write_domain_data(tmp, rng,
+                                                            write_wav)},
+               "ckpt_dir": str(tmp / "causal_ckpt")}
+    cfg.update(changes)
+    cfg["train"]["perceptual_start_step"] = CAUSAL_ADV_FROM
+    path = tmp / "causal.yaml"
+    path.write_text(json.dumps(cfg))  # JSON is YAML
+    rec = CodecStepRecorder(torch, (CodecGANTrainer, Optimizer,
+                                    Wav2Vec2Model, quant,
+                                    DomainWeightedIterator),
+                            CAUSAL_PROFILED_STEP)
+    torch.cuda.empty_cache()
+    vq.nearest_code.launches = 0
+    t0 = time.perf_counter()
+    with patched(rec.patches + [(vq, "nearest_code_ref", forbidden),
+                                (vq, "rvq_encode_fused_ref", forbidden)]):
+        trainer = cli.main(["train-codec", "--config", str(path)])
+    run_s = time.perf_counter() - t0
+    k5 = vq.nearest_code.launches
+    steps = rec.steps
+    enc = trainer.codec.encoder.model
+    if not (trainer.codec.config.causal and enc[0].causal
+            and enc[14].causal):
+        fail("train-codec with codec: {causal: true} built a non-causal "
+             "codec")
+    if [r["step"] for r in steps] != list(range(1, CAUSAL_STEPS + 1)):
+        fail(f"causal codec training steps {[r['step'] for r in steps]}")
+    names = ("mel", "commit", "semantic", "adv", "fm", "gen_loss",
+             "disc_loss")
+    values = np.array([[r[k] for k in names] for r in steps])
+    if not np.isfinite(values).all():
+        fail(f"a causal codec training loss is not finite: "
+             f"{values.tolist()}")
+    if k5 != CAUSAL_K5:
+        fail(f"K5 launched {k5} times in causal codec training, not "
+             f"{CAUSAL_K5}")
+    timed = [r for r in steps if r["step"] >= 3]
+    step_ms = 1e3 * float(np.median([r["wall_s"] for r in timed]))
+    busy, n_records = rec.busy
+    print(f"train-codec causal HCodec-1.0: {CAUSAL_STEPS} steps of "
+          f"{CODEC_BATCH} x 3 s (the GAN terms from step "
+          f"{CAUSAL_ADV_FROM + 1}) in {run_s:.1f} s with the build; step "
+          f"wall {step_ms:.1f} ms (median of steps 3-{CAUSAL_STEPS}) = "
+          f"{CODEC_BATCH * CODEC_SEG / SR / step_ms * 1e3:.1f} audio s/s; "
+          f"device busy {100 * busy:.1f}% of profiled step "
+          f"{CAUSAL_PROFILED_STEP} ({n_records} CUDA records); mel by step "
+          f"{[round(float(x), 3) for x in values[:, 0]]}; K5 launches {k5} "
+          f"= {CAUSAL_K5} (8 a step + 8 x 51 for k-means), the plain search "
+          f"unused | {gpu}", flush=True)
+    codec_agreement(torch, vq, quant, trainer, gpu)
+    del trainer
+    torch.cuda.empty_cache()
+    return k5
+
+
+def causal_roundtrip_phase(torch, cli, vq, gpu):
+    """Phase 11b: a 10-s 16 kHz clip through a causal HCodec-1.0 and a 10-s
+    48 kHz clip through a causal HCodec-2.0 (``HCodecTokenizer``, random
+    weights): K6 twice a round trip, codes equal to a CPU copy's, the rtfx
+    (median of ROUNDTRIP_RUNS), then the acoustic encoder's causality on the
+    card -> K6's launches."""
+    from unified_audio_tpu_torch.models.hcodec.codec import (hcodec10_config,
+                                                             hcodec20_config)
+    from unified_audio_tpu_torch.models.hcodec.tokenizer import (
+        HCodecTokenizer)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in the kernel round trip")
+
+    k6_total = 0
+    for model, cfg, sr, seed in (("hcodec10", hcodec10_config(causal=True),
+                                  SR, 32),
+                                 ("hcodec20", hcodec20_config(causal=True),
+                                  SR20, 33)):
+        tok = cli._build_hcodec(model, seed=seed, device="cuda", cfg=cfg)
+        n = int(CLIP_S * sr)
+        x = torch.as_tensor(clips(np.random.default_rng(seed), 1, n, sr),
+                            device="cuda")
+        with patched([(vq, "nearest_code_ref", forbidden),
+                      (vq, "rvq_encode_fused_ref", forbidden)]):
+            vq.rvq_encode_fused.launches = 0
+            codes = tok.tokenize(x)
+            out = tok.detokenize(*codes)
+            k6 = vq.rvq_encode_fused.launches
+        k6_total += k6
+        t = n // cfg.hop_length
+        if k6 != 2 or codes[0].shape != (1, cfg.num_quantizers, t) or \
+                out.shape != (1, n) or not bool(torch.isfinite(out).all()):
+            fail(f"causal {model}: K6 launched {k6} times, codes "
+                 f"{tuple(codes[0].shape)}, output {tuple(out.shape)}")
+        wall, lo, hi = median_wall(
+            torch, lambda: tok.detokenize(*tok.tokenize(x)), ROUNDTRIP_RUNS)
+        t0 = time.perf_counter()
+        cpu = HCodecTokenizer(cpu_copy(torch, tok.codec),
+                              cpu_copy(torch, tok.ssl))
+        eq, judged = codes_vs_cpu(torch, vq, cpu, x.cpu(), codes)
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        # causality: samples from the clip's middle on replaced; the latents
+        # of the frames whose receptive field ends before them must hold
+        start = n // 2
+        y = x.clone()
+        y[:, start:] = torch.randn(1, n - start, device="cuda",
+                                   generator=torch.Generator(
+                                       device="cuda").manual_seed(seed))
+        with torch.no_grad():
+            za, zb = (tok.codec.encoder(w[..., None] if model == "hcodec10"
+                                        else w) for w in (x, y))
+        if model == "hcodec10":  # frame i reads samples < 640 (i + 1)
+            kept = start // cfg.hop_length
+        else:  # frame i reads STFT frames <= 4 i + 3, samples < 3840 i + 4320
+            kept = (start - 4320) // 3840 + 1
+        diff = (za - zb).abs().amax(-1)[0] / za.abs().max()
+        before, after = float(diff[:kept].max()), float(diff[kept:].min())
+        print(f"causal {model} round trip of {CLIP_S:.0f} s at {sr} Hz: "
+              f"codes {list(codes[0].shape)} a stream, K6 launches {k6}, "
+              f"rtfx {CLIP_S / wall:.2f} (median of {ROUNDTRIP_RUNS}: "
+              f"{wall * 1e3:.2f} ms, range {lo * 1e3:.2f}-{hi * 1e3:.2f}); "
+              f"card vs CPU codes acoustic {eq[0]:.5f}, semantic {eq[1]:.5f} "
+              f"equal; layer by layer on the CPU's latents {judged[0]:.5f}, "
+              f"{judged[1]:.5f} (CPU {cpu_s:.1f} s; limit "
+              f"{GROUP_CODES_AGREE}, the rest near ties); "
+              f"causality: samples from {start} replaced, encoder latents of "
+              f"frames 0-{kept - 1} moved by {before:.2e} of the latents' "
+              f"max, frames {kept}-{t - 1} by at least {after:.2e} | {gpu}",
+              flush=True)
+        if min(judged) < GROUP_CODES_AGREE:
+            fail(f"causal {model}: card codes equal to the CPU's search in "
+                 f"{judged} of places")
+        if not (before <= 1e-5 and after > 1e-3):
+            fail(f"causal {model}: the encoder is not causal on the card "
+                 f"({before:.2e} before frame {kept}, {after:.2e} after)")
+        del tok
+        torch.cuda.empty_cache()
+    return k6_total
+
+
+def codes_vs_cpu(torch, vq, cpu_tok, x, codes):
+    """The card's codes (acoustic, semantic; each (1, nq, T)) against a CPU
+    copy of the tokenizer on the same wav ``x`` -> (the share of codes equal
+    to the CPU tokenize's, the share equal to the CPU's search layer by
+    layer, per stream). The second runs ``judge_codes`` on the CPU's
+    latents: each layer's code against the plain search of the residual
+    the card's own earlier codes leave, so that one near tie counts once
+    and not again in every later layer of its frame; a code that differs
+    must be a near tie, or the run fails."""
+    with torch.no_grad():
+        cpu_codes = cpu_tok.tokenize(x)
+        latents = cpu_tok.latents(x)
+    eq, judged = [], []
+    for c, cc, lat, rvq in zip(codes, cpu_codes, latents,
+                               (cpu_tok.codec.quantizer,
+                                cpu_tok.codec.semantic_quantizer)):
+        eq.append(float((c.cpu() == cc).float().mean()))
+        share, worst, ok = vq.judge_codes(
+            lat.reshape(-1, lat.shape[-1]), rvq.codebooks(),
+            c.cpu().transpose(-1, -2).reshape(-1, c.shape[1]))
+        if not ok:
+            fail(f"a card code parts from the CPU's search by more than a "
+                 f"near tie (distance excess {worst:.3e})")
+        judged.append(share)
+    return eq, judged
+
+
+def handed_draws(torch, quant, seed):
+    """Patches handing the same k-means rows and dropout cutoffs to every
+    run (the card's and the CPU copy's), drawn from ``seed`` on the host;
+    ``reset()`` starts the sequence again."""
+    state = {}
+
+    def reset():
+        state["rng"] = np.random.default_rng(seed)
+
+    def rows(m, num, generator=None):
+        r = state["rng"]
+        idx = r.permutation(m)[:num] if m >= num else r.integers(0, m, num)
+        return torch.as_tensor(idx).long()
+
+    def cut(nq, generator=None):
+        return int(state["rng"].integers(0, nq))
+
+    reset()
+    return ([(quant, "sample_rows", rows), (quant, "dropout_cutoff", cut)],
+            reset)
+
+
+def grad_norms(module, groups):
+    """-> {group: global L2 norm of the gradients of the parameters whose
+    names start with one of its prefixes}."""
+    out = {}
+    for name, prefixes in groups.items():
+        sq = [p.grad.double().square().sum().item()
+              for k, p in module.named_parameters()
+              if p.grad is not None and k.startswith(prefixes)]
+        out[name] = float(np.sqrt(sum(sq)))
+    return out
+
+
+def adaptive_train_phase(torch, vq, xlsr, gpu):
+    """Phase 11c: HCodec-1.5's training forward + backward at
+    ``adaptive15_config()`` width on 4 x 3 s with XLSR-53 features, two
+    steps (k-means on the first; the first two profiled, the third's wall
+    unprofiled); then row 0 on the card against a CPU copy from the same
+    state with the same draws -> K5's launches."""
+    from unified_audio_tpu_torch.models.hcodec import adaptive
+    from unified_audio_tpu_torch.models.hcodec.adaptive_tokenizer import (
+        AdaptiveHCodecTokenizer)
+    from unified_audio_tpu_torch.models.hcodec.profile_roundtrip import (
+        profile_calls)
+    from unified_audio_tpu_torch.ops import quant
+    from unified_audio_tpu_torch.train.discriminators import (
+        multiscale_mel_loss)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    cfg = adaptive.adaptive15_config()
+    with torch.device("cuda"):
+        codec = adaptive.AdaptiveHCodec(cfg, trainable=True)
+    init_random_(codec, torch.Generator(device="cuda").manual_seed(34))
+    state0 = {k: v.clone() for k, v in codec.state_dict().items()}
+    n = int(TRAIN_SEG_S * SR)
+    x = torch.as_tensor(clips(np.random.default_rng(34), TRAIN_BATCH, n),
+                        device="cuda")
+    with torch.no_grad():
+        feats = AdaptiveHCodecTokenizer(codec, xlsr).extract_features(x)
+    codec.train()  # the tokenizer put it in eval; cuDNN's LSTM backward
+    thr = cfg.similarity_threshold
+
+    def loss_terms(model, w, f):
+        recon, pred, commit = model(w[..., None], f, train=True,
+                                    threshold=thr)
+        mel = multiscale_mel_loss(w[:, :recon.shape[-1]], recon)
+        sem = (pred - f).abs().mean()
+        return 15.0 * mel + commit + sem, {"mel": mel, "commit": commit,
+                                           "semantic": sem}
+
+    patches, reset = handed_draws(torch, quant, 35)
+    def step():
+        codec.zero_grad(set_to_none=True)
+        total, _ = loss_terms(codec, x, feats)
+        total.backward()
+
+    # steps 1 (k-means) and 2 under the profiler (CUPTI device time and
+    # launches), step 3 without it for the wall
+    steps = []
+    with patched(patches):
+        for i in range(3):
+            vq.nearest_code.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prof = profile_calls(step, 1) if i < 2 else step()
+            torch.cuda.synchronize()
+            steps.append((1e3 * (time.perf_counter() - t0), prof,
+                          vq.nearest_code.launches))
+    k5_steps = [n for _, _, n in steps]
+    if k5_steps != [8 * 52, 8, 8]:
+        fail(f"hcodec15 training: K5 launched {k5_steps} times in steps "
+             f"1-3, not [{8 * 52}, 8, 8]")
+    k5 = sum(k5_steps)
+    with torch.no_grad():
+        counts = codec.align(x[..., None], feats, thr)[3]
+    groups = int((counts > 0).sum())
+
+    # row 0, card against CPU, from the initial state with the same draws
+    groups_of = {"encoder": ("encoder.",),
+                 "aggregators": ("acoustic_aggregator.",
+                                 "semantic_aggregator."),
+                 "bottleneck": ("bottleneck_transformer.",),
+                 "decoder": ("decoder.",)}
+    out = []
+    cpu = adaptive.AdaptiveHCodec(cfg, trainable=True)
+    for model, dev in ((codec, "cuda"), (cpu, "cpu")):
+        model.load_state_dict({k: v.to(dev) for k, v in state0.items()})
+        model.zero_grad(set_to_none=True)
+        reset()
+        w, f = x[:1].to(dev), feats[:1].to(dev)
+        with patched(patches):
+            total, terms = loss_terms(model, w, f)
+            total.backward()
+            with torch.no_grad():
+                emb = model.semantic_encoder(f)
+                gid = adaptive.similarity_group_ids(emb, thr,
+                                                    cfg.max_group_len)
+                sims = adaptive.consecutive_similarities(emb)
+        out.append(({k: v.item() for k, v in terms.items()},
+                    grad_norms(model, groups_of), gid.cpu(), sims.cpu()))
+    (g_t, g_n, g_id, g_s), (c_t, c_n, c_id, c_s) = out
+    near = ((g_s - thr).abs() <= NEAR_SIM) | ((c_s - thr).abs() <= NEAR_SIM)
+    upto = (int(near[0].nonzero()[0]) + 1 if bool(near.any())
+            else g_id.shape[1])
+    if not torch.equal(g_id[:, :upto], c_id[:, :upto]):
+        fail("hcodec15 training: the card's group ids differ from the CPU's "
+             "away from the threshold")
+    loss_gap = max(hold(f"hcodec15 {k}", g_t[k], c_t[k], 1e-4) for k in c_t)
+    grad_gap = max(hold(f"hcodec15 |grad| {k}", g_n[k], c_n[k], 1e-3)
+                   for k in c_n)
+    del cpu
+    (w1, p1, _), (w2, p2, _), (w3, _, _) = steps
+    print(f"hcodec15 training forward + backward (adaptive15_config(), "
+          f"{TRAIN_BATCH} x 3 s, XLSR-53 features, threshold {thr}): {groups}"
+          f" groups of {TRAIN_BATCH} x {counts.shape[1]} frames; step 1 (k-"
+          f"means) device {p1['device_ms']:.1f} ms, {p1['launches']:.0f} "
+          f"launches ({w1:.1f} ms wall under the profiler); step 2 device "
+          f"{p2['device_ms']:.1f} ms, {p2['launches']:.0f} launches ("
+          f"{w2:.1f} ms profiled); step 3 wall {w3:.1f} ms unprofiled, busy "
+          f"{p2['device_ms'] / w3:.3f}; K5 launches {k5} (8 x 52, then 8 a "
+          f"step); row 0 card vs CPU: loss terms "
+          f"max rel gap {loss_gap:.2e} ({json.dumps({k: round(v, 6) for k, v in c_t.items()})}), "
+          f"gradient norms by part max rel gap {grad_gap:.2e}, group ids "
+          f"equal over {upto} of {g_id.shape[1]} frames | {gpu}", flush=True)
+    del codec
+    torch.cuda.empty_cache()
+    return k5
+
+
+def flexicodec_train_phase(torch, cli, gpu):
+    """Phase 11d: FlexiCodec's training forward + backward at full width on
+    4 x 3 s (the log-fbank semantic stream, HuBERT ``teacher_features`` as
+    the distillation target), in the DualCodec and the aligned mode; row 0
+    forward against a CPU copy. The weights are ``init_random_``'s with
+    every bias drawn too (normal, std 0.02): with zero biases the aligned
+    mode's padding groups decode to latents of exactly zero, whose nearest
+    DAC code is an exact tie over the whole unit codebook, which the card
+    and the CPU break differently (a trained model's biases are not
+    zero)."""
+    import dataclasses as dc
+
+    from unified_audio_tpu_torch.models.hcodec.flexicodec import (
+        FlexiCodec, FlexiCodecConfig, match_frame_rate, teacher_features)
+    from unified_audio_tpu_torch.models.hcodec.profile_roundtrip import (
+        profile_calls)
+    from unified_audio_tpu_torch.models.ssl.wav2vec2 import (
+        Wav2Vec2Model, hubert_base_config)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    with torch.device("cuda"):
+        hubert = Wav2Vec2Model(hubert_base_config())
+    init_random_(hubert, torch.Generator(device="cuda").manual_seed(36))
+    hubert.eval()
+    n = int(TRAIN_SEG_S * SR)
+    x = torch.as_tensor(clips(np.random.default_rng(36), TRAIN_BATCH, n),
+                        device="cuda")
+    teacher = teacher_features(hubert, x)
+    del hubert
+    base = FlexiCodecConfig(sample_rate=SR)
+    t = n // base.hop_length
+    sem = match_frame_rate(cli.flexicodec_semantic(x, base.ssl_dim), 2 * t)
+    for mode, cfg in (("DualCodec", base),
+                      ("aligned", dc.replace(
+                          base, use_similarity_alignment=True,
+                          use_query_token_aggregator=True,
+                          use_bottleneck_transformer=True))):
+        with torch.device("cuda"):
+            model = FlexiCodec(cfg, trainable=True)
+        gen = torch.Generator(device="cuda").manual_seed(37)
+        init_random_(model, gen)
+        with torch.no_grad():
+            for m in model.modules():
+                if getattr(m, "bias", None) is not None:
+                    m.bias.normal_(0.0, 0.02, generator=gen)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            out = model(x, sem, teacher)
+            total = (out["recons"] - x[:, :out["recons"].shape[-1]]).abs(
+            ).mean() + out["commit_loss"] + out["distill_loss"]
+            total.backward()
+            return out
+
+        wall, lo, hi = median_wall(torch, step, 3)
+        prof = profile_calls(step, 1, wall * 1e3)
+        cpu = cpu_copy(torch, model)
+        with torch.no_grad():
+            g = model(x[:1], sem[:1], teacher[:1])
+            c = cpu(x[:1].cpu(), sem[:1].cpu(), teacher[:1].cpu())
+        gaps = {k: hold(f"flexicodec {mode} {k}", float(g[k]), float(c[k]),
+                        1e-4) for k in ("commit_loss", "distill_loss")}
+        r = c["recons"]
+        rec_gap = float((g["recons"].cpu() - r).abs().max() / r.abs().max())
+        eq = float((g["acoustic_codes"].cpu() == c["acoustic_codes"]).float()
+                   .mean())
+        groups = ("" if g["group_ids"] is None else
+                  f", {int(g['group_ids'].max()) + 1} groups of {t} frames")
+        print(f"flexicodec {mode} training forward + backward ({TRAIN_BATCH}"
+              f" x 3 s, log-fbank stream, HuBERT teacher features{groups}): "
+              f"wall {wall * 1e3:.1f} ms (median of 3, range {lo * 1e3:.1f}-"
+              f"{hi * 1e3:.1f}), device {prof['device_ms']:.1f} ms, busy "
+              f"{prof['device_busy_share'] or 0:.3f}, {prof['launches']:.0f} "
+              f"launches; row 0 card vs CPU: commit_loss gap "
+              f"{gaps['commit_loss']:.2e}, distill_loss gap "
+              f"{gaps['distill_loss']:.2e}, recons max |diff| / max "
+              f"{rec_gap:.2e}, DAC codes {eq:.5f} equal | {gpu}", flush=True)
+        if rec_gap > 1e-4 or eq < FLEXI_AGREE:
+            fail(f"flexicodec {mode}: recons gap {rec_gap:.2e}, codes "
+                 f"equal {eq:.5f}")
+        del model, cpu
+        torch.cuda.empty_cache()
+
+
+def pretrain_phase(torch, xlsr, gpu, tmp, write_wav):
+    """Phase 11e: 16 synthetic 5-s wavs tokenized into shards by the
+    card's BiCodec tokenizer (``tokenize_corpus``), then 20
+    ``PretrainTrainer`` steps at ``LlamaConfig()`` width fed by
+    ``TokenCorpusIterator`` (batch 16 x (32 + 250)), the reference's
+    optimizer with a 5-step warmup (the default 2,000 would keep the rate
+    near 0 for the whole run): the loss must fall; the first step's loss
+    held to a CPU copy."""
+    from unified_audio_tpu_torch.data.token_corpus import (
+        TokenCorpusIterator, tokenize_corpus)
+    from unified_audio_tpu_torch.models.bicodec.bicodec import (BiCodec,
+                                                                BiCodecConfig)
+    from unified_audio_tpu_torch.models.bicodec.tokenizer import (
+        BiCodecTokenizer)
+    from unified_audio_tpu_torch.models.lm.llama import CodecLM, LlamaConfig
+    from unified_audio_tpu_torch.train.optim import Optimizer
+    from unified_audio_tpu_torch.train.pretrain import PretrainTrainer
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    rng = np.random.default_rng(38)
+    n = int(5 * SR)
+    paths = []
+    for i in range(PRETRAIN_WAVS):
+        p = tmp / f"pre{i}.wav"
+        write_wav(p, clips(rng, 1, n)[0], SR)
+        paths.append(p)
+    with torch.device("cuda"):
+        bicodec = BiCodec(BiCodecConfig(), tokenize=True)
+    init_random_(bicodec, torch.Generator(device="cuda").manual_seed(38))
+    t0 = time.perf_counter()
+    shards = tokenize_corpus(BiCodecTokenizer(bicodec, xlsr).eval(), paths,
+                             tmp / "shards", utterances_per_shard=16)
+    tok_s = time.perf_counter() - t0
+    del bicodec
+    cfg = LlamaConfig()
+    with torch.device("cuda"):
+        model = CodecLM(cfg)
+    init_random_(model, torch.Generator(device="cuda").manual_seed(39))
+    trainer = PretrainTrainer(cfg, model, Optimizer(model.parameters(),
+                                                    warmup_steps=5),
+                              device="cuda")
+    cpu = CodecLM(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         trainer.model.state_dict().items()})
+    batches, walls, metrics = [], [], []
+    train_step = PretrainTrainer.train_step
+
+    def recording(self, g, s, cond=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, g, s, cond)
+        walls.append(time.perf_counter() - t0)
+        metrics.append(out)
+        batches.append((g, s))
+        return out
+
+    data = TokenCorpusIterator(shards, batch_size=16, semantic_len=250,
+                               seed=40)
+    with patched([(PretrainTrainer, "train_step", recording)]):
+        trainer.fit(data, max_steps=PRETRAIN_STEPS, log_every=10)
+    g, s = batches[0]
+    if g.shape != (16, 32) or s.shape != (16, 250) or len(shards) != 1:
+        fail(f"pretraining batches {g.shape} + {s.shape} from "
+             f"{len(shards)} shards")
+    with torch.no_grad():
+        want, want_acc = cpu.pretrain_loss(torch.as_tensor(g),
+                                           torch.as_tensor(s))
+    gap = hold("pretraining step 1 loss", metrics[0][0], float(want), 1e-4)
+    losses = np.array([m[0] for m in metrics])
+    if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[0]):
+        fail(f"pretraining losses {losses.tolist()}: not finite, or the "
+             "last 5 not below the first")
+    step_s = float(np.median(walls[2:]))
+    tokens = 16 * (32 + 250 + 1)
+    print(f"pretraining: {PRETRAIN_WAVS} wavs of 5 s tokenized by BiCodec "
+          f"into {len(shards)} shards in {tok_s:.1f} s; {PRETRAIN_STEPS} "
+          f"PretrainTrainer steps of LlamaConfig() ({cfg.hidden_size} x "
+          f"{cfg.num_layers}), batch 16 x (32 + 250): step wall "
+          f"{step_s * 1e3:.1f} ms (median of steps 3-{PRETRAIN_STEPS}) = "
+          f"{tokens / step_s:.0f} training tokens/s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, accuracy "
+          f"{metrics[0][1]:.4f} -> {metrics[-1][1]:.4f}; step 1 loss vs CPU "
+          f"relative gap {gap:.2e} | {gpu}", flush=True)
+    del trainer, cpu
+    torch.cuda.empty_cache()
+
+
+def unitok_train_phase(torch, vq, tok, gpu):
+    """Phase 11f: ``UniTokPipeline.train_loss`` forward + backward with the
+    full-width UniTok LM (fp32) over the HCodec-1.0 tokenizer, tasks
+    "codec" and "tse" (a reference wav), 4 x 5 s: K6 twice a call (the
+    target's tokenize); row 0's loss and accuracy held to a CPU copy of the
+    LM on the card's codes and features, the CPU tokenizer's codes equal to
+    the card's -> K6's launches."""
+    from unified_audio_tpu_torch.models.unitok.model import (UNITOK_TASKS,
+                                                             UniTokConfig,
+                                                             UniTokLM)
+    from unified_audio_tpu_torch.models.unitok.pipeline import UniTokPipeline
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain VQ search ran in the target's tokenize")
+
+    with torch.device("cuda"):
+        lm = UniTokLM(UniTokConfig())
+    init_random_(lm, torch.Generator(device="cuda").manual_seed(3))
+    pipe = UniTokPipeline(tok, lm.train())
+    cpu_lm = cpu_copy(torch, lm).train()
+    rng = np.random.default_rng(41)
+    n = int(UNITOK_SEG_S * SR)
+    inp, tgt = (torch.as_tensor(clips(rng, TRAIN_BATCH, n), device="cuda")
+                for _ in range(2))
+    ref = torch.as_tensor(clips(rng, TRAIN_BATCH, 3 * 640), device="cuda")
+    k6 = 0
+    for task in ("codec", "tse"):
+        r = ref if task == "tse" else None
+        lm.zero_grad(set_to_none=True)
+        with patched([(vq, "nearest_code_ref", forbidden),
+                      (vq, "rvq_encode_fused_ref", forbidden)]):
+            vq.rvq_encode_fused.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, acc = pipe.train_loss(task, inp, tgt, ref_wav=r)
+            loss.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = vq.rvq_encode_fused.launches
+        k6 += launches
+        loss, acc = loss.item(), acc.item()
+        if launches != 2 or not np.isfinite(loss):
+            fail(f"unitok train_loss {task}: K6 launched {launches} times, "
+                 f"loss {loss}")
+        # row 0 on the CPU: the LM on the card's codes and features, and the
+        # CPU tokenizer's codes
+        with torch.no_grad():
+            codes = pipe.audio_to_codes(tgt[:1])
+            feats = tok.extract_features(inp[:1])
+            rf = tok.extract_features(r[:1]) if r is not None else None
+            g_loss, g_acc = lm.loss(UNITOK_TASKS[task], None, rf, feats,
+                                    codes)
+            c_loss, c_acc = cpu_lm.loss(UNITOK_TASKS[task], None,
+                                        None if rf is None else rf.cpu(),
+                                        feats.cpu(), codes.cpu())
+        gap = hold(f"unitok {task} loss", float(g_loss), float(c_loss), 1e-4)
+        hold(f"unitok {task} accuracy", float(g_acc), float(c_acc), 1e-4)
+        print(f"unitok train_loss {task} ({TRAIN_BATCH} x 5 s, UniTokConfig()"
+              f" fp32{', a reference wav' if r is not None else ''}): loss "
+              f"{loss:.4f}, accuracy {acc:.4f}; forward + "
+              f"backward {wall * 1e3:.1f} ms wall (the first call's "
+              f"one-time costs included for \"codec\"); K6 launches "
+              f"{launches}; row 0 vs a CPU copy of the LM"
+              f" on the same codes: loss gap {gap:.2e} | {gpu}", flush=True)
+    from unified_audio_tpu_torch.models.hcodec.tokenizer import (
+        HCodecTokenizer)
+    cpu_tok = HCodecTokenizer(cpu_copy(torch, tok.codec),
+                              cpu_copy(torch, tok.ssl))
+    with torch.no_grad():
+        got = pipe.audio_to_codes(tgt[:1]).cpu()
+        want = UniTokPipeline(cpu_tok, cpu_lm).audio_to_codes(tgt[:1].cpu())
+    eq = float((got == want).float().mean())
+    print(f"unitok target codes, card vs CPU tokenizer: {eq:.5f} equal "
+          f"(limit {GROUP_CODES_AGREE})", flush=True)
+    if eq < GROUP_CODES_AGREE:
+        fail(f"unitok: the card's target codes equal the CPU's in {eq}")
+    del pipe, lm, cpu_lm, cpu_tok
+    torch.cuda.empty_cache()
+    return k6
+
+
+def training_objectives_phase(torch, cli, vq, tok, gpu, tmp, write_wav):
+    """Phase 11 -> (K5 launches, K6 launches) on its paths."""
+    from unified_audio_tpu_torch.models.ssl.wav2vec2 import (
+        Wav2Vec2Model, wav2vec2_large_xlsr53_config)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    t0 = time.perf_counter()
+    k5 = causal_train_phase(torch, cli, vq, gpu, tmp, write_wav)
+    k6 = causal_roundtrip_phase(torch, cli, vq, gpu)
+    with torch.device("cuda"):
+        xlsr = Wav2Vec2Model(wav2vec2_large_xlsr53_config())
+    init_random_(xlsr, torch.Generator(device="cuda").manual_seed(30)).eval()
+    k5 += adaptive_train_phase(torch, vq, xlsr, gpu)
+    flexicodec_train_phase(torch, cli, gpu)
+    pretrain_phase(torch, xlsr, gpu, tmp, write_wav)
+    del xlsr
+    k6 += unitok_train_phase(torch, vq, tok, gpu)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; K5 launches "
+          f"{k5}, K6 launches {k6} on its paths", flush=True)
+    return k5, k6
+
+
 def main():
     try:
         import torch
@@ -2857,7 +3539,12 @@ def main():
         flexicodec_phase(torch, cli, gpu, Path(tmp), write_wav, read_wav)
         print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 11. nothing of JAX or the JAX package was loaded
+    # 11. the causal codecs and the remaining training objectives
+    with tempfile.TemporaryDirectory() as tmp:
+        k5_11_launches, k6_11_launches = training_objectives_phase(
+            torch, cli, vq, tok, gpu, Path(tmp), write_wav)
+
+    # 12. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
@@ -2897,11 +3584,11 @@ def main():
                         "cold_library_ms": r["cold_library_ms"],
                         "records": r["records"]})
     for name, fn, tpu, n_launch, nq in (
-            ("K5", vq.nearest_code, K5_TPU, k5_launches + k5_train_launches,
-             1),
+            ("K5", vq.nearest_code, K5_TPU,
+             k5_launches + k5_train_launches + k5_11_launches, 1),
             ("K6", vq.rvq_encode_fused, K6_TPU,
              k6_launches + k6_20_launches + k6_train_launches
-             + k6_cli_launches + k6_15_launches, 4)):
+             + k6_cli_launches + k6_15_launches + k6_11_launches, 4)):
         err, ms, plain_ms, n_rec = vq_results[name, 250]
         b_ms, b_by = vq_bound(250, VQ_SHAPES["n"], VQ_SHAPES["d"], nq)
         kernels.append({"name": fn.__name__, "route": "cuda",

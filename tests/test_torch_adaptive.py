@@ -101,7 +101,12 @@ def mid_threshold(sims):
 def models():
     """(cfg, JAX variables with codebooks at the groups' spread, the JAX
     module, the port's codec)."""
-    cfg = tiny_cfg()
+    return seeded_models(tiny_cfg())
+
+
+def seeded_models(cfg):
+    """:func:`models` for ``cfg`` (also the causal one of
+    ``tests/test_torch_causal.py``)."""
     wav, feat = _inputs(0)
     jm = j_adaptive.AdaptiveHCodec(cfg)
     variables = jax.device_get(random_variables(jm, wav, feat, seed=3))
@@ -324,8 +329,8 @@ class TestCodec:
         assert np.abs(recon.numpy() - np.asarray(jr)).max() <= 1e-4 * peak
         np.testing.assert_allclose(pred.numpy(), np.asarray(jp), **TOL)
         assert float(commit) == float(jc) == 0.0
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port(x, f, train=True)
+        with pytest.raises(ValueError, match="trainable=True"):
+            port(x, f, train=True)  # the inference model: no EMA state
 
     def test_thresholds(self, models):
         """The manual threshold overrides the config's; the dynamic mode

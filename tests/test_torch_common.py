@@ -293,7 +293,8 @@ class TestPortImportsNoJax:
         evaluation modules, the bf16 precision helper and the HCodec round
         trips), HCodec-1.5 adaptive and FlexiCodec with the Mimi
         transformer, the fbank frontend and the SAN-M teacher, the
-        UniTok pipeline and engine, the step profiler and the training
+        UniTok pipeline and engine, the step profiler, CodecLM
+        pretraining with its token corpus, and the training
         modules (the UniSE and codec trainers, the discriminators,
         checkpoints, both data pipelines, config, logging) still import,
         and no module of the JAX package is loaded."""
@@ -326,7 +327,9 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.models.hcodec.adaptive_tokenizer, "
                 "unified_audio_tpu_torch.models.hcodec.flexicodec, "
                 "unified_audio_tpu_torch.models.ssl.sanm, "
-                "unified_audio_tpu_torch.ops.fbank; "
+                "unified_audio_tpu_torch.ops.fbank, "
+                "unified_audio_tpu_torch.data.token_corpus, "
+                "unified_audio_tpu_torch.train.pretrain; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
                 "assert not shared, shared")

@@ -5,8 +5,8 @@ Port of ``unified_audio_tpu/models/hcodec/adaptive.py``:
 ``similarity_group_ids``, ``group_lengths``, ``degroup``,
 ``group_ids_from_lengths``, ``inject_length``, ``extract_length``,
 ``QueryTokenAggregator``, ``AdaptiveConfig``, ``adaptive15_config`` and
-``AdaptiveHCodec`` (``encode``, ``decode``, ``token_rate`` and the eval
-``forward``).
+``AdaptiveHCodec`` (``encode``, ``decode``, ``token_rate``, the eval
+``forward`` and, built with ``trainable``, the training ``forward``).
 
 * Segmentation: a new group starts where the cosine similarity of two
   consecutive semantic frames is at most the threshold, or where the group
@@ -27,8 +27,14 @@ The groups' residual VQ encode is one K6 launch a stream on a CUDA tensor
 (``ops/quant.py ResidualVQ.encode``). Module names follow the reference
 layout that ``export_hcodec15_state_dict`` writes
 (``acoustic_aggregator.transformer.transformer.layers.{i}``,
-``bottleneck_transformer.transformer.layers.{i}``). The training forward
-(EMA codebooks) is not ported.
+``bottleneck_transformer.transformer.layers.{i}``).
+
+``trainable`` builds the training state as the JAX package trains it: the
+SEANet encoder's convs as weight norm (g, v) and the EMA residual VQ of
+``ops/quant.py`` with the base config's quantizer dropout, run over the
+aggregated groups, the padding groups' zero rows included (in k-means, in
+the searches and in the EMA counts, as in the JAX package). A causal base
+config (``base.causal``) builds the causal SEANet encoder and decoder.
 """
 from __future__ import annotations
 
@@ -194,14 +200,20 @@ def adaptive15_config(**kw) -> AdaptiveConfig:
 class AdaptiveHCodec(nn.Module):
     """Dual-stream adaptive-rate codec: ``encode(wav (B, L, 1), feat (B,
     2T, feat_dim))`` -> (acoustic, semantic) codes (B, G, nq) with the
-    group lengths injected; ``decode`` reverses it."""
+    group lengths injected; ``decode`` reverses it. ``trainable`` builds
+    the training state (the module docstring); without it the codec is
+    the inference model that ``utils/convert.py hcodec15_inference_keys``
+    loads."""
 
-    def __init__(self, config: AdaptiveConfig = AdaptiveConfig()):
+    def __init__(self, config: AdaptiveConfig = AdaptiveConfig(),
+                 trainable: bool = False):
         super().__init__()
         self.config = config
+        self.trainable = trainable
         cfg = config.base
         self.encoder = SEANetEncoder(cfg.latent_dim, cfg.seanet_filters,
-                                     cfg.seanet_ratios)
+                                     cfg.seanet_ratios, weight_norm=trainable,
+                                     causal=cfg.causal)
         self.semantic_encoder = SemanticEncoder(
             cfg.feat_dim, cfg.semantic_encode_channels, cfg.latent_dim,
             cfg.semantic_ratios, cfg.semantic_strides)
@@ -214,11 +226,12 @@ class AdaptiveHCodec(nn.Module):
                    context=config.aggregator_context)
         self.acoustic_aggregator = QueryTokenAggregator(cfg.latent_dim, **agg)
         self.semantic_aggregator = QueryTokenAggregator(cfg.latent_dim, **agg)
+        vq = dict(ema=trainable, quantize_dropout=cfg.quantize_dropout)
         self.quantizer = ResidualVQ(cfg.latent_dim, cfg.codebook_size,
-                                    cfg.num_quantizers)
+                                    cfg.num_quantizers, **vq)
         self.semantic_quantizer = ResidualVQ(cfg.latent_dim,
                                              cfg.codebook_size,
-                                             cfg.num_quantizers)
+                                             cfg.num_quantizers, **vq)
         width = 2 * cfg.latent_dim
         self.bottleneck_transformer = MimiProjectedTransformer(
             config.bottleneck_dim or width, width, width,
@@ -227,7 +240,8 @@ class AdaptiveHCodec(nn.Module):
             context=config.bottleneck_context)
         self.decoder = CodecDecoder10(
             width, cfg.decoder_dim, cfg.decoder_intermediate_dim,
-            cfg.decoder_convnext_layers, cfg.n_fft, cfg.istft_hop)
+            cfg.decoder_convnext_layers, cfg.n_fft, cfg.istft_hop,
+            cfg.causal)
 
     def threshold(self, threshold=None, generator=None):
         """The similarity threshold of a call: ``threshold`` if given, else
@@ -256,16 +270,19 @@ class AdaptiveHCodec(nn.Module):
 
     def forward(self, wav, feat, train: bool = False, threshold=None,
                 generator=None):
-        """Eval forward -> (recon (B, L), pred_feat (B, 2T, feat_dim),
-        commit ()): the groups quantized layer by layer, de-aggregated,
-        through the bottleneck and the decoder."""
-        if train:
-            raise NotImplementedError(
-                "HCodec-1.5 training is not ported yet (ROADMAP Queue 1)")
+        """-> (recon (B, L), pred_feat (B, 2T, feat_dim), commit ()): the
+        groups quantized layer by layer, de-aggregated, through the
+        bottleneck and the decoder. With ``train`` (a ``trainable`` codec)
+        the quantizers update their EMA buffers, ``generator`` draws
+        k-means' rows, the dropout cutoffs and a dynamic threshold, and
+        commit is the mean of each stream's commitment losses."""
+        if train and not self.trainable:
+            raise ValueError("the training forward needs "
+                             "AdaptiveHCodec(trainable=True)")
         a_groups, s_groups, gid, _ = self.align(wav, feat, threshold,
                                                 generator)
-        qa, _, ca = self.quantizer(a_groups)
-        qs, _, cs = self.semantic_quantizer(s_groups)
+        qa, _, ca = self.quantizer(a_groups, train, generator)
+        qs, _, cs = self.semantic_quantizer(s_groups, train, generator)
         frames = torch.cat([degroup(qa, gid), degroup(qs, gid)], dim=-1)
         recon = self.decoder(self.bottleneck_transformer(frames))
         pred_feat = self.semantic_decoder(degroup(qs, gid))

@@ -18,7 +18,13 @@ Channels-last. Parameter names follow the reference layout that
 ``export_hcodec10_state_dict`` and ``export_hcodec20_state_dict`` write
 (``encoder.model.{i}`` or ``encoder.prior_net.{i}``,
 ``quantizer.layers.{i}._codebook.embed``, ``decoder.prior_net.{i}``,
-``decoder.post_net.{i}``). The causal variant is not ported yet.
+``decoder.post_net.{i}``).
+
+``causal`` (``HCodecConfig.causal``) builds every conv with its causal
+left pad and every transformer with the causal mask, as the JAX package
+does; the parameters and their names do not change. As in the JAX package,
+the decoder is not causal end to end: ``PriorNet``'s GroupNorms take their
+statistics over the whole clip and the ISTFT head has no causal form.
 """
 from __future__ import annotations
 
@@ -44,12 +50,12 @@ class PriorNet(nn.Sequential):
     at the reference's indices 0, 1, 3, 5, 6, 7; its layout transposes (2,
     4) are ``Identity`` channels-last."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, causal: bool = False):
         super().__init__(
-            ResnetBlock(dim), ResnetBlock(dim), nn.Identity(),
+            ResnetBlock(dim, causal), ResnetBlock(dim, causal), nn.Identity(),
             Transformer(dim, min(dim * 4, 4096),
-                        dim // 64 if dim % 64 == 0 else 8, 2),
-            nn.Identity(), ResnetBlock(dim), ResnetBlock(dim),
+                        dim // 64 if dim % 64 == 0 else 8, 2, causal=causal),
+            nn.Identity(), ResnetBlock(dim, causal), ResnetBlock(dim, causal),
             GroupNorm(32, dim, eps=1e-6))
 
 
@@ -59,12 +65,15 @@ class CodecDecoder10(nn.Module):
 
     def __init__(self, in_dim: int, dim: int = 768,
                  intermediate_dim: int = 2304, convnext_layers: int = 12,
-                 n_fft: int = 1280, hop_length: int = 320):
+                 n_fft: int = 1280, hop_length: int = 320,
+                 causal: bool = False):
         super().__init__()
-        self.embed = SubPixelConvTranspose1d(in_dim, dim, 5, stride=2)
-        self.prior_net = PriorNet(dim)
+        self.embed = SubPixelConvTranspose1d(in_dim, dim, 5, stride=2,
+                                             causal=causal)
+        self.prior_net = PriorNet(dim, causal)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
-        self.post_net = ConvNeXtStack(dim, intermediate_dim, convnext_layers)
+        self.post_net = ConvNeXtStack(dim, intermediate_dim, convnext_layers,
+                                      causal)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-6)
         self.head = ISTFTHead(dim, n_fft, hop_length)
 
@@ -84,18 +93,22 @@ class CodecEncoder20(nn.Module):
     def __init__(self, dim: int = 1536, intermediate_dim: int = 4608,
                  dimension: int = 512, n_fft: int = 1920,
                  hop_length: int = 960, convnext_layers: int = 24,
-                 target_frame_rate: float = 12.5):
+                 target_frame_rate: float = 12.5, causal: bool = False):
         super().__init__()
         self.n_fft, self.hop_length = n_fft, hop_length
-        self.embed = CausalConv1d(n_fft + 2, dim, 3)  # 2 (n_fft / 2 + 1) in
+        # 2 (n_fft / 2 + 1) features in
+        self.embed = CausalConv1d(n_fft + 2, dim, 3, causal)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
-        self.prior_net = ConvNeXtStack(dim, intermediate_dim, convnext_layers)
+        self.prior_net = ConvNeXtStack(dim, intermediate_dim, convnext_layers,
+                                       causal)
         self.post_net = nn.Sequential(
-            nn.Identity(), Transformer(dim, min(dim * 4, 4096), dim // 64, 2),
+            nn.Identity(), Transformer(dim, min(dim * 4, 4096), dim // 64, 2,
+                                       causal=causal),
             nn.Identity())
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-6)
         stride = int(50 / target_frame_rate)
-        self.out = CausalConv1d(dim, dimension, 2 * stride + 1, stride=stride)
+        self.out = CausalConv1d(dim, dimension, 2 * stride + 1, causal,
+                                stride=stride)
 
     def forward(self, x):
         # the STFT and its features are an fp32 island: a bf16 wav enters as
@@ -119,13 +132,14 @@ class CodecDecoder20(nn.Module):
     def __init__(self, in_dim: int, dim: int = 1536,
                  intermediate_dim: int = 4608, convnext_layers: int = 32,
                  n_fft: int = 1920, hop_length: int = 960,
-                 target_frame_rate: float = 12.5):
+                 target_frame_rate: float = 12.5, causal: bool = False):
         super().__init__()
         self.factor = int(50 / target_frame_rate)
-        self.embed = CausalConv1d(in_dim, dim, self.factor + 1)
-        self.prior_net = PriorNet(dim)
+        self.embed = CausalConv1d(in_dim, dim, self.factor + 1, causal)
+        self.prior_net = PriorNet(dim, causal)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
-        self.post_net = ConvNeXtStack(dim, intermediate_dim, convnext_layers)
+        self.post_net = ConvNeXtStack(dim, intermediate_dim, convnext_layers,
+                                      causal)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-6)
         self.head = ISTFTHead(dim, n_fft, hop_length)
 
@@ -205,28 +219,28 @@ class HCodec(nn.Module):
                  trainable: bool = False):
         super().__init__()
         cfg = self.config = config
-        if cfg.version not in ("1.0", "2.0") or cfg.causal:
+        if cfg.version not in ("1.0", "2.0"):
             raise NotImplementedError(
-                f"HCodec-{cfg.version}{' causal' if cfg.causal else ''} is "
-                "not ported yet (ROADMAP Queue 1); the port runs the "
-                "non-causal HCodec-1.0 and 2.0")
+                f"HCodec-{cfg.version} is not an HCodec-1.0 or 2.0 config "
+                "(HCodec-1.5 is models/hcodec/adaptive.py AdaptiveHCodec)")
         if cfg.version == "1.0":
             self.encoder = SEANetEncoder(cfg.latent_dim, cfg.seanet_filters,
                                          cfg.seanet_ratios,
-                                         weight_norm=trainable)
+                                         weight_norm=trainable,
+                                         causal=cfg.causal)
             self.decoder = CodecDecoder10(
                 2 * cfg.latent_dim, cfg.decoder_dim,
                 cfg.decoder_intermediate_dim, cfg.decoder_convnext_layers,
-                cfg.n_fft, cfg.istft_hop)
+                cfg.n_fft, cfg.istft_hop, cfg.causal)
         else:
             self.encoder = CodecEncoder20(
                 cfg.encoder_dim, cfg.encoder_intermediate_dim, cfg.latent_dim,
                 cfg.n_fft, cfg.istft_hop, cfg.encoder_convnext_layers,
-                cfg.target_frame_rate)
+                cfg.target_frame_rate, cfg.causal)
             self.decoder = CodecDecoder20(
                 2 * cfg.latent_dim, cfg.decoder_dim,
                 cfg.decoder_intermediate_dim, cfg.decoder_convnext_layers,
-                cfg.n_fft, cfg.istft_hop, cfg.target_frame_rate)
+                cfg.n_fft, cfg.istft_hop, cfg.target_frame_rate, cfg.causal)
         vq = dict(ema=trainable, quantize_dropout=cfg.quantize_dropout)
         self.quantizer = ResidualVQ(cfg.latent_dim, cfg.codebook_size,
                                     cfg.num_quantizers, **vq)

@@ -3,9 +3,9 @@
 Port of ``unified_audio_tpu/models/hcodec/flexicodec.py``: ``DACEncoderBlock``,
 ``DACEncoder``, ``DACVectorQuantize``, ``DACRVQ``, ``FlexiFSQ``,
 ``SemanticEncoderCNX``, ``SemanticDecoderCNX``, ``FlexiCodecConfig``,
-``FlexiCodec`` (``encode`` and ``decode``),
-``fbank_semantic``, ``sensevoice_semantic``, ``sensevoice_teacher_semantic``
-and ``match_frame_rate``.
+``FlexiCodec`` (``encode``, ``decode`` and the training ``forward``),
+``fbank_semantic``, ``sensevoice_semantic``, ``sensevoice_teacher_semantic``,
+``match_frame_rate`` and ``teacher_features``.
 
 * Acoustic path: the DAC conv encoder, a residual stack of projected,
   L2-normalized VQ layers (``codebook_dim`` 8: each layer's search is the
@@ -20,9 +20,13 @@ and ``match_frame_rate``.
   groups and query-token aggregators (``models/hcodec/adaptive.py``), group
   codes with their lengths injected, padding groups zeroed before the
   semantic ConvNeXt decoder on both sides, and the Mimi bottleneck.
-
-The training forward (the losses and the teacher's distillation) is not
-ported.
+* ``is_causal``: the ConvNeXt adapters' depthwise convs pad on the left.
+* Training forward (``forward``): the commitment and codebook losses of
+  the DAC RVQ and, given a frozen teacher's features, the distillation of
+  the quantized semantic stream toward them (in the aligned mode averaged
+  over the valid groups only). ``trainable`` builds every weight-normed
+  conv of the reference (the DAC encoder, RVQ projections and decoder, the
+  adapters' 1x1 convs) as (g, v), the form the JAX package trains.
 
 Module names follow the reference layout that
 ``export_flexicodec_state_dict`` writes (``dac.encoder.block.{i}``,
@@ -58,13 +62,14 @@ class DACEncoderBlock(nn.Module):
     """3 dilated residual units -> Snake -> strided conv (kernel 2 s, pad
     ceil(s / 2)), at ``block.{0..4}``."""
 
-    def __init__(self, dim: int, output_dim: int, stride: int):
+    def __init__(self, dim: int, output_dim: int, stride: int,
+                 weight_norm: bool = False):
         super().__init__()
+        wn = dict(weight_norm=weight_norm)
         self.block = nn.Sequential(
-            DACResidualUnit(dim, 1), DACResidualUnit(dim, 3),
-            DACResidualUnit(dim, 9), Snake1d(dim),
+            *[DACResidualUnit(dim, d, **wn) for d in (1, 3, 9)], Snake1d(dim),
             Conv1d(dim, output_dim, 2 * stride, stride=stride,
-                   padding=-(-stride // 2)))
+                   padding=-(-stride // 2), **wn))
 
     def forward(self, x):
         return self.block(x)
@@ -74,13 +79,14 @@ class DACEncoder(nn.Module):
     """wav (B, T, 1) -> latents (B, T / prod(rates), latent_dim)."""
 
     def __init__(self, d_model: int = 64, rates: Sequence[int] = (2, 4, 8, 8),
-                 latent_dim: int = 1024):
+                 latent_dim: int = 1024, weight_norm: bool = False):
         super().__init__()
-        layers, dim = [Conv1d(1, d_model, 7, padding=3)], d_model
+        wn = dict(weight_norm=weight_norm)
+        layers, dim = [Conv1d(1, d_model, 7, padding=3, **wn)], d_model
         for s in rates:
-            layers.append(DACEncoderBlock(dim, 2 * dim, s))
+            layers.append(DACEncoderBlock(dim, 2 * dim, s, **wn))
             dim *= 2
-        layers += [Snake1d(dim), Conv1d(dim, latent_dim, 3, padding=1)]
+        layers += [Snake1d(dim), Conv1d(dim, latent_dim, 3, padding=1, **wn)]
         self.block = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -91,10 +97,12 @@ class DACVectorQuantize(nn.Module):
     """in_proj 1x1 -> nearest unit codebook row of the unit input ->
     out_proj 1x1."""
 
-    def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int):
+    def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int,
+                 weight_norm: bool = False):
         super().__init__()
-        self.in_proj = Conv1d(input_dim, codebook_dim, 1, padding=0)
-        self.out_proj = Conv1d(codebook_dim, input_dim, 1, padding=0)
+        wn = dict(weight_norm=weight_norm)
+        self.in_proj = Conv1d(input_dim, codebook_dim, 1, padding=0, **wn)
+        self.out_proj = Conv1d(codebook_dim, input_dim, 1, padding=0, **wn)
         self.codebook = nn.Embedding(codebook_size, codebook_dim)
 
     def nearest(self, z_e):
@@ -112,33 +120,51 @@ class DACVectorQuantize(nn.Module):
         return dist.argmin(-1)
 
     def forward(self, z):
-        """z (B, T, D) -> (z_q (B, T, D), indices (B, T))."""
+        """z (B, T, D) -> (z_q (B, T, D), commitment (B,), codebook loss
+        (B,), indices (B, T)): the losses are each row's mean of
+        (z_e - sg(c))^2 and (c - sg(z_e))^2 for the chosen rows c, and z_q
+        the straight-through ``out_proj(z_e + sg(c - z_e))``, summed as the
+        JAX package rounds it."""
         z_e = self.in_proj(z)
         idx = self.nearest(z_e)
-        # the straight-through sum, as the JAX package rounds it
-        z_qp = z_e + (self.codebook(idx) - z_e)
-        return self.out_proj(z_qp), idx
+        z_qp = self.codebook(idx)
+        commitment = (z_e - z_qp.detach()).square().mean((1, 2))
+        codebook_loss = (z_qp - z_e.detach()).square().mean((1, 2))
+        return (self.out_proj(z_e + (z_qp - z_e).detach()), commitment,
+                codebook_loss, idx)
 
 
 class DACRVQ(nn.Module):
-    """Residual stack of :class:`DACVectorQuantize` (eval: no dropout)."""
+    """Residual stack of :class:`DACVectorQuantize` (no quantizer
+    dropout, as in the JAX package)."""
 
     def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
-                 codebook_dim: int):
+                 codebook_dim: int, weight_norm: bool = False):
         super().__init__()
         self.quantizers = nn.ModuleList([
-            DACVectorQuantize(input_dim, codebook_size, codebook_dim)
+            DACVectorQuantize(input_dim, codebook_size, codebook_dim,
+                              weight_norm)
             for _ in range(n_codebooks)])
 
-    def encode(self, z):
-        """z (B, T, D) -> codes (B, T, nq) int32: each layer quantizes the
-        residual the layers before it leave."""
-        residual, codes = z, []
+    def forward(self, z):
+        """z (B, T, D) -> (z_q (B, T, D), codes (B, T, nq) int32,
+        commitment (), codebook loss ()): each layer quantizes the residual
+        the layers before it leave; each loss is the sum over the layers of
+        the batch mean."""
+        z_q, residual, codes = 0.0, z, []
+        commitment = codebook_loss = 0.0
         for q in self.quantizers:
-            z_q, idx = q(residual)
-            residual = residual - z_q
+            z_q_i, c_i, cb_i, idx = q(residual)
+            z_q = z_q + z_q_i
+            residual = residual - z_q_i
+            commitment = commitment + c_i.mean()
+            codebook_loss = codebook_loss + cb_i.mean()
             codes.append(idx)
-        return torch.stack(codes, -1).int()
+        return z_q, torch.stack(codes, -1).int(), commitment, codebook_loss
+
+    def encode(self, z):
+        """z (B, T, D) -> codes (B, T, nq) int32."""
+        return self(z)[1]
 
     def from_codes(self, codes):
         """(B, T, nq) -> (B, T, D)."""
@@ -196,10 +222,11 @@ class FlexiFSQ(nn.Module):
         return torch.tanh(z + torch.tan(offset / half_l)) * half_l - offset
 
     def quantize(self, z):
-        """Round to the nearest level (half to even) over the half width;
-        round(x) - x is exact, so the straight-through sum is the rounded
-        value."""
-        return torch.round(self.bound(z)) / self._consts(z.device)[2]
+        """Round the bounded value to the nearest level (half to even),
+        straight through to ``z`` (``z + sg(round - z)``, the JAX package's
+        sum), over the half width."""
+        q = torch.round(self.bound(z))
+        return (z + (q - z).detach()) / self._consts(z.device)[2]
 
     def codes_to_indices(self, zhat):
         _, basis, half = self._consts(zhat.device)
@@ -216,27 +243,38 @@ class FlexiFSQ(nn.Module):
         """x (B, T, D) -> indices (B, T) int32."""
         return self.codes_to_indices(self.quantize(self._in(x)))
 
+    def forward(self, x):
+        """x (B, T, D) -> (``project_out`` of the codes (B, T, D), indices
+        (B, T) int32); the gradient passes the rounding straight
+        through."""
+        codes = self.quantize(self._in(x))
+        return self._out(codes), self.codes_to_indices(codes)
+
 
 class SemanticEncoderCNX(nn.Sequential):
     """A 1x1 conv (ssl_dim -> convnext_dim) at index 0, then ConvNeXt
-    blocks (intermediate 2048, no gamma)."""
+    blocks (intermediate 2048, no gamma; causal or not)."""
 
-    def __init__(self, ssl_dim: int, convnext_dim: int, num_layers: int):
+    def __init__(self, ssl_dim: int, convnext_dim: int, num_layers: int,
+                 causal: bool = False, weight_norm: bool = False):
         super().__init__(
-            Conv1d(ssl_dim, convnext_dim, 1, padding=0),
-            *[ConvNeXtBlock(convnext_dim, 2048, None)
+            Conv1d(ssl_dim, convnext_dim, 1, padding=0,
+                   weight_norm=weight_norm),
+            *[ConvNeXtBlock(convnext_dim, 2048, None, causal=causal)
               for _ in range(num_layers)])
 
 
 class SemanticDecoderCNX(nn.Sequential):
-    """ConvNeXt blocks, then a 1x1 conv (convnext_dim -> out_dim) at
-    index ``num_layers``."""
+    """ConvNeXt blocks (causal or not), then a 1x1 conv (convnext_dim ->
+    out_dim) at index ``num_layers``."""
 
-    def __init__(self, convnext_dim: int, out_dim: int, num_layers: int):
+    def __init__(self, convnext_dim: int, out_dim: int, num_layers: int,
+                 causal: bool = False, weight_norm: bool = False):
         super().__init__(
-            *[ConvNeXtBlock(convnext_dim, 2048, None)
+            *[ConvNeXtBlock(convnext_dim, 2048, None, causal=causal)
               for _ in range(num_layers)],
-            Conv1d(convnext_dim, out_dim, 1, padding=0))
+            Conv1d(convnext_dim, out_dim, 1, padding=0,
+                   weight_norm=weight_norm))
 
 
 # ---------------------------------------------------------------------------
@@ -286,15 +324,16 @@ class FlexiCodecConfig:
 class _DAC(nn.Module):
     """The reference's ``dac`` submodule: encoder, quantizer, decoder."""
 
-    def __init__(self, cfg: FlexiCodecConfig):
+    def __init__(self, cfg: FlexiCodecConfig, weight_norm: bool = False):
         super().__init__()
+        wn = dict(weight_norm=weight_norm)
         self.encoder = DACEncoder(cfg.encoder_dim, cfg.encoder_rates,
-                                  cfg.latent_dim)
+                                  cfg.latent_dim, **wn)
         self.quantizer = DACRVQ(cfg.latent_dim, cfg.n_codebooks,
-                                cfg.codebook_size, cfg.codebook_dim)
+                                cfg.codebook_size, cfg.codebook_dim, **wn)
         self.decoder = WaveGenerator(
             cfg.latent_dim, cfg.decoder_dim, cfg.decoder_rates,
-            tuple(2 * r for r in cfg.decoder_rates))
+            tuple(2 * r for r in cfg.decoder_rates), **wn)
 
 
 class _SemanticVQ(nn.Module):
@@ -309,18 +348,23 @@ class FlexiCodec(nn.Module):
     """``encode(wav (B, L), semantic (B, 2 T, ssl_dim))`` -> (acoustic,
     semantic) codes; ``decode`` -> wav (B, L). DualCodec mode: (B, T, nq)
     and (B, T, 1) at the frame rate; aligned mode: (B, G, ·) group codes
-    with their lengths injected, -1 at padding groups."""
+    with their lengths injected, -1 at padding groups. ``forward`` is the
+    training forward; ``trainable`` builds the weight-normed convs as (g,
+    v) (what ``utils/convert.py flexicodec_train_state_dict`` loads),
+    without it they are folded (``flexicodec_inference_keys``)."""
 
-    def __init__(self, config: FlexiCodecConfig = FlexiCodecConfig()):
+    def __init__(self, config: FlexiCodecConfig = FlexiCodecConfig(),
+                 trainable: bool = False):
         super().__init__()
         cfg = self.config = config
-        if cfg.is_causal:
-            raise NotImplementedError("the causal FlexiCodec is not ported")
-        self.dac = _DAC(cfg)
+        wn = dict(weight_norm=trainable)
+        self.dac = _DAC(cfg, **wn)
         self.convnext_encoder = SemanticEncoderCNX(
-            cfg.ssl_dim, cfg.convnext_dim, cfg.convnext_layers)
+            cfg.ssl_dim, cfg.convnext_dim, cfg.convnext_layers,
+            cfg.is_causal, **wn)
         self.convnext_decoder = SemanticDecoderCNX(
-            cfg.convnext_dim, cfg.latent_dim, cfg.convnext_layers)
+            cfg.convnext_dim, cfg.latent_dim, cfg.convnext_layers,
+            cfg.is_causal, **wn)
         self.semantic_vq = _SemanticVQ(cfg)
         if cfg.use_query_token_aggregator:
             agg = dict(num_heads=cfg.agg_heads, num_layers=cfg.agg_layers,
@@ -361,19 +405,65 @@ class FlexiCodec(nn.Module):
                 if self.config.decode_semantic_for_codec else sem_q)
 
     def _group(self, z, sem, threshold):
-        """-> (counts (B, G), aggregated semantic, aggregated latents)."""
+        """-> (counts (B, G), aggregated semantic, aggregated latents,
+        group ids (B, T))."""
         cfg = self.config
         gid = similarity_group_ids(
             sem, cfg.similarity_threshold if threshold is None else threshold,
             cfg.max_tokens_per_group)
         sem_agg, counts = self.semantic_aggregator(sem, gid)
         ac_agg, _ = self.acoustic_aggregator(z, gid)
-        return counts, sem_agg, ac_agg
+        return counts, sem_agg, ac_agg, gid
 
     def _output(self, latent):
         if self.config.use_bottleneck_transformer:
             latent = self.bottleneck_transformer(latent)
         return self.dac.decoder(latent)[..., 0]
+
+    def forward(self, wav, semantic_repr, teacher_feats=None,
+                train: bool = True, threshold=None):
+        """The training forward (``train`` changes nothing: the model has
+        no dropout and no EMA state, as in the JAX package) -> a dict:
+        "recons" (B, L), "acoustic_codes" (B, T or G, nq), "semantic_codes"
+        (B, T or G) (plain codes, no lengths injected), "commit_loss" (the
+        DAC RVQ's commitment plus codebook losses), "group_ids" (B, T) in
+        the aligned mode else None, and with ``teacher_feats`` (B, 2 T, C),
+        "distill_loss": ``lambda_distill`` times the mean square between
+        the quantized semantic stream and the teacher's downsampled
+        features (no gradient to the teacher), over the first min of their
+        widths, in the aligned mode over the valid groups only."""
+        cfg = self.config
+        z, sem = self.streams(wav, semantic_repr)
+        if cfg.use_similarity_alignment:
+            counts, sem_agg, ac_agg, gid = self._group(z, sem, threshold)
+        else:
+            counts = gid = None
+            sem_agg, ac_agg = sem, z
+        sem_q, sem_codes = self.fsq(self.convnext_encoder(sem_agg))
+        if counts is not None:
+            # padding groups -> zero before the ConvNeXt decoder, as encode
+            sem_q = torch.where((counts > 0)[..., None], sem_q, 0.0)
+        sem_dec = self._semantic_decoded(sem_q)
+        ac_q, ac_codes, commitment, codebook_loss = self.dac.quantizer(
+            ac_agg - sem_dec)
+        latent = ac_q + sem_dec
+        if gid is not None:
+            latent = degroup(latent, gid)
+        out = {"recons": self._output(latent), "acoustic_codes": ac_codes,
+               "semantic_codes": sem_codes,
+               "commit_loss": commitment + codebook_loss, "group_ids": gid}
+        if teacher_feats is not None:
+            tgt = self.downsample_semantic(teacher_feats).detach()
+            t = min(sem_dec.shape[1], tgt.shape[1], sem_q.shape[1])
+            d = min(sem_q.shape[-1], tgt.shape[-1])
+            se = (sem_q[:, :t, :d] - tgt[:, :t, :d]).square()
+            if counts is not None:
+                w = (counts[:, :t] > 0).to(se.dtype)[..., None]
+                loss = (se * w).sum() / torch.clamp(w.sum() * d, min=1.0)
+            else:
+                loss = se.mean()
+            out["distill_loss"] = cfg.lambda_distill * loss
+        return out
 
     def encode(self, wav, semantic_repr, threshold=None):
         """-> (acoustic codes, semantic codes), int32."""
@@ -383,7 +473,7 @@ class FlexiCodec(nn.Module):
             sem_codes = self.fsq.indices(self.convnext_encoder(sem))
             sem_dec = self._semantic_decoded(self.fsq.from_indices(sem_codes))
             return self.dac.quantizer.encode(z - sem_dec), sem_codes[..., None]
-        counts, sem_agg, ac_agg = self._group(z, sem, threshold)
+        counts, sem_agg, ac_agg, _ = self._group(z, sem, threshold)
         sem_codes = self.fsq.indices(self.convnext_encoder(sem_agg))
         # padding groups -> zero before the ConvNeXt decoder, as decode does
         sem_q = torch.where((counts > 0)[..., None],
@@ -473,3 +563,14 @@ def match_frame_rate(feats, num_frames: int):
     hi = torch.clamp(lo + 1, 0, t - 1)
     w = (pos - lo.to(pos.dtype))[None, :, None]
     return feats[:, lo] * (1.0 - w) + feats[:, hi] * w
+
+
+def teacher_features(ssl, wav):
+    """The frozen teacher's target for ``FlexiCodec.forward``: HCodec's SSL
+    features (the all-layer mean, signed |x|^0.3) of ``ssl`` (a
+    ``models/ssl`` ``Wav2Vec2Model``, e.g. HuBERT) on ``wav`` (B, T), with
+    no gradient -> (B, T / 320, hidden)."""
+    from ..ssl.wav2vec2 import hubert_features
+
+    with torch.no_grad():
+        return hubert_features(ssl(wav))

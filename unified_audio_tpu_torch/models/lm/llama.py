@@ -5,7 +5,8 @@ Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig``,
 ``init_cache``, ``range_mask``, ``LlamaBackbone`` (the decoder stack: the
 uncached causal forward that training runs, and prefill and one-token
 decode over embeddings and a dense cache), ``CodecLM`` (with the
-label-smoothed loss and ``forward_embeds``), ``sample_logits`` (the
+label-smoothed loss, ``forward_embeds`` and the pretraining objective
+``pretrain_loss``, JAX's ``CodecLM.__call__``), ``sample_logits`` (the
 reference's first-crossing top-p rule) and the per-row
 ``sample_logits_vec``.
 
@@ -232,6 +233,30 @@ class CodecLM(LlamaBackbone):
         loss = self.loss_function(logits, target_ids)
         acc = (torch.argmax(logits, dim=-1) == target_ids).float().mean()
         return loss, acc
+
+    def pretrain_loss(self, global_ids, semantic_ids, cond_embeds=None):
+        """The pretraining objective over (global (B, Ng), semantic (B, T))
+        token ids -> (loss, acc): the sequence [gSOS g... sSOS s...] (the
+        ids shifted to their vocabulary ranges) predicts itself shifted
+        by one, [g... sSOS s... sEOS], each without its last position, so
+        the final EOS target is dropped (pretraining clips may be cut
+        mid-utterance). ``cond_embeds`` (B, Tc, D) go first if given."""
+        cfg = self.cfg
+        b, dev = global_ids.shape[0], self.codec_embedding.weight.device
+        g = global_ids.to(dev).long() + cfg.global_offset
+        s = semantic_ids.to(dev).long() + cfg.semantic_offset
+
+        def tok(i):
+            return torch.full((b, 1), i, dtype=torch.long, device=dev)
+
+        input_ids = torch.cat([tok(cfg.global_sos), g, tok(cfg.semantic_sos),
+                               s], dim=1)[:, :-1]
+        target_ids = torch.cat([g, tok(cfg.semantic_sos), s,
+                                tok(cfg.semantic_eos)], dim=1)[:, :-1]
+        embeds = self.codec_embedding(input_ids)
+        if cond_embeds is not None:
+            embeds = torch.cat([cond_embeds.to(embeds.dtype), embeds], dim=1)
+        return self.forward_embeds(embeds, target_ids)
 
     def prefill(self, embeds, cache):
         hidden, cache = self.cached_forward(embeds, cache)

@@ -2,13 +2,14 @@
 semantic H-Codec codes with a delay pattern.
 
 Port of ``unified_audio_tpu/models/unitok/model.py``: ``UNITOK_TASKS``,
-``UniTokConfig`` and ``UniTokLM`` with ``build_prompt``, ``embed_codes`` and
-the solo ``generate`` over a dense KV cache. The prompt is
+``UniTokConfig`` and ``UniTokLM`` with ``build_prompt``, ``embed_codes``, the
+teacher-forced training ``loss`` (JAX's ``UniTokLM.__call__``) and the solo
+``generate`` over a dense KV cache. The prompt is
 ``[T task][C][caption][R][reference audio][I][input audio][S]`` (absent
 conditions skipped); K = 2 * nq codebooks (acoustic nq, then semantic nq)
 enter as the sum of their embeddings and leave through K parallel heads,
 one decode step per 25 Hz frame, codebook k delayed by k steps
-(``delay.py``). The teacher-forced training loss is not ported yet.
+(``delay.py``).
 
 State-dict keys: ``backbone.layers.{i}.*`` and ``backbone.norm.weight`` (the
 reference torch layout of the decoder stack), ``task_embedding``,
@@ -26,7 +27,7 @@ from torch import nn
 
 from ..lm.llama import (NEG_INF, LlamaBackbone, LlamaConfig, init_cache,
                         sample_logits)
-from .delay import undo_delay
+from .delay import apply_delay, undo_delay
 
 UNITOK_TASKS: Dict[str, int] = {
     "sr": 0, "tse": 1, "ss": 2, "vc": 3, "lass": 4, "codec": 5, "ae": 6,
@@ -136,6 +137,39 @@ class UniTokLM(nn.Module):
                 parts += [sep(i), adapter(feats.to(w.device, w.dtype))]
         parts.append(sep(3))
         return torch.cat(parts, dim=1)
+
+    def loss(self, task_id, caption_feats, ref_audio_feats, input_audio_feats,
+             codes):
+        """Teacher-forced training loss over the delayed code sequence ->
+        (loss, acc), fp32 scalars. codes (B, T, K) are the raw codes
+        (acoustic, then semantic layers); delayed (``apply_delay``, holes
+        PAD), they are read after BOS and predicted up to EOS (the last
+        position of each dropped) behind the prompt. Per codebook the NLL
+        and the argmax accuracy are averaged over the targets that are not
+        PAD; both are then averaged over the K codebooks."""
+        cfg = self.cfg
+        codes = codes.to(self.audio_adapter.weight.device).long()
+        b, _, k = codes.shape
+        delayed = apply_delay(codes, cfg.pad)  # (B, T + K - 1, K)
+        bos = torch.full_like(delayed[:, :1], cfg.bos)
+        eos = torch.full_like(delayed[:, :1], cfg.eos)
+        inputs = torch.cat([bos, delayed], dim=1)[:, :-1]
+        targets = torch.cat([delayed, eos], dim=1)[:, :-1]
+        prompt = self.build_prompt(task_id, caption_feats, ref_audio_feats,
+                                   input_audio_feats, b)
+        hidden = self.backbone.backbone(torch.cat(
+            [prompt, self.embed_codes(inputs)], dim=1))[:, -targets.shape[1]:]
+        loss = acc = 0.0
+        for kk in range(cfg.num_codebooks):
+            logits = self.heads[kk](hidden)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            tgt = targets[..., kk]
+            nll = -logp.gather(-1, tgt[..., None])[..., 0]
+            mask = (tgt != cfg.pad).float()
+            n = torch.clamp(mask.sum(), min=1.0)
+            loss = loss + (nll * mask).sum() / n
+            acc = acc + ((logits.argmax(-1) == tgt).float() * mask).sum() / n
+        return loss / cfg.num_codebooks, acc / cfg.num_codebooks
 
     @torch.no_grad()
     def generate(self, task_id, caption_feats, ref_audio_feats,

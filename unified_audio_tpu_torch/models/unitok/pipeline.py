@@ -1,11 +1,12 @@
 """UniTok end to end: audio -> H-Codec codes -> multitask LM -> codes ->
 audio.
 
-Port of ``unified_audio_tpu/models/unitok/pipeline.py`` (inference side)
-over the port's HCodec-1.0 tokenizer: the acoustic and semantic RVQ streams
-interleave on the codebook axis (acoustic nq, then semantic nq = K codebooks
-per 25 Hz frame) and conditioning audio enters as the tokenizer's HuBERT
-features. The teacher-forced ``train_loss`` waits for training.
+Port of ``unified_audio_tpu/models/unitok/pipeline.py`` over the port's
+HCodec-1.0 tokenizer: the acoustic and semantic RVQ streams interleave on
+the codebook axis (acoustic nq, then semantic nq = K codebooks per 25 Hz
+frame) and conditioning audio enters as the tokenizer's HuBERT features.
+``train_loss`` is the teacher-forced multitask loss (the target's codes
+from the frozen tokenizer, K6 on the card), ``generate`` the AR decode.
 """
 from __future__ import annotations
 
@@ -62,6 +63,30 @@ class UniTokPipeline:
         nq = self.tokenizer.config.num_quantizers
         return self.tokenizer.detokenize(codes[..., :nq].transpose(-1, -2),
                                          codes[..., nq:].transpose(-1, -2))
+
+    def train_loss(self, task: str, input_wav, target_wav, caption_feats=None,
+                   ref_wav=None):
+        """Teacher-forced multitask loss -> (loss, acc): conditioned on the
+        HuBERT features of ``input_wav`` (B, T) (and of ``ref_wav``), the
+        LM predicts the codes of ``target_wav`` (B, T) from the frozen
+        tokenizer. The waveforms are moved to the tokenizer's device, the
+        card unless the pipeline was built on the CPU; the gradients reach
+        the LM only."""
+        tok = self.tokenizer
+        dev = next(tok.codec.parameters()).device
+
+        def on(x):
+            return None if x is None else torch.as_tensor(x).to(
+                dev, torch.float32)
+
+        input_wav, target_wav, ref_wav = map(on, (input_wav, target_wav,
+                                                  ref_wav))
+        codes = self.audio_to_codes(target_wav)
+        input_feats = tok.extract_features(input_wav)
+        ref_feats = (tok.extract_features(ref_wav) if ref_wav is not None
+                     else None)
+        return self.lm.loss(UNITOK_TASKS[task], caption_feats, ref_feats,
+                            input_feats, codes)
 
     @torch.no_grad()
     def generate(self, task: str, input_wav, num_frames: Optional[int] = None,

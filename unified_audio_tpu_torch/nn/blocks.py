@@ -5,7 +5,8 @@ detokenize path and the HCodec-1.0 round trip run: ``AdaLayerNorm``,
 ``ConvNeXtBlock`` and ``ConvNeXtStack``, ``VocosBackbone``, ``SamplingBlock``
 (ratio-1 path), ``Snake1d``, ``DACResidualUnit``, ``WaveDecoderBlock``,
 ``WaveGenerator``, ``swish``, ``ResnetBlock``, ``SEANetResnetBlock`` and
-``SEANetEncoder``. Submodule names follow the reference torch layouts
+``SEANetEncoder``, each non-causal or causal (the HCodec convs' causal
+zero or reflect pads, the transformer's causal mask). Submodule names follow the reference torch layouts
 (``convnext.{i}.dwconv``, ``model.{i}.block.{j}``, Snake ``alpha`` (1, C, 1),
 ``post_net.{i}.pwconv1.linear``), the layouts ``export_bicodec_state_dict``
 and ``export_hcodec10_state_dict`` write.
@@ -45,15 +46,18 @@ class ConvNeXtBlock(nn.Module):
     """Depthwise k7 conv -> LN (or AdaLN) -> pointwise MLP -> gamma,
     residual. ``wrapped`` puts the weights where HCodec's reference keeps
     them (``dwconv.conv``, ``pwconv1.linear``, ``pwconv2.linear``); the
-    non-causal k7 zero pad (3, 3) is HCodec's constant-pad conv. A
-    ``layer_scale_init_value`` of None builds no gamma (FlexiCodec's
-    adapters)."""
+    k7 zero pad is HCodec's constant-pad conv: (3, 3), or (6, 0) when
+    ``causal``. A ``layer_scale_init_value`` of None builds no gamma
+    (FlexiCodec's adapters)."""
 
     def __init__(self, dim: int, intermediate_dim: int,
                  layer_scale_init_value: Optional[float],
-                 condition_dim: Optional[int] = None, wrapped: bool = False):
+                 condition_dim: Optional[int] = None, wrapped: bool = False,
+                 causal: bool = False):
         super().__init__()
-        self.dwconv = Conv1d(dim, dim, 7, groups=dim, padding=3)
+        self.causal_pad = 6 if causal else 0
+        self.dwconv = Conv1d(dim, dim, 7, groups=dim,
+                             padding=0 if causal else 3)
         self.norm = (AdaLayerNorm(condition_dim, dim) if condition_dim
                      else nn.LayerNorm(dim, eps=1e-6))
         self.pwconv1 = nn.Linear(dim, intermediate_dim)
@@ -67,7 +71,8 @@ class ConvNeXtBlock(nn.Module):
                                               layer_scale_init_value)))
 
     def forward(self, x, cond=None):
-        h = self.dwconv(x)
+        h = self.dwconv(F.pad(x, (0, 0, self.causal_pad, 0))
+                        if self.causal_pad else x)
         h = self.norm(h, cond) if isinstance(self.norm, AdaLayerNorm) \
             else self.norm(h)
         h = self.pwconv2(F.gelu(self.pwconv1(h)))
@@ -105,7 +110,7 @@ class SamplingBlock(nn.Module):
         super().__init__()
         if upsample_scale != 1 or downsample_scale != 1:
             raise NotImplementedError("only ratio-1 sampling blocks are "
-                                      "ported")
+                                      "ported (ROADMAP Queue 1)")
 
     def forward(self, x):
         return x + x + x
@@ -124,14 +129,18 @@ class Snake1d(nn.Module):
 
 
 class DACResidualUnit(nn.Module):
-    """Snake -> conv k7 dilated (same pad) -> Snake -> conv k1, residual."""
+    """Snake -> conv k7 dilated (same pad) -> Snake -> conv k1, residual.
+    ``weight_norm`` trains both convs as (g, v)."""
 
-    def __init__(self, dim: int, dilation: int = 1):
+    def __init__(self, dim: int, dilation: int = 1,
+                 weight_norm: bool = False):
         super().__init__()
         pad = ((7 - 1) * dilation) // 2
+        wn = dict(weight_norm=weight_norm)
         self.block = nn.ModuleList([
-            Snake1d(dim), Conv1d(dim, dim, 7, dilation=dilation, padding=pad),
-            Snake1d(dim), Conv1d(dim, dim, 1, padding=0)])
+            Snake1d(dim),
+            Conv1d(dim, dim, 7, dilation=dilation, padding=pad, **wn),
+            Snake1d(dim), Conv1d(dim, dim, 1, padding=0, **wn)])
 
     def forward(self, x):
         y = x
@@ -145,15 +154,15 @@ class WaveDecoderBlock(nn.Module):
     units."""
 
     def __init__(self, input_dim: int, output_dim: int, kernel_size: int,
-                 stride: int):
+                 stride: int, weight_norm: bool = False):
         super().__init__()
+        wn = dict(weight_norm=weight_norm)
         self.block = nn.ModuleList([
             Snake1d(input_dim),
             ConvTranspose1d(input_dim, output_dim, kernel_size, stride,
                             padding=(kernel_size - stride) // 2,
-                            output_padding=0),
-            DACResidualUnit(output_dim, 1), DACResidualUnit(output_dim, 3),
-            DACResidualUnit(output_dim, 9)])
+                            output_padding=0, **wn),
+            *[DACResidualUnit(output_dim, d, **wn) for d in (1, 3, 9)]])
 
     def forward(self, x):
         for m in self.block:
@@ -163,19 +172,20 @@ class WaveDecoderBlock(nn.Module):
 
 class WaveGenerator(nn.Module):
     """DAC-style vocoder head: (B, T, input_channel) -> (B, T * prod(rates),
-    d_out) in [-1, 1]."""
+    d_out) in [-1, 1]. ``weight_norm`` trains every conv as (g, v)."""
 
     def __init__(self, input_channel: int, channels: int,
                  rates: Sequence[int], kernel_sizes: Sequence[int],
-                 d_out: int = 1):
+                 d_out: int = 1, weight_norm: bool = False):
         super().__init__()
-        layers = [Conv1d(input_channel, channels, 7, padding=3)]
+        wn = dict(weight_norm=weight_norm)
+        layers = [Conv1d(input_channel, channels, 7, padding=3, **wn)]
         dim = channels
         for i, (k, s) in enumerate(zip(kernel_sizes, rates)):
             out_dim = channels // 2 ** (i + 1)
-            layers.append(WaveDecoderBlock(dim, out_dim, k, s))
+            layers.append(WaveDecoderBlock(dim, out_dim, k, s, **wn))
             dim = out_dim
-        layers += [Snake1d(dim), Conv1d(dim, d_out, 7, padding=3)]
+        layers += [Snake1d(dim), Conv1d(dim, d_out, 7, padding=3, **wn)]
         self.model = nn.ModuleList(layers)
 
     def forward(self, x):
@@ -186,13 +196,15 @@ class WaveGenerator(nn.Module):
 
 class ConvNeXtStack(nn.ModuleList):
     """HCodec's stack of ConvNeXt blocks (``post_net.{i}``), gamma =
-    1 / num_layers. The JAX package scans over stacked parameters; here the
-    blocks are a list."""
+    1 / num_layers, non-causal or causal. The JAX package scans over
+    stacked parameters; here the blocks are a list."""
 
-    def __init__(self, dim: int, intermediate_dim: int, num_layers: int):
+    def __init__(self, dim: int, intermediate_dim: int, num_layers: int,
+                 causal: bool = False):
         super().__init__([
             ConvNeXtBlock(dim, intermediate_dim, 1.0 / num_layers,
-                          wrapped=True) for _ in range(num_layers)])
+                          wrapped=True, causal=causal)
+            for _ in range(num_layers)])
 
     def forward(self, x):
         for block in self:
@@ -213,14 +225,17 @@ class GroupNorm(nn.GroupNorm):
 
 class ResnetBlock(nn.Module):
     """GroupNorm(32, eps 1e-6) -> swish -> conv k3, twice, residual (the
-    width is kept, so no ``nin_shortcut``)."""
+    width is kept, so no ``nin_shortcut``). ``causal`` pads the convs on
+    the left only; the GroupNorm still takes its statistics over the whole
+    time axis, as in the JAX package, so the block is not causal end to
+    end."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, causal: bool = False):
         super().__init__()
         self.norm1 = GroupNorm(32, channels, eps=1e-6)
-        self.conv1 = CausalConv1d(channels, channels, 3)
+        self.conv1 = CausalConv1d(channels, channels, 3, causal)
         self.norm2 = GroupNorm(32, channels, eps=1e-6)
-        self.conv2 = CausalConv1d(channels, channels, 3)
+        self.conv2 = CausalConv1d(channels, channels, 3, causal)
 
     def forward(self, x):
         h = self.conv1(swish(self.norm1(x)))
@@ -233,12 +248,14 @@ class SEANetResnetBlock(nn.Module):
     plus a 1x1 SConv shortcut (``true_skip=False``). Convs at ``block.1``,
     ``block.3`` and ``shortcut``."""
 
-    def __init__(self, dim: int, weight_norm: bool = False):
+    def __init__(self, dim: int, weight_norm: bool = False,
+                 causal: bool = False):
         super().__init__()
+        kw = dict(weight_norm=weight_norm, causal=causal)
         self.block = nn.Sequential(
-            nn.ELU(), SConv1d(dim, dim // 2, 3, weight_norm=weight_norm),
-            nn.ELU(), SConv1d(dim // 2, dim, 1, weight_norm=weight_norm))
-        self.shortcut = SConv1d(dim, dim, 1, weight_norm=weight_norm)
+            nn.ELU(), SConv1d(dim, dim // 2, 3, **kw),
+            nn.ELU(), SConv1d(dim // 2, dim, 1, **kw))
+        self.shortcut = SConv1d(dim, dim, 1, **kw)
 
     def forward(self, x):
         return self.shortcut(x) + self.block(x)
@@ -247,7 +264,8 @@ class SEANetResnetBlock(nn.Module):
 class SEANetEncoder(nn.Module):
     """EnCodec-style strided encoder as HCodec-1.0 configures it (one input
     channel, k7 conv_in, one resnet block per ratio, a 2-layer 8-head
-    hybrid transformer, non-causal reflect padding): conv_in, then per
+    hybrid transformer, reflect padding; ``causal`` pads every conv on the
+    left and masks the transformer causally): conv_in, then per
     ratio (applied reversed) a resnet block, ELU and a strided SConv that
     doubles the width; the transformer; ELU and a stride-2 SConv. Hop
     prod(ratios) * 2 (640 for (8, 5, 4, 2)). (B, L, 1) -> (B, L / hop,
@@ -260,9 +278,9 @@ class SEANetEncoder(nn.Module):
 
     def __init__(self, dimension: int = 512, n_filters: int = 32,
                  ratios: Tuple[int, ...] = (8, 5, 4, 2),
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, causal: bool = False):
         super().__init__()
-        wn = dict(weight_norm=weight_norm)
+        wn = dict(weight_norm=weight_norm, causal=causal)
         width = n_filters
         layers = [SConv1d(1, width, 7, **wn)]
         for ratio in reversed(ratios):
@@ -270,7 +288,8 @@ class SEANetEncoder(nn.Module):
                        SConv1d(width, width * 2, ratio * 2, stride=ratio,
                                **wn)]
             width *= 2
-        layers += [nn.Identity(), Transformer(dimension, dimension * 4, 8, 2),
+        layers += [nn.Identity(),
+                   Transformer(dimension, dimension * 4, 8, 2, causal=causal),
                    nn.Identity(), nn.ELU(),
                    SConv1d(width, dimension, 4, stride=2, **wn)]
         self.model = nn.Sequential(*layers)

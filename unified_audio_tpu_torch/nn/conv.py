@@ -4,7 +4,8 @@ Port of ``unified_audio_tpu/nn/conv.py``: ``conv1d``, ``Conv1d`` (torch-style
 symmetric padding, dilation, groups), ``ConvTranspose1d`` (torch
 padding/output_padding trim) and, for HCodec, the EnCodec padding math
 (``get_extra_padding_for_conv1d``, ``pad1d``), ``SConv1d``, ``CausalConv1d``
-and ``SubPixelConvTranspose1d``, with the padding arithmetic unchanged.
+and ``SubPixelConvTranspose1d``, each non-causal or causal, with the
+padding arithmetic unchanged.
 Public functions keep the JAX package's channels-last layout; weights use
 torch's layouts (Conv1d (out, in/groups, K), ConvTranspose1d (in, out, K)).
 At inference weight norm is folded into ``weight`` when the weights are
@@ -12,7 +13,9 @@ loaded (``utils/convert.py``), as the reference does. For training,
 ``Conv1d(weight_norm=True)`` (and ``SConv1d``, which passes it on) keeps
 the parametrization trainable as ``weight_g`` (out, 1, 1) and ``weight_v``
 (out, in/groups, K), the reference's names, and builds its kernel each call
-(:func:`weight_norm_kernel`).
+(:func:`weight_norm_kernel`); ``ConvTranspose1d(weight_norm=True)`` keeps
+``weight_g`` (1, out, 1) and ``weight_v`` (in, out, K), the norm again per
+output channel, as the JAX package takes it.
 """
 from __future__ import annotations
 
@@ -85,7 +88,8 @@ class ConvTranspose1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: Optional[int] = None,
-                 output_padding: Optional[int] = None, bias: bool = True):
+                 output_padding: Optional[int] = None, bias: bool = True,
+                 weight_norm: bool = False):
         super().__init__()
         self.stride = stride
         self.padding = (stride + 1) // 2 if padding is None else padding
@@ -94,12 +98,26 @@ class ConvTranspose1d(nn.Module):
         if self.padding < self.output_padding:
             raise ValueError(f"padding {self.padding} < output_padding "
                              f"{self.output_padding}")
-        self.weight = nn.Parameter(
-            torch.empty(in_channels, out_channels, kernel_size))
+        self.weight_norm = weight_norm
+        shape = (in_channels, out_channels, kernel_size)
+        if weight_norm:
+            self.weight_g = nn.Parameter(torch.ones(1, out_channels, 1))
+            self.weight_v = nn.Parameter(torch.empty(shape))
+        else:
+            self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
+    def kernel(self):
+        """The (in, out, K) kernel of this call; weight norm takes the norm
+        over (in, K) of each output channel."""
+        if self.weight_norm:
+            v = self.weight_v
+            return v * (self.weight_g / torch.sqrt(
+                v.square().sum(dim=(0, 2), keepdim=True) + 1e-12))
+        return self.weight
+
     def forward(self, x):
-        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias,
+        y = F.conv_transpose1d(x.transpose(1, 2), self.kernel(), self.bias,
                                stride=self.stride)
         end = y.shape[-1] - (self.padding - self.output_padding)
         return y[..., self.padding:end].transpose(1, 2)
@@ -150,15 +168,17 @@ def pad1d(x, paddings: Tuple[int, int]):
 
 
 class SConv1d(nn.Module):
-    """EnCodec conv, non-causal: asymmetric reflect pad of kernel - stride
-    (the larger half on the left) plus the extra right pad for a full last
-    window. Weight at ``conv.conv`` (``weight_g``/``weight_v`` with
-    ``weight_norm``)."""
+    """EnCodec conv: the reflect pad of kernel - stride, all of it on the
+    left when ``causal``, else split with the larger half on the left,
+    plus the extra right pad for a full last window. Weight at
+    ``conv.conv`` (``weight_g``/``weight_v`` with ``weight_norm``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, weight_norm: bool = False):
+                 stride: int = 1, weight_norm: bool = False,
+                 causal: bool = False):
         super().__init__()
-        self.kernel_size, self.stride = kernel_size, stride
+        self.kernel_size, self.stride, self.causal = (kernel_size, stride,
+                                                      causal)
         self.conv = Wrapped("conv", Conv1d(in_channels, out_channels,
                                            kernel_size, stride=stride,
                                            padding=0, weight_norm=weight_norm))
@@ -167,45 +187,52 @@ class SConv1d(nn.Module):
         total = self.kernel_size - self.stride
         extra = get_extra_padding_for_conv1d(x.shape[1], self.kernel_size,
                                              self.stride, total)
+        if self.causal:
+            return self.conv(pad1d(x, (total, extra)))
         right = total // 2
         return self.conv(pad1d(x, (total - right, right + extra)))
 
 
 class CausalConv1d(nn.Module):
-    """HCodec constant-pad conv: odd kernel; zeros (K - stride, 0) when
-    causal, else (K // 2, K // 2). Weight at ``conv``."""
+    """HCodec constant-pad conv: odd kernel, dilated span dk = (K - 1) *
+    dilation + 1; zeros (dk - stride, 0) when causal, else (dk // 2,
+    dk // 2). Weight at ``conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 causal: bool = False, stride: int = 1):
+                 causal: bool = False, stride: int = 1, dilation: int = 1):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError(f"kernel_size must be odd, got {kernel_size}")
-        self.stride = stride
-        self.pads = ((kernel_size - stride, 0) if causal
-                     else (kernel_size // 2, kernel_size // 2))
+        self.stride, self.dilation = stride, dilation
+        dk = (kernel_size - 1) * dilation + 1
+        self.pads = (dk - stride, 0) if causal else (dk // 2, dk // 2)
         self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=0)
 
     def forward(self, x):
         return conv1d(x, self.conv.weight, self.conv.bias, self.stride,
-                      padding=self.pads)
+                      self.dilation, padding=self.pads)
 
 
 class SubPixelConvTranspose1d(nn.Module):
-    """HCodec upsampler, non-causal: 1x1 conv to stride * C channels,
-    channels to time ((B, T, stride * C) -> (B, T * stride, C), the stride
-    index major in the channel axis), zero pad (K // 2, K // 2), depthwise
-    conv. Weights at ``up`` and ``dw``."""
+    """HCodec upsampler: 1x1 conv to stride * C channels, channels to time
+    ((B, T, stride * C) -> (B, T * stride, C), the stride index major in
+    the channel axis), zero pad (K - 1, 0) when causal, else (K // 2,
+    K // 2), depthwise conv. Weights at ``up`` and ``dw``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1):
+                 stride: int = 1, causal: bool = False):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError(f"kernel_size must be odd, got {kernel_size}")
         self.stride, self.channels = stride, out_channels
+        self.pads = ((kernel_size - 1, 0) if causal
+                     else (kernel_size // 2, kernel_size // 2))
         self.up = Conv1d(in_channels, out_channels * stride, 1, padding=0)
         self.dw = Conv1d(out_channels, out_channels, kernel_size,
-                         groups=out_channels)
+                         groups=out_channels, padding=0)
 
     def forward(self, x):
         b, t, _ = x.shape
-        return self.dw(self.up(x).reshape(b, t * self.stride, self.channels))
+        y = self.up(x).reshape(b, t * self.stride, self.channels)
+        return conv1d(y, self.dw.weight, self.dw.bias, groups=self.channels,
+                      padding=self.pads)

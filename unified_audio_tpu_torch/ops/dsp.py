@@ -209,7 +209,7 @@ def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
     mag = stft(x, n_fft, hop_length, win_length, center=True).abs()
     fb = _slaney_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate,
                         x.device)
-    return torch.einsum("bft,fm->bmt", mag, fb)
+    return torch.einsum("bft,fm->bmt", mag, fb.to(mag.dtype))
 
 
 @functools.lru_cache(maxsize=64)

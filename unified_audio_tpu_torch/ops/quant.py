@@ -275,7 +275,7 @@ class FactorizedVectorQuantize(nn.Module):
         super().__init__()
         if input_dim == codebook_dim:
             raise NotImplementedError("the identity-projection variant is "
-                                      "not ported")
+                                      "not ported (ROADMAP Queue 1)")
         self.codebook = nn.Embedding(codebook_size, codebook_dim)
         self.out_project = Conv1d(codebook_dim, input_dim, 1, padding=0)
         if tokenize:

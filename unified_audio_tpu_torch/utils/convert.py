@@ -31,7 +31,12 @@ numpy only: this module imports neither ``jax`` nor ``torch``.
   ``HCodec`` loads, weight norm folded. :func:`hcodec10_train_state_dict`
   and :func:`hcodec20_train_state_dict` give what ``HCodec(trainable=True)``
   loads: weight norm kept as ``weight_g`` (out, 1, 1) and ``weight_v``,
-  the codebooks' EMA buffers, the semantic decoder.
+  the codebooks' EMA buffers, the semantic decoder. A causal HCodec has
+  the same parameters, so the same functions serve it.
+* :func:`hcodec15_train_state_dict` and :func:`flexicodec_train_state_dict`:
+  HCodec-1.5's and FlexiCodec's JAX training variables -> what
+  ``AdaptiveHCodec(trainable=True)`` and ``FlexiCodec(trainable=True)``
+  load (weight norm kept, the EMA buffers).
 * :func:`fold_weight_norm` folds ``weight_g``/``weight_v`` pairs;
   :func:`hcodec15_inference_keys` and :func:`flexicodec_inference_keys`
   take the reference HCodec-1.5 and FlexiCodec layouts (what
@@ -89,8 +94,15 @@ def _conv(p, prefix: str, out: StateDict, unfold: bool = False):
         out[f"{prefix}.bias"] = _a(p["bias"])
 
 
-def _convtr(p, prefix: str, out: StateDict):
-    out[f"{prefix}.weight"] = _folded(p).transpose(1, 2, 0)
+def _convtr(p, prefix: str, out: StateDict, unfold: bool = False):
+    """Transposed-conv params -> ``weight`` (in, out, K), or with
+    ``unfold`` a weight-normed one's ``weight_g`` (1, out, 1) and
+    ``weight_v``."""
+    if unfold and "kernel_v" in p:
+        out[f"{prefix}.weight_g"] = _a(p["kernel_g"]).reshape(1, -1, 1)
+        out[f"{prefix}.weight_v"] = _a(p["kernel_v"]).transpose(1, 2, 0)
+    else:
+        out[f"{prefix}.weight"] = _folded(p).transpose(1, 2, 0)
     if "bias" in p:
         out[f"{prefix}.bias"] = _a(p["bias"])
 
@@ -291,24 +303,31 @@ def bicodec_decoder_state_dict(variables, cfg) -> StateDict:
            conditioned=True)
     _linear(pre["linear"], "prenet.linear", out)
 
-    w = p["decoder"]
-    _conv(w["conv_pre"], "decoder.model.0", out)
-    n = len(cfg.wave_rates)
+    _wave_generator(p["decoder"], "decoder", len(cfg.wave_rates), out)
+    return out
+
+
+def _dac_residual_unit(res, prefix: str, out: StateDict, unfold: bool):
+    _snake(res["snake1"], f"{prefix}.block.0.alpha", out)
+    _conv(res["conv1"], f"{prefix}.block.1", out, unfold)
+    _snake(res["snake2"], f"{prefix}.block.2.alpha", out)
+    _conv(res["conv2"], f"{prefix}.block.3", out, unfold)
+
+
+def _wave_generator(w, prefix: str, n: int, out: StateDict,
+                    unfold: bool = False):
+    """``WaveGenerator`` params of ``n`` upsampling blocks ->
+    ``{prefix}.model.{i}`` (weight norm folded, or kept with ``unfold``)."""
+    _conv(w["conv_pre"], f"{prefix}.model.0", out, unfold)
     for i in range(n):
-        bp = f"decoder.model.{i + 1}.block"
+        bp = f"{prefix}.model.{i + 1}.block"
         blk = w[f"block_{i}"]
         _snake(blk["snake"], f"{bp}.0.alpha", out)
-        _convtr(blk["upconv"], f"{bp}.1", out)
+        _convtr(blk["upconv"], f"{bp}.1", out, unfold)
         for j in range(3):
-            rp = f"{bp}.{j + 2}.block"
-            res = blk[f"res_{j}"]
-            _snake(res["snake1"], f"{rp}.0.alpha", out)
-            _conv(res["conv1"], f"{rp}.1", out)
-            _snake(res["snake2"], f"{rp}.2.alpha", out)
-            _conv(res["conv2"], f"{rp}.3", out)
-    _snake(w["snake_post"], f"decoder.model.{n + 1}.alpha", out)
-    _conv(w["conv_post"], f"decoder.model.{n + 2}", out)
-    return out
+            _dac_residual_unit(blk[f"res_{j}"], f"{bp}.{j + 2}", out, unfold)
+    _snake(w["snake_post"], f"{prefix}.model.{n + 1}.alpha", out)
+    _conv(w["conv_post"], f"{prefix}.model.{n + 2}", out, unfold)
 
 
 def _batchnorm(p, stats, prefix: str, out: StateDict):
@@ -498,11 +517,9 @@ def _codec_streams(variables, cfg, out: StateDict):
                          cfg.semantic_strides, out)
 
 
-def _hcodec10(variables, cfg, unfold: bool) -> StateDict:
-    p, out = variables["params"], {}
-    enc = p["encoder"]
+def _seanet_encoder(enc, n: int, out: StateDict, unfold: bool):
+    """A SEANet encoder of ``n`` ratios at ``encoder.model.{i}``."""
     _sconv(enc["conv_in"], "encoder.model.0", out, unfold)
-    n = len(cfg.seanet_ratios)
     for i in range(n):
         res = enc[f"res_{i}_0"]
         for ours, theirs in (("block_0", "block.1"), ("block_1", "block.3"),
@@ -513,6 +530,11 @@ def _hcodec10(variables, cfg, unfold: bool) -> StateDict:
     _hybrid_transformer(enc["transformer"], f"encoder.model.{2 + 3 * n}",
                         out)
     _sconv(enc["conv_out"], f"encoder.model.{5 + 3 * n}", out, unfold)
+
+
+def _hcodec10(variables, cfg, unfold: bool) -> StateDict:
+    p, out = variables["params"], {}
+    _seanet_encoder(p["encoder"], len(cfg.seanet_ratios), out, unfold)
     _codec_streams(variables, cfg, out)
     _codec_decoder10(p["decoder"], "decoder", out)
     return out
@@ -559,6 +581,107 @@ def hcodec20_train_state_dict(variables, cfg) -> StateDict:
     so it is :func:`hcodec20_state_dict`, whose codebook buffers and
     semantic decoder training loads."""
     return hcodec20_state_dict(variables, cfg)
+
+
+def _mimi_transformer(p, prefix: str, out: StateDict):
+    """A ``MimiTransformer``'s params (layers stacked on a leading axis) ->
+    ``{prefix}.layers.{i}`` (the fused ``in_proj_weight`` as it is)."""
+    stacked = p["layers"]["layer"]
+    for i in range(_a(stacked["layer_scale_1"]).shape[0]):
+        lp, pre = _index(stacked, i), f"{prefix}.layers.{i}"
+        _layernorm(lp["norm1"], f"{pre}.norm1", out)
+        _layernorm(lp["norm2"], f"{pre}.norm2", out)
+        out[f"{pre}.self_attn.in_proj_weight"] = lp["in_proj"]["kernel"].T
+        _linear(lp["out_proj"], f"{pre}.self_attn.out_proj", out)
+        _linear(lp["linear1"], f"{pre}.linear1", out)
+        _linear(lp["linear2"], f"{pre}.linear2", out)
+        for ls in ("layer_scale_1", "layer_scale_2"):
+            out[f"{pre}.{ls}.scale"] = _a(lp[ls])
+
+
+def _aggregators(p, names, out: StateDict):
+    for name in names:
+        if name in p:
+            out[f"{name}.query_embedding"] = _a(
+                p[name]["query_embedding"]).reshape(1, -1, 1)
+            _mimi_transformer(p[name]["transformer"],
+                              f"{name}.transformer.transformer", out)
+
+
+def _projected(p, prefix: str, out: StateDict):
+    """A ``MimiProjectedTransformer`` (projections only where the widths
+    differ)."""
+    for proj in ("input_proj", "output_proj"):
+        if proj in p:
+            _linear(p[proj], f"{prefix}.{proj}", out)
+    _mimi_transformer(p["transformer"], f"{prefix}.transformer", out)
+
+
+def hcodec15_train_state_dict(variables, cfg) -> StateDict:
+    """HCodec-1.5 (``AdaptiveHCodec``) variables ({"params", "codebook"};
+    ``cfg`` an ``AdaptiveConfig``) -> the state dict of the port's
+    ``AdaptiveHCodec(trainable=True)``: the SEANet encoder's weight norm as
+    ``weight_g``/``weight_v``, the four codebook buffers, the semantic
+    encoder and decoder, both aggregators, the bottleneck and the
+    decoder."""
+    base, p, out = cfg.base, variables["params"], {}
+    _seanet_encoder(p["encoder"], len(base.seanet_ratios), out, True)
+    _codec_streams(variables, base, out)
+    _codec_decoder10(p["decoder"], "decoder", out)
+    _aggregators(p, ("acoustic_aggregator", "semantic_aggregator"), out)
+    _projected(p["bottleneck"], "bottleneck_transformer", out)
+    return out
+
+
+def _cnx_adapter(p, prefix: str, proj_first: bool, out: StateDict):
+    """FlexiCodec's ``SemanticEncoderCNX`` (the 1x1 conv at index 0) or
+    ``SemanticDecoderCNX`` (the conv after the blocks), weight norm kept."""
+    stacked = p["blocks"]["stack"]["block"]
+    n = _a(stacked["norm"]["scale"]).shape[0]
+    _conv(p["proj"], f"{prefix}.{0 if proj_first else n}", out, True)
+    for i in range(n):
+        block, bp = _index(stacked, i), f"{prefix}.{i + int(proj_first)}"
+        _conv(block["dwconv"], f"{bp}.dwconv", out)
+        _layernorm(block["norm"], f"{bp}.norm", out)
+        _linear(block["pwconv1"], f"{bp}.pwconv1", out)
+        _linear(block["pwconv2"], f"{bp}.pwconv2", out)
+
+
+def flexicodec_train_state_dict(variables, cfg) -> StateDict:
+    """FlexiCodec variables ({"params"}; ``cfg`` a ``FlexiCodecConfig``)
+    -> the state dict of the port's ``FlexiCodec(trainable=True)``: every
+    weight-normed conv (the DAC encoder, the RVQ projections, the DAC
+    decoder and its transposed convs, the adapters' 1x1 convs) as
+    ``weight_g``/``weight_v``; the FSQ projections, the aggregators and
+    the bottleneck where the config has them."""
+    p, out = variables["params"], {}
+    enc, n = p["encoder"], len(cfg.encoder_rates)
+    _conv(enc["conv_pre"], "dac.encoder.block.0", out, True)
+    for i in range(n):
+        bp, blk = f"dac.encoder.block.{i + 1}.block", enc[f"block_{i}"]
+        for j in range(3):
+            _dac_residual_unit(blk[f"res_{j}"], f"{bp}.{j}", out, True)
+        _snake(blk["snake"], f"{bp}.3.alpha", out)
+        _conv(blk["down"], f"{bp}.4", out, True)
+    _snake(enc["snake_post"], f"dac.encoder.block.{n + 1}.alpha", out)
+    _conv(enc["conv_post"], f"dac.encoder.block.{n + 2}", out, True)
+    for i in range(cfg.n_codebooks):
+        q, qp = p["quantizer"][f"quantizers_{i}"], f"dac.quantizer.quantizers.{i}"
+        _conv(q["in_proj"], f"{qp}.in_proj", out, True)
+        _conv(q["out_proj"], f"{qp}.out_proj", out, True)
+        out[f"{qp}.codebook.weight"] = _a(q["codebook"])
+    _wave_generator(p["decoder"], "dac.decoder", len(cfg.decoder_rates), out,
+                    True)
+    _cnx_adapter(p["convnext_encoder"], "convnext_encoder", True, out)
+    _cnx_adapter(p["convnext_decoder"], "convnext_decoder", False, out)
+    for proj in ("project_in", "project_out"):
+        if proj in p.get("semantic_vq", {}):
+            _linear(p["semantic_vq"][proj], f"semantic_vq.fsq.{proj}", out)
+    _aggregators(p, ("semantic_aggregator", "acoustic_aggregator"), out)
+    if "bottleneck_transformer" in p:
+        _projected(p["bottleneck_transformer"], "bottleneck_transformer",
+                   out)
+    return out
 
 
 _WN_NAMES = ((".weight_g", ".weight_v"),

@@ -35,8 +35,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w = m.weight_v if wn else m.weight
             bound = 1.0 / math.sqrt(w[0].numel())
             w.uniform_(-bound, bound, generator=generator)
-            if wn:  # g = |v|: the kernel starts as v
-                m.weight_g.copy_(w.square().sum((1, 2), keepdim=True).sqrt())
+            if wn:  # g = |v| per output channel: the kernel starts as v
+                dims = (0, 2) if isinstance(m, ConvTranspose1d) else (1, 2)
+                m.weight_g.copy_(w.square().sum(dims, keepdim=True).sqrt())
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
