@@ -260,14 +260,36 @@ prints no result. Phases, each fatal on failure:
    row 0's loss and accuracy within 1e-4 of a CPU copy of the LM on the
    same codes and features, the CPU tokenizer's target codes >= 99.5%
    equal to the card's.
-12. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+12. Parallel training (``parallel/*``) through NCCL at world size 1 (one
+   card), at full width, random weights, fp32 with TF32 off; prints the
+   NCCL version and the world size. (a) ``torchrun --standalone
+   --nproc_per_node 1 -m unified_audio_tpu_torch.cli train-unise`` on phase
+   7's configuration (32 x 5 s, ``tp: 1``, one data worker so that the
+   batches are the seed's), 8 steps: the command must say it joined an
+   NCCL group of 1 on the (dp 1, tp 1) mesh; steps 1-2's loss and accuracy
+   within 1e-5 relative of the same configuration's run without
+   ``torchrun`` (2 steps, in this process); the median step wall (metrics
+   records, steps 3-8) beside phase 7's. (b) ``CodecGANTrainer`` at
+   HCodec-1.0's full width against the full discriminator ensemble, 5
+   steps of 8 x 3 s (the GAN terms from step 3), without a mesh and with
+   the (dp 1) mesh of an in-process NCCL group, both on deterministic
+   kernels (``torch.use_deterministic_algorithms``, cuDNN's): every
+   metric and the EMA buffers within 1e-5; K5's launches in the mesh run
+   8 a step + 8 x 51 for k-means, each search's codes equal to the plain
+   search's; both runs' median step walls beside phase 8's. (c)
+   ``llama_pipeline_forward`` (pp = 1, 2 microbatches) and
+   ``llama_sequence_parallel_forward`` (sp = 1) of the 512 x 12 LM on 4 x
+   540 positions within 1e-5 of the dense backbone. The group is destroyed
+   at the end.
+13. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
 above, each kernel's time, its plain version's and its bound; K2's
 launches are phase 3's, and phase 7 prints its own serve's; K5's are
-phase 4's staged encode, phase 8's training and phase 11's causal
-training and HCodec-1.5 training forwards, and its ``kmeans_m600``
+phase 4's staged encode, phase 8's training, phase 11's causal
+training and HCodec-1.5 training forwards and phase 12's dp codec
+training, and its ``kmeans_m600``
 entry the times on k-means' start at M = 600; K6's are the round trips'
 (phases 4, 5, 8, 9's two bf16 ones and ``roundtrip_codec_eval``, 10's
 HCodec-1.5 one and 11's causal ones) and phase 11's UniTok
@@ -1443,9 +1465,10 @@ def write_train_data(tmp, rng, write_wav):
     return {k: [str(tmp / f"{k}.scp")] for k in ("speech", "noise", "rir")}
 
 
-def train_config(tmp, scps, steps, name):
+def train_config(tmp, scps, steps, name, extra=None):
     """configs/unise.yaml with the SCP paths, the run's length, a 5-step
-    warmup, validation and the checkpoint directory changed (printed)."""
+    warmup, validation and the checkpoint directory changed, and the
+    ``extra`` changes (printed)."""
     from unified_audio_tpu_torch.utils.config import load_yaml
 
     cfg = load_yaml(REPO / "configs" / "unise.yaml")
@@ -1454,6 +1477,7 @@ def train_config(tmp, scps, steps, name):
                     "max_epochs": 1, "opt.warmup_steps": 5,
                     "val_every": 15, "val_batches": 2,
                     "ckpt_dir": str(tmp / "ckpt")})
+    changes.update(extra or {})
     for key, value in changes.items():
         node = cfg
         *parents, leaf = key.split(".")
@@ -1646,6 +1670,7 @@ def train_phase(torch, cli, pa, gpu, tmp, write_wav, read_wav):
     print(f"serve --ckpt step 30 --kv-quant int8: 2 segments, "
           f"{st['decode_steps']} decode steps, K2 launches {k2}, output "
           f"{out.shape} finite | {gpu}", flush=True)
+    return step_ms
 
 
 def agreement(torch, cli, trainer, gpu):
@@ -2006,7 +2031,7 @@ def codec_train_phase(torch, cli, vq, gpu, tmp, write_wav, read_wav):
     torch.cuda.empty_cache()
     return k5, k6, {"max_abs_err": 0.0, "ms": kern["ms"],
                     "plain_ms": plain["ms"], "bound_ms": b_ms,
-                    "records": kern["records"]}
+                    "records": kern["records"]}, step_ms
 
 
 def codec_agreement(torch, vq, quant, trainer, gpu):
@@ -3345,6 +3370,235 @@ def training_objectives_phase(torch, cli, vq, tok, gpu, tmp, write_wav):
     return k5, k6
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: parallel training through torch.distributed at world size 1
+# ---------------------------------------------------------------------------
+
+TORCHRUN_STEPS = 8  # train-unise steps under torchrun
+PAR_CODEC_STEPS, PAR_CODEC_ADV_FROM = 5, 2  # phase 12's codec runs
+PAR_SEQ = (4, 540)  # (B, S) of the pipeline and sequence-parallel forwards
+
+
+def metrics_by_step(path):
+    return {r["step"]: r for r in map(json.loads,
+                                      Path(path).read_text().splitlines())
+            if "loss" in r}
+
+
+def torchrun_phase(torch, cli, gpu, tmp, write_wav, train_ms):
+    """Phase 12 (a): ``cli train-unise`` under ``torchrun`` (NCCL, world 1)
+    against the same configuration's run without it."""
+    import os
+
+    scps = write_train_data(tmp, np.random.default_rng(9), write_wav)
+    one_worker = {"dataset.num_workers": 1, "tp": 1, "log_every": 1}
+    paths = {name: train_config(tmp, scps, steps, name, dict(
+        one_worker, ckpt_dir=str(tmp / f"ckpt_{name}")))
+        for name, steps in (("torchrun", TORCHRUN_STEPS), ("single", 2))}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "unified_audio_tpu_torch.cli",
+         "train-unise", "--config", str(paths["torchrun"])],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    joined = [l for l in proc.stderr.splitlines() if l.startswith("torchrun:")]
+    if proc.returncode != 0 or not joined or "nccl group of 1" not in \
+            joined[0]:
+        fail(f"train-unise under torchrun: rc {proc.returncode}, "
+             f"{joined}; stderr tail {proc.stderr[-3000:]}")
+    par = metrics_by_step(tmp / "ckpt_torchrun" / "metrics.jsonl")
+    torch.cuda.empty_cache()
+    cli.main(["train-unise", "--config", str(paths["single"])])
+    torch.cuda.empty_cache()
+    single = metrics_by_step(tmp / "ckpt_single" / "metrics.jsonl")
+    if sorted(par) != list(range(1, TORCHRUN_STEPS + 1)) or \
+            not np.isfinite([r["loss"] for r in par.values()]).all():
+        fail(f"torchrun steps {sorted(par)}")
+    for step in (1, 2):
+        for k in ("loss", "acc"):
+            a, b = par[step][k], single[step][k]
+            if abs(a - b) > 1e-5 * max(abs(b), 1e-6):
+                fail(f"step {step} {k} under torchrun {a} vs {b} without")
+    walls = [par[s]["wall_s"] - par[s - 1]["wall_s"]
+             for s in range(3, TORCHRUN_STEPS + 1)]
+    step_ms = 1e3 * float(np.median(walls))
+    print(f"{joined[0]}", flush=True)
+    print(f"train-unise under torchrun (NCCL, world 1, phase 7's 32 x 5 s "
+          f"at full width, one data worker): {TORCHRUN_STEPS} steps in "
+          f"{run_s:.1f} s of command; steps 1-2 loss "
+          f"{[par[s]['loss'] for s in (1, 2)]} acc "
+          f"{[par[s]['acc'] for s in (1, 2)]} = the run without torchrun's "
+          f"{[single[s]['loss'] for s in (1, 2)]} / "
+          f"{[single[s]['acc'] for s in (1, 2)]} within 1e-5; step wall "
+          f"(median of steps 3-{TORCHRUN_STEPS}, metrics records, data wait "
+          f"included) {step_ms:.1f} ms beside phase 7's {train_ms:.1f} ms "
+          f"(train_step alone) | {gpu}", flush=True)
+    return step_ms
+
+
+def codec_mesh_phase(torch, vq, gpu, mesh, codec_ms):
+    """Phase 12 (b): the codec GAN trainer without a mesh and on the (dp 1)
+    mesh, from the same weights and batches -> K5's launches in the mesh
+    run."""
+    from unified_audio_tpu_torch.models.hcodec.codec import (HCodec,
+                                                             hcodec10_config)
+    from unified_audio_tpu_torch.ops import quant
+    from unified_audio_tpu_torch.train.codec_trainer import (
+        CodecGANTrainer, CodecTrainConfig)
+    from unified_audio_tpu_torch.train.discriminators import (
+        CodecDiscriminator)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    cfg = hcodec10_config()
+    rng = np.random.default_rng(21)
+    wav = np.stack([0.5 * synth_speech(rng, CODEC_SEG)
+                    for _ in range(CODEC_BATCH)]).astype(np.float32)
+    wav = torch.as_tensor(wav, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    feat = torch.randn(CODEC_BATCH, CODEC_SEG * 50 // SR, cfg.feat_dim,
+                       device="cuda", generator=g)
+    # both runs on the deterministic kernels (index_add_'s, cuDNN's):
+    # otherwise two runs of one trainer part by up to ~5e-5 (relative) by
+    # step 5 (H100, torch 2.11), more than the mesh may
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = []
+    for m in (None, mesh):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.device("cuda"):
+            codec, disc = HCodec(cfg, trainable=True), CodecDiscriminator()
+        init_random_(codec, gen)
+        init_random_(disc, gen)
+        trainer = CodecGANTrainer(codec, CodecTrainConfig(
+            perceptual_start_step=PAR_CODEC_ADV_FROM), disc,
+            torch.Generator().manual_seed(1), mesh=m)
+        searches = []
+        search = quant.nearest_code
+
+        def recording(x, codebook):
+            codes = search(x, codebook)
+            if m is not None:
+                searches.append((x.detach().reshape(-1, x.shape[-1]).float(),
+                                 codebook.clone(), codes.reshape(-1)))
+            return codes
+
+        vq.nearest_code.launches = 0
+        metrics, walls = [], []
+        with patched([(quant, "nearest_code", recording)]):
+            for _ in range(PAR_CODEC_STEPS):
+                t0 = time.perf_counter()
+                metrics.append(trainer.train_step(wav, feat))
+                walls.append(time.perf_counter() - t0)
+        k5 = vq.nearest_code.launches
+        buffers = {k: v.clone() for k, v in codec.state_dict().items()
+                   if "._codebook." in k}
+        runs.append((metrics, walls, k5, buffers, searches))
+        del trainer, codec, disc
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = deterministic
+    (m0, w0, _, b0, _), (m1, w1, k5, b1, searches) = runs
+    worst = 0.0
+    for a, b in zip(m0, m1):
+        for k, v in a.items():
+            err = abs(v - b[k]) / max(abs(v), 1e-6)
+            worst = max(worst, err)
+    buf = max(float(((v - b1[k]).abs().max() / v.abs().max().clamp(min=1))
+                    .item()) for k, v in b0.items())
+    want_k5 = 8 * PAR_CODEC_STEPS + 8 * (quant.KMEANS_ITERS + 1)
+    equal = all(torch.equal(codes, vq.nearest_code_ref(x.contiguous(), cb))
+                for x, cb, codes in searches)
+    if not worst <= 1e-5 or not buf <= 1e-5 or k5 != want_k5 or \
+            len(searches) != k5 or not equal:
+        fail(f"codec trainer on the dp 1 mesh: metrics off by {worst:.3e} "
+             f"(relative), EMA buffers by {buf:.3e}, K5 launches {k5} "
+             f"(want {want_k5}), {len(searches)} searches, codes equal to "
+             f"plain {equal}")
+    med = lambda w: 1e3 * float(np.median(w[PAR_CODEC_ADV_FROM:]))
+    print(f"CodecGANTrainer(mesh=dp 1, NCCL) at HCodec-1.0 full width, "
+          f"{PAR_CODEC_STEPS} steps of {CODEC_BATCH} x 3 s (GAN terms from "
+          f"step {PAR_CODEC_ADV_FROM + 1}): every metric within "
+          f"{worst:.2e} (relative) and the EMA buffers within {buf:.2e} of "
+          f"the run without a mesh; gen_loss by step "
+          f"{[round(r['gen_loss'], 4) for r in m1]}; K5 launches {k5} = "
+          f"{want_k5}, every search's codes equal to plain; step wall "
+          f"(median of the GAN steps {PAR_CODEC_ADV_FROM + 1}-"
+          f"{PAR_CODEC_STEPS}, deterministic kernels) {med(w1):.1f} ms with "
+          f"the mesh, {med(w0):.1f} ms without; phase 8's {codec_ms:.1f} ms "
+          f"(steps {TIMED_FROM}-{CODEC_STEPS}, GAN terms from step "
+          f"{CODEC_ADV_FROM + 1}, HuBERT features and data included) | "
+          f"{gpu}", flush=True)
+    return k5
+
+
+def forwards_phase(torch, gpu):
+    """Phase 12 (c): the pipeline (pp 1) and sequence-parallel (sp 1)
+    forwards of the full-width LM against the dense backbone."""
+    from unified_audio_tpu_torch.models.lm.llama import (LlamaBackbone,
+                                                         LlamaConfig)
+    from unified_audio_tpu_torch.parallel.mesh import make_mesh_axes
+    from unified_audio_tpu_torch.parallel.pipeline import (
+        llama_pipeline_forward)
+    from unified_audio_tpu_torch.parallel.sequence import (
+        llama_sequence_parallel_forward)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    cfg = LlamaConfig()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    with torch.device("cuda"):
+        bb = LlamaBackbone(cfg)
+    init_random_(bb, gen)
+    x = torch.randn(*PAR_SEQ, cfg.hidden_size, device="cuda", generator=gen)
+    with torch.no_grad():
+        dense = bb.backbone(x)
+        pipe = bb.norm(llama_pipeline_forward(bb, x, make_mesh_axes(pp=1),
+                                              2))
+        seq = bb.norm(llama_sequence_parallel_forward(
+            bb, x, make_mesh_axes(sp=1)))
+    errs = [float((y - dense).abs().max()) for y in (pipe, seq)]
+    if not max(errs) <= 1e-5:
+        fail(f"pipeline / sequence-parallel forwards vs dense: {errs}")
+    print(f"llama_pipeline_forward (pp 1, 2 microbatches) and "
+          f"llama_sequence_parallel_forward (sp 1) of the 512 x 12 LM on "
+          f"{PAR_SEQ[0]} x {PAR_SEQ[1]} positions: max abs diff from the "
+          f"dense backbone {errs[0]:.2e} and {errs[1]:.2e} | {gpu}",
+          flush=True)
+
+
+def parallel_phase(torch, cli, vq, gpu, tmp, write_wav, train_ms, codec_ms):
+    """Phase 12 -> K5's launches on its path (the dp codec run)."""
+    import socket
+
+    from unified_audio_tpu_torch.parallel import distributed
+    from unified_audio_tpu_torch.parallel.mesh import make_mesh_axes
+
+    t0 = time.perf_counter()
+    torchrun_phase(torch, cli, gpu, tmp, write_wav, train_ms)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        dist = torch.distributed
+        print(f"NCCL version {'.'.join(map(str, torch.cuda.nccl.version()))}",
+              flush=True)
+        print(f"world size {dist.get_world_size()} (backend "
+              f"{dist.get_backend()})", flush=True)
+        k5 = codec_mesh_phase(torch, vq, gpu, make_mesh_axes(dp=1), codec_ms)
+        forwards_phase(torch, gpu)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s; K5 launches "
+          f"{k5}", flush=True)
+    return k5
+
+
 def main():
     try:
         import torch
@@ -3512,12 +3766,14 @@ def main():
 
     # 7. UniSE SFT training
     with tempfile.TemporaryDirectory() as tmp:
-        train_phase(torch, cli, pa, gpu, Path(tmp), write_wav, read_wav)
+        train_ms = train_phase(torch, cli, pa, gpu, Path(tmp), write_wav,
+                               read_wav)
 
     # 8. HCodec-1.0 GAN training
     with tempfile.TemporaryDirectory() as tmp:
-        k5_train_launches, k6_train_launches, k5_train = codec_train_phase(
-            torch, cli, vq, gpu, Path(tmp), write_wav, read_wav)
+        k5_train_launches, k6_train_launches, k5_train, codec_ms = \
+            codec_train_phase(torch, cli, vq, gpu, Path(tmp), write_wav,
+                              read_wav)
 
     # 9. the JAX CLI's remaining commands: enhance, codec --dtype bfloat16,
     # eval
@@ -3544,7 +3800,12 @@ def main():
         k5_11_launches, k6_11_launches = training_objectives_phase(
             torch, cli, vq, tok, gpu, Path(tmp), write_wav)
 
-    # 12. nothing of JAX or the JAX package was loaded
+    # 12. parallel training through torch.distributed at world size 1
+    with tempfile.TemporaryDirectory() as tmp:
+        k5_12_launches = parallel_phase(torch, cli, vq, gpu, Path(tmp),
+                                        write_wav, train_ms, codec_ms)
+
+    # 13. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:
@@ -3585,7 +3846,8 @@ def main():
                         "records": r["records"]})
     for name, fn, tpu, n_launch, nq in (
             ("K5", vq.nearest_code, K5_TPU,
-             k5_launches + k5_train_launches + k5_11_launches, 1),
+             k5_launches + k5_train_launches + k5_11_launches
+             + k5_12_launches, 1),
             ("K6", vq.rvq_encode_fused, K6_TPU,
              k6_launches + k6_20_launches + k6_train_launches
              + k6_cli_launches + k6_15_launches + k6_11_launches, 4)):

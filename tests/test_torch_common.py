@@ -294,9 +294,11 @@ class TestPortImportsNoJax:
         trips), HCodec-1.5 adaptive and FlexiCodec with the Mimi
         transformer, the fbank frontend and the SAN-M teacher, the
         UniTok pipeline and engine, the step profiler, CodecLM
-        pretraining with its token corpus, and the training
+        pretraining with its token corpus, the training
         modules (the UniSE and codec trainers, the discriminators,
-        checkpoints, both data pipelines, config, logging) still import,
+        checkpoints, both data pipelines, config, logging) and the
+        parallel ones (process start-up, meshes, the pipeline, the
+        sequence-parallel prefill) still import,
         and no module of the JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
@@ -329,7 +331,11 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.models.ssl.sanm, "
                 "unified_audio_tpu_torch.ops.fbank, "
                 "unified_audio_tpu_torch.data.token_corpus, "
-                "unified_audio_tpu_torch.train.pretrain; "
+                "unified_audio_tpu_torch.train.pretrain, "
+                "unified_audio_tpu_torch.parallel.distributed, "
+                "unified_audio_tpu_torch.parallel.mesh, "
+                "unified_audio_tpu_torch.parallel.pipeline, "
+                "unified_audio_tpu_torch.parallel.sequence; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
                 "assert not shared, shared")

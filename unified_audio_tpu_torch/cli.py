@@ -42,6 +42,17 @@ checkpoint's ``state_dict`` is the LM in the reference layout, what
 (what ``export_bicodec_state_dict`` writes); XLSR-53 and WavLM are random
 from the seed.
 
+Under ``torchrun`` (``torchrun --nproc_per_node N -m
+unified_audio_tpu_torch.cli train-unise --config C.yaml``) every process
+joins one NCCL group on ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``)
+and trains on the (dp, tp) mesh, ``tp`` from the config (JAX: the mesh
+of ``cmd_train_unise`` whenever there is more than one device): the LM's
+projections cut over tp, each dp rank on its own batches of the
+dataset's ``batch_size`` (per rank), the gradients averaged over dp. Only
+rank 0 logs and writes checkpoints, which hold the whole model in the
+single-device layout, so a run resumes at another world size or tp.
+Without ``torchrun`` the command runs on one device.
+
 ``train-codec`` ports ``cmd_train_codec``: HCodec's GAN training (the
 config's ``model``, ``hcodec10`` or ``hcodec20``, at its ``codec`` widths)
 against the MPD + MS-STFT discriminators, ``batch_size`` segments of
@@ -292,44 +303,120 @@ def _prepare_wav(wav: np.ndarray, fs: int, sr: int = TARGET_SR,
     return wav.astype(np.float32)
 
 
+def _torchrun_mesh(device: str, tp: int):
+    """Under ``torchrun`` (its ``WORLD_SIZE`` in the environment): join the
+    process group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+    cpu``; no fallback) and build the (dp, tp) mesh -> (mesh, this rank's
+    device). Without ``torchrun``: (None, ``device``)."""
+    import os
+
+    if "WORLD_SIZE" not in os.environ:
+        return None, device
+    from .parallel import distributed
+    from .parallel import mesh as mesh_lib
+
+    try:
+        distributed.initialize(device=device)
+    except (RuntimeError, ValueError) as e:
+        sys.exit(f"error: {e}")
+    if device == "cuda":
+        device = f"cuda:{torch.cuda.current_device()}"
+    try:
+        mesh = mesh_lib.make_mesh(tp=tp)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    dist = torch.distributed
+    if dist.get_rank() == 0:
+        dp = mesh_lib.axis_size(mesh, "dp")
+        print(f"torchrun: {dist.get_backend()} group of "
+              f"{dist.get_world_size()} on the (dp {dp}, tp {tp}) mesh; "
+              f"rank 0 on {device}", file=sys.stderr)
+    return mesh, device
+
+
+class _Quiet:
+    """The logger of a rank other than 0: records nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
 def cmd_train_unise(args):
     """Train UniSE's LM as the config says (see the module docstring)."""
-    from .data.data_module import Prefetcher, TrainDataIterator
-    from .train.checkpoint import CheckpointManager
+    import torch.distributed as dist
+
     from .train.optim import Optimizer
-    from .train.sft_trainer import SFTTrainer, Validator
+    from .train.sft_trainer import SFTTrainer
     from .utils.config import load_yaml
-    from .utils.logging import MetricsLogger
 
     _require_files(("--config", args.config), ("--ckpt", args.ckpt),
                    ("--bicodec-ckpt", args.bicodec_ckpt))
     device = _device(args.device)
     cfg = load_yaml(args.config)
-    unise = _build_unise(ckpt=args.ckpt, device=device, tokenize=True,
-                         bicodec_ckpt=args.bicodec_ckpt,
-                         seed=cfg.get("seed", WEIGHT_SEED))
-    trainer = SFTTrainer(unise, Optimizer(unise.sft.parameters(),
-                                          **cfg.get("opt", {})))
+    mesh, device = _torchrun_mesh(device, cfg.get("tp", 1))
+    rank = dist.get_rank() if mesh is not None else 0
+    try:
+        unise = _build_unise(ckpt=args.ckpt, device=device, tokenize=True,
+                             bicodec_ckpt=args.bicodec_ckpt,
+                             seed=cfg.get("seed", WEIGHT_SEED))
+        trainer = SFTTrainer(unise, Optimizer(unise.sft.parameters(),
+                                              **cfg.get("opt", {})),
+                             mesh=mesh)
+        _train_unise(trainer, cfg, device, mesh, rank)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    return trainer
+
+
+def _train_unise(trainer, cfg, device, mesh, rank):
+    """The training loop of ``cmd_train_unise``: rank 0 logs and writes
+    the checkpoints (which every rank gathers)."""
+    from .data.data_module import Prefetcher, TrainDataIterator
+    from .parallel import mesh as mesh_lib
+    from .train.checkpoint import CheckpointManager
+    from .train.sft_trainer import Validator
+    from .utils.logging import MetricsLogger
+
     ckpt_dir = cfg.get("ckpt_dir", "./checkpoints")
     ckpt = CheckpointManager(ckpt_dir)
     last = ckpt.latest_step()
     if last is not None:
         trainer.load_state_dict(ckpt.restore(last, map_location=device))
-        print(f"resumed from step {last} at learning rate "
-              f"{trainer.optimizer.lr:.9g}", file=sys.stderr)
+        if rank == 0:
+            print(f"resumed from step {last} at learning rate "
+                  f"{trainer.optimizer.lr:.9g}", file=sys.stderr)
 
-    data = Prefetcher(TrainDataIterator(**cfg["dataset"]), device)
-    val_iter = (TrainDataIterator(**cfg["val_dataset"])
+    def save():
+        state = trainer.state_dict()
+        if rank == 0:
+            ckpt.save(trainer.step, state)
+
+    # each dp coordinate draws its own batches; its tp peers take the same
+    shard = {}
+    if mesh is not None:
+        index, count = mesh_lib.dp_shard(mesh)
+        shard = dict(process_index=index, process_count=count)
+    data = Prefetcher(TrainDataIterator(**cfg["dataset"], **shard), device)
+    val_iter = (TrainDataIterator(**cfg["val_dataset"], **shard)
                 if "val_dataset" in cfg else None)
-    validator = Validator(unise) if val_iter is not None else None
+    validator = (Validator(trainer.unise, mesh) if val_iter is not None
+                 else None)
     val_every = cfg.get("val_every", 1000)
     val_batches = cfg.get("val_batches", 16)
     log_every = cfg.get("log_every", 10)
     save_every = cfg.get("save_every", 1000)
     log_path = cfg.get("metrics_log", str(Path(ckpt_dir) / "metrics.jsonl"))
-    with MetricsLogger(log_path) as mlog:
+    with (MetricsLogger(log_path) if rank == 0 else _Quiet()) as mlog:
         for epoch in range(cfg.get("max_epochs", 100)):
-            for mode, enroll, mix, speech, interf, *_ in data:
+            for mode, enroll, mix, speech, interf, *_ in \
+                    mesh_lib.share_batches(data, mesh):
                 target = interf if mode == "rtse" else speech
                 lr = trainer.optimizer.lr
                 loss, acc = trainer.train_step(mode, enroll, mix, target)
@@ -337,13 +424,12 @@ def cmd_train_unise(args):
                     mlog.log(trainer.step, epoch=epoch, task=mode,
                              loss=loss, acc=acc, lr=lr)
                 if validator is not None and trainer.step % val_every == 0:
-                    batches = itertools.islice(
-                        iter(Prefetcher(val_iter, device)), val_batches)
+                    batches = itertools.islice(mesh_lib.share_batches(
+                        Prefetcher(val_iter, device), mesh), val_batches)
                     mlog.log(trainer.step, **validator.run(batches))
-                    ckpt.save(trainer.step, trainer.state_dict())
+                    save()
                 elif trainer.step % save_every == 0:
-                    ckpt.save(trainer.step, trainer.state_dict())
-    return trainer
+                    save()
 
 
 def cmd_train_codec(args):

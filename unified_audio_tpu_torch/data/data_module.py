@@ -5,11 +5,17 @@ SCP parsing (``WaveInfo``, ``load_scp``), speaker-paired sampling (two
 utterances of the target speaker, one of an interfering speaker), a random
 task per batch in {se, tse, rtse}, the simulation of
 ``data/simulation.py``, ``ThreadPoolExecutor`` workers feeding a bounded
-queue, and sharding by rank (``torch.distributed``'s when it is
-initialized, else rank 0 of 1). All draws come from one ``random.Random``
+queue, and sharding by rank: by the given ``process_index`` /
+``process_count`` (under a mesh, its dp coordinate and size:
+``parallel/mesh.py dp_shard``), else ``torch.distributed``'s rank when it
+is initialized, else rank 0 of 1. ``batch_size`` is per rank, as it is per
+process in the JAX package. All draws come from one ``random.Random``
 and one ``np.random.Generator``, seeded from ``seed`` and the rank and
 shared by the workers, as in the JAX package: with more than one worker,
-which sample takes which draw depends on thread timing.
+which sample takes which draw depends on thread timing, so two iterators
+of one seed need not agree. Ranks that must train on the same batches
+(tp and pp peers) take them from one iterator through
+``parallel/mesh.py share_batches``.
 
 Two changes from the JAX package: an error in the producer (a wav that
 fails to load three times) reaches the consumer, which raises it, where the
@@ -138,6 +144,19 @@ def normalize_src_tgt(src, tgt, rng: random.Random, low=0.1, high=0.99):
     return src * factor, tgt * factor
 
 
+def data_shard(process_index: Optional[int] = None,
+               process_count: Optional[int] = None):
+    """-> (index, count) of this rank's share of the data: the given ones;
+    else ``torch.distributed``'s rank and world size when it is
+    initialized; else (0, 1)."""
+    if process_index is not None:
+        return process_index, process_count
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def normalize_mix_speech_interf(mix, speech, interf, rng: random.Random,
                                 low=0.1, high=0.99):
     a, b, c = (np.max(np.abs(x)) for x in (mix, speech, interf))
@@ -178,14 +197,7 @@ class TrainDataIterator:
         self.samples_per_epoch = samples_per_epoch
         self.sim_config = simulation_config or simulation.DEFAULT_SIM_CONFIG
 
-        if process_index is None:
-            dist = torch.distributed
-            if dist.is_available() and dist.is_initialized():
-                process_index, process_count = (dist.get_rank(),
-                                                dist.get_world_size())
-            else:
-                process_index, process_count = 0, 1
-        self.rank, self.world_size = process_index, process_count
+        self.rank, self.world_size = data_shard(process_index, process_count)
         self.rng = random.Random(seed + 1000 * self.rank)
         self.nprng = np.random.default_rng(seed + 1000 * self.rank)
 

@@ -6,9 +6,11 @@ cycles the domains in turn.
 Port of ``unified_audio_tpu/data/hcodec_data.py`` (``DomainWeightedIterator``,
 ``RoundRobinValIterator``) over the port's own ``load_scp`` and
 ``pad_or_cut``. The draws come from one ``random.Random`` seeded from
-``seed`` and the rank, shared by the ``num_workers`` threads, as in the JAX
-package: with one worker the batches are the JAX package's, with more
-which crop takes which draw depends on thread timing. One change: an
+``seed`` and the rank (as ``data_module.data_shard`` decides: under a
+mesh, pass its dp coordinate and size; ``batch_size`` is per rank), shared
+by the ``num_workers`` threads, as in the JAX package: with one worker the
+batches are the JAX package's, with more which crop takes which draw
+depends on thread timing. One change: an
 error in the producer (a domain whose wavs fail to load three times)
 reaches the consumer, which raises it, where the JAX iterator waits
 forever.
@@ -22,10 +24,10 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Sequence
 
 import numpy as np
-import torch
 
 from .audio_io import read_wav
-from .data_module import _consume, _drain_into, load_scp, pad_or_cut
+from .data_module import (_consume, _drain_into, data_shard, load_scp,
+                          pad_or_cut)
 
 
 class DomainWeightedIterator:
@@ -61,15 +63,8 @@ class DomainWeightedIterator:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.samples_per_epoch = samples_per_epoch
-        if process_index is None:
-            dist = torch.distributed
-            if dist.is_available() and dist.is_initialized():
-                process_index, process_count = (dist.get_rank(),
-                                                dist.get_world_size())
-            else:
-                process_index, process_count = 0, 1
-        self.rank, self.world = process_index, process_count
-        self.rng = random.Random(seed + 1000 * process_index)
+        self.rank, self.world = data_shard(process_index, process_count)
+        self.rng = random.Random(seed + 1000 * self.rank)
 
     def __len__(self):
         return self.samples_per_epoch // (self.world * self.batch_size)

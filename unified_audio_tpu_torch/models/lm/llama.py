@@ -25,6 +25,8 @@ import torch
 from torch import nn
 
 from ...nn.transformer import RMSNorm, apply_rope, rope_cos_sin
+from ...parallel.mesh import (copy_to_group, gather_from_group,
+                              reduce_from_group)
 
 NEG_INF = -1e9
 
@@ -90,6 +92,10 @@ def range_mask(cfg: LlamaConfig, offset: int, size: int,
 
 
 class LlamaAttention(nn.Module):
+    """Self-attention over ``q_proj.weight.shape[0] // head_dim`` heads: all
+    of them, or this rank's H/tp once ``parallel/mesh.py shard_lm_`` has
+    cut the projections and set ``tp_group``."""
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         d = cfg.hidden_size
@@ -98,18 +104,30 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(d, d, bias=False)
         self.v_proj = nn.Linear(d, d, bias=False)
         self.o_proj = nn.Linear(d, d, bias=False)
+        self.tp_group = None
+
+    @property
+    def local_heads(self) -> int:
+        return self.q_proj.weight.shape[0] // self.cfg.head_dim
+
+    def project_in(self, x):
+        """x (..., D) -> this rank's q, k, v, each (..., H_local * hd)."""
+        x = copy_to_group(x, self.tp_group)
+        return self.q_proj(x), self.k_proj(x), self.v_proj(x)
+
+    def project_out(self, attn):
+        """(..., H_local * hd) -> (..., D), summed over tp."""
+        return reduce_from_group(self.o_proj(attn), self.tp_group)
 
     def forward(self, x, mask, cos, sin, cache, li: int):
         """x (B, S, D). With a cache, the new K/V rows are written into it
         at its index IN PLACE (the cache is one preallocated buffer, so no
         copy of it is made per step) and the attention reads the whole
         buffer; without one (training), it reads the S new rows."""
-        cfg = self.cfg
         b, s, _ = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
-        q = self.q_proj(x).view(b, s, h, hd)
-        k = self.k_proj(x).view(b, s, h, hd)
-        v = self.v_proj(x).view(b, s, h, hd)
+        h, hd = self.local_heads, self.cfg.head_dim
+        q, k, v = self.project_in(x)
+        q, k, v = (t.view(b, s, h, hd) for t in (q, k, v))
         q, k = apply_rope(q, k, cos, sin)
         if cache is not None:
             idx = cache["index"]
@@ -119,20 +137,25 @@ class LlamaAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
         probs = torch.softmax(logits + mask, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, -1)
-        return self.o_proj(out)
+        return self.project_out(out)
 
 
 class LlamaMLP(nn.Module):
+    """The gated MLP; under tp each rank holds 4D/tp of its channels."""
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         d, inter = cfg.hidden_size, cfg.hidden_size * 4
         self.gate_proj = nn.Linear(d, inter, bias=False)
         self.up_proj = nn.Linear(d, inter, bias=False)
         self.down_proj = nn.Linear(inter, d, bias=False)
+        self.tp_group = None
 
     def forward(self, x):
-        return self.down_proj(
-            nn.functional.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to_group(x, self.tp_group)
+        return reduce_from_group(self.down_proj(
+            nn.functional.silu(self.gate_proj(x)) * self.up_proj(x)),
+            self.tp_group)
 
 
 class LlamaLayer(nn.Module):
@@ -162,9 +185,13 @@ class LlamaBackbone(nn.Module):
             [LlamaLayer(cfg) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size)
 
-    def backbone(self, embeds):
+    def backbone(self, embeds, stack=None):
         """(B, S, D) -> normed hidden states (B, S, D), every position
-        attending to itself and the ones before it."""
+        attending to itself and the ones before it. ``stack(embeds)``, if
+        given, runs the layers instead of the loop here (the pipeline,
+        ``parallel/pipeline.py``)."""
+        if stack is not None:
+            return self.norm(stack(embeds))
         cfg = self.cfg
         s = embeds.shape[1]
         pos = torch.arange(s, device=embeds.device)
@@ -205,6 +232,24 @@ class CodecLM(LlamaBackbone):
         self.codec_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.output_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias=False)
+        self.tp_group = None
+
+    def _gathered(self, x, weight):
+        """``x`` made whole over tp where ``weight`` is cut
+        (``parallel/mesh.py``: the embedding over D, the head over V)."""
+        if getattr(weight, "tp_dim", None) is None:
+            return x
+        return gather_from_group(x, self.tp_group)
+
+    def embed_codes(self, ids):
+        """ids (...) -> (..., D) code embeddings."""
+        return self._gathered(self.codec_embedding(ids),
+                              self.codec_embedding.weight)
+
+    def head(self, hidden):
+        """(..., D) -> (..., V) logits."""
+        return self._gathered(self.output_head(hidden),
+                              self.output_head.weight)
 
     def loss_function(self, logits, targets):
         """Label-smoothed KL divergence, averaged over tokens: the target
@@ -224,12 +269,12 @@ class CodecLM(LlamaBackbone):
               - (conf - fill) * logp.gather(-1, targets[:, None])[:, 0])
         return kl.sum() / logp.shape[0]
 
-    def forward_embeds(self, embeds, target_ids):
+    def forward_embeds(self, embeds, target_ids, stack=None):
         """Training forward over an assembled embedding sequence: the loss
         and the accuracy of the trailing ``target_ids.shape[1]`` positions
-        -> (loss, acc), fp32 scalars."""
+        -> (loss, acc), fp32 scalars. ``stack``: see :meth:`backbone`."""
         t = target_ids.shape[-1]
-        logits = self.output_head(self.backbone(embeds)[:, -t:])
+        logits = self.head(self.backbone(embeds, stack)[:, -t:])
         loss = self.loss_function(logits, target_ids)
         acc = (torch.argmax(logits, dim=-1) == target_ids).float().mean()
         return loss, acc
@@ -253,20 +298,20 @@ class CodecLM(LlamaBackbone):
                                s], dim=1)[:, :-1]
         target_ids = torch.cat([g, tok(cfg.semantic_sos), s,
                                 tok(cfg.semantic_eos)], dim=1)[:, :-1]
-        embeds = self.codec_embedding(input_ids)
+        embeds = self.embed_codes(input_ids)
         if cond_embeds is not None:
             embeds = torch.cat([cond_embeds.to(embeds.dtype), embeds], dim=1)
         return self.forward_embeds(embeds, target_ids)
 
     def prefill(self, embeds, cache):
         hidden, cache = self.cached_forward(embeds, cache)
-        return self.output_head(hidden[:, -1]), cache
+        return self.head(hidden[:, -1]), cache
 
     def decode_ids(self, ids, cache):
         """ids (B,) -> (logits (B, V), cache): one decode step."""
-        hidden, cache = self.cached_forward(self.codec_embedding(ids[:, None]),
+        hidden, cache = self.cached_forward(self.embed_codes(ids[:, None]),
                                             cache)
-        return self.output_head(hidden[:, -1]), cache
+        return self.head(hidden[:, -1]), cache
 
 
 # ---------------------------------------------------------------------------

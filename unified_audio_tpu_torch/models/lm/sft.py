@@ -60,9 +60,11 @@ class LLMSFT(CodecLM):
         return torch.cat(parts, dim=1)
 
     def forward(self, task_id, enroll_feats, mix_feats, global_ids,
-                semantic_ids):
+                semantic_ids, stack=None):
         """SFT loss: global_ids (B, G), semantic_ids (B, T) -> (loss, acc)
-        over the G + T + 2 targets."""
+        over the G + T + 2 targets. ``stack(embeds)`` runs the layer stack
+        instead of the dense loop (``parallel/pipeline.py
+        sft_pipeline_loss``)."""
         cfg = self.cfg
         b, dev = global_ids.shape[0], global_ids.device
 
@@ -76,8 +78,8 @@ class LLMSFT(CodecLM):
         target_ids = torch.cat([g, special(cfg.semantic_sos), s,
                                 special(cfg.semantic_eos)], dim=1)
         embeds = torch.cat([self.prompt(task_id, enroll_feats, mix_feats),
-                            self.codec_embedding(input_ids)], dim=1)
-        return self.forward_embeds(embeds, target_ids)
+                            self.embed_codes(input_ids)], dim=1)
+        return self.forward_embeds(embeds, target_ids, stack)
 
     @torch.no_grad()
     def generate(self, task_id, enroll_feats, mix_feats,

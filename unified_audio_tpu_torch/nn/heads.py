@@ -2,7 +2,8 @@
 
 Port of ``ISTFTHead`` in ``unified_audio_tpu/nn/heads.py``: a linear layer
 to (log-magnitude, phase), then exp (clipped at 1e2), cos/sin and the
-"same"-padded ISTFT, all in fp32. The weight sits at ``out``.
+"same"-padded ISTFT, all in fp32 (in fp64 for an fp64 model). The weight
+sits at ``out``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ class ISTFTHead(nn.Module):
 
     def forward(self, x):
         n = self.n_fft // 2 + 1
-        out = self.out(x).float()
+        out = self.out(x)
+        out = out.to(torch.promote_types(out.dtype, torch.float32))
         mag = torch.exp(out[..., :n]).clamp(max=1e2)
         phase = out[..., n:]
         spec = torch.complex(mag * torch.cos(phase), mag * torch.sin(phase))

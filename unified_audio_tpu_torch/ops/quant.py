@@ -25,6 +25,15 @@ out: it writes replacement rows into the codebook that the EMA update
 overwrites a few lines later (as in the upstream EnCodec ``core_vq``), so
 the codebook comes out the same without it.
 
+Under data parallelism (:func:`set_dp_group`, which
+``CodecGANTrainer(mesh=)`` calls) the statistics are global over the
+batch, as under GSPMD in the JAX package: k-means on the first batch runs
+over the rows all-gathered over dp in rank order (the global batch's
+order), so every rank computes the global k-means; the EMA counts and
+embedding sums are all-reduced before the update (JAX's ``_maybe_psum``).
+The generator must be seeded alike on every rank (never with the rank
+added): the rows and the cutoff are then the same draws everywhere.
+
 Parameter names follow the reference layouts (``codebook.weight``,
 ``in_project.weight``, ``out_project.weight``, ``project_in.weight``,
 ``project_out.weight``, ``layers.{i}._codebook.embed`` of shape (1, N, D);
@@ -37,6 +46,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..nn.conv import Conv1d
@@ -106,6 +116,33 @@ def kmeans(samples, num_clusters: int, num_iters: int = 10, generator=None):
     return means, bins
 
 
+def _all_gather_rows(x, group):
+    """(M, D) on every rank of ``group`` -> (n * M, D) in rank order. Every
+    rank holds the same M (the data iterators yield a fixed per-rank
+    batch): a max all-reduce of the counts, once a training run (k-means
+    runs on the first batch), raises ``ValueError`` where they differ."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    most = torch.tensor([x.shape[0], -x.shape[0]], device=x.device)
+    dist.all_reduce(most, op=dist.ReduceOp.MAX, group=group)
+    if int(most[0]) != -int(most[1]):
+        raise ValueError(f"k-means over dp needs the same rows on every "
+                         f"rank, got {-int(most[1])} to {int(most[0])}")
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def set_dp_group(module: nn.Module, group):
+    """Hand ``group`` (the dp axis's process group, or None) to every EMA
+    ``VectorQuantization`` in ``module``."""
+    for m in module.modules():
+        if isinstance(m, VectorQuantization):
+            m.dp_group = group
+    return module
+
+
 class _Codebook(nn.Module):
     """The codebook's buffers; with ``ema`` also the EMA statistics and the
     k-means flag, which the host tracks once it has read it."""
@@ -144,6 +181,7 @@ class VectorQuantization(nn.Module):
         super().__init__()
         self._codebook = _Codebook(codebook_size, dim, ema)
         self.kmeans_iters = KMEANS_ITERS
+        self.dp_group = None  # statistics global over dp (set_dp_group)
 
     @property
     def embed(self):
@@ -173,14 +211,18 @@ class VectorQuantization(nn.Module):
         flat = x.detach().reshape(-1, x.shape[-1])
         with torch.no_grad():
             if not cb.is_initted():
-                means, bins = kmeans(flat, n_codes, self.kmeans_iters,
-                                     generator)
+                means, bins = kmeans(_all_gather_rows(flat, self.dp_group),
+                                     n_codes, self.kmeans_iters, generator)
                 cb.embed[0] = means
                 cb.embed_avg[0] = means
                 cb.cluster_size[0] = bins
             idx = nearest_code(flat, self.embed)
             quantized = self.decode(idx)
             counts, embed_sum = _bins_and_sums(flat, idx, n_codes)
+            if self.dp_group is not None:
+                stats = torch.cat([counts[:, None], embed_sum], dim=1)
+                dist.all_reduce(stats, group=self.dp_group)
+                counts, embed_sum = stats[:, 0], stats[:, 1:]
             d, eps = EMA_DECAY, LAPLACE_EPSILON
             size = cb.cluster_size[0] * d + counts * (1 - d)
             avg = cb.embed_avg[0] * d + embed_sum * (1 - d)

@@ -50,12 +50,15 @@ KERNEL_MODES = ("", "owner", "stream")
 
 def init_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
               dtype=torch.float32, quant: Optional[str] = None,
-              device=None) -> Dict[str, torch.Tensor]:
+              device=None, tp: int = 1) -> Dict[str, torch.Tensor]:
     """KV block pool stored flat: {k, v: (L, NB, BS, H*hd)}. ``quant="int8"``
     stores symmetric int8 K/V with one fp32 scale per (layer, block, offset)
-    in ``k_scale``/``v_scale`` (L, NB, BS)."""
+    in ``k_scale``/``v_scale`` (L, NB, BS). Under tensor parallelism a rank
+    keeps its H/tp heads: the flat width is H*hd/tp (``tp``)."""
+    if cfg.num_heads % tp:
+        raise ValueError(f"tp={tp} does not divide {cfg.num_heads} heads")
     shape = (cfg.num_layers, num_blocks, block_size,
-             cfg.num_heads * cfg.head_dim)
+             cfg.num_heads // tp * cfg.head_dim)
     if quant is None:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -242,7 +245,13 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
     attention read (it must be >= the allocator's high water); the owner
     mode reads only each slot's own region and ignores it.
     ``use_kernel="owner"`` requires contiguous per-slot regions
-    (``RegionAllocator``)."""
+    (``RegionAllocator``).
+
+    Under tensor parallelism (``lm`` cut by ``parallel/mesh.py
+    shard_lm_``, the pool made with ``init_pool(..., tp=)``) every rank
+    runs the step on its H/tp heads: its rows of the pool, the kernels and
+    their plain versions over those heads; ``o_proj`` and the MLP sum
+    their partial outputs over tp."""
     if use_kernel not in KERNEL_MODES:
         raise ValueError(f"unknown kernel mode {use_kernel!r}")
     bs = block_size
@@ -250,7 +259,7 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
     num_blocks = pool["k"].shape[1]
     nb = num_blocks if num_active_blocks is None \
         else min(int(num_active_blocks), num_blocks)
-    h, hd = cfg.num_heads, cfg.head_dim
+    h, hd = lm.layers[0].self_attn.local_heads, cfg.head_dim
     dev = x.device
     quant = "k_scale" in pool
     index = index.int()
@@ -284,9 +293,8 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
     for li, layer in enumerate(lm.layers):
         attn_mod = layer.self_attn
         hin = layer.input_layernorm(x)
-        q = attn_mod.q_proj(hin).view(s_slots, 1, h, hd)
-        k = attn_mod.k_proj(hin).view(s_slots, 1, h, hd)
-        v = attn_mod.v_proj(hin).view(s_slots, 1, h, hd)
+        q, k, v = (t.view(s_slots, 1, h, hd)
+                   for t in attn_mod.project_in(hin))
         q, k = apply_rope(q, k, cos, sin)
         k_rows = k[:, 0].reshape(s_slots, h * hd)
         v_rows = v[:, 0].reshape(s_slots, h * hd)
@@ -318,7 +326,7 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
         else:
             attn = _plain_attention(q, pool, li, mask, nb, x.dtype)
         attn = attn.reshape(s_slots, 1, h * hd).to(x.dtype)
-        x = x + attn_mod.o_proj(attn)
+        x = x + attn_mod.project_out(attn)
         x = x + layer.mlp(layer.post_attention_layernorm(x))
     return rms_norm(x, lm.norm.weight)[:, 0]
 
@@ -328,10 +336,10 @@ def paged_decode_ids(cfg: LlamaConfig, lm, pool, tables, index, active, ids,
                      use_kernel: str = ""):
     """Token-level decode step: ids (S,) -> (logits (S, V) fp32); the pool
     is updated in place. Activations follow the embedding's dtype."""
-    x = lm.codec_embedding(ids.long())[:, None]
+    x = lm.embed_codes(ids.long())[:, None]
     hidden = paged_decode_embeds(cfg, lm, pool, tables, index, active, x,
                                  block_size, num_active_blocks, use_kernel)
-    return lm.output_head(hidden).float()
+    return lm.head(hidden).float()
 
 
 def scatter_prefill(pool, tables, cache_k, cache_v, block_size: int):

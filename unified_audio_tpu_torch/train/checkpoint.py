@@ -7,10 +7,15 @@ frozen tokenizer and WavLM are not saved, and ``cli serve --ckpt`` loads
 the file as it is. The optimizer state is saved with the weights, so a
 resumed run continues the learning-rate schedule and the Adam moments
 where they were (the JAX CLI saves the LM weights alone, and a resume
-there restarts the warmup from 0).
+there restarts the warmup from 0). A file is always in the single-device
+layout: under a mesh the trainer gathers its tp shards and pp stages,
+Adam's moments included, before rank 0 writes, and cuts them again on
+load, so a checkpoint written at tp = 2 or pp = 2 resumes at world size 1,
+and the reverse.
 """
 from __future__ import annotations
 
+import copy
 import os
 import re
 from pathlib import Path
@@ -18,7 +23,58 @@ from typing import List, Optional
 
 import torch
 
+from ..parallel.mesh import gather_named, shard_named
+
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+def full_training_state(model, optimizer, mesh, num_layers: int):
+    """-> (``model``'s state dict, ``optimizer``'s) in the layout a
+    single-device run writes: under a mesh the tp shards and pp stages of
+    the weights and of the Adam moments are gathered (``parallel/mesh.py
+    gather_named``; every rank must call this). Without a mesh, the local
+    state as it is."""
+    sd, opt = model.state_dict(), optimizer.state_dict()
+    if mesh is None:
+        return sd, opt
+    params = dict(model.named_parameters())
+    sd = gather_named(sd, params, mesh, num_layers)
+    names = _param_names(model, optimizer)
+    # the optimizer's state dict shares its per-parameter dicts with the
+    # live state: fill new ones
+    state = {i: dict(s) for i, s in opt["adamw"]["state"].items()}
+    opt = {**opt, "adamw": {**opt["adamw"], "state": state}}
+    for key in ("exp_avg", "exp_avg_sq"):
+        named = {names[i]: s[key] for i, s in state.items()}
+        whole = gather_named(named, params, mesh, num_layers)
+        for i, s in state.items():
+            s[key] = whole[names[i]]
+    return sd, opt
+
+
+def load_full_training_state(model, optimizer, sd, opt, mesh,
+                             num_layers: int):
+    """Load the single-device layout (:func:`full_training_state`'s) into
+    ``model`` and ``optimizer``, cut to this rank's shards under a mesh."""
+    if mesh is not None:
+        params = dict(model.named_parameters())
+        sd = shard_named(sd, params, mesh, num_layers)
+        names = _param_names(model, optimizer)
+        opt = copy.deepcopy(opt)
+        state = opt["adamw"]["state"]
+        for key in ("exp_avg", "exp_avg_sq"):
+            named = {names[i]: s[key] for i, s in state.items()}
+            local = shard_named(named, params, mesh, num_layers)
+            for i, s in state.items():
+                s[key] = local[names[i]]
+    model.load_state_dict(sd)
+    optimizer.load_state_dict(opt)
+
+
+def _param_names(model, optimizer):
+    """The optimizer's parameter indices -> their names in ``model``."""
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    return [by_id[id(p)] for p in optimizer.params]
 
 
 class CheckpointManager:

@@ -1,7 +1,7 @@
-"""HCodec GAN training on one device: a step is the generator's update, then
-the discriminator's.
+"""HCodec GAN training: a step is the generator's update, then the
+discriminator's.
 
-Port of ``unified_audio_tpu/train/codec_trainer.py`` without the mesh. The
+Port of ``unified_audio_tpu/train/codec_trainer.py``. The
 generator step takes the multi-scale mel L1 (x ``mel_weight``), the
 quantizers' commitment loss (x ``commit_weight``) and the semantic feature
 L1 (x ``semantic_weight``); from step ``perceptual_start_step`` on it adds
@@ -12,6 +12,15 @@ reconstruction, detached. Each side has its own clipped AdamW at a
 constant rate (optax's defaults: weight decay 1e-4). The quantizers' EMA
 buffers are updated in the generator's forward, outside the optimizer.
 A step reads its scalars back to the host in one transfer.
+
+``mesh`` (a ``DeviceMesh`` with a dp axis, ``parallel/mesh.py``) trains
+data-parallel, as the JAX trainer's dp mesh does: every rank holds the
+whole generator and discriminator and takes its own share of the batch;
+both optimizers average the gradients over dp (one flattened all-reduce
+each); the codec's quantizers take their statistics over the whole batch
+(``ops/quant.py set_dp_group``), with ``generator`` seeded alike on every
+rank; the returned metrics are the dp average. ``cli train-codec`` stays on
+one device, as the JAX CLI's does.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from typing import Optional
 import torch
 
 from ..models.hcodec.codec import HCodec
+from ..ops.quant import set_dp_group
+from ..parallel.mesh import axis_group, dp_mean
 from .discriminators import (CodecDiscriminator, discriminator_loss,
                              feature_matching_loss,
                              generator_adversarial_loss, multiscale_mel_loss)
@@ -47,19 +58,23 @@ class CodecTrainConfig:
 class CodecGANTrainer:
     """Trains ``codec`` (an ``HCodec(trainable=True)``) against ``disc``
     (default the full ensemble on the codec's device). ``generator`` (a
-    CPU ``torch.Generator``) draws k-means' rows and the dropout cutoffs."""
+    CPU ``torch.Generator``) draws k-means' rows and the dropout cutoffs.
+    ``mesh``: data-parallel training (the module docstring)."""
 
     def __init__(self, codec: HCodec, train_config: CodecTrainConfig =
                  CodecTrainConfig(), disc: Optional[CodecDiscriminator] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.cfg = train_config
         self.codec = codec
         dev = self.device()
         self.disc = disc if disc is not None else CodecDiscriminator().to(dev)
+        self.mesh = mesh
+        set_dp_group(codec, axis_group(mesh, "dp"))
         opt = dict(lr=train_config.lr, grad_clip=train_config.grad_clip,
                    weight_decay=ADAMW_WEIGHT_DECAY)
         self.gen_opt = Optimizer(codec.parameters(), **opt)
         self.disc_opt = Optimizer(self.disc.parameters(), **opt)
+        self.gen_opt.mesh = self.disc_opt.mesh = mesh
         self.generator = generator or torch.Generator().manual_seed(0)
         self.step = 0
 
@@ -116,15 +131,17 @@ class CodecGANTrainer:
         return loss.detach()
 
     def train_step(self, wav, feat) -> dict:
-        """wav (B, T), feat (B, T', feat_dim) on the codec's device ->
-        the step's metrics as floats (``METRICS``)."""
+        """wav (B, T), feat (B, T', feat_dim) on the codec's device (this
+        rank's share under a mesh) -> the step's metrics as floats
+        (``METRICS``, averaged over dp)."""
         use_adv = self.step >= self.cfg.perceptual_start_step
         scalars, recon = self.generator_step(wav, feat, use_adv)
         scalars["disc_loss"] = (self.discriminator_step(wav, recon)
                                 if use_adv else torch.zeros_like(
                                     scalars["mel"]))
         self.step += 1
-        values = torch.stack([scalars[k].float() for k in METRICS]).cpu()
+        values = dp_mean(torch.stack([scalars[k].float() for k in METRICS]),
+                         self.mesh).cpu()
         return dict(zip(METRICS, values.tolist()))
 
     def state_dict(self) -> dict:

@@ -21,6 +21,13 @@ decoupled weight decay 0.01 on every parameter (b1 0.9, b2 0.999, eps
 Codec training (``train/codec_trainer.py``) chains the same clip with
 optax's ``adamw`` at a constant rate and its default weight decay, 1e-4:
 ``Optimizer(params, lr=2e-4, weight_decay=1e-4)``.
+
+Under a mesh (``mesh``, a ``DeviceMesh`` of ``parallel/mesh.py``) a step
+first averages every gradient over dp, in one flattened all-reduce (what
+GSPMD's gradient psum computes in the JAX package), then clips by the
+global norm of the whole model: the squared norms of the parameters split
+over tp or pp (``mp_split``) are summed over that group and those of the
+replicated ones counted once, so every rank clips by the same norm.
 """
 from __future__ import annotations
 
@@ -28,6 +35,10 @@ import math
 from typing import Iterable, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import (all_reduce_mean_, axis_group,
+                             model_parallel_group, split_params)
 
 
 def warmup_exp_decay_schedule(peak_lr: float = 5e-4,
@@ -48,12 +59,26 @@ def warmup_exp_decay_schedule(peak_lr: float = 5e-4,
     return schedule
 
 
+def _sum_squares(grads):
+    return sum((g.float().square().sum() for g in grads),
+               torch.zeros((), device=grads[0].device) if grads else 0.0)
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float):
-    """Scale ``grads`` in place by ``max_norm / norm`` when their global L2
-    norm is at least ``max_norm`` (on the device: no host sync)."""
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+def clip_by_global_norm_(grads, max_norm: float, split=(), group=None):
+    """Scale ``grads`` and ``split`` in place by ``max_norm / norm`` when
+    their global L2 norm is at least ``max_norm`` (on the device: no host
+    sync). ``split`` are the gradients of parameters cut over ``group``:
+    their squares are summed over it."""
+    sq = _sum_squares(list(grads))
+    if split:
+        part = _sum_squares(list(split))
+        if group is not None:
+            dist.all_reduce(part, group=group)
+        sq = sq + part
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
+    grads = list(grads) + list(split)
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
@@ -63,7 +88,9 @@ class Optimizer:
     for every update when it is given. The AdamW base rate is 1 and a
     ``LambdaLR`` sets each update's rate to ``schedule(t)`` exactly;
     ``state_dict`` holds both, so a restored optimizer continues the
-    schedule and the moments."""
+    schedule and the moments. ``mesh``, which a trainer sets to its own
+    before the first step (None by default), averages the gradients over
+    its dp axis and clips by the norm of the whole, sharded, model."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  peak_lr: float = 5e-4, warmup_steps: int = 2000,
@@ -72,6 +99,7 @@ class Optimizer:
                  lr: Optional[float] = None):
         self.params = [p for p in params if p.requires_grad]
         self.grad_clip = grad_clip
+        self.mesh = None
         self.schedule = (
             warmup_exp_decay_schedule(peak_lr, warmup_steps, step_decay,
                                       min_factor)
@@ -98,7 +126,12 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in self.params], self.grad_clip)
+        all_reduce_mean_([p.grad for p in self.params],
+                         axis_group(self.mesh, "dp"))
+        split, rep = split_params(self.params)
+        clip_by_global_norm_([p.grad for p in rep], self.grad_clip,
+                             [p.grad for p in split],
+                             model_parallel_group(self.mesh))
         self.adamw.step()
         self.lr_schedule.step()
 

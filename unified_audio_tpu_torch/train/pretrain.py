@@ -7,9 +7,10 @@ Port of ``unified_audio_tpu/train/pretrain.py``: ``PretrainTrainer`` with
 ``data/token_corpus.py TokenCorpusIterator``. The objective is
 ``CodecLM.pretrain_loss`` (the final EOS target dropped); the update is
 ``train/optim.py Optimizer``, optax's clip and AdamW under the reference
-schedule, so a step is the JAX package's step. The model trains on one
-device; the JAX trainer's ``mesh`` argument (data- and tensor-parallel
-sharding) waits for the port of ``parallel/*`` (ROADMAP Queue 1).
+schedule, so a step is the JAX package's step. ``mesh`` (dp x tp,
+``parallel/mesh.py``) trains as the JAX trainer's mesh does: the LM's
+projections cut over tp, each dp rank on its own share of the batch, the
+gradients averaged over dp.
 """
 from __future__ import annotations
 
@@ -19,17 +20,20 @@ from typing import Iterator, Optional
 import torch
 
 from ..models.lm.llama import CodecLM, LlamaConfig
+from ..parallel.mesh import dp_mean, shard_lm_
 from .optim import Optimizer
 
 
 class PretrainTrainer:
     """``model`` (a ``CodecLM``, default one of ``cfg`` with random
     weights from ``seed``) on ``device``, the card unless it is "cpu";
-    ``optimizer`` defaults to the reference recipe over its parameters."""
+    ``optimizer`` defaults to the reference recipe over its parameters.
+    ``mesh``: dp x tp training (the module docstring); the weights are cut
+    after they are made, so every rank starts from the same model."""
 
     def __init__(self, cfg: LlamaConfig, model: Optional[CodecLM] = None,
                  optimizer: Optional[Optimizer] = None, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         if torch.device(device).type == "cuda" and \
                 not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; "
@@ -43,14 +47,17 @@ class PretrainTrainer:
             init_random_(model, torch.Generator(device=device).manual_seed(
                 seed))
         self.cfg = cfg
-        self.model = model.to(device).train()
+        self.model = shard_lm_(model.to(device).train(), mesh)
         self.device = torch.device(device)
+        self.mesh = mesh
         self.optimizer = optimizer or Optimizer(self.model.parameters())
+        self.optimizer.mesh = mesh
         self.step = 0
 
     def train_step(self, global_ids, semantic_ids, cond=None):
-        """One update on a batch (numpy or tensors) -> (loss, acc) of the
-        batch before the update, as floats (one host read)."""
+        """One update on a batch (numpy or tensors; this rank's share under
+        a mesh) -> (loss, acc) of the batch before the update, as floats
+        (one host read; the dp average under a mesh)."""
         dev = self.device
         g = torch.as_tensor(global_ids).to(dev, non_blocking=True)
         s = torch.as_tensor(semantic_ids).to(dev, non_blocking=True)
@@ -61,7 +68,8 @@ class PretrainTrainer:
         loss.backward()
         self.optimizer.step()
         self.step += 1
-        loss, acc = torch.stack([loss.detach(), acc]).cpu().tolist()
+        loss, acc = dp_mean(torch.stack([loss.detach(), acc]),
+                            self.mesh).cpu().tolist()
         return loss, acc
 
     def fit(self, data: Iterator, max_steps: Optional[int] = None,
