@@ -281,12 +281,34 @@ prints no result. Phases, each fatal on failure:
    ``llama_sequence_parallel_forward`` (sp = 1) of the 512 x 12 LM on 4 x
    540 positions within 1e-5 of the dense backbone. The group is destroyed
    at the end.
-13. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+13. The serving engines' API at phase 3's width (LM 512 x 12, bf16, 16
+   slots): (a) 20 five-second segments as ``cli serve`` makes them (SE,
+   TSE, rTSE, half sampled, mixes and 5-s enrollments on the int16 wire,
+   one 3-s enrollment as exact-length features made on the card) on an
+   int8 pool (K2), served in turns by the displacing ``run`` and by the
+   admit/step/harvest loop, three passes each: greedy tokens equal in all
+   passes, K2 launched 12 times a decode step, every block returned; both
+   serving rates (median of 3) and the run's host split (``t_prestage``,
+   ``t_admit``, ``t_step``, ``t_drain``, ``t_harvest``, stash fetches,
+   step calls). (b) A request cancelled after 40 steps on a two-slot bf16
+   pool (K1): its slot done on the card at once, the survivor's tokens
+   equal to its solo run's, every block free. (c) The int8 feature wire
+   against the bf16 one on 16 segments of host WavLM features: the card's
+   dequant equal to q * 2^e, the feature SNR, the token agreement. (d) In
+   (a), every request of a run staged by ``prestage`` (the first wave
+   before admission, the next during the first decode chunk), its tokens
+   those of the loop's admission-time staging. (e) UniTok in the owner
+   mode with displacing admission: phase 6's 24 requests on an int8 pool
+   (K2) and 16 on a bf16 pool (K1), codes in range, launches 12 a step,
+   one stash fetch; teacher-forced fp32 decode through K1 and K2 against
+   the plain attention within 1e-4.
+14. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
-above, each kernel's time, its plain version's and its bound; K2's
-launches are phase 3's, and phase 7 prints its own serve's; K5's are
+above, each kernel's time, its plain version's and its bound; K1's and
+K2's launches are phases 3's and 13's, and phase 7 prints its own
+serve's; K5's are
 phase 4's staged encode, phase 8's training, phase 11's causal
 training and HCodec-1.5 training forwards and phase 12's dp codec
 training, and its ``kmeans_m600``
@@ -934,7 +956,8 @@ def decode_agreement(torch, unise, kv_quant, steps=24):
     engines = {mode: ContinuousBatchingEngine(
         sft, num_slots=2, max_global=32, max_semantic=256, mix_buckets=(256,),
         kv_quant=kv_quant, use_kernel=mode, feature_fn=unise.wavlm_feats,
-        frames_fn=unise.wavlm_frames) for mode in ("owner", "")}
+        frames_fn=unise.wavlm_frames, wav_buckets=(80000,))
+        for mode in ("owner", "")}
     for eng in engines.values():
         eng.admit_many(reqs)
     dev = sft.codec_embedding.weight.device
@@ -1252,15 +1275,17 @@ def check_codes(results, reqs, k):
                  f"[{c.min()}, {c.max()}]")
 
 
-def unitok_agreement(torch, lm, reqs, quant, steps=24):
+def unitok_agreement(torch, lm, reqs, quant, steps=24, mode="stream"):
     """Teacher-forced decode of two same-signature UniTok requests in fp32
-    through the stream kernels and through the plain attention: max
-    |logit diff| over ``steps`` steps."""
+    through the kernels of ``mode`` (the stream kernels, or the owner
+    kernels) and through the plain attention: max |logit diff| over
+    ``steps`` steps."""
     from unified_audio_tpu_torch.models.unitok.model import delay_window_masks
     from unified_audio_tpu_torch.serve.unitok_engine import UniTokEngine
 
+    kernel_mode = mode
     engines = {mode: UniTokEngine(lm, num_slots=2, use_kernel=mode,
-                                  kv_quant=quant) for mode in ("stream", "")}
+                                  kv_quant=quant) for mode in (mode, "")}
     for eng in engines.values():
         eng.admit_wave(reqs)
     code_mask, _ = delay_window_masks(lm.cfg, "cuda")
@@ -1272,14 +1297,16 @@ def unitok_agreement(torch, lm, reqs, quant, steps=24):
         for mode, eng in engines.items():
             logits[mode] = eng.decode_logits(ids)
             eng.state["index"] += 1
-        worst = max(worst, (logits["stream"] - logits[""]).abs().max().item())
+        worst = max(worst, (logits[kernel_mode] - logits[""]).abs().max()
+                    .item())
         ids = (logits[""] + code_mask).argmax(-1).int()
     return worst
 
 
 def unitok_phase(torch, cli, pa, paged, tok, unise, gpu, tally):
-    """Phase 5 -> (K3 launches, K4 launches) on their serving passes; the
-    K7 check's launches go to ``tally``."""
+    """Phase 6 -> (K3 launches, K4 launches) on their serving passes, the
+    full-width UniTok LM (left in fp32) and the 24 requests of its int8
+    pass; the K7 check's launches go to ``tally``."""
     from unified_audio_tpu_torch.models.unitok.model import UniTokConfig, UniTokLM
     from unified_audio_tpu_torch.models.unitok.pipeline import UniTokPipeline
     from unified_audio_tpu_torch.serve.engine import Request
@@ -1382,7 +1409,7 @@ def unitok_phase(torch, cli, pa, paged, tok, unise, gpu, tally):
             for e, res, n in ((eng_u, res_u, len(u_reqs)),
                               (eng_t, res_t, len(t_reqs))):
                 if len(res) < n:
-                    e.step(gen)
+                    e.step(1, gen)
                     res.update({r.uid: r for r in e.harvest()})
             if check_s is None:  # K7 on the tables the two engines hold
                 t1 = time.perf_counter()
@@ -1426,7 +1453,272 @@ def unitok_phase(torch, cli, pa, paged, tok, unise, gpu, tally):
         if not worst <= 1e-4:
             fail(f"stream-kernel decode disagrees with the plain path: "
                  f"{worst}")
-    return k3, k4
+    return k3, k4, lm, reqs
+
+
+# ---------------------------------------------------------------------------
+# The serving engines' API (phase 13)
+# ---------------------------------------------------------------------------
+
+API_SEGMENTS = 20  # phase 13's UniSE requests: the 16 slots and 4 more
+
+def api_requests(torch, unise, rng):
+    """Phase 13's UniSE requests, one 5-s segment each, made as ``cli
+    serve`` makes them from phase 3's kinds of line: peak-normalized mixes
+    on the int16 wire; SE, TSE and rTSE in turn, TSE/rTSE with a 5-s
+    enrollment (the wire too) except request 1, whose 3-s enrollment goes
+    in as exact-length features made on the card; every other pair
+    sampled."""
+    from unified_audio_tpu_torch.serve.engine import Request
+
+    cfg = unise.config
+    seg, sem = cfg.segment_len, unise._semantic_len()
+
+    def normalized(x):
+        return (x / np.abs(x).max()).astype(np.float32)
+
+    reqs = []
+    for i in range(API_SEGMENTS):
+        mix = normalized(0.6 * synth_speech(rng, seg)
+                         + 0.3 * rng.standard_normal(seg))
+        enroll_wav = enroll_feats = None
+        if i == 1:
+            e = normalized(synth_speech(rng, 3 * seg // 5))
+            enroll_feats = unise.wavlm_feats(
+                torch.as_tensor(e[None], device="cuda"))[0]
+        elif i % 3:
+            enroll_wav = normalized(synth_speech(rng, seg))
+        reqs.append(Request(task_id=i % 3, mix_wav=mix, enroll_wav=enroll_wav,
+                            enroll_feats=enroll_feats,
+                            global_length=cfg.global_tokens,
+                            semantic_length=sem, do_sample=i % 4 >= 2,
+                            uid=i))
+    return reqs
+
+
+def same_tokens(a, b, uids):
+    return all(np.array_equal(a[u].global_ids, b[u].global_ids)
+               and np.array_equal(a[u].semantic_ids, b[u].semantic_ids)
+               for u in uids)
+
+
+def displacing_pass(torch, cli, pa, unise, gpu):
+    """Phase 13 (a) and (d): the displacing ``run`` (inputs prestaged) and
+    the admit/step/harvest loop (inputs staged at admission) on one int8
+    pool (K2), one pass each -> K2 launches. Their rates are compared over
+    many pairs by ``serve/profile_step.py``, not here."""
+    from unified_audio_tpu_torch.serve.profile_step import harvest_loop
+
+    k2 = pa.paged_flash_decode_owner_q8
+    reqs = api_requests(torch, unise, np.random.default_rng(13))
+    tokens = sum(r.global_length + 1 + r.semantic_length for r in reqs)
+    greedy = [r.uid for r in reqs if not r.do_sample]
+    eng = cli.make_engine(unise, 16, "int8")
+    prestaged = set()
+    prestage = eng.prestage
+
+    def recording_prestage(rs):
+        before = set(eng._staged)
+        prestage(rs)
+        prestaged.update(set(eng._staged) - before)
+
+    eng.prestage = recording_prestage
+    t_keys = ("t_prestage", "t_admit", "t_step", "t_drain", "t_harvest")
+    outs, walls, launches = {}, {}, 0
+    for kind in ("run", "loop"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        before = eng.stats()
+        k2.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "run":
+            out = eng.run(reqs, gen)
+        else:
+            out, _ = harvest_loop(eng, reqs, gen)
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+        after = eng.stats()
+        steps = after["decode_steps"] - before["decode_steps"]
+        launches += k2.launches
+        if k2.launches != L * steps or sorted(out) != list(range(
+                API_SEGMENTS)):
+            fail(f"phase 13 {kind}: {len(out)} results, K2 launched "
+                 f"{k2.launches} times for {steps} decode steps")
+        if kind == "run":
+            split = {k: after[k] - before.get(k, 0) for k in t_keys
+                     + ("stash_fetches", "step_dispatches")}
+            if prestaged != set(range(API_SEGMENTS)):
+                fail(f"the run prestaged {sorted(prestaged)}, not every "
+                     "request")
+        if after["blocks_held"]:
+            fail(f"{after['blocks_held']} blocks held after the {kind}")
+        outs[kind] = out
+    if not same_tokens(outs["run"], outs["loop"], greedy):
+        fail("phase 13: the displacing run's greedy tokens differ from the "
+             "admit/step/harvest loop's")
+    sampled_same = same_tokens(outs["run"], outs["loop"],
+                               [r.uid for r in reqs if r.do_sample])
+    print(f"phase 13 (a) {API_SEGMENTS} segments over 16 slots, int8 pool "
+          f"(K2), one pass each: displacing run {walls['run']:.3f} s "
+          f"({tokens / walls['run']:.0f} tokens/s), admit/step/harvest loop "
+          f"{walls['loop']:.3f} s ({tokens / walls['loop']:.0f} tokens/s); "
+          f"greedy tokens equal, sampled equal {sampled_same}; the run's "
+          f"host split "
+          + ", ".join(f"{k} {split[k]:.3f} s" for k in t_keys)
+          + f", stash fetches {split['stash_fetches']}, step calls "
+          f"{split['step_dispatches']}; (d) every request of the run "
+          f"prestaged, its tokens the unstaged loop's | {gpu}", flush=True)
+    return launches
+
+
+def cancel_pass(torch, cli, pa, unise, gpu):
+    """Phase 13 (b): a request cancelled mid-flight on a two-slot bf16 pool
+    (K1); the survivor's tokens equal its solo run's and every block comes
+    back -> K1 launches."""
+    k1 = pa.paged_flash_decode_owner
+    reqs = api_requests(torch, unise, np.random.default_rng(14))
+    keep = dataclasses.replace(reqs[0], uid=100)
+    victim = dataclasses.replace(reqs[3], uid=101, do_sample=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1.launches = 0
+    solo = cli.make_engine(unise, 2).run([keep], gen)[100]
+    eng = cli.make_engine(unise, 2)
+    free0 = len(eng.allocator.free)
+    # one wave each, as the solo run admits ``keep``
+    if eng.admit_many([keep]) != [100] or eng.admit_many([victim]) != [101]:
+        fail("the cancel engine did not admit its two requests")
+    eng.step(40, gen)
+    if not eng.cancel(101) or eng.cancel(999):
+        fail("cancel did not find the victim, or found a stranger")
+    done = int(eng.state["phase"][1]) == 2  # PHASE_DONE
+    eng.step(eng._remaining[0], gen)
+    out = eng.harvest()
+    st = eng.stats()
+    if not (done and len(out) == 1 and out[0].uid == 100
+            and same_tokens({100: out[0]}, {100: solo}, [100])
+            and len(eng.allocator.free) == free0 and st["blocks_held"] == 0
+            and st["requests_cancelled"] == 1):
+        fail(f"cancel: phase done {done}, results {[r.uid for r in out]}, "
+             f"free blocks {len(eng.allocator.free)} of {free0}")
+    print(f"phase 13 (b) cancel after 40 of "
+          f"{keep.global_length + 1 + keep.semantic_length} steps on a bf16 "
+          f"pool (K1): "
+          f"the victim's slot done on the card at once, the survivor's "
+          f"{len(solo.global_ids)} + {len(solo.semantic_ids)} greedy tokens "
+          f"equal its solo run's, all {free0} blocks free again | {gpu}",
+          flush=True)
+    return k1.launches
+
+
+def feature_wire_pass(torch, cli, pa, unise, gpu):
+    """Phase 13 (c): the int8 feature wire against the bf16 one on 16 SE
+    requests of host features (int8 pool, K2) -> K2 launches."""
+    from unified_audio_tpu_torch.serve import engine as eng_mod
+
+    k2 = pa.paged_flash_decode_owner_q8
+    reqs = api_requests(torch, unise, np.random.default_rng(15))[:16]
+    feats = unise.wavlm_feats(torch.as_tensor(
+        np.stack([r.mix_wav for r in reqs]), device="cuda")).cpu().numpy()
+    rows = np.stack([eng_mod._quantize_feats_row(f) for f in feats])
+    back = rows[..., :-1].astype(np.float32) * np.ldexp(
+        np.float32(1), rows[..., -1:].astype(np.int32))
+    card = eng_mod._dequant_feats(torch.as_tensor(rows, device="cuda"),
+                                  torch.float32).cpu().numpy()
+    if not np.array_equal(card, back):
+        fail("the card's int8 wire dequant differs from q * 2^e")
+    snr = 10 * np.log10((feats ** 2).sum() / ((feats - back) ** 2).sum())
+    fr = [dataclasses.replace(r, mix_wav=None, mix_feats=feats[i],
+                              enroll_wav=None, enroll_feats=None, task_id=0,
+                              do_sample=False) for i, r in enumerate(reqs)]
+    k2.launches = 0
+    out = {w: cli.make_engine(unise, 16, "int8", feats_wire=w).run(fr)
+           for w in ("bf16", "int8")}
+    same = np.mean([np.mean(np.concatenate([
+        out["bf16"][r.uid].global_ids == out["int8"][r.uid].global_ids,
+        out["bf16"][r.uid].semantic_ids == out["int8"][r.uid].semantic_ids]))
+        for r in fr])
+    print(f"phase 13 (c) int8 feature wire on {len(fr)} segments' WavLM "
+          f"features (host, {feats.shape[1]} x {feats.shape[2]} each): "
+          f"feature SNR {snr:.2f} dB, the "
+          f"card's dequant equal to q * 2^e, {rows.nbytes} wire bytes "
+          f"against {feats.size * 2} bf16; greedy tokens equal to the bf16 "
+          f"wire's in {same:.4f} of places | {gpu}", flush=True)
+    return k2.launches
+
+
+def unitok_owner_pass(torch, pa, paged, lm, reqs, gpu):
+    """Phase 13 (e): UniTok in the owner mode with displacing admission
+    (24 requests over 16 slots), int8 pool (K2) and bf16 pool (K1), then
+    teacher-forced fp32 decode through K1/K2 against the plain attention
+    -> (K1 launches, K2 launches)."""
+    from unified_audio_tpu_torch.serve.unitok_engine import UniTokEngine
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain attention path ran during serving")
+
+    k = lm.cfg.num_codebooks
+    lm.to(torch.bfloat16)
+    counts = {}
+    with patched([(paged, "_plain_attention", forbidden),
+                  (pa, "paged_flash_decode_owner_ref", forbidden),
+                  (pa, "paged_flash_decode_owner_q8_ref", forbidden)]):
+        for quant, kernel in (("int8", pa.paged_flash_decode_owner_q8),
+                              (None, pa.paged_flash_decode_owner)):
+            eng = UniTokEngine(lm, num_slots=16, use_kernel="owner",
+                               kv_quant=quant)
+            kernel.launches = 0
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.run(reqs, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            # the requests past the 16 slots displace finished ones, whose
+            # codes come back in the one drain at the end
+            if kernel.launches != L * st["decode_steps"] or \
+                    st["blocks_held"] or st["stash_fetches"] != 1:
+                fail(f"UniTok owner {quant or 'bf16'}: {kernel.__name__} "
+                     f"launched {kernel.launches} times for "
+                     f"{st['decode_steps']} steps; stats {st}")
+            check_codes(out, reqs, k)
+            counts[kernel.__name__] = kernel.launches
+            n_codes = k * sum(r.num_frames for r in reqs)
+            print(f"phase 13 (e) UniTok owner mode, {quant or 'bf16'} pool "
+                  f"({'K2' if quant else 'K1'}): {len(reqs)} requests over 16 "
+                  f"slots, {st['prefill_waves']} waves displacing, "
+                  f"{st['stash_fetches']} stash fetch(es), "
+                  f"{st['decode_steps']} decode steps in "
+                  f"{st['step_dispatches']} step calls; "
+                  f"{n_codes / wall:.0f} codes/s; {kernel.__name__} "
+                  f"launches {kernel.launches} | {gpu}", flush=True)
+    lm.float()
+    two = [r for r in reqs if r.task_id == 0][:2]
+    for quant in (None, "int8"):
+        worst = unitok_agreement(torch, lm, two, quant, mode="owner")
+        print(f"phase 13 (e) teacher-forced fp32 UniTok decode, "
+              f"{quant or 'fp32'} pool: owner kernels vs plain attention max "
+              f"|logit diff| {worst:.2e}", flush=True)
+        if not worst <= 1e-4:
+            fail(f"owner-kernel UniTok decode disagrees with the plain "
+                 f"path: {worst}")
+    return (counts[pa.paged_flash_decode_owner.__name__],
+            counts[pa.paged_flash_decode_owner_q8.__name__])
+
+
+def engine_api_phase(torch, cli, pa, paged, unise, lm, t_reqs, gpu):
+    """Phase 13 -> {kernel name: launches} of its serving passes."""
+    t0 = time.perf_counter()
+    unise.sft.to(torch.bfloat16)
+    k1, k2 = pa.paged_flash_decode_owner, pa.paged_flash_decode_owner_q8
+    with torch.no_grad():
+        n2 = displacing_pass(torch, cli, pa, unise, gpu)
+        n1 = cancel_pass(torch, cli, pa, unise, gpu)
+        n2 += feature_wire_pass(torch, cli, pa, unise, gpu)
+    u1, u2 = unitok_owner_pass(torch, pa, paged, lm, t_reqs, gpu)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s | {gpu}",
+          flush=True)
+    return {k1.__name__: n1 + u1, k2.__name__: n2 + u2}
 
 
 # ---------------------------------------------------------------------------
@@ -3682,9 +3974,9 @@ def main():
     admitted = {}  # uid -> the request as the engine admitted it
     admit = ContinuousBatchingEngine.admit_many
 
-    def recording_admit(self, reqs):
+    def recording_admit(self, reqs, *args, **kwargs):
         admitted.update((r.uid, r) for r in reqs)
-        return admit(self, reqs)
+        return admit(self, reqs, *args, **kwargs)
 
     guards = [(UniSE, "_decode_tokens", recording),
               (ContinuousBatchingEngine, "admit_many", recording_admit),
@@ -3761,8 +4053,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 6. UniTok-audio in the stream mode
-    k3_launches, k4_launches = unitok_phase(torch, cli, pa, paged, tok, unise,
-                                            gpu, tally)
+    k3_launches, k4_launches, unitok_lm, unitok_reqs = unitok_phase(
+        torch, cli, pa, paged, tok, unise, gpu, tally)
 
     # 7. UniSE SFT training
     with tempfile.TemporaryDirectory() as tmp:
@@ -3805,7 +4097,14 @@ def main():
         k5_12_launches = parallel_phase(torch, cli, vq, gpu, Path(tmp),
                                         write_wav, train_ms, codec_ms)
 
-    # 13. nothing of JAX or the JAX package was loaded
+    # 13. the serving engines' API: displacing run, cancel, the int8
+    # feature wire, prestage, UniTok in the owner mode
+    torch.cuda.empty_cache()
+    for name, n in engine_api_phase(torch, cli, pa, paged, unise, unitok_lm,
+                                    unitok_reqs, gpu).items():
+        launches[name] += n
+
+    # 14. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:

@@ -204,7 +204,7 @@ class TestEngine:
         eng.admit_wave([reqs[1]])
         gen = torch.Generator().manual_seed(0)
         for _ in range(max(r.num_frames for r in reqs) + cfg.num_codebooks):
-            eng.step(gen)
+            eng.step(generator=gen)
         out = eng.state["out"].numpy()
         for slot, r in enumerate(reqs):
             for k in range(cfg.num_codebooks):

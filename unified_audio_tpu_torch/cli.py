@@ -543,9 +543,11 @@ def _read_requests(path):
 
 def make_engine(unise, slots: int = 16, kv_quant=None, **engine_kw):
     """The serving engine over ``unise``'s LM (in its current dtype and
-    device): one mix/enroll bucket of a 5-s segment's feature frames, WavLM
-    run on the device at admission. ``engine_kw`` go to the engine (the
-    attention mode, a shared ``pool_ref`` and ``allocator``)."""
+    device), as the JAX ``serve`` builds it: one feature-frame bucket of a
+    5-s segment (and the frames of one segment's samples), one sample
+    bucket of a segment, WavLM run on the device at admission, waveforms on
+    the int16 wire. ``engine_kw`` go to the engine (the attention mode, a
+    shared ``pool_ref`` and ``allocator``, the wires)."""
     from .serve.engine import ContinuousBatchingEngine
 
     cfg = unise.config
@@ -554,7 +556,8 @@ def make_engine(unise, slots: int = 16, kv_quant=None, **engine_kw):
         unise.sft, num_slots=slots, max_global=cfg.global_tokens,
         max_semantic=sem_len + 6, mix_buckets=(sem_len + 6,),
         kv_quant=kv_quant or None, feature_fn=unise.wavlm_feats,
-        frames_fn=unise.wavlm_frames, **engine_kw)
+        frames_fn=unise.wavlm_frames, wav_buckets=(cfg.segment_len,),
+        **engine_kw)
 
 
 def serve(requests_path, unise, slots: int = 16, kv_quant=None,
@@ -579,10 +582,14 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
                     top_k=l.get("top_k", 50), top_p=l.get("top_p", 0.95),
                     do_sample=l.get("do_sample", True))
 
-    # one Request per 5-s segment, each line peak-normalized; the mix and
-    # the enrollment (cut to one segment) ride as waveforms and the engine
-    # runs the WavLM frontend on the device at admission. An "ss" line
-    # becomes a cascade, its features made on the device up front.
+    # one Request per 5-s segment, each line peak-normalized; the mix rides
+    # as a waveform on the int16 wire and the engine runs the WavLM
+    # frontend on the device at admission. The enrollment is cut to one
+    # segment: a whole segment rides the wire too, a shorter one goes in as
+    # exact-length features (WavLM's global attention would give other
+    # features for audio padded to the bucket), as the JAX ``serve`` does.
+    # An "ss" line becomes a cascade, its features made on the device up
+    # front.
     reqs, meta, cascades = [], {}, {}
     for l in lines:
         wav, fs = read_wav(l["mix"])
@@ -593,17 +600,23 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
             continue
         segs, orig_len = unise._segment(wav)
         segs = segs / (np.abs(wav).max() or 1.0)
-        enroll_wav = None
+        enroll_wav = enroll_feats = None
         if l.get("enroll"):
             e, efs = read_wav(l["enroll"])
             e = _prepare_wav(e, efs, device=eng.device)[:, :seg]
-            enroll_wav = (e / (np.abs(e).max() or 1.0))[0]
+            e = e / (np.abs(e).max() or 1.0)
+            if e.shape[-1] == seg:
+                enroll_wav = e[0]
+            else:
+                enroll_feats = unise.wavlm_feats(
+                    torch.as_tensor(e, device=eng.device))[0]
         uids = []
         for i in range(segs.shape[0]):
             uid = len(reqs)
             reqs.append(Request(
                 task_id=TASK_MAP[l.get("task", "se")], mix_wav=segs[i],
-                enroll_wav=enroll_wav, global_length=cfg.global_tokens,
+                enroll_wav=enroll_wav, enroll_feats=enroll_feats,
+                global_length=cfg.global_tokens,
                 semantic_length=sem_len, uid=uid, **sampling(l)))
             uids.append(uid)
         meta[l["output"]] = (uids, orig_len)

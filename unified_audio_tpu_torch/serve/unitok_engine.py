@@ -14,19 +14,24 @@ pool, each stepped in turn.
   stable sort), one prefill for the wave, scattered into each request's
   blocks. A request costs ``ceil((plen + steps + 1) / BS)`` blocks, ``plen``
   the padded prompt length.
-* ``step`` decodes one step for every active slot: the sum of the K code
+* ``step(n)`` decodes n steps for every active slot: the sum of the K code
   embeddings, the paged decode step, the K heads as one stacked product,
   the delay window (codebook k takes real codes for steps [k, k +
   num_frames), PAD outside) and per-row sampling (greedy rows take the
   argmax). Inactive rows are masked out of every state write.
-* ``harvest`` undoes the delay on the host and frees the slots; ``run``
-  admits, steps to the next completion and harvests until every request is
-  done. Decode lengths are fixed (num_frames + K - 1 steps), so the host
-  knows each completion without reading the device.
+* ``harvest`` undoes the delay on the host and frees the slots (one
+  device read). Decode lengths are fixed (num_frames + K - 1 steps), so the
+  host knows each completion without reading the device.
+* ``admit_wave`` reuses a slot whose request finished but was not
+  harvested without a device read: its codes are copied into a
+  device-side stash first, and ``drain_stashes`` fetches every pending
+  stash in one read.
+* ``run`` admits waves, one signature each, while slots last, then
+  decodes to the next completion in power-of-two chunks; the stashed codes
+  are fetched in one read at the end.
 
-The JAX engine's accelerator-link machinery (displacing inserts with
-in-graph stashes, waves padded to the slot count, chunked dispatch with
-overshoot) is not ported: the tokens are the same without it.
+The JAX engine pads each wave to the slot count so that it compiles one
+prefill program; the port's eager prefill takes the wave as it is.
 
 The attention mode follows the JAX package's policy: the owner kernels
 (``"owner"``, a ``RegionAllocator``) on CUDA, the plain attention (``""``)
@@ -45,7 +50,7 @@ import torch
 
 from ..models.lm.llama import init_cache, sample_logits_vec
 from ..models.unitok.model import UniTokLM, delay_window_masks
-from .engine import _pick_bucket
+from .engine import _pick_bucket, h2d, segment_chunks
 from .paged import (TRASH_BLOCK, PoolRef, kernel_mode, open_pool,
                     paged_decode_embeds, scatter_prefill)
 
@@ -145,9 +150,14 @@ class UniTokEngine:
         self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
         self._uids: List[Optional[int]] = [None] * s
         self._remaining: List[int] = [0] * s
+        # finished slots whose blocks are released (displaceable), and the
+        # stashes of displaced slots: (uids, (n, max_steps * K + 1) int32)
+        self._done_slots: set = set()
+        self._pending_stashes: List[tuple] = []
         self._stats = {"requests_admitted": 0, "requests_completed": 0,
                        "frames_generated": 0, "decode_steps": 0,
-                       "prefill_waves": 0}
+                       "step_dispatches": 0, "prefill_waves": 0,
+                       "stash_fetches": 0}
 
     @property
     def pool(self) -> Dict[str, torch.Tensor]:
@@ -182,27 +192,65 @@ class UniTokEngine:
     def free_slots(self) -> List[int]:
         return [i for i in range(self.num_slots) if self._uids[i] is None]
 
+    def _reap_host(self) -> None:
+        """Slots whose request finished (host-known) give their blocks back
+        and become displaceable; their outputs stay in the state until a
+        displacing insert stashes them."""
+        for s in range(self.num_slots):
+            if (self._uids[s] is not None and self._remaining[s] == 0
+                    and s not in self._done_slots):
+                self._done_slots.add(s)
+                self.allocator.release(self._slot_blocks[s])
+                self._slot_blocks[s] = []
+
+    def _open_slots(self) -> List[int]:
+        """Slots an admission may take: free ones and (reaped first) those
+        whose request finished."""
+        self._reap_host()
+        return [s for s in range(self.num_slots)
+                if self._uids[s] is None or s in self._done_slots]
+
+    def _outputs(self, rows=None) -> torch.Tensor:
+        """(n, max_steps * K + 1) int32: each slot's (or ``rows``') delayed
+        codes and frame count, packed for one device read."""
+        st = self.state
+        parts = [st["out"].flatten(1), st["num_frames"][:, None]]
+        if rows is not None:
+            parts = [p[rows] for p in parts]
+        return torch.cat(parts, dim=1)
+
+    def _results(self, uids, packed: np.ndarray) -> List[UniTokResult]:
+        out = [self._undelay(uid, row[:-1].reshape(self.max_steps, self.K),
+                             int(row[-1]))
+               for uid, row in zip(uids, packed)]
+        self._stats["requests_completed"] += len(out)
+        self._stats["frames_generated"] += sum(len(r.codes) for r in out)
+        return out
+
     def _segment(self, take, get, bucket, dim):
         """(B, bucket, dim) zero-padded features of one segment kind and
         the (B, bucket) validity of its positions; (None, None) when the
         wave's signature has no such segment."""
         if bucket is None:
             return None, None
-        feats = torch.zeros((len(take), bucket, dim), device=self.device)
-        lens = []
+        feats = np.zeros((len(take), bucket, dim), np.float32)
+        lens = np.zeros((len(take), 1), np.int64)
         for i, (_, r, _) in enumerate(take):
-            x = torch.as_tensor(np.asarray(get(r)), dtype=torch.float32)
-            feats[i, :len(x)] = x.to(self.device)
-            lens.append(len(x))
+            x = np.asarray(get(r), np.float32)
+            feats[i, :len(x)] = x
+            lens[i] = len(x)
         valid = (torch.arange(bucket, device=self.device)[None]
-                 < torch.tensor(lens, device=self.device)[:, None])
-        return feats, valid
+                 < h2d(lens, self.device))
+        return h2d(feats, self.device), valid
 
     @torch.no_grad()
     def admit_wave(self, reqs: List[UniTokRequest]) -> List[int]:
-        """Admit the requests of ``reqs[0]``'s signature into free slots
-        while slots and pool blocks last; returns the uids admitted. The
-        whole list is validated before any slot or block is taken."""
+        """Admit the requests of ``reqs[0]``'s signature into slots while
+        slots and pool blocks last; returns the uids admitted. The whole
+        list is validated before any slot or block is taken. A slot whose
+        request finished but was not harvested is reused without a device
+        read; its codes go to a device-side stash first
+        (:meth:`drain_stashes`)."""
         if not reqs:
             return []
         for r in reqs:
@@ -210,8 +258,9 @@ class UniTokEngine:
         sig = self._signature(reqs[0])
         # padded prompt: task + (separator + bucket) per segment + [S]
         plen = 1 + sum(1 + b for b in sig if b is not None) + 1
-        slots = self.free_slots()
+        slots = self._open_slots()
         take = []  # (slot, request, blocks)
+        displaced_slots, displaced_uids = [], []
         for r in reqs:
             if not slots:
                 break
@@ -223,6 +272,10 @@ class UniTokEngine:
                 break
             blocks = self.allocator.alloc(need)
             s = slots.pop(0)
+            if s in self._done_slots:
+                displaced_slots.append(s)
+                displaced_uids.append(self._uids[s])
+                self._done_slots.discard(s)
             take.append((s, r, blocks))
             self._slot_blocks[s] = blocks
             self._uids[s] = r.uid
@@ -237,7 +290,7 @@ class UniTokEngine:
                                     cfg.audio_dim)
         inp, inp_ok = self._segment(take, lambda r: r.input_feats, sig[2],
                                     cfg.audio_dim)
-        task_ids = torch.tensor([r.task_id for _, r, _ in take], device=dev)
+        task_ids = h2d([r.task_id for _, r, _ in take], dev)
         prompt = self.lm.build_prompt(task_ids, cap, ref, inp, b)
         # compact the valid tokens to the left, in order (a stable sort):
         # positions and cache layout then match the unpadded prompt
@@ -255,17 +308,21 @@ class UniTokEngine:
         tables = np.full((b, self.max_blocks), TRASH_BLOCK, np.int32)
         for i, (_, _, blocks) in enumerate(take):
             tables[i, :len(blocks)] = blocks
-        tables_dev = torch.as_tensor(tables, device=dev)
+        tables_dev = h2d(tables, dev)
         scatter_prefill(self.pool, tables_dev, cache["k"], cache["v"],
                         self.block_size)
 
         st = self.state
-        rows = torch.tensor([s for s, _, _ in take], device=dev)
+        if displaced_slots:
+            self._pending_stashes.append((displaced_uids, self._outputs(
+                h2d(np.asarray(displaced_slots, np.int64), dev))))
+        rows = h2d(np.asarray([s for s, _, _ in take], np.int64), dev)
         wave = [r for _, r, _ in take]
 
         def put(name, vals):
-            st[name][rows] = torch.as_tensor(vals, device=dev).to(
-                st[name].dtype)
+            if not torch.is_tensor(vals):
+                vals = h2d(vals, dev)
+            st[name][rows] = vals.to(st[name].dtype)
 
         put("active", [True] * b)
         put("step", [0] * b)
@@ -307,9 +364,19 @@ class UniTokEngine:
         return torch.einsum("sd,kvd->skv", hidden,
                             self._heads.to(hidden.dtype)).float()
 
+    def step(self, n: int = 1,
+             generator: Optional[torch.Generator] = None) -> None:
+        """Decode ``n`` steps (K codes each) for every active slot."""
+        for _ in range(n):
+            self._step_one(generator)
+        self._stats["decode_steps"] += n
+        self._stats["step_dispatches"] += 1
+        for i in range(self.num_slots):
+            if self._uids[i] is not None:
+                self._remaining[i] = max(0, self._remaining[i] - n)
+
     @torch.no_grad()
-    def step(self, generator: Optional[torch.Generator] = None) -> None:
-        """Decode one step (K codes) for every active slot."""
+    def _step_one(self, generator: Optional[torch.Generator]) -> None:
         st, k = self.state, self.K
         active, step = st["active"], st["step"]
         logits = self.decode_logits(st["last_ids"])
@@ -337,10 +404,6 @@ class UniTokEngine:
                                      st["last_ids"]).int()
         st["index"] = torch.where(active, st["index"] + 1, st["index"]).int()
         st["active"] = active & ~finished
-        self._stats["decode_steps"] += 1
-        for i in range(self.num_slots):
-            if self._uids[i] is not None:
-                self._remaining[i] = max(0, self._remaining[i] - 1)
 
     def _undelay(self, uid: int, delayed: np.ndarray,
                  nframes: int) -> UniTokResult:
@@ -350,38 +413,51 @@ class UniTokEngine:
         return UniTokResult(uid, np.clip(codes, 0,
                                          self.cfg.codebook_size - 1))
 
+    def drain_stashes(self) -> List[UniTokResult]:
+        """The codes of displaced slots, every pending stash fetched in one
+        device read."""
+        if not self._pending_stashes:
+            return []
+        uids = [u for us, _ in self._pending_stashes for u in us]
+        packed = torch.cat([s for _, s in self._pending_stashes]).cpu()
+        self._pending_stashes = []
+        self._stats["stash_fetches"] += 1
+        return self._results(uids, packed.numpy())
+
     def harvest(self) -> List[UniTokResult]:
-        """Results of the slots whose request finished; frees the slots."""
+        """Results of the slots whose request finished (one device read);
+        frees the slots."""
         done = [i for i in range(self.num_slots)
                 if self._uids[i] is not None and self._remaining[i] == 0]
         if not done:
             return []
-        outs = self.state["out"].cpu().numpy()
-        nframes = self.state["num_frames"].cpu().numpy()
-        results = []
+        packed = self._outputs().cpu().numpy()
+        results = self._results([self._uids[i] for i in done], packed[done])
         for i in done:
-            results.append(self._undelay(self._uids[i], outs[i],
-                                         int(nframes[i])))
             self._uids[i] = None
             self.allocator.release(self._slot_blocks[i])
             self._slot_blocks[i] = []
-        self._stats["requests_completed"] += len(results)
-        self._stats["frames_generated"] += sum(len(r.codes) for r in results)
+            self._done_slots.discard(i)
         return results
 
     def run(self, requests: List[UniTokRequest],
-            generator: Optional[torch.Generator] = None
-            ) -> Dict[int, UniTokResult]:
-        """Serve every request: admit same-signature waves into free slots,
-        decode to the next completion, harvest, repeat."""
+            generator: Optional[torch.Generator] = None,
+            poll_interval: int = 256) -> Dict[int, UniTokResult]:
+        """Serve every request: each round admits waves (the pending
+        requests of the first one's signature, then of the next) into free
+        and finished slots while they last, then decodes to the next
+        completion in power-of-two chunks of at most ``poll_interval``
+        (floored to a power of two); the stashed codes are drained in one
+        read at the end."""
         for r in requests:
             self.validate(r)
+        poll_interval = 1 << (max(int(poll_interval), 1).bit_length() - 1)
+        self._stats["poll_interval"] = poll_interval
         pending = list(requests)
         results: Dict[int, UniTokResult] = {}
+        guard = 0
         while True:
-            for r in self.harvest():
-                results[r.uid] = r
-            while pending and self.free_slots():
+            while pending and self._open_slots():
                 sig = self._signature(pending[0])
                 admitted = set(self.admit_wave(
                     [r for r in pending if self._signature(r) == sig]))
@@ -394,9 +470,17 @@ class UniTokEngine:
                 if pending:
                     raise RuntimeError("requests cannot be admitted (KV pool "
                                        "too small for any pending request)")
-                return results
-            for _ in range(min(live)):
-                self.step(generator)
+                break
+            for c in segment_chunks(min(live), poll_interval):
+                self.step(c, generator)
+            guard += 1
+            if guard > 100000:
+                raise RuntimeError("engine did not converge")
+        for r in self.drain_stashes():
+            results[r.uid] = r
+        for r in self.harvest():
+            results[r.uid] = r
+        return results
 
     def stats(self) -> Dict[str, float]:
         """Serving counters (host-side) and pool occupancy."""
