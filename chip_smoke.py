@@ -302,12 +302,33 @@ prints no result. Phases, each fatal on failure:
    (K2) and 16 on a bf16 pool (K1), codes in range, launches 12 a step,
    one stash fetch; teacher-forced fp32 decode through K1 and K2 against
    the plain attention within 1e-4.
-14. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+14. The last modules, fp32 with TF32 off, seeded weights, each against
+   the same module on the CPU (max abs err <= 1e-4 x max(1, max |cpu|)):
+   (a) HCodec-1.0's PriorNet transformer (768 wide, 12 heads, 2 layers)
+   with routed experts (3, top-1) on 500 frames; (b) the ring-KV
+   streaming transformer at Mimi's width (512, 8 heads, context 16, 32
+   layers) on a 10-s clip's 250 frames, and streamed on the card in chunks
+   of 1 and 4 (rings of 16 and 19) against its own offline forward within
+   1e-4, with the time a chunk; (c) the conformer at UniSE's width (6 x
+   512) on 500 frames; (d) GRVQ at HCodec-2.0's latent width (512, 2
+   quantizers of two 1024-code groups of 8) on 125 frames, each quantizer
+   judged on the CPU's residual: indices equal or near ties (fp64 cosines
+   within 1e-5); (e) the SEANet decoder, the inverse of HCodec-1.0's
+   encoder, 500 frames to 160,000 samples; (f) the native loader built
+   with g++ here: wavs read bit-equal to the Python reader, 20 pinned
+   batches of 8 x 4 s copied to the card without blocking and checked
+   there; (g) ``utils/profiling.py`` around UniSE decode steps on an int8
+   pool at serving width: ``StepTimer(device="cuda")`` at or above each
+   step's CUDA-event time, and ``trace`` of one step whose Chrome trace
+   names K2's kernel and the annotated region; K2 launched 12 times a
+   step. Prints the phase's time.
+15. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
-above, each kernel's time, its plain version's and its bound; K1's and
-K2's launches are phases 3's and 13's, and phase 7 prints its own
+above, each kernel's time, its plain version's and its bound; K1's
+launches are phases 3's and 13's, K2's phases 3's, 13's and 14's, and
+phase 7 prints its own
 serve's; K5's are
 phase 4's staged encode, phase 8's training, phase 11's causal
 training and HCodec-1.5 training forwards and phase 12's dp codec
@@ -3891,6 +3912,324 @@ def parallel_phase(torch, cli, vq, gpu, tmp, write_wav, train_ms, codec_ms):
     return k5
 
 
+# ---------------------------------------------------------------------------
+# The last modules (phase 14)
+# ---------------------------------------------------------------------------
+
+LAST_SEED = 14
+MOE_KW = dict(hidden_size=768, intermediate_size=3072, num_heads=12,
+              num_layers=2, use_moe=True, moe_experts=3, moe_topk=1)
+RING = dict(dim=512, num_layers=32, num_heads=8, context=16)
+GRVQ = dict(input_dim=512, codebook_size=1024, codebook_dim=8,
+            num_quantizers=2)
+LOADER = dict(files=8, crop_s=4.0, batch=8, workers=4, batches=20)
+
+
+def seeded(torch, module):
+    """``module`` on the CPU with weights from ``LAST_SEED`` (eval), and its
+    copy on the card."""
+    import copy
+
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    init_random_(module, torch.Generator().manual_seed(LAST_SEED))
+    module.eval()
+    return module, copy.deepcopy(module).to("cuda")
+
+
+def card_against_cpu(torch, what, cpu_m, card_m, x, rel, gpu, fn=None):
+    """``fn(module, x)`` (default ``module(x)``) on the CPU and on the card
+    on the same fp32 input: fails unless max |card - cpu| <= rel * max(1,
+    max |cpu|); prints the error and the card's median wall of 5 calls
+    -> (cpu output, card output, card ms)."""
+    fn = fn or (lambda m, t: m(t))
+    xt = torch.as_tensor(x)
+    with torch.no_grad():
+        want = fn(cpu_m, xt)
+        xc = xt.to("cuda")
+        got = fn(card_m, xc)
+        wall, _, _ = median_wall(torch, lambda: fn(card_m, xc), 5)
+    err = float((got.cpu() - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    if not (np.isfinite(err) and err <= rel * scale):
+        fail(f"{what}: card against the CPU max abs err {err:.3e} > "
+             f"{rel} x {scale:.3g}")
+    print(f"phase 14 {what}: output {tuple(got.shape)}, card against the "
+          f"CPU max abs err {err:.3e} (bound {rel} x max(1, max |cpu|) = "
+          f"{rel * scale:.3e}); card {wall * 1e3:.2f} ms a call (median of "
+          f"5) | {gpu}", flush=True)
+    return want, got, wall * 1e3
+
+
+def moe_check(torch, gpu):
+    """(a) HCodec-1.0's PriorNet transformer (768 wide, 12 heads, 2
+    layers) with routed experts (3, top-1) on a 10-s clip's 500 decoder
+    frames."""
+    from unified_audio_tpu_torch.nn.transformer import Transformer
+
+    cpu_m, card_m = seeded(torch, Transformer(**MOE_KW))
+    x = np.random.default_rng(1).standard_normal((1, 500, 768)).astype(
+        np.float32)
+    card_against_cpu(torch, "(a) MoE transformer 768 x 2, 3 experts top-1",
+                     cpu_m, card_m, x, 1e-4, gpu)
+
+
+def stream_all(torch, m, x, chunk):
+    """x (1, T, D) on the card through ``m.step`` in chunks of ``chunk``
+    with the tightest ring (context + chunk - 1) -> (output, ms a chunk)."""
+    state = m.init_state(1, m.context + chunk - 1)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(0, x.shape[1], chunk):
+            y, state = m.step(x[:, i:i + chunk], state)
+            outs.append(y)
+    torch.cuda.synchronize()
+    n = len(outs)
+    return torch.cat(outs, dim=1), (time.perf_counter() - t0) * 1e3 / n
+
+
+def ring_check(torch, gpu):
+    """(b) The ring-KV streaming transformer at Mimi's width (512, 8 heads,
+    context 16, 32 layers) on a 10-s clip's 250 frames: offline on the
+    card against the CPU; streamed in chunks of 1 and 4 against its own
+    offline forward within 1e-4."""
+    from unified_audio_tpu_torch.nn.streaming import StreamingTransformer
+
+    cpu_m, card_m = seeded(torch, StreamingTransformer(**RING))
+    x = np.random.default_rng(2).standard_normal((1, 250, 512)).astype(
+        np.float32)
+    _, offline, _ = card_against_cpu(
+        torch, "(b) ring-KV streaming transformer 512 x 32, offline", cpu_m,
+        card_m, x, 1e-4, gpu)
+    xc = torch.as_tensor(x, device="cuda")
+    for chunk in (1, 4):
+        stream_all(torch, card_m, xc, chunk)  # warm-up
+        streamed, ms = stream_all(torch, card_m, xc, chunk)
+        err = float((streamed - offline).abs().max())
+        if not err <= 1e-4:
+            fail(f"ring-KV stream in chunks of {chunk}: max abs err "
+                 f"{err:.3e} against the offline forward")
+        print(f"phase 14 (b) streamed in chunks of {chunk} (ring of "
+              f"{RING['context'] + chunk - 1}): max abs err {err:.3e} "
+              f"against the offline forward; {ms:.3f} ms a chunk "
+              f"({ms / chunk:.3f} ms a frame) | {gpu}", flush=True)
+
+
+def conformer_check(torch, gpu):
+    """(c) The conformer at UniSE's width (6 x 512, 8 heads of 64) on a
+    10-s clip's 500 frames."""
+    from unified_audio_tpu_torch.models.lm.conformer import ConformerEncoder
+
+    cpu_m, card_m = seeded(torch, ConformerEncoder())
+    x = np.random.default_rng(3).standard_normal((1, 500, 512)).astype(
+        np.float32)
+    card_against_cpu(torch, "(c) conformer 6 x 512", cpu_m, card_m, x, 1e-4,
+                     gpu)
+
+
+def grvq_layer_ties(torch, layer, r, got):
+    """The rows where the card's fused index ``got`` differs from the CPU's
+    on residual ``r`` -> the largest fp64 cosine gap between the two
+    choices over those rows and both groups (0 when none differ)."""
+    with torch.no_grad():
+        want = layer(r)["indices"]
+    worst = 0.0
+    n = layer.codebook_size
+    for name, proj, cb, of in (("a", layer.in_proj_a, layer.codebook_a,
+                                lambda i: i // n),
+                               ("b", layer.in_proj_b, layer.codebook_b,
+                                lambda i: i % n)):
+        with torch.no_grad():
+            z = proj(r).double()
+        z = z / z.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        c = cb.detach().double()
+        c = c / c.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        cos = z @ c.T  # (B, T, N)
+        a, b = of(got.long()), of(want.long())
+        diff = a != b
+        if diff.any():
+            ga = cos.gather(-1, a[..., None])[..., 0]
+            gb = cos.gather(-1, b[..., None])[..., 0]
+            worst = max(worst, float((gb - ga).abs()[diff].max()))
+    return int((got != want).sum()), worst
+
+
+def grvq_check(torch, gpu):
+    """(d) GRVQ at HCodec-2.0's latent width (512; 2 quantizers of two
+    1024-code groups of 8) on a 10-s clip's 125 frames: the whole stack on
+    the card against the CPU, and each quantizer judged on the residual
+    the CPU's codes leave: every index equal, or a near tie (the two
+    choices' fp64 cosines within 1e-5)."""
+    from unified_audio_tpu_torch.ops.grvq import (
+        AutoGroupResidualVectorQuantize)
+
+    cpu_m, card_m = seeded(torch, AutoGroupResidualVectorQuantize(**GRVQ))
+    z = np.random.default_rng(4).standard_normal((1, 125, 512)).astype(
+        np.float32)
+    zt = torch.as_tensor(z)
+    with torch.no_grad():
+        want = cpu_m(zt)
+        got = card_m(zt.to("cuda"))
+        wall, _, _ = median_wall(torch, lambda: card_m(zt.to("cuda")), 5)
+    equal = float((got["indices"].cpu() == want["indices"]).float().mean())
+    r, differ, worst = zt, 0, 0.0
+    for q_cpu, q_card in zip(cpu_m.quantizers, card_m.quantizers):
+        with torch.no_grad():
+            idx = q_card(r.to("cuda"))["indices"].cpu()
+            n, gap = grvq_layer_ties(torch, q_cpu, r, idx)
+            r = r - q_cpu(r)["z_q"]
+        differ, worst = differ + n, max(worst, gap)
+    if not worst <= 1e-5:
+        fail(f"GRVQ: {differ} indices differ from the CPU's, cosine gap "
+             f"{worst:.3e} > 1e-5")
+    same = got["indices"].cpu() == want["indices"]
+    zq_err = float((got["z_q"].cpu() - want["z_q"]).abs().max()) \
+        if bool(same.all()) else float("nan")
+    if bool(same.all()) and not zq_err <= 1e-4:
+        fail(f"GRVQ z_q: card against the CPU max abs err {zq_err:.3e}")
+    print(f"phase 14 (d) GRVQ 512 wide, 2 x (1024 x 1024) codes on 125 "
+          f"frames: indices {tuple(got['indices'].shape)} equal to the CPU's "
+          f"in {equal:.4f} of places, {differ} layer-judged differences "
+          f"(worst cosine gap {worst:.2e}); z_q max abs err {zq_err:.3e}; "
+          f"card {wall * 1e3:.2f} ms a call | {gpu}", flush=True)
+
+
+def seanet_decoder_check(torch, gpu):
+    """(e) The SEANet decoder, the inverse of HCodec-1.0's encoder (512 ->
+    32 filters, ratios (8, 5, 4, 2), a 2-layer skip-LSTM): 500 latent
+    frames to 10 s of 16 kHz audio."""
+    from unified_audio_tpu_torch.nn.blocks import SEANetDecoder
+
+    cpu_m, card_m = seeded(torch, SEANetDecoder(dimension=512, n_filters=32,
+                                                ratios=(8, 5, 4, 2), lstm=2))
+    z = np.random.default_rng(5).standard_normal((1, 500, 512)).astype(
+        np.float32)
+    _, got, _ = card_against_cpu(torch, "(e) SEANet decoder 512 -> 1, hop "
+                                 "320", cpu_m, card_m, z, 1e-4, gpu)
+    if tuple(got.shape) != (1, int(CLIP_S * SR), 1):
+        fail(f"SEANet decoder output {tuple(got.shape)}")
+
+
+def loader_check(torch, tmp, write_wav, read_wav, gpu):
+    """(f) The native loader built with this machine's g++: 8 synthetic
+    10-s wavs read bit-equal to the Python reader, then 20 pinned batches
+    of 8 x 4-s crops (4 C++ workers) copied to the card without blocking,
+    each equal there to the host batch."""
+    from unified_audio_tpu_torch.data import native_loader as nl
+
+    t0 = time.perf_counter()
+    nl.get_library()
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    paths = []
+    for i in range(LOADER["files"]):
+        p = tmp / f"loader_{i}.wav"
+        write_wav(p, 0.5 * synth_speech(rng, int(CLIP_S * SR)), SR)
+        paths.append(p)
+        native, sr = nl.read_wav_native(p)
+        plain, sr2 = read_wav(p)  # (channels, T)
+        if sr != sr2 or not np.array_equal(native, plain[0]):
+            fail(f"native read of {p.name} differs from the Python reader")
+    crop = int(LOADER["crop_s"] * SR)
+    n = LOADER["batches"]
+    with nl.NativeAudioLoader(paths, crop, LOADER["batch"],
+                              workers=LOADER["workers"], seed=LAST_SEED,
+                              pin_memory=True) as loader:
+        first = loader.next()  # the workers' start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            host = loader.next()
+            if not host.is_pinned():
+                fail("the native loader's batch is not in pinned memory")
+            card = host.to("cuda", non_blocking=True)
+            if not (torch.equal(card.cpu(), host)
+                    and bool(torch.isfinite(card).all())):
+                fail("a pinned batch differs on the card")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    mb = n * first.numel() * 4 / 1e6
+    print(f"phase 14 (f) native loader: g++ build and load {built:.2f} s; "
+          f"8 wavs read bit-equal to the Python reader; {n} pinned batches "
+          f"{tuple(first.shape)} to the card in {wall:.3f} s "
+          f"({n / wall:.1f} batches/s, {mb / wall:.1f} MB/s, each checked "
+          f"on the card) | {gpu}", flush=True)
+
+
+def traced_decode_check(torch, cli, pa, unise, tmp, gpu):
+    """(g) ``utils/profiling.py`` around UniSE decode steps on an int8 pool
+    at serving width (16 slots, LM 512 x 12): ``StepTimer(device="cuda")``
+    over 6 steps (the first left out) against each step's CUDA-event time,
+    then ``trace`` of one step in an ``annotate`` region; the Chrome trace
+    must name K2's kernel and the region -> K2 launches."""
+    from unified_audio_tpu_torch.utils import profiling
+
+    k2 = pa.paged_flash_decode_owner_q8
+    eng = cli.make_engine(unise, 16, "int8")
+    reqs = api_requests(torch, unise, np.random.default_rng(7))[:16]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k2.launches = 0
+    eng.admit_many(reqs)
+    eng.step(1, gen)  # warm-up
+    timer = profiling.StepTimer(device="cuda")
+    events = []
+    for _ in range(6):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with timer:
+            start.record()
+            eng.step(1, gen)
+            end.record()
+        events.append(start.elapsed_time(end) / 1e3)
+    summary = timer.summary()
+    ev = sorted(events[1:])
+    if not all(w >= e for w, e in zip(timer.times, events)) \
+            or not summary["p50_s"] >= ev[len(ev) // 2]:
+        fail(f"StepTimer below the CUDA-event time: {timer.times} against "
+             f"{events}")
+    with profiling.trace(tmp / "trace") as prof:
+        with profiling.annotate("unise_decode_step"):
+            eng.step(1, gen)
+    torch.cuda.synchronize()
+    names = {str(e.get("name")) for e in json.loads(
+        Path(prof.trace_path).read_text())["traceEvents"]}
+    kernel = CUDA_KERNELS[k2.__name__]
+    if not any(kernel in n for n in names) or "unise_decode_step" not in names:
+        fail(f"the trace of a decode step names no {kernel} or no region: "
+             f"{sorted(names)[:40]}")
+    steps = 1 + 6 + 1
+    if k2.launches != L * steps:
+        fail(f"K2 launched {k2.launches} times in {steps} decode steps")
+    print(f"phase 14 (g) int8 UniSE decode step, 16 slots: StepTimer p50 "
+          f"{summary['p50_s'] * 1e3:.3f} ms, p90 {summary['p90_s'] * 1e3:.3f}"
+          f" ms, against the CUDA-event median {ev[len(ev) // 2] * 1e3:.3f} "
+          f"ms; the trace ({Path(prof.trace_path).stat().st_size} bytes) "
+          f"names {kernel} and the annotated step; K2 launches "
+          f"{k2.launches} | {gpu}", flush=True)
+    return k2.launches
+
+
+def last_modules_phase(torch, cli, pa, unise, gpu, tmp, write_wav,
+                       read_wav):
+    """Phase 14: the modules of the last slice at full width on the card,
+    fp32 with TF32 off, each held against the same seeded module on the
+    CPU -> K2 launches (the traced decode steps)."""
+    t0 = time.perf_counter()
+    cli._fp32_without_tf32()
+    moe_check(torch, gpu)
+    ring_check(torch, gpu)
+    conformer_check(torch, gpu)
+    grvq_check(torch, gpu)
+    seanet_decoder_check(torch, gpu)
+    loader_check(torch, tmp, write_wav, read_wav, gpu)
+    k2 = traced_decode_check(torch, cli, pa, unise, tmp, gpu)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s | {gpu}",
+          flush=True)
+    return k2
+
+
+
 def main():
     try:
         import torch
@@ -4104,7 +4443,15 @@ def main():
                                     unitok_reqs, gpu).items():
         launches[name] += n
 
-    # 14. nothing of JAX or the JAX package was loaded
+    # 14. the last modules: MoE, the ring-KV stream, the conformer, GRVQ,
+    # the SEANet decoder, the native loader, profiling around a decode step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches[pa.paged_flash_decode_owner_q8.__name__] += \
+            last_modules_phase(torch, cli, pa, unise, gpu, Path(tmp),
+                               write_wav, read_wav)
+
+    # 15. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:

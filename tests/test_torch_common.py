@@ -298,8 +298,10 @@ class TestPortImportsNoJax:
         modules (the UniSE and codec trainers, the discriminators,
         checkpoints, both data pipelines, config, logging) and the
         parallel ones (process start-up, meshes, the pipeline, the
-        sequence-parallel prefill) still import,
-        and no module of the JAX package is loaded."""
+        sequence-parallel prefill), and the last slice's modules (the
+        conformer, the native loader, the profiling, token-map and
+        watchdog utilities, the ring-KV streaming transformer, GRVQ) still
+        import, and no module of the JAX package is loaded."""
         code = ("import sys; sys.modules['jax'] = None; "
                 "sys.modules['flax'] = None; "
                 "import unified_audio_tpu_torch.cli, "
@@ -335,7 +337,14 @@ class TestPortImportsNoJax:
                 "unified_audio_tpu_torch.parallel.distributed, "
                 "unified_audio_tpu_torch.parallel.mesh, "
                 "unified_audio_tpu_torch.parallel.pipeline, "
-                "unified_audio_tpu_torch.parallel.sequence; "
+                "unified_audio_tpu_torch.parallel.sequence, "
+                "unified_audio_tpu_torch.models.lm.conformer, "
+                "unified_audio_tpu_torch.data.native_loader, "
+                "unified_audio_tpu_torch.utils.profiling, "
+                "unified_audio_tpu_torch.utils.token_parser, "
+                "unified_audio_tpu_torch.utils.watchdog, "
+                "unified_audio_tpu_torch.nn.streaming, "
+                "unified_audio_tpu_torch.ops.grvq; "
                 "shared = {m for m in sys.modules "
                 "if m.split('.')[0] == 'unified_audio_tpu'}; "
                 "assert not shared, shared")
@@ -343,11 +352,58 @@ class TestPortImportsNoJax:
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
 
-    @staticmethod
-    def _port_sources():
+    # The root scripts that import JAX. ``bench.py`` and
+    # ``__graft_entry__.py`` are the JAX package's own. ``orbax_to_torch.py``
+    # is the port's one exception: it reads the JAX package's orbax
+    # checkpoints, which only orbax can, and writes torch files; it runs
+    # where JAX is installed, never on the card, and nothing of the port
+    # imports it.
+    JAX_ROOT_SCRIPTS = {"bench.py", "__graft_entry__.py", "orbax_to_torch.py"}
+
+    @classmethod
+    def _port_sources(cls):
         files = list((REPO / "unified_audio_tpu_torch").rglob("*.py"))
-        return files + [REPO / "chip_smoke.py", REPO / "compare_trees.py",
-                        REPO / "profiler_windows.py"]
+        return files + [f for f in REPO.glob("*.py")
+                        if f.name not in cls.JAX_ROOT_SCRIPTS]
+
+    def test_every_jax_module_has_a_port(self):
+        """A diff of the two packages' module lists leaves only the JAX
+        files that ROADMAP.md "Not ported" names: the Pallas kernels (the
+        port's are ``ops/cuda/*`` over ``csrc/*``), the TPU parameter
+        packing and the two reference-layout converters."""
+        def modules(pkg):
+            root = REPO / pkg
+            return {str(f.relative_to(root)) for f in root.rglob("*.py")}
+
+        missing = modules("unified_audio_tpu") - modules(
+            "unified_audio_tpu_torch")
+        assert missing == {
+            "ops/pallas/__init__.py", "ops/pallas/paged_attention.py",
+            "ops/pallas/vq_kernel.py", "utils/param_pack.py",
+            "utils/convert_bicodec.py", "utils/convert_hcodec.py"}, missing
+
+    def test_root_scripts_scanned(self):
+        """The scan covers every other root script, chip_smoke.py and the
+        scripts beside it among them."""
+        names = {f.name for f in self._port_sources()
+                 if f.parent == REPO}
+        assert {"chip_smoke.py", "compare_trees.py", "profiler_windows.py",
+                "profile_serve.py", "smoke_phases.py"} <= names
+        assert not names & self.JAX_ROOT_SCRIPTS
+
+    def test_only_the_converter_reaches_orbax(self):
+        """``orbax_to_torch.py`` imports JAX and orbax only inside its
+        functions (importing the script loads neither), and no port module
+        imports the script."""
+        src = (REPO / "orbax_to_torch.py").read_text().splitlines()
+        top = [ln for ln in src if re.match(
+            r"(import|from)\s+(jax|flax|orbax|unified_audio_tpu)\b", ln)]
+        assert not top, top
+        assert any("from unified_audio_tpu.train.checkpoint import" in ln
+                   for ln in src)
+        for f in (REPO / "unified_audio_tpu_torch").rglob("*.py"):
+            assert not re.search(r"^\s*(import|from)\s+orbax_to_torch\b",
+                                 f.read_text(), re.M), f
 
     def test_no_jax_import_lines(self):
         """No module of the port, nor chip_smoke.py and the scripts beside it,

@@ -54,19 +54,25 @@ def spawn(job_dir: Path, world: int, scenarios, arrays):
     (job_dir / "job.json").write_text(json.dumps(
         {"scenarios": scenarios, "timeout_s": SPAWN_TIMEOUT_S - 30}))
     np.savez(job_dir / "inputs.npz", **arrays)
-    port = free_port()
+    (job_dir / "port").unlink(missing_ok=True)  # rank 0 publishes its own
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
     procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(job_dir), str(r), str(world),
-         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [sys.executable, str(WORKER), str(job_dir), str(r), str(world)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, env=env, cwd=str(WORKER.parents[1]))
         for r in range(world)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=SPAWN_TIMEOUT_S)[0])
+            try:
+                out = p.communicate(timeout=SPAWN_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:  # keep what the rank said
+                p.kill()
+                out = (p.communicate()[0]
+                       + f"\n[killed after {SPAWN_TIMEOUT_S} s]")
+            outs.append(out)
     finally:
         for p in procs:
             if p.poll() is None:

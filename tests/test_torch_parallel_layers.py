@@ -13,7 +13,13 @@ the JAX package's dense results on the same weights:
   accuracy exact, every gradient within 1e-4 of its largest entry;
 * the paged decode step at tp = 4 (one head a rank), plain and owner
   modes: logits within 2e-4 and the pool within 2e-5, JAX's own bounds
-  (``tests/test_parallel.py``).
+  (``tests/test_parallel.py``);
+* expert parallelism (``moe_ep``): HCodec's MoE ``Transformer`` (4
+  experts, top-2, as ``tests/test_parallel.py TestExpertParallel``) on
+  dp2 x tp2, two experts a rank: the output, the gradient of every
+  parameter and of the input within 2e-5 of the same model run replicated
+  on the whole batch (JAX's bound), and that run within 1e-4 of JAX's
+  dense forward and gradients.
 """
 import dataclasses
 
@@ -56,7 +62,22 @@ def cases():
     jm = JCodecLM(pcfg)
     pparams = jax.device_get(random_variables(jm, g, s, seed=7))
     return {"pipe": pipe, "seq": seq, "pretrain": (pcfg, jm, pparams, g, s),
-            "paged": paged_case()}
+            "paged": paged_case(), "moe": moe_case()}
+
+
+MOE_KW = dict(hidden_size=16, intermediate_size=32, num_heads=4,
+              num_layers=2, use_moe=True, moe_experts=4, moe_topk=2)
+
+
+def moe_case():
+    """JAX's MoE transformer of ``TestExpertParallel``, seeded weights and
+    an (8, 6, 16) input."""
+    from unified_audio_tpu.nn.transformer import Transformer
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((8, 6, 16)).astype(np.float32)
+    jm = Transformer(**MOE_KW)
+    return jm, jax.device_get(random_variables(jm, x, seed=10)), x
 
 
 def paged_case():
@@ -111,6 +132,12 @@ def world4(cases, tmp_path_factory):
     scenarios.append(dict(kind="paged", name="paged", mesh={"dp": 1,
                                                             "tp": 4},
                           cfg=dataclasses.asdict(kcfg), feats_dim=12))
+    _, mvars, x = cases["moe"]
+    arrays.update({f"moe.model.{k}": np.asarray(v) for k, v in
+                   t_convert.transformer_state_dict(mvars).items()})
+    arrays["moe.x"] = x
+    scenarios.append(dict(kind="moe_ep", name="moe_ep",
+                          mesh={"dp": 2, "tp": 2}, kw=MOE_KW))
     return spawn(tmp_path_factory.mktemp("layers") / "job", 4, scenarios,
                  arrays)
 
@@ -227,3 +254,46 @@ def test_port_config_roundtrip():
     ssl = SSLConfig(conv_dim=(16,) * 7)
     back = config(SSLConfig, json.loads(json.dumps(dataclasses.asdict(ssl))))
     assert back == ssl and isinstance(back.conv_dim, tuple)
+
+
+def test_expert_parallel_matches_replicated(world4):
+    """The experts really are cut (2 of 4 a rank); the dp2 x tp2 output
+    and every gradient (the experts' gathered over tp, the gate's and the
+    shared expert's whole on each rank, the input's) within 2e-5 of the
+    replicated run."""
+    for r in world4:
+        res = of(r, "moe_ep")
+        assert int(res["local_experts"]) == 2
+        np.testing.assert_allclose(res["ep/y"], res["ref/y"], atol=2e-5,
+                                   rtol=0)
+        np.testing.assert_allclose(res["ep/x_grad"], res["ref/x_grad"],
+                                   atol=2e-5, rtol=0)
+        ep = {k[len("ep/grad/"):]: v for k, v in res.items()
+              if k.startswith("ep/grad/")}
+        ref = {k[len("ref/grad/"):]: v for k, v in res.items()
+               if k.startswith("ref/grad/")}
+        assert set(ep) == set(ref) and any("expert_w1" in k for k in ep)
+        for k, v in ref.items():
+            np.testing.assert_allclose(ep[k], v, atol=2e-5, rtol=0,
+                                       err_msg=k)
+
+
+def test_expert_parallel_reference_matches_jax(world4, cases):
+    """The replicated run the EP run is held to equals JAX's dense MoE
+    transformer: forward within 1e-4, gradients within 1e-4 of their
+    largest entry."""
+    jm, variables, x = cases["moe"]
+
+    def loss(v, xx):
+        return jnp.mean(jnp.square(jm.apply(v, xx)))
+
+    y = np.asarray(jm.apply(variables, x))
+    gv, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(variables, x)
+    want = t_convert.transformer_state_dict(jax.device_get(gv))
+    want = {k: v for k, v in want.items() if not k.endswith("gate_bias")}
+    res = of(world4[0], "moe_ep")
+    np.testing.assert_allclose(res["ref/y"], y, atol=1e-4, rtol=0)
+    got = {k[len("ref/grad/"):]: v for k, v in res.items()
+           if k.startswith("ref/grad/")}
+    rel_close(got, want, 1e-4, "moe gradients")
+    rel_close({"x": res["ref/x_grad"]}, {"x": np.asarray(gx)}, 1e-4, "x")

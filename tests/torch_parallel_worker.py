@@ -1,12 +1,14 @@
 """One rank of the port's parallel tests (``tests/test_torch_parallel*.py``).
 
-Run as ``python tests/torch_parallel_worker.py JOB_DIR RANK WORLD PORT``,
-one process a rank: the process joins a gloo group through
+Run as ``python tests/torch_parallel_worker.py JOB_DIR RANK WORLD``, one
+process a rank: the process joins a gloo group through
 ``parallel/distributed.py initialize`` (its own timeout, so a hung
-collective ends the process instead of the whole test run), runs the
-scenarios of ``JOB_DIR/job.json`` in order over the arrays of
-``JOB_DIR/inputs.npz`` (weights in the port's state-dict layout, batches,
-draws), and writes its results to ``JOB_DIR/out_rank{RANK}.npz`` under
+collective ends the process instead of the whole test run) over a
+``TCPStore`` that rank 0 binds to port 0 and whose port it publishes as
+``JOB_DIR/port``, so no other process can take the port between its
+choice and its bind; it runs the scenarios of ``JOB_DIR/job.json`` in
+order over the arrays of ``JOB_DIR/inputs.npz`` (weights in the port's
+state-dict layout, batches, draws), and writes its results to ``JOB_DIR/out_rank{RANK}.npz`` under
 "<scenario>/<key>". Gradients and weights are written whole (gathered
 over tp and pp), in the single-device layout.
 
@@ -16,6 +18,7 @@ JAX's dense results in their own process and compare.
 import dataclasses
 import json
 import sys
+import time
 from datetime import timedelta
 from pathlib import Path
 
@@ -415,18 +418,85 @@ def hybrid(sc, arrays, job_dir, rank):
     }
 
 
+def moe_ep(sc, arrays, job_dir, rank):
+    """Expert parallelism: HCodec's MoE ``Transformer`` (``sc["kw"]``) on
+    a dp x tp mesh, the experts cut over tp (``EXPERT_RULES``), each dp
+    rank on its rows of ``x``: the output gathered over dp, and the
+    gradients of mean(y^2) averaged over dp and gathered over tp; beside
+    them the same model replicated on the whole batch in this process."""
+    from unified_audio_tpu_torch.nn.transformer import Transformer
+
+    def model():
+        m = Transformer(**sc["kw"])
+        m.load_state_dict(state(arrays, "moe.model."))
+        return m
+
+    x = torch.as_tensor(arrays["moe.x"])
+    out = {}
+    ref = model()
+    xr = x.clone().requires_grad_(True)
+    y = ref(xr)
+    y.square().mean().backward()
+    out["ref/y"] = y.detach().numpy()
+    out["ref/x_grad"] = xr.grad.numpy()
+    out.update(prefixed("ref/grad/", {k: p.grad for k, p in
+                                      ref.named_parameters()
+                                      if p.grad is not None}))
+    mesh = mesh_of(sc)
+    ep = mesh_lib.shard_lm_(model(), mesh, rules=mesh_lib.EXPERT_RULES)
+    w1 = ep.layers[0].mlp.expert_w1
+    out["local_experts"] = np.int64(w1.shape[0])
+    xl = mesh_lib.shard_batch(x, mesh).clone().requires_grad_(True)
+    y = ep(xl)
+    y.square().mean().backward()
+    dp_group, dp = mesh_lib.axis_group(mesh, "dp"), mesh_lib.axis_size(
+        mesh, "dp")
+    # the global mean's gradient on x: this rank's rows' gradient / dp
+    out["ep/x_grad"] = (mesh_lib.unshard_tensor(xl.grad, 0, dp_group)
+                        / dp).numpy()
+    params = dict(ep.named_parameters())
+    grads = {k: p.grad for k, p in params.items() if p.grad is not None}
+    mesh_lib.all_reduce_mean_(list(grads.values()), dp_group)
+    out.update(prefixed("ep/grad/", mesh_lib.gather_named(grads, params,
+                                                          mesh, 0)))
+    out["ep/y"] = mesh_lib.unshard_tensor(y.detach(), 0, dp_group).numpy()
+    return out
+
+
 SCENARIOS = {"sft": sft_step, "pipeline": pipeline, "sequence": sequence,
              "pretrain": pretrain, "paged": paged, "codec": codec,
-             "data": data, "hybrid": hybrid}
+             "data": data, "hybrid": hybrid, "moe_ep": moe_ep}
 
 
-def main(job_dir: Path, rank: int, world: int, port: int):
+def rendezvous(job_dir: Path, rank: int, world: int, timeout: timedelta):
+    """The group's store: rank 0 binds a ``TCPStore`` to a port the system
+    picks and writes the port to ``JOB_DIR/port`` (a new name, renamed into
+    place); the other ranks wait for that file and connect."""
+    port_file = job_dir / "port"
+    if rank == 0:
+        store = dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                              timeout=timeout, wait_for_workers=False)
+        tmp = job_dir / "port.tmp"
+        tmp.write_text(str(store.port))
+        tmp.rename(port_file)
+        return store
+    deadline = time.monotonic() + timeout.total_seconds()
+    while not port_file.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank 0 published no port in {timeout}")
+        time.sleep(0.05)
+    return dist.TCPStore("127.0.0.1", int(port_file.read_text()), world,
+                         is_master=False, timeout=timeout)
+
+
+def main(job_dir: Path, rank: int, world: int):
     torch.set_num_threads(1)  # several ranks share the machine's cores
     job = json.loads((job_dir / "job.json").read_text())
     arrays = dict(np.load(job_dir / "inputs.npz"))
     timeout = timedelta(seconds=job.get("timeout_s", 120))
-    assert distributed.initialize(f"127.0.0.1:{port}", world, rank,
-                                  device="cpu", timeout=timeout)
+    store = rendezvous(job_dir, rank, world, timeout)
+    assert distributed.initialize(None, world, rank, device="cpu",
+                                  timeout=timeout, store=store)
     out = {}
     try:
         for sc in job["scenarios"]:
@@ -439,5 +509,4 @@ def main(job_dir: Path, rank: int, world: int, port: int):
 
 
 if __name__ == "__main__":
-    main(Path(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-         int(sys.argv[4]))
+    main(Path(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]))

@@ -203,13 +203,28 @@ def _torch_state_dict(path, device="cpu"):
     return blob.get("state_dict", blob)
 
 
+def refuse_checkpoint_dir(ckpt):
+    """Exit with an error when the LM checkpoint ``ckpt`` is a directory:
+    the JAX package's orbax checkpoints are directories, which the port
+    reads only once ``orbax_to_torch.py`` (run where JAX is installed) has
+    converted them."""
+    if ckpt and Path(ckpt).is_dir():
+        sys.exit(f"error: --ckpt {ckpt} is a directory, not a torch file; "
+                 "if it is an orbax checkpoint of the JAX package, convert "
+                 "it where JAX and orbax are installed: python "
+                 f"orbax_to_torch.py {ckpt} lm.pt [--step N], then pass "
+                 "--ckpt lm.pt")
+
+
 def load_lm(sft, ckpt, device="cpu"):
     """Load an LM state dict in the reference layout into ``sft``, keys
     prefixed "dnn." or not. It takes exactly the keys the JAX package's
     ``convert_custom_llama`` reads (the embeddings, the layers, the norm,
     the output head, the task and sos embeddings, the adapter); the
     reference's bypassed conformer (``conformer.*``) and any other key are
-    ignored and named on stderr."""
+    ignored and named on stderr. A directory (an orbax checkpoint) ends
+    the command with an error that names the converter."""
+    refuse_checkpoint_dir(ckpt)
     sd = {k.replace("dnn.", ""): v
           for k, v in _torch_state_dict(ckpt, device).items()}
     load_state(sft, sd, f"LM state dict {ckpt}")
@@ -655,6 +670,7 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
 
 def cmd_serve(args):
     _read_requests(args.requests)  # fail fast, before the model build
+    _require_files(("--ckpt", args.ckpt))
     unise = _build_unise(ckpt=args.ckpt, device=_device(args.device))
     return serve(args.requests, unise, slots=args.slots,
                  kv_quant=args.kv_quant, seed=args.seed)
@@ -666,6 +682,8 @@ def _require_files(*pairs):
     for flag, path in pairs:
         if path and not Path(path).exists():
             sys.exit(f"error: {flag} file not found: {path}")
+        if flag == "--ckpt":
+            refuse_checkpoint_dir(path)
 
 
 def cmd_enhance(args):

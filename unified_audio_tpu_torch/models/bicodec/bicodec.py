@@ -65,7 +65,8 @@ class FeatEncoder(nn.Module):
         self.encoder = VocosBackbone(input_channels, vocos_dim,
                                      vocos_intermediate_dim, vocos_num_layers)
         self.downsample = nn.ModuleList([
-            nn.ModuleList([SamplingBlock(downsample_scale=r),
+            nn.ModuleList([SamplingBlock(vocos_dim, vocos_dim,
+                                         downsample_scale=r),
                            VocosBackbone(vocos_dim, vocos_dim,
                                          vocos_intermediate_dim, 2)])
             for r in sample_ratios])
@@ -90,7 +91,8 @@ class FeatDecoder(nn.Module):
         super().__init__()
         self.linear_pre = nn.Linear(input_channels, vocos_dim)
         self.downsample = nn.ModuleList([
-            nn.ModuleList([SamplingBlock(upsample_scale=r),
+            nn.ModuleList([SamplingBlock(vocos_dim, vocos_dim,
+                                         upsample_scale=r),
                            VocosBackbone(vocos_dim, vocos_dim,
                                          vocos_intermediate_dim, 2)])
             for r in sample_ratios])

@@ -214,16 +214,15 @@ def geglu_feed_forward(dim: int, mult: int = 4) -> nn.Sequential:
 
 class PerceiverResampler(nn.Module):
     """``num_latents`` learned latents cross-attend to the context
-    sequence: (B, T, dim_context) -> (B, num_latents, dim)."""
+    sequence: (B, T, dim_context) -> (B, num_latents, dim); the context
+    passes ``proj_context``, the identity when ``dim_context == dim``."""
 
     def __init__(self, dim: int, dim_context: int, num_latents: int = 32,
                  depth: int = 2, dim_head: int = 64, heads: int = 8,
                  ff_mult: int = 4):
         super().__init__()
-        if dim_context == dim:
-            raise NotImplementedError("the identity-context variant is not "
-                                      "ported")
-        self.proj_context = nn.Linear(dim_context, dim)
+        self.proj_context = (nn.Identity() if dim_context == dim
+                             else nn.Linear(dim_context, dim))
         self.latents = nn.Parameter(torch.zeros(num_latents, dim))
         self.layers = nn.ModuleList([
             nn.ModuleList([PerceiverAttention(dim, dim_head, heads),

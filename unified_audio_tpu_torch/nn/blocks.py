@@ -1,15 +1,19 @@
 """Codec blocks on channels-last (B, T, C) tensors.
 
-Port of the blocks of ``unified_audio_tpu/nn/blocks.py`` that BiCodec's
-detokenize path and the HCodec-1.0 round trip run: ``AdaLayerNorm``,
-``ConvNeXtBlock`` and ``ConvNeXtStack``, ``VocosBackbone``, ``SamplingBlock``
-(ratio-1 path), ``Snake1d``, ``DACResidualUnit``, ``WaveDecoderBlock``,
-``WaveGenerator``, ``swish``, ``ResnetBlock``, ``SEANetResnetBlock`` and
-``SEANetEncoder``, each non-causal or causal (the HCodec convs' causal
-zero or reflect pads, the transformer's causal mask). Submodule names follow the reference torch layouts
-(``convnext.{i}.dwconv``, ``model.{i}.block.{j}``, Snake ``alpha`` (1, C, 1),
-``post_net.{i}.pwconv1.linear``), the layouts ``export_bicodec_state_dict``
-and ``export_hcodec10_state_dict`` write.
+Port of ``unified_audio_tpu/nn/blocks.py``: ``AdaLayerNorm``,
+``ConvNeXtBlock`` and ``ConvNeXtStack``, ``VocosBackbone``,
+``SamplingBlock``, ``Snake1d``, ``DACResidualUnit``, ``WaveDecoderBlock``,
+``WaveGenerator``, ``swish``, ``ResnetBlock``, ``AttnBlock``,
+``SEANetResnetBlock``, ``SEANetEncoder`` and ``SEANetDecoder``,
+``ResBlock1`` and ``VocosResNetBackbone``, each non-causal or causal where
+the JAX package has the choice (the HCodec convs' causal zero or reflect
+pads, the transformer's causal mask). Submodule names follow the reference
+torch layouts (``convnext.{i}.dwconv``, ``model.{i}.block.{j}``, Snake
+``alpha`` (1, C, 1), ``post_net.{i}.pwconv1.linear``,
+``de_conv_upsampler.1``), the layouts ``export_bicodec_state_dict`` and
+``export_hcodec10_state_dict`` write; ``AttnBlock``, ``ResBlock1`` and
+``VocosResNetBackbone``, which no export writes, keep the JAX package's
+names with ``_{i}`` as ``.{i}``.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .conv import CausalConv1d, Conv1d, ConvTranspose1d, SConv1d, Wrapped
+from .conv import (CausalConv1d, Conv1d, ConvTranspose1d, SConv1d,
+                   SConvTranspose1d, Wrapped)
+from .recurrent import SLSTM
 from .transformer import Transformer
 
 
@@ -103,17 +109,43 @@ class VocosBackbone(nn.Module):
 
 
 class SamplingBlock(nn.Module):
-    """Learned resampler; only the ratio-1 path (BiCodec's configuration)
-    is ported, where the conv and both skips are the input: 3 * x."""
+    """Learned resampler: (B, T, dim) -> (B, T * up / down, dim). Up: a
+    LeakyReLU(0.2) and a transposed conv (kernel 2 * up, stride up, grouped
+    by ``groups``) added to the input repeated ``up`` times. Down: a
+    LeakyReLU(0.2) and a strided conv (kernel 2 * down) plus the average
+    pools (window and stride ``down``) of the upsampled sum and of the
+    repeated input. At ratio 1 a side passes its input, so a ratio-1
+    block is 3 * x. Convs at ``de_conv_upsampler.1`` and
+    ``conv_downsampler.1``."""
 
-    def __init__(self, upsample_scale: int = 1, downsample_scale: int = 1):
+    def __init__(self, dim: int, groups: int = 1,
+                 upsample_scale: int = 1, downsample_scale: int = 1):
         super().__init__()
-        if upsample_scale != 1 or downsample_scale != 1:
-            raise NotImplementedError("only ratio-1 sampling blocks are "
-                                      "ported (ROADMAP Queue 1)")
+        self.up, self.down = upsample_scale, downsample_scale
+        up, down = self.up, self.down
+        if up > 1:
+            self.de_conv_upsampler = nn.Sequential(
+                nn.LeakyReLU(0.2),
+                ConvTranspose1d(dim, dim, up * 2, up, padding=up // 2 + up % 2,
+                                output_padding=up % 2, groups=groups))
+        if down > 1:
+            self.conv_downsampler = nn.Sequential(
+                nn.LeakyReLU(0.2),
+                Conv1d(dim, dim, 2 * down, stride=down,
+                       padding=down // 2 + down % 2, groups=groups))
+
+    def _pool(self, x):
+        return F.avg_pool1d(x.transpose(1, 2), self.down).transpose(1, 2)
 
     def forward(self, x):
-        return x + x + x
+        repeat = merged = x
+        if self.up > 1:
+            repeat = x.repeat_interleave(self.up, dim=1)
+            merged = repeat + self.de_conv_upsampler(x)
+        if self.down == 1:
+            return merged + repeat + merged
+        return (self.conv_downsampler(merged) + self._pool(repeat)
+                + self._pool(merged))
 
 
 class Snake1d(nn.Module):
@@ -243,19 +275,43 @@ class ResnetBlock(nn.Module):
         return x + self.conv2(swish(self.norm2(h)))
 
 
+class AttnBlock(nn.Module):
+    """Single-head attention over time with 1x1 convs: GroupNorm(32, eps
+    1e-6), q/k/v, softmax (fp32) of q k^T / sqrt(C), ``proj_out``,
+    residual."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm = GroupNorm(32, channels, eps=1e-6)
+        self.q, self.k, self.v, self.proj_out = (
+            CausalConv1d(channels, channels, 1) for _ in range(4))
+
+    def forward(self, x):
+        h = self.norm(x)
+        q, k, v = self.q(h), self.k(h), self.v(h)
+        w = torch.einsum("btc,bsc->bts", q, k) * x.shape[-1] ** -0.5
+        w = torch.softmax(w.float(), dim=-1).to(x.dtype)
+        return x + self.proj_out(torch.einsum("bts,bsc->btc", w, v))
+
+
 class SEANetResnetBlock(nn.Module):
-    """ELU -> SConv k3 (dim -> dim / 2) -> ELU -> SConv k1 (back to dim),
-    plus a 1x1 SConv shortcut (``true_skip=False``). Convs at ``block.1``,
-    ``block.3`` and ``shortcut``."""
+    """ELU -> SConv k (dim -> dim / compress, ``dilation``) -> ELU -> SConv
+    k1 (back to dim), plus a 1x1 SConv shortcut, or the input itself with
+    ``true_skip``. Convs at ``block.1``, ``block.3`` and ``shortcut``."""
 
     def __init__(self, dim: int, weight_norm: bool = False,
-                 causal: bool = False):
+                 causal: bool = False, kernel_size: int = 3,
+                 dilation: int = 1, compress: int = 2,
+                 true_skip: bool = False):
         super().__init__()
         kw = dict(weight_norm=weight_norm, causal=causal)
+        hidden = dim // compress
         self.block = nn.Sequential(
-            nn.ELU(), SConv1d(dim, dim // 2, 3, **kw),
-            nn.ELU(), SConv1d(dim // 2, dim, 1, **kw))
-        self.shortcut = SConv1d(dim, dim, 1, **kw)
+            nn.ELU(), SConv1d(dim, hidden, kernel_size, dilation=dilation,
+                              **kw),
+            nn.ELU(), SConv1d(hidden, dim, 1, **kw))
+        self.shortcut = nn.Identity() if true_skip else SConv1d(dim, dim, 1,
+                                                                **kw)
 
     def forward(self, x):
         return self.shortcut(x) + self.block(x)
@@ -296,3 +352,96 @@ class SEANetEncoder(nn.Module):
 
     def forward(self, x):
         return self.model(x)
+
+
+class SEANetDecoder(nn.Module):
+    """The EnCodec SEANet decoder, the mirror of the encoder: SConv k
+    (dimension -> n_filters * 2^len(ratios)), an ``lstm``-layer SLSTM,
+    then per ratio ELU, an ``SConvTranspose1d`` (kernel 2 * ratio, stride
+    ratio) halving the width and ``n_residual_layers`` resnet blocks
+    (dilations ``dilation_base**j``), then ELU and SConv
+    ``last_kernel_size`` to ``channels``. (B, T, dimension) -> (B, T *
+    prod(ratios), channels). Reflect padding; ``causal`` pads on the left
+    and trims the transposed convs by ``trim_right_ratio``. The layers
+    sit at the reference's ``model.{i}``."""
+
+    def __init__(self, channels: int = 1, dimension: int = 128,
+                 n_filters: int = 32, n_residual_layers: int = 1,
+                 ratios: Tuple[int, ...] = (8, 5, 4, 2),
+                 kernel_size: int = 7, last_kernel_size: int = 7,
+                 residual_kernel_size: int = 3, dilation_base: int = 2,
+                 causal: bool = False, true_skip: bool = False,
+                 compress: int = 2, lstm: int = 2,
+                 trim_right_ratio: float = 1.0, weight_norm: bool = False):
+        super().__init__()
+        wn = dict(weight_norm=weight_norm, causal=causal)
+        width = n_filters * 2 ** len(ratios)
+        layers = [SConv1d(dimension, width, kernel_size, **wn)]
+        if lstm:
+            layers.append(SLSTM(width, num_layers=lstm))
+        for ratio in ratios:
+            layers += [nn.ELU(), SConvTranspose1d(
+                width, width // 2, ratio * 2, ratio, causal=causal,
+                trim_right_ratio=trim_right_ratio, weight_norm=weight_norm)]
+            width //= 2
+            layers += [SEANetResnetBlock(
+                width, kernel_size=residual_kernel_size,
+                dilation=dilation_base ** j, compress=compress,
+                true_skip=true_skip, **wn) for j in range(n_residual_layers)]
+        layers += [nn.ELU(), SConv1d(width, channels, last_kernel_size, **wn)]
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, z):
+        return self.model(z)
+
+
+# ---------------------------------------------------------------------------
+# HiFiGAN ResBlock1, the Vocos ResNet backbone
+# ---------------------------------------------------------------------------
+
+class ResBlock1(nn.Module):
+    """HiFiGAN-V1's dilated residual block without upsampling: per dilation
+    d, x += gamma * conv2(lrelu(conv1_d(lrelu(x)))), "same" padding, gamma
+    per channel when ``layer_scale_init_value`` is given. Convs at
+    ``conv1.{i}`` and ``conv2.{i}``, scales at ``gamma.{i}``."""
+
+    def __init__(self, dim: int, kernel_size: int = 3,
+                 dilations: Tuple[int, ...] = (1, 3, 5),
+                 lrelu_slope: float = 0.1,
+                 layer_scale_init_value: Optional[float] = None):
+        super().__init__()
+        self.lrelu_slope = lrelu_slope
+        self.conv1 = nn.ModuleList([Conv1d(dim, dim, kernel_size, dilation=d)
+                                    for d in dilations])
+        self.conv2 = nn.ModuleList([Conv1d(dim, dim, kernel_size)
+                                    for _ in dilations])
+        self.gamma = None if layer_scale_init_value is None else \
+            nn.ParameterList([nn.Parameter(torch.full(
+                (dim,), float(layer_scale_init_value))) for _ in dilations])
+
+    def forward(self, x):
+        for i, (c1, c2) in enumerate(zip(self.conv1, self.conv2)):
+            h = c1(F.leaky_relu(x, self.lrelu_slope))
+            h = c2(F.leaky_relu(h, self.lrelu_slope))
+            x = x + (h if self.gamma is None else self.gamma[i] * h)
+        return x
+
+
+class VocosResNetBackbone(nn.Module):
+    """Conv k3 ``embed`` (in_dim -> dim), then ``num_blocks`` ResBlock1s
+    (``resnet.{i}``) with layer scale 1 / (3 * num_blocks) unless given."""
+
+    def __init__(self, in_dim: int, dim: int, num_blocks: int,
+                 layer_scale_init_value: Optional[float] = None):
+        super().__init__()
+        self.embed = Conv1d(in_dim, dim, 3)
+        scale = layer_scale_init_value or 1.0 / num_blocks / 3
+        self.resnet = nn.ModuleList([
+            ResBlock1(dim, layer_scale_init_value=scale)
+            for _ in range(num_blocks)])
+
+    def forward(self, x):
+        x = self.embed(x)
+        for block in self.resnet:
+            x = block(x)
+        return x

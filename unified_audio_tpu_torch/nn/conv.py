@@ -3,9 +3,9 @@
 Port of ``unified_audio_tpu/nn/conv.py``: ``conv1d``, ``Conv1d`` (torch-style
 symmetric padding, dilation, groups), ``ConvTranspose1d`` (torch
 padding/output_padding trim) and, for HCodec, the EnCodec padding math
-(``get_extra_padding_for_conv1d``, ``pad1d``), ``SConv1d``, ``CausalConv1d``
-and ``SubPixelConvTranspose1d``, each non-causal or causal, with the
-padding arithmetic unchanged.
+(``get_extra_padding_for_conv1d``, ``pad1d``), ``SConv1d``,
+``SConvTranspose1d``, ``CausalConv1d`` and ``SubPixelConvTranspose1d``, each
+non-causal or causal, with the padding arithmetic unchanged.
 Public functions keep the JAX package's channels-last layout; weights use
 torch's layouts (Conv1d (out, in/groups, K), ConvTranspose1d (in, out, K)).
 At inference weight norm is folded into ``weight`` when the weights are
@@ -84,14 +84,15 @@ class ConvTranspose1d(nn.Module):
     """torch-style ConvTranspose1d, channels-last. ``padding`` None ->
     (stride+1)//2; ``output_padding`` None -> stride % 2. The output is the
     full transposed conv ((T-1)*stride + K) trimmed by ``padding`` on the
-    left and ``padding - output_padding`` on the right."""
+    left and ``padding - output_padding`` on the right. ``groups`` as in
+    torch (weight (in, out / groups, K))."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: Optional[int] = None,
                  output_padding: Optional[int] = None, bias: bool = True,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, groups: int = 1):
         super().__init__()
-        self.stride = stride
+        self.stride, self.groups = stride, groups
         self.padding = (stride + 1) // 2 if padding is None else padding
         self.output_padding = (stride % 2 if output_padding is None
                                else output_padding)
@@ -99,8 +100,10 @@ class ConvTranspose1d(nn.Module):
             raise ValueError(f"padding {self.padding} < output_padding "
                              f"{self.output_padding}")
         self.weight_norm = weight_norm
-        shape = (in_channels, out_channels, kernel_size)
+        shape = (in_channels, out_channels // groups, kernel_size)
         if weight_norm:
+            if groups != 1:
+                raise ValueError("weight norm on a grouped transposed conv")
             self.weight_g = nn.Parameter(torch.ones(1, out_channels, 1))
             self.weight_v = nn.Parameter(torch.empty(shape))
         else:
@@ -118,7 +121,7 @@ class ConvTranspose1d(nn.Module):
 
     def forward(self, x):
         y = F.conv_transpose1d(x.transpose(1, 2), self.kernel(), self.bias,
-                               stride=self.stride)
+                               stride=self.stride, groups=self.groups)
         end = y.shape[-1] - (self.padding - self.output_padding)
         return y[..., self.padding:end].transpose(1, 2)
 
@@ -168,24 +171,26 @@ def pad1d(x, paddings: Tuple[int, int]):
 
 
 class SConv1d(nn.Module):
-    """EnCodec conv: the reflect pad of kernel - stride, all of it on the
-    left when ``causal``, else split with the larger half on the left,
-    plus the extra right pad for a full last window. Weight at
-    ``conv.conv`` (``weight_g``/``weight_v`` with ``weight_norm``)."""
+    """EnCodec conv: the reflect pad of span - stride (span = (K - 1) *
+    dilation + 1), all of it on the left when ``causal``, else split with
+    the larger half on the left, plus the extra right pad for a full last
+    window. Weight at ``conv.conv`` (``weight_g``/``weight_v`` with
+    ``weight_norm``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, weight_norm: bool = False,
-                 causal: bool = False):
+                 causal: bool = False, dilation: int = 1):
         super().__init__()
-        self.kernel_size, self.stride, self.causal = (kernel_size, stride,
-                                                      causal)
+        self.span = (kernel_size - 1) * dilation + 1
+        self.stride, self.causal = stride, causal
         self.conv = Wrapped("conv", Conv1d(in_channels, out_channels,
                                            kernel_size, stride=stride,
-                                           padding=0, weight_norm=weight_norm))
+                                           dilation=dilation, padding=0,
+                                           weight_norm=weight_norm))
 
     def forward(self, x):
-        total = self.kernel_size - self.stride
-        extra = get_extra_padding_for_conv1d(x.shape[1], self.kernel_size,
+        total = self.span - self.stride
+        extra = get_extra_padding_for_conv1d(x.shape[1], self.span,
                                              self.stride, total)
         if self.causal:
             return self.conv(pad1d(x, (total, extra)))
@@ -193,24 +198,49 @@ class SConv1d(nn.Module):
         return self.conv(pad1d(x, (total - right, right + extra)))
 
 
+class SConvTranspose1d(nn.Module):
+    """EnCodec transposed conv: the full transposed conv, then K - stride
+    trimmed: ``ceil((K - stride) * trim_right_ratio)`` on the right and
+    the rest on the left when ``causal``, else split with the larger half
+    on the left. Weight at ``convtr.convtr``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, causal: bool = False,
+                 trim_right_ratio: float = 1.0, weight_norm: bool = False):
+        super().__init__()
+        total = kernel_size - stride
+        right = (math.ceil(total * trim_right_ratio) if causal
+                 else total // 2)
+        self.trim = (total - right, right)
+        self.convtr = Wrapped("convtr", ConvTranspose1d(
+            in_channels, out_channels, kernel_size, stride, padding=0,
+            output_padding=0, weight_norm=weight_norm))
+
+    def forward(self, x):
+        y = self.convtr(x)
+        return y[:, self.trim[0]:y.shape[1] - self.trim[1]]
+
+
 class CausalConv1d(nn.Module):
     """HCodec constant-pad conv: odd kernel, dilated span dk = (K - 1) *
     dilation + 1; zeros (dk - stride, 0) when causal, else (dk // 2,
-    dk // 2). Weight at ``conv``."""
+    dk // 2); ``groups`` as in ``Conv1d``. Weight at ``conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 causal: bool = False, stride: int = 1, dilation: int = 1):
+                 causal: bool = False, stride: int = 1, dilation: int = 1,
+                 groups: int = 1):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError(f"kernel_size must be odd, got {kernel_size}")
-        self.stride, self.dilation = stride, dilation
+        self.stride, self.dilation, self.groups = stride, dilation, groups
         dk = (kernel_size - 1) * dilation + 1
         self.pads = (dk - stride, 0) if causal else (dk // 2, dk // 2)
-        self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=0)
+        self.conv = Conv1d(in_channels, out_channels, kernel_size,
+                           groups=groups, padding=0)
 
     def forward(self, x):
         return conv1d(x, self.conv.weight, self.conv.bias, self.stride,
-                      self.dilation, padding=self.pads)
+                      self.dilation, self.groups, padding=self.pads)
 
 
 class SubPixelConvTranspose1d(nn.Module):

@@ -7,8 +7,9 @@ card), with the same parameters: gate order i, f, g, o, separate ``b_ih`` and
 ``torch.nn.LSTM``'s (``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``,
 ``bias_hh_l0``), the reference layout. cuDNN computes fp32 LSTMs in TF32
 unless ``torch.backends.cudnn.allow_tf32`` is False: the callers that run
-fp32 (``cli.py``) turn it off before the first forward. ``SLSTM`` serves the
-SEANet decoder only, which HCodec-1.0 does not build; it is not ported yet.
+fp32 (``cli.py``) turn it off before the first forward. ``SLSTM`` (the
+SEANet decoder's) adds the input back: y = x + LSTM(x), or LSTM(x) without
+``skip``; its LSTM sits at ``lstm``.
 """
 from __future__ import annotations
 
@@ -24,3 +25,18 @@ class LSTM(nn.LSTM):
 
     def forward(self, x):
         return super().forward(x)[0]
+
+
+class SLSTM(nn.Module):
+    """Skip-LSTM over (B, T, dimension): x + LSTM(x) (``skip``) or
+    LSTM(x), ``num_layers`` layers at ``lstm``."""
+
+    def __init__(self, dimension: int, num_layers: int = 2,
+                 skip: bool = True):
+        super().__init__()
+        self.skip = skip
+        self.lstm = LSTM(dimension, dimension, num_layers)
+
+    def forward(self, x):
+        y = self.lstm(x)
+        return x + y if self.skip else y

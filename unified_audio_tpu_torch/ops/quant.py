@@ -310,18 +310,19 @@ class ResidualVQ(nn.Module):
 class FactorizedVectorQuantize(nn.Module):
     """Low-dim codebook with 1x1 projections: ``out_project`` decodes, and
     with ``tokenize`` the module also builds ``in_project`` and the cosine
-    search."""
+    search. When ``input_dim == codebook_dim`` both projections are the
+    identity and have no weights."""
 
     def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int,
                  tokenize: bool = False):
         super().__init__()
-        if input_dim == codebook_dim:
-            raise NotImplementedError("the identity-projection variant is "
-                                      "not ported (ROADMAP Queue 1)")
         self.codebook = nn.Embedding(codebook_size, codebook_dim)
-        self.out_project = Conv1d(codebook_dim, input_dim, 1, padding=0)
+        same = input_dim == codebook_dim  # no projections, as in JAX
+        self.out_project = (nn.Identity() if same else
+                            Conv1d(codebook_dim, input_dim, 1, padding=0))
         if tokenize:
-            self.in_project = Conv1d(input_dim, codebook_dim, 1, padding=0)
+            self.in_project = (nn.Identity() if same else
+                               Conv1d(input_dim, codebook_dim, 1, padding=0))
 
     def tokenize(self, z):
         """z (B, T, input_dim) -> indices (B, T) int32."""
@@ -382,19 +383,20 @@ class ResidualFSQ(nn.Module):
     """Residual FSQ. Decode: the sum of per-layer codes times the layer
     scales, then ``project_out`` (codebook_dim -> dim). With ``tokenize``
     the module also builds ``project_in`` (dim -> codebook_dim) and the
-    residual quantization into indices."""
+    residual quantization into indices. When ``dim == len(levels)`` both
+    projections are the identity and have no weights."""
 
     def __init__(self, levels: Sequence[int], num_quantizers: int, dim: int,
                  tokenize: bool = False):
         super().__init__()
         self.fsq = FSQ(levels)
         self.num_quantizers = num_quantizers
-        if dim == len(levels):
-            raise NotImplementedError("the identity-projection variant is "
-                                      "not ported")
+        same = dim == len(levels)  # no projections, as in JAX
         if tokenize:
-            self.project_in = nn.Linear(dim, len(levels))
-        self.project_out = nn.Linear(len(levels), dim)
+            self.project_in = (nn.Identity() if same
+                               else nn.Linear(dim, len(levels)))
+        self.project_out = (nn.Identity() if same
+                            else nn.Linear(len(levels), dim))
         lv = np.asarray(levels, dtype=np.float32)
         self.register_buffer("scales", torch.tensor(np.stack(
             [(lv - 1.0) ** -float(i) for i in range(num_quantizers)])),

@@ -38,13 +38,17 @@ def _env_int(name: str) -> Optional[int]:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, device: str = "cuda",
-               timeout: timedelta = DEFAULT_TIMEOUT) -> bool:
+               timeout: timedelta = DEFAULT_TIMEOUT,
+               store: Optional[dist.Store] = None) -> bool:
     """Join the default process group -> whether this process is in one.
 
     Arguments left None come from ``torchrun``'s environment: the world
     size from ``WORLD_SIZE``, the rank from ``RANK``, the address from
     ``MASTER_ADDR``/``MASTER_PORT`` (``coordinator_address`` is
     "host:port"). Nothing is done for a single process with no address.
+    ``store`` rendezvouses through a store the caller made instead of an
+    address (e.g. a ``TCPStore`` that rank 0 bound to port 0, so no other
+    process can take its port first, and whose port it told the others).
     ``device`` "cuda" starts NCCL on ``cuda:LOCAL_RANK`` (the rank when
     ``LOCAL_RANK`` is not set); "cpu" starts gloo."""
     if num_processes is None:
@@ -54,7 +58,8 @@ def initialize(coordinator_address: Optional[str] = None,
     if coordinator_address is None and "MASTER_ADDR" in os.environ:
         coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
                                f"{os.environ.get('MASTER_PORT', '29500')}")
-    if num_processes in (None, 1) and coordinator_address is None:
+    if num_processes in (None, 1) and coordinator_address is None \
+            and store is None:
         return False  # a single process: nothing to join
     if dist.is_initialized():
         return True
@@ -78,8 +83,12 @@ def initialize(coordinator_address: Optional[str] = None,
         backend = "gloo"
     else:
         raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
-    kw = dict(backend=backend, init_method=f"tcp://{coordinator_address}",
-              world_size=num_processes, rank=process_id, timeout=timeout)
+    kw = dict(backend=backend, world_size=num_processes, rank=process_id,
+              timeout=timeout)
+    if store is None:
+        kw["init_method"] = f"tcp://{coordinator_address}"
+    else:
+        kw["store"] = store
     if backend == "nccl":
         kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(**kw)

@@ -21,8 +21,14 @@ calls the collectives itself, in Megatron's pattern:
 
 A dimension the axis does not divide stays replicated, as in JAX
 (``mesh.py:80-88`` there): the head's 12,291-entry vocabulary (131 in the
-tests' tiny LM) is not split at tp = 2 or 4. The JAX rule for stacked
-expert weights waits for the routed-expert ``MoE``.
+tests' tiny LM) is not split at tp = 2 or 4.
+
+Expert parallelism: the routed ``MoE``'s stacked ``expert_w{1,2,3}`` keep
+E / tp experts a rank (their expert axis cut over tp, as JAX's
+``expert_w`` rule cuts it); the MoE sums its ranks' partial outputs over the
+group (``nn/transformer.py MoE``). ``EXPERT_RULES`` is that rule alone,
+for models whose attention is not tensor-parallel (HCodec's hybrid
+``Transformer``, whose ``self_attn.q_proj`` the LM rules would cut).
 
 A rank's data is its dp coordinate's (:func:`dp_shard`); tp and pp peers
 take the batches their group's first rank draws (:func:`share_batches`).
@@ -276,6 +282,9 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group):
 # parameter name (the reference layout) -> the dim of the torch weight that
 # is cut over tp; everything unmatched is replicated. nn.Linear weights are
 # (out, in): column-parallel cuts dim 0, row-parallel dim 1.
+EXPERT_RULES: Sequence = (
+    (r"(.*\.)?expert_w\d", 0),  # stacked (E, in, out) over E
+)
 LM_RULES: Sequence = (
     (r"(.*\.)?self_attn\.[qkv]_proj\.weight", 0),
     (r"(.*\.)?self_attn\.o_proj\.weight", 1),
@@ -283,6 +292,7 @@ LM_RULES: Sequence = (
     (r"(.*\.)?mlp\.down_proj\.weight", 1),
     (r"(.*\.)?output_head\.weight", 0),  # JAX (D, V) over V
     (r"(.*\.)?codec_embedding\.weight", 1),  # JAX (V, D) over D
+    *EXPERT_RULES,
 )
 
 
@@ -299,8 +309,9 @@ def tp_dim_for(name: str, shape, tp: int, rules=LM_RULES) -> Optional[int]:
 
 @torch.no_grad()
 def shard_lm_(model: torch.nn.Module, mesh, rules=LM_RULES):
-    """Cut ``model``'s (a ``CodecLM`` or ``LLMSFT``) tp-sharded weights to
-    this rank's slice, in place (the ``Parameter`` objects stay, so an
+    """Cut ``model``'s (a ``CodecLM`` or ``LLMSFT``; with ``EXPERT_RULES``
+    any model with routed experts) tp-sharded weights to this rank's
+    slice, in place (the ``Parameter`` objects stay, so an
     optimizer made over them before still holds them; it must not have
     stepped yet), and hand the tp group to the modules whose forward
     calls the collectives. Returns the model. A no-op at tp = 1."""

@@ -284,20 +284,21 @@ def bicodec_decoder_state_dict(variables, cfg) -> StateDict:
     p = variables["params"]
     out: StateDict = {}
     q = p["quantizer"]
-    _conv(q["out_project"], "quantizer.out_project", out)
+    if "out_project" in q:  # none when input_dim == codebook_dim
+        _conv(q["out_project"], "quantizer.out_project", out)
     out["quantizer.codebook.weight"] = _a(q["codebook"])
 
     spk = p["speaker_encoder"]
-    _linear(spk["quantizer"]["project_out"],
-            "speaker_encoder.quantizer.project_out", out)
+    if "project_out" in spk.get("quantizer", {}):  # none: dim == len(levels)
+        _linear(spk["quantizer"]["project_out"],
+                "speaker_encoder.quantizer.project_out", out)
     _linear(spk["project"], "speaker_encoder.project", out)
 
     pre = p["prenet"]
     _linear(pre["linear_pre"], "prenet.linear_pre", out)
     for k, ratio in enumerate(cfg.sample_ratios):
         if ratio > 1:
-            raise NotImplementedError("only ratio-1 sampling blocks are "
-                                      "ported")
+            _sampling(pre[f"up_{k}"], f"prenet.downsample.{k}.0", out)
         _vocos(pre[f"up_vocos_{k}"], f"prenet.downsample.{k}.1", out)
     _vocos(pre["vocos_backbone"], "prenet.vocos_backbone", out,
            conditioned=True)
@@ -305,6 +306,16 @@ def bicodec_decoder_state_dict(variables, cfg) -> StateDict:
 
     _wave_generator(p["decoder"], "decoder", len(cfg.wave_rates), out)
     return out
+
+
+def _sampling(p, prefix: str, out: StateDict):
+    """A ``SamplingBlock`` above ratio 1: its grouped transposed conv
+    (JAX (K, 1, C) -> torch (C, 1, K), the layout of a grouped conv's
+    kernel) or strided conv, at ``de_conv_upsampler.1`` /
+    ``conv_downsampler.1``."""
+    for name in ("de_conv_upsampler", "conv_downsampler"):
+        if name in p:
+            _conv(p[name], f"{prefix}.{name}.1", out)
 
 
 def _dac_residual_unit(res, prefix: str, out: StateDict, unfold: bool):
@@ -367,7 +378,8 @@ def _ecapa(p, stats, prefix: str, out: StateDict):
 
 def _perceiver(p, prefix: str, out: StateDict):
     out[f"{prefix}.latents"] = _a(p["latents"])
-    _linear(p["proj_context"], f"{prefix}.proj_context", out)
+    if "proj_context" in p:  # none when dim_context == dim
+        _linear(p["proj_context"], f"{prefix}.proj_context", out)
     out[f"{prefix}.norm.gamma"] = _a(p["norm"]["gamma"])
     depth = sum(1 for k in p if k.startswith("attn_"))
     for i in range(depth):
@@ -389,19 +401,20 @@ def bicodec_state_dict(variables, cfg) -> StateDict:
     _vocos(enc["encoder"], "encoder.encoder", out)
     for k, ratio in enumerate(cfg.sample_ratios):
         if ratio > 1:
-            raise NotImplementedError("only ratio-1 sampling blocks are "
-                                      "ported")
+            _sampling(enc[f"down_{k}"], f"encoder.downsample.{k}.0", out)
         _vocos(enc[f"down_vocos_{k}"], f"encoder.downsample.{k}.1", out)
     _linear(enc["project"], "encoder.project", out)
-    _conv(p["quantizer"]["in_project"], "quantizer.in_project", out)
+    if "in_project" in p["quantizer"]:
+        _conv(p["quantizer"]["in_project"], "quantizer.in_project", out)
     spk = p["speaker_encoder"]
     _ecapa(spk["speaker_encoder"],
            variables["batch_stats"]["speaker_encoder"]["speaker_encoder"],
            "speaker_encoder.speaker_encoder", out)
     _perceiver(spk["perceiver_sampler"], "speaker_encoder.perceiver_sampler",
                out)
-    _linear(spk["quantizer"]["project_in"],
-            "speaker_encoder.quantizer.project_in", out)
+    if "project_in" in spk.get("quantizer", {}):
+        _linear(spk["quantizer"]["project_in"],
+                "speaker_encoder.quantizer.project_in", out)
     return out
 
 
@@ -425,6 +438,23 @@ def _lstm(p, prefix: str, out: StateDict):
             out[f"{prefix}.{name.replace('b_', 'bias_')}"] = _a(v)
 
 
+def _mlp(p, prefix: str, out: StateDict):
+    """A ``GatedMLP``, or a ``MoE``: its gate, its stacked experts as they
+    are (E, D, I) / (E, I, D), its shared expert."""
+    if "gate_linear" in p:
+        _linear(p["gate_linear"], f"{prefix}.gate_linear", out)
+        for w in ("gate_bias", "expert_w1", "expert_w2", "expert_w3"):
+            out[f"{prefix}.{w}"] = _a(p[w])
+        p, prefix = p["shared_expert"], f"{prefix}.shared_expert"
+    for w in ("w1", "w2", "w3"):
+        _linear(p[w], f"{prefix}.{w}", out)
+
+
+def moe_state_dict(variables) -> StateDict:
+    """``MoE`` variables -> the port's ``MoE``."""
+    return _unprefixed(_mlp, variables["params"])
+
+
 def _hybrid_transformer(p, prefix: str, out: StateDict):
     for name, layer in p.items():
         lp = f"{prefix}.layers.{name.split('_')[1]}"
@@ -432,10 +462,23 @@ def _hybrid_transformer(p, prefix: str, out: StateDict):
         _lstm(attn["rnn"], f"{lp}.self_attn.rnn", out)
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             _linear(attn[proj], f"{lp}.self_attn.{proj}", out)
-        for w in ("w1", "w2", "w3"):
-            _linear(layer["mlp"][w], f"{lp}.mlp.{w}", out)
+        _mlp(layer["mlp"], f"{lp}.mlp", out)
         for norm in ("input_layernorm", "post_attention_layernorm"):
             out[f"{lp}.{norm}.weight"] = _a(layer[norm]["weight"])
+
+
+def _unprefixed(fill, *args) -> StateDict:
+    """The state dict ``fill(*args, prefix, out)`` writes under a dummy
+    prefix, with the prefix taken off."""
+    out: StateDict = {}
+    fill(*args, "_", out)
+    return {k[2:]: v for k, v in out.items()}
+
+
+def transformer_state_dict(variables) -> StateDict:
+    """An HCodec hybrid ``Transformer``'s variables (the MoE's too) -> the
+    port's ``Transformer``."""
+    return _unprefixed(_hybrid_transformer, variables["params"])
 
 
 def _semantic_branch(p, name: str, strides, out: StateDict):
@@ -752,6 +795,156 @@ def sensevoice_keys(sd: StateDict, cfg) -> StateDict:
     out."""
     out = {k: v for k, v in sd.items() if k.startswith("encoder.")}
     out["embed.weight"] = sd["embed.weight"][:cfg.embed_vocab]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The modules no shipped model builds: the conformer, the streaming
+# transformer, GRVQ, the SEANet decoder family
+# ---------------------------------------------------------------------------
+
+def conformer_state_dict(variables) -> StateDict:
+    """``ConformerEncoder`` variables -> the port's ``ConformerEncoder``
+    (``layers_{i}`` -> ``layers.{i}``)."""
+    out: StateDict = {}
+    for name, lp in variables["params"].items():
+        pre = f"layers.{name.split('_')[1]}"
+        for ff in ("ff1", "ff2"):
+            _layernorm(lp[ff]["norm"], f"{pre}.{ff}.norm", out)
+            _linear(lp[ff]["ff1"], f"{pre}.{ff}.ff1", out)
+            _linear(lp[ff]["ff2"], f"{pre}.{ff}.ff2", out)
+        attn = lp["attn"]
+        _layernorm(attn["norm"], f"{pre}.attn.norm", out)
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            _linear(attn[proj], f"{pre}.attn.{proj}", out)
+        conv = lp["conv"]
+        for norm in ("norm", "dwnorm"):
+            _layernorm(conv[norm], f"{pre}.conv.{norm}", out)
+        _linear(conv["pw1"], f"{pre}.conv.pw1", out)
+        _linear(conv["pw2"], f"{pre}.conv.pw2", out)
+        _hconv(conv["dwconv"], f"{pre}.conv.dwconv", out)
+        _layernorm(lp["post_norm"], f"{pre}.post_norm", out)
+    return out
+
+
+def joint_attention_state_dict(variables) -> StateDict:
+    """``JointAttention`` variables -> the port's (bias-free linears)."""
+    out: StateDict = {}
+    for name, p in variables["params"].items():
+        _linear(p, name, out)
+    return out
+
+
+def _streaming_core(p, prefix: str, out: StateDict):
+    """A ``StreamingTransformer``'s scanned layers (stacked on a leading
+    axis) -> ``{prefix}layers.{i}``."""
+    stacked = p["layers"]
+    for i in range(_a(stacked["norm1"]["weight"]).shape[0]):
+        lp, pre = _index(stacked, i), f"{prefix}layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(lp["self_attn"][proj], f"{pre}.self_attn.{proj}", out)
+        for norm in ("norm1", "norm2"):
+            out[f"{pre}.{norm}.weight"] = lp[norm]["weight"]
+        for w in ("w1", "w2", "w3"):
+            _linear(lp["gating"][w], f"{pre}.gating.{w}", out)
+
+
+def streaming_state_dict(variables) -> StateDict:
+    """``StreamingTransformer`` or ``ProjectedStreamingTransformer``
+    variables -> the port's module of the same name."""
+    p, out = variables["params"], {}
+    if "core" in p:
+        _linear(p["proj_in"], "proj_in", out)
+        _linear(p["proj_out"], "proj_out", out)
+        _streaming_core(p["core"], "core.", out)
+    else:
+        _streaming_core(p, "", out)
+    return out
+
+
+def _grvq_layer(p, prefix: str, out: StateDict):
+    for proj in ("in_proj_a", "in_proj_b", "out_proj_a", "out_proj_b"):
+        _conv(p[proj], f"{prefix}{proj}", out)  # weight norm folded
+    for cb in ("codebook_a", "codebook_b"):
+        out[f"{prefix}{cb}"] = _a(p[cb])
+
+
+def grvq_state_dict(variables) -> StateDict:
+    """``AutoGroupVectorQuantize`` or ``AutoGroupResidualVectorQuantize``
+    variables -> the port's module of the same name."""
+    p, out = variables["params"], {}
+    if "codebook_a" in p:
+        _grvq_layer(p, "", out)
+    for name, q in p.items():
+        if name.startswith("quantizers_"):
+            _grvq_layer(q, f"quantizers.{name.split('_')[1]}.", out)
+    return out
+
+
+def seanet_decoder_state_dict(variables, n_residual_layers: int = 1,
+                              unfold: bool = False) -> StateDict:
+    """``SEANetDecoder`` variables -> the port's ``SEANetDecoder`` at the
+    reference's ``model.{i}`` (weight norm folded, or with ``unfold``
+    kept for ``weight_norm=True``)."""
+    p, out = variables["params"], {}
+    _sconv(p["conv_in"], "model.0", out, unfold)
+    i = 1
+    if "lstm" in p:
+        _lstm(p["lstm"]["lstm"], "model.1.lstm", out)
+        i = 2
+    r = 0
+    while f"up_{r}" in p:
+        _conv_transpose_wrapped(p[f"up_{r}"], f"model.{i + 1}", out, unfold)
+        for j in range(n_residual_layers):
+            res, pre = p[f"res_{r}_{j}"], f"model.{i + 2 + j}"
+            for ours, theirs in (("block_0", "block.1"), ("block_1", "block.3"),
+                                 ("shortcut", "shortcut")):
+                if ours in res:
+                    _sconv(res[ours], f"{pre}.{theirs}", out, unfold)
+        i, r = i + 2 + n_residual_layers, r + 1
+    _sconv(p["conv_out"], f"model.{i + 1}", out, unfold)
+    return out
+
+
+def _conv_transpose_wrapped(p, prefix: str, out: StateDict, unfold: bool):
+    _convtr(p, f"{prefix}.convtr.convtr", out, unfold)
+
+
+def attn_block_state_dict(variables) -> StateDict:
+    """``AttnBlock`` variables -> the port's ``AttnBlock``."""
+    p, out = variables["params"], {}
+    _layernorm(p["norm"], "norm", out)
+    for name in ("q", "k", "v", "proj_out"):
+        _hconv(p[name], name, out)
+    return out
+
+
+def _resblock1(p, prefix: str, out: StateDict):
+    i = 0
+    while f"conv1_{i}" in p:
+        _conv(p[f"conv1_{i}"], f"{prefix}conv1.{i}", out)
+        _conv(p[f"conv2_{i}"], f"{prefix}conv2.{i}", out)
+        if f"gamma_{i}" in p:
+            out[f"{prefix}gamma.{i}"] = _a(p[f"gamma_{i}"])
+        i += 1
+
+
+def resblock1_state_dict(variables) -> StateDict:
+    """``ResBlock1`` variables -> the port's (weight norm folded)."""
+    out: StateDict = {}
+    _resblock1(variables["params"], "", out)
+    return out
+
+
+def vocos_resnet_state_dict(variables) -> StateDict:
+    """``VocosResNetBackbone`` variables -> the port's (weight norm
+    folded)."""
+    p, out = variables["params"], {}
+    _conv(p["embed"], "embed", out)
+    i = 0
+    while f"resnet_{i}" in p:
+        _resblock1(p[f"resnet_{i}"], f"resnet.{i}.", out)
+        i += 1
     return out
 
 

@@ -7,8 +7,10 @@ conv's v, its g the norm of v), LSTM weights
 uniform in +-1/sqrt(hidden), zero biases, unit-normal embeddings and VQ
 codebooks, Perceiver latents normal with std 0.02; the Mimi attention's
 fused ``in_proj_weight`` fan-in uniform and the query-token aggregators'
-``query_embedding`` unit normal; norms (BatchNorm statistics too), Snake
-``alpha`` and layer scales keep their constructor values.
+``query_embedding`` unit normal; the routed experts' stacked weights fan-in
+uniform per expert (``MoE``'s gate bias zero) and GRVQ's two codebooks unit
+normal; norms (BatchNorm statistics too), Snake ``alpha`` and layer scales
+keep their constructor values.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from ..models.bicodec.speaker import PerceiverResampler
 from ..models.hcodec.adaptive import QueryTokenAggregator
 from ..nn.conv import Conv1d, ConvTranspose1d
 from ..nn.mimi import MimiAttention
+from ..nn.transformer import MoE
+from ..ops.grvq import AutoGroupVectorQuantize
 from ..ops.quant import VectorQuantization
 
 
@@ -52,6 +56,14 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.latents.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, VectorQuantization):
             m._codebook.embed.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, MoE):
+            for w in (m.expert_w1, m.expert_w3, m.expert_w2):
+                bound = 1.0 / math.sqrt(w.shape[1])
+                w.uniform_(-bound, bound, generator=generator)
+            m.gate_bias.zero_()
+        elif isinstance(m, AutoGroupVectorQuantize):
+            m.codebook_a.normal_(0.0, 1.0, generator=generator)
+            m.codebook_b.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, nn.LSTM):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for name, w in m.named_parameters():
