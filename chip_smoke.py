@@ -322,12 +322,28 @@ prints no result. Phases, each fatal on failure:
    step's CUDA-event time, and ``trace`` of one step whose Chrome trace
    names K2's kernel and the annotated region; K2 launched 12 times a
    step. Prints the phase's time.
-15. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
+15. The last public callables, fp32 with TF32 off: (a) UniSE's LM
+   (``LlamaConfig()``, 512 x 12) with 16 slots prefilled to depths 40 + 37
+   i into a dense cache of 1,024 positions and, the same prompts, into an
+   owner pool (14-block regions of 64-token blocks); 32 greedy steps
+   through ``CodecLM.decode_ids_multi`` (each slot at its own depth) and
+   through ``paged_decode_ids(use_kernel="owner")`` (K1): logits within
+   2e-4 (the JAX package's own bound for this comparison), greedy ids
+   equal, K1 launched 12 times a step; ms a step of each path (CUDA
+   events) and, over 4 more steps under the profiler, device ms and
+   records a step. (b) ``UniSE.stft_logmel`` of a 10-s clip (640, 320,
+   80 mels) and ``mdct``/``imdct`` at a frame of 512 ("same", "center")
+   against the CPU (1e-4 x max(1, max |cpu|)), and the round trip's
+   error. (c) The TAP, TSDP and TSTP pooling heads on 500 x 1536 speaker
+   features and ``FactorizedVectorQuantize.decode_latents`` (8192 codes
+   of 8) on 500 frames against the CPU: indices equal or near ties (fp64
+   cosines within 1e-5). Prints the phase's time.
+16. No module of jax, flax or the JAX package (``unified_audio_tpu``) was
    loaded at all.
 
 Prints the rates, a JSON line of the kernels (launches from the paths
 above, each kernel's time, its plain version's and its bound; K1's
-launches are phases 3's and 13's, K2's phases 3's, 13's and 14's, and
+launches are phases 3's, 13's and 15's, K2's phases 3's, 13's and 14's, and
 phase 7 prints its own
 serve's; K5's are
 phase 4's staged encode, phase 8's training, phase 11's causal
@@ -3937,11 +3953,12 @@ def seeded(torch, module):
     return module, copy.deepcopy(module).to("cuda")
 
 
-def card_against_cpu(torch, what, cpu_m, card_m, x, rel, gpu, fn=None):
+def card_against_cpu(torch, what, cpu_m, card_m, x, rel, gpu, fn=None,
+                     phase=14):
     """``fn(module, x)`` (default ``module(x)``) on the CPU and on the card
     on the same fp32 input: fails unless max |card - cpu| <= rel * max(1,
-    max |cpu|); prints the error and the card's median wall of 5 calls
-    -> (cpu output, card output, card ms)."""
+    max |cpu|); prints the error and the card's median wall of 5 calls,
+    as a line of ``phase`` -> (cpu output, card output, card ms)."""
     fn = fn or (lambda m, t: m(t))
     xt = torch.as_tensor(x)
     with torch.no_grad():
@@ -3954,8 +3971,8 @@ def card_against_cpu(torch, what, cpu_m, card_m, x, rel, gpu, fn=None):
     if not (np.isfinite(err) and err <= rel * scale):
         fail(f"{what}: card against the CPU max abs err {err:.3e} > "
              f"{rel} x {scale:.3g}")
-    print(f"phase 14 {what}: output {tuple(got.shape)}, card against the "
-          f"CPU max abs err {err:.3e} (bound {rel} x max(1, max |cpu|) = "
+    print(f"phase {phase} {what}: output {tuple(got.shape)}, card against "
+          f"the CPU max abs err {err:.3e} (bound {rel} x max(1, max |cpu|) = "
           f"{rel * scale:.3e}); card {wall * 1e3:.2f} ms a call (median of "
           f"5) | {gpu}", flush=True)
     return want, got, wall * 1e3
@@ -4230,6 +4247,245 @@ def last_modules_phase(torch, cli, pa, unise, gpu, tmp, write_wav,
 
 
 
+# ---------------------------------------------------------------------------
+# The last public callables (phase 15)
+# ---------------------------------------------------------------------------
+
+DENSE_SLOTS, DENSE_STEPS, DENSE_LEN = 16, 32, 1024
+DENSE_DEPTHS = [40 + 37 * i for i in range(DENSE_SLOTS)]  # 40 .. 595
+DENSE_BS, DENSE_REGION = 64, 14  # the serving pool's blocks and regions
+DENSE_ATOL = 2e-4  # the JAX package's own paged-against-dense bound
+TRACED_STEPS = 4  # steps of each path traced after the greedy run
+MDCT_FRAME = 512
+
+
+def greedy_steps(torch, step, ids):
+    """``DENSE_STEPS`` greedy steps of ``step(ids) -> logits`` -> (logits
+    (steps, S, V) and ids (steps, S) on the card, median ms a step by CUDA
+    events)."""
+    logits, out, times = [], [], []
+    with torch.no_grad():
+        for _ in range(DENSE_STEPS):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            lg = step(ids)
+            t1.record()
+            ids = torch.argmax(lg, -1).int()
+            logits.append(lg)
+            out.append(ids)
+            times.append((t0, t1))
+    torch.cuda.synchronize()
+    ms = float(np.median([a.elapsed_time(b) for a, b in times]))
+    return torch.stack(logits), torch.stack(out), ms
+
+
+def dense_against_k1(torch, pa, paged, unise, gpu):
+    """(a) UniSE's LM (``LlamaConfig()``: 512 x 12, 8 heads), fp32: 16
+    slots prefilled to staggered depths (40 + 37 i) into a dense cache of
+    1,024 positions, and the same prompts prefilled into an owner pool
+    (14-block regions of 64-token blocks); then 32 greedy steps through
+    ``decode_ids_multi`` and through ``paged_decode_ids(use_kernel=
+    "owner")`` (K1): logits within 2e-4, greedy ids equal; then 4 more
+    steps of each path under the profiler (device time and records a
+    step) -> K1's launches in the greedy run."""
+    import copy
+
+    from unified_audio_tpu_torch.models.lm.llama import init_cache
+
+    lm = copy.deepcopy(unise.sft).float().eval()
+    cfg, dev = lm.cfg, "cuda"
+    rng = np.random.default_rng(15)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, d)),
+                               device=dev) for d in DENSE_DEPTHS]
+    ids0 = torch.as_tensor(rng.integers(0, cfg.vocab_size, DENSE_SLOTS),
+                           dtype=torch.int32, device=dev)
+    alloc = paged.RegionAllocator((DENSE_SLOTS + 2) * DENSE_REGION,
+                                  DENSE_REGION)
+    tables = torch.tensor([alloc.alloc(DENSE_REGION)
+                           for _ in range(DENSE_SLOTS)], dtype=torch.int32,
+                          device=dev)
+    pool = paged.init_pool(cfg, alloc.num_blocks, DENSE_BS,
+                           dtype=torch.float32, device=dev)
+    dense = init_cache(cfg, DENSE_SLOTS, DENSE_LEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for b, ids in enumerate(prompts):
+            embeds = lm.embed_codes(ids)
+            row = {"k": dense["k"][:, b:b + 1], "v": dense["v"][:, b:b + 1],
+                   "index": 0}  # views: the prefill writes the slot's row
+            lm.cached_forward(embeds, row)
+            own = init_cache(cfg, 1, ids.shape[1], device=dev)
+            lm.cached_forward(embeds, own)
+            paged.scatter_prefill(pool, tables[b:b + 1], own["k"], own["v"],
+                                  DENSE_BS)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    dense["index"] = torch.tensor(DENSE_DEPTHS, dtype=torch.int32,
+                                  device=dev)
+
+    def dense_step(ids):
+        return lm.decode_ids_multi(ids, dense)[0]
+
+    index = dense["index"].clone()
+    active = torch.ones(DENSE_SLOTS, dtype=torch.bool, device=dev)
+
+    def paged_step(ids):
+        nonlocal index
+        lg = paged.paged_decode_ids(cfg, lm, pool, tables, index, active, ids,
+                                    DENSE_BS, use_kernel="owner")
+        index = index + 1
+        return lg
+
+    want, want_ids, dense_ms = greedy_steps(torch, dense_step, ids0)
+    k1 = pa.paged_flash_decode_owner
+    k1.launches = 0
+    got, got_ids, paged_ms = greedy_steps(torch, paged_step, ids0)
+    n = k1.launches
+    err = float((got - want).abs().max())
+    if not err <= DENSE_ATOL:
+        fail(f"phase 15 (a): K1's paged decode against the dense per-slot "
+             f"decode max abs logit diff {err:.3e} > {DENSE_ATOL}")
+    if not bool((got_ids == want_ids).all()):
+        fail("phase 15 (a): K1's greedy ids differ from the dense decode's")
+    if n != cfg.num_layers * DENSE_STEPS:
+        fail(f"phase 15 (a): K1 launched {n} times in {DENSE_STEPS} steps "
+             f"of {cfg.num_layers} layers")
+    ends = dense["index"].cpu().tolist()
+    if ends != [d + DENSE_STEPS for d in DENSE_DEPTHS]:
+        fail(f"phase 15 (a): the dense indices ended at {ends}")
+    traced = {}  # 4 more steps of each path under the profiler
+    for name, step in (("dense", dense_step), ("paged", paged_step)):
+        with torch.no_grad():
+            counts, us = profiled(torch, lambda: step(got_ids[-1]),
+                                  TRACED_STEPS)
+        traced[name] = (us / 1e3 / TRACED_STEPS,
+                        sum(counts.values()) / TRACED_STEPS)
+    print(f"phase 15 (a) dense decode_ids_multi against the K1 paged decode "
+          f"(paged_decode_ids, owner mode), LM {cfg.hidden_size} x "
+          f"{cfg.num_layers}, fp32, {DENSE_SLOTS} slots at depths "
+          f"{DENSE_DEPTHS[0]}..{DENSE_DEPTHS[-1]} (dense cache "
+          f"{DENSE_LEN} positions, {2 * dense['k'].numel() * 4 / 1e6:.0f} "
+          f"MB), {DENSE_STEPS} greedy steps: max abs logit diff {err:.3e} "
+          f"(bound {DENSE_ATOL}), greedy ids equal; dense "
+          f"{dense_ms:.3f} ms a step, paged {paged_ms:.3f} ms a step "
+          f"(median, CUDA events); device time a step under the profiler "
+          f"(CUPTI records, {TRACED_STEPS} more steps): dense "
+          f"{traced['dense'][0]:.3f} ms in {traced['dense'][1]:.0f} "
+          f"records, paged {traced['paged'][0]:.3f} ms in "
+          f"{traced['paged'][1]:.0f}; the two prefills {prefill_s:.2f} s; K1 "
+          f"launches {n} | {gpu}", flush=True)
+    return n
+
+
+def signal_ops_check(torch, unise, gpu):
+    """(b) ``UniSE.stft_logmel`` of a 10-s 16-kHz clip (n_fft 640, hop
+    320, 80 mels) and ``mdct``/``imdct`` at a frame of 512 ("same" and
+    "center"), on the card against the CPU (1e-4 x max(1, max |cpu|));
+    the round trip's error away from the ends."""
+    from unified_audio_tpu_torch.ops import dsp
+
+    rng = np.random.default_rng(16)
+    n = int(CLIP_S * SR)
+    clip = (0.5 * synth_speech(rng, n) + 0.1 * rng.standard_normal(n)
+            ).astype(np.float32)[None]
+    mel, _, _ = card_against_cpu(
+        torch, "(b) UniSE.stft_logmel, 10 s, n_fft 640, hop 320, 80 mels",
+        unise, unise, clip, 1e-4, gpu, fn=lambda m, x: m.stft_logmel(x),
+        phase=15)
+    if tuple(mel.shape) != (1, n // unise.config.hop_length,
+                            unise.config.n_mels):
+        fail(f"phase 15 (b): log-mel {tuple(mel.shape)}")
+    for padding in ("same", "center"):
+        coeffs, got, _ = card_against_cpu(
+            torch, f"(b) mdct, frame {MDCT_FRAME}, {padding!r}", None, None,
+            clip, 1e-4, gpu, fn=lambda m, x: dsp.mdct(x, MDCT_FRAME, padding),
+            phase=15)
+        _, y, _ = card_against_cpu(
+            torch, f"(b) imdct, frame {MDCT_FRAME}, {padding!r}", None, None,
+            coeffs.numpy(), 1e-4, gpu,
+            fn=lambda m, c: dsp.imdct(c, padding), phase=15)
+        inner = slice(MDCT_FRAME, n - MDCT_FRAME)
+        rt = float((y.cpu()[0, inner] - torch.as_tensor(clip[0, inner])
+                    ).abs().max())
+        if not rt <= 1e-3:
+            fail(f"phase 15 (b): the {padding!r} MDCT round trip's error "
+                 f"{rt:.3e}")
+        print(f"phase 15 (b) MDCT round trip on the card, {padding!r}: max "
+              f"abs reconstruction error {rt:.3e} away from the ends | {gpu}",
+              flush=True)
+
+
+def pools_and_latents_check(torch, gpu):
+    """(c) The TAP, TSDP and TSTP pooling heads on 500 frames of BiCodec's
+    1536-channel speaker features, and ``FactorizedVectorQuantize.
+    decode_latents`` at BiCodec's widths (8192 codes of 8) on 500 frames,
+    card against the CPU: the pools within 1e-4 x max(1, max |cpu|), every
+    index equal or a near tie (fp64 cosines within 1e-5), the rows equal
+    where the indices are; ``tokenize`` (1024 -> 8, then the search) equal
+    on the card to ``decode_latents`` of its projection."""
+    from unified_audio_tpu_torch.models.bicodec import speaker
+    from unified_audio_tpu_torch.ops.quant import FactorizedVectorQuantize
+
+    rng = np.random.default_rng(17)
+    feats = rng.standard_normal((1, 500, 1536)).astype(np.float32)
+    for name in ("tap_pool", "tsdp_pool", "tstp_pool"):
+        pool = getattr(speaker, name)
+        card_against_cpu(torch, f"(c) {name}, 500 x 1536", None, None, feats,
+                         1e-4, gpu, fn=lambda m, x: pool(x), phase=15)
+    cpu_m, card_m = seeded(torch, FactorizedVectorQuantize(
+        1024, 8192, 8, tokenize=True))
+    z = torch.as_tensor(rng.standard_normal((1, 500, 8)).astype(np.float32))
+    with torch.no_grad():
+        want_q, want_i = cpu_m.decode_latents(z)
+        got_q, got_i = card_m.decode_latents(z.to("cuda"))
+        wall, _, _ = median_wall(torch,
+                                 lambda: card_m.decode_latents(z.to("cuda")),
+                                 5)
+        x = torch.as_tensor(rng.standard_normal((1, 500, 1024)).astype(
+            np.float32), device="cuda")
+        tok = card_m.tokenize(x)
+        via = card_m.decode_latents(card_m.in_project(x))[1]
+    got_i, got_q = got_i.cpu(), got_q.cpu()
+    if not bool((tok == via).all()):
+        fail("phase 15 (c): tokenize differs from decode_latents of its "
+             "projection")
+    differ = got_i != want_i
+    cb = cpu_m.codebook.weight.double()
+    cb = cb / cb.norm(dim=-1, keepdim=True)
+    zn = z.double() / z.double().norm(dim=-1, keepdim=True)
+    cos = torch.einsum("btd,nd->btn", zn, cb)
+    gap = (cos.gather(-1, want_i.long()[..., None])
+           - cos.gather(-1, got_i.long()[..., None]))[differ]
+    worst = float(gap.abs().max()) if bool(differ.any()) else 0.0
+    if not worst <= 1e-5:
+        fail(f"phase 15 (c): decode_latents indices differ from the CPU's "
+             f"by a cosine gap of {worst:.3e}")
+    same = ~differ
+    row_err = float((got_q - want_q)[same].abs().max())
+    if not row_err == 0.0:
+        fail(f"phase 15 (c): decode_latents rows differ where the indices "
+             f"agree ({row_err:.3e})")
+    print(f"phase 15 (c) FactorizedVectorQuantize.decode_latents, 8192 x 8 "
+          f"codes, 500 frames: {int(differ.sum())} indices differ from the "
+          f"CPU's (worst fp64 cosine gap {worst:.2e}), rows equal where the "
+          f"indices are; tokenize equal to decode_latents of its "
+          f"projection; card {wall * 1e3:.2f} ms a call | {gpu}", flush=True)
+
+
+def last_callables_phase(torch, cli, pa, paged, unise, gpu):
+    """Phase 15: the last public callables at full width on the card, fp32
+    with TF32 off -> K1's launches in (a)."""
+    t0 = time.perf_counter()
+    cli._fp32_without_tf32()
+    k1 = dense_against_k1(torch, pa, paged, unise, gpu)
+    signal_ops_check(torch, unise, gpu)
+    pools_and_latents_check(torch, gpu)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s | {gpu}",
+          flush=True)
+    return k1
+
+
 def main():
     try:
         import torch
@@ -4451,7 +4707,13 @@ def main():
             last_modules_phase(torch, cli, pa, unise, gpu, Path(tmp),
                                write_wav, read_wav)
 
-    # 15. nothing of JAX or the JAX package was loaded
+    # 15. the last public callables: the dense per-slot decode against K1,
+    # the log-mel and the MDCT, the pooling heads and decode_latents
+    torch.cuda.empty_cache()
+    launches[pa.paged_flash_decode_owner.__name__] += last_callables_phase(
+        torch, cli, pa, paged, unise, gpu)
+
+    # 16. nothing of JAX or the JAX package was loaded
     jax_side = {m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "unified_audio_tpu")}
     if jax_side:

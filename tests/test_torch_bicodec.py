@@ -1,8 +1,9 @@
-"""Port vs JAX: BiCodec's decode side (FVQ detokenize, residual-FSQ decode
-with the channel-major flatten, the prenet, the DAC wave generator) on a
+"""Port vs JAX: BiCodec's decode side (FVQ detokenize, residual-FSQ decode with
+the channel-major flatten, the prenet, the DAC wave generator), the FVQ's
+``decode_latents`` and the speaker branch's TAP/TSDP/TSTP pooling heads, on a
 tiny configuration with seeded weights whose waveform stays out of tanh
-saturation. Tolerance: atol/rtol 1e-4 (different reduction order); FSQ
-codes exactly.
+saturation. Tolerance: atol/rtol 1e-4 (different reduction order); FSQ codes
+exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -63,3 +64,39 @@ def test_detokenize_waveform(codec):
         got = tm.detokenize(torch.as_tensor(sem), torch.as_tensor(glob))
     assert got.shape == want.shape == (2, 7 * 320)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", ["tap_pool", "tsdp_pool", "tstp_pool"])
+def test_pooling_heads_match_jax(name):
+    """The reference's TAP, TSDP and TSTP heads on (B, T, C) features."""
+    from unified_audio_tpu.models.bicodec import speaker as j_speaker
+    from unified_audio_tpu_torch.models.bicodec import speaker as t_speaker
+
+    x = np.random.default_rng(7).standard_normal((3, 50, 32)).astype(
+        np.float32)
+    x[2] = 0.25  # a constant row: the std is the 1e-7 floor's root
+    want = np.asarray(getattr(j_speaker, name)(jnp.asarray(x)))
+    got = getattr(t_speaker, name)(torch.as_tensor(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_fvq_decode_latents_matches_jax():
+    """The cosine search on projected latents: indices equal, rows equal;
+    ``tokenize`` goes through it."""
+    rng = np.random.default_rng(8)
+    cb = rng.standard_normal((64, 8)).astype(np.float32)
+    z_e = rng.standard_normal((2, 9, 8)).astype(np.float32)
+    fvq = j_quant.FactorizedVectorQuantize(input_dim=8, codebook_size=64,
+                                           codebook_dim=8)
+    variables = {"params": {"codebook": jnp.asarray(cb)},
+                 "codebook": {"cluster_size": jnp.zeros((64,))}}
+    want_q, want_i = fvq.apply(variables, jnp.asarray(z_e),
+                               method="decode_latents")
+    port = t_quant.FactorizedVectorQuantize(8, 64, 8, tokenize=True)
+    port.codebook.weight.data = torch.as_tensor(cb)
+    got_q, got_i = port.decode_latents(torch.as_tensor(z_e))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_q.detach().numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(port.tokenize(torch.as_tensor(z_e)),
+                                  got_i)

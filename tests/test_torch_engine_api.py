@@ -663,3 +663,36 @@ def test_cli_serve_matches_jax_serve(stacks, tmp_path, monkeypatch):
     for (tg, ts), (jg, js) in zip(got, want):
         np.testing.assert_array_equal(tg, jg)
         np.testing.assert_array_equal(ts, js)
+
+
+def _admit_reqs(cls, n):
+    return [cls(task_id=0, mix_feats=_feats(900 + i), global_length=2,
+                semantic_length=3, do_sample=False, uid=900 + i)
+            for i in range(n)]
+
+
+def test_admit_returns_jax_booleans(lm):
+    """One request at a time into two slots: admitted while a slot is
+    free, refused after, as the JAX engine's ``admit``; the admitted ones
+    then run to the JAX engine's tokens."""
+    jax_eng, port_eng = jax_engine(lm), port_engine(lm)
+    want = [jax_eng.admit(r, KEY) for r in _admit_reqs(j_engine.Request, 3)]
+    got = [port_eng.admit(r) for r in _admit_reqs(Request, 3)]
+    assert got == want == [True, True, False]
+    done = port_eng.run([])
+    assert sorted(done) == [900, 901]
+    assert_same(done, jax_eng.run([], KEY))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(global_length=99), dict(semantic_length=99),
+    dict(temperature=0.0), dict(top_p=0.0), dict(top_k=0),
+    dict(mix_feats=np.zeros((99, FD), np.float32))])
+def test_admit_validation(lm, bad):
+    """The requests the JAX engine's ``admit`` refuses (tests/test_engine.py
+    test_admit_validation) raise ValueError in the port's."""
+    base = dict(task_id=0, mix_feats=_feats(0), uid=0)
+    with pytest.raises(ValueError):
+        jax_engine(lm).admit(j_engine.Request(**{**base, **bad}), KEY)
+    with pytest.raises(ValueError):
+        port_engine(lm).admit(Request(**{**base, **bad}))

@@ -1,5 +1,7 @@
 """The port's utilities (``unified_audio_tpu_torch/utils/token_parser.py``,
-``watchdog.py``, ``profiling.py``) against the JAX package's, on the CPU.
+``watchdog.py``, ``profiling.py``, ``config.py``) and small public helpers
+(``nn/conv.py unpad1d`` and ``conv_transpose1d``, ``RegionAllocator``'s
+high water, the quantizers' aliases) against the JAX package's, on the CPU.
 
 The token maps equal JAX's entry for entry and render token strings
 alike; the watchdog cases mirror ``tests/test_data.py TestWatchdog``;
@@ -105,3 +107,102 @@ def test_step_timer_cpu_device_does_not_sync():
     with timer:
         pass
     assert timer.summary()["steps"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The small public helpers: configs, unpad1d, conv_transpose1d, the
+# allocators' high water, the quantizers' aliases
+# ---------------------------------------------------------------------------
+
+def _config_class(name, data):
+    """A dataclass with ``data``'s keys, nested dicts as nested classes."""
+    import dataclasses
+
+    fields = []
+    for key, value in data.items():
+        if isinstance(value, dict):
+            sub = _config_class(f"{name}_{key}", value)
+            fields.append((key, sub, dataclasses.field(default_factory=sub)))
+        else:
+            fields.append((key, object, None))
+    return dataclasses.make_dataclass(name, fields)
+
+
+@pytest.mark.parametrize("name", ["unise.yaml", "hcodec10.yaml"])
+def test_load_config_and_to_dict_match_jax(name, tmp_path):
+    """A configs/ file through ``load_config`` and back through
+    ``to_dict``: the JAX package's dicts (lists made tuples); an unknown
+    key refused by both."""
+    from pathlib import Path
+
+    from unified_audio_tpu.utils import config as j_config
+    from unified_audio_tpu_torch.utils import config as t_config
+
+    path = Path(__file__).resolve().parents[1] / "configs" / name
+    cls = _config_class("Cfg", t_config.load_yaml(path))
+    want = j_config.to_dict(j_config.load_config(path, cls))
+    got = t_config.to_dict(t_config.load_config(path, cls))
+    assert got == want
+    if name == "unise.yaml":  # a list made a tuple inside a nested class
+        assert got["dataset"]["speech_scp"] == ("./data/speech.scp",)
+    bad = tmp_path / "bad.yaml"
+    bad.write_text(path.read_text() + "\nnot_a_field: 1\n")
+    for module in (j_config, t_config):
+        with pytest.raises(ValueError, match="not_a_field"):
+            module.load_config(bad, cls)
+
+
+def test_unpad1d_and_conv_transpose1d_match_jax():
+    import jax.numpy as jnp
+
+    from unified_audio_tpu.nn import conv as j_conv
+    from unified_audio_tpu_torch.nn import conv as t_conv
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 13, 6)).astype(np.float32)
+    np.testing.assert_array_equal(
+        t_conv.unpad1d(torch.as_tensor(x), (3, 2)).numpy(),
+        np.asarray(j_conv.unpad1d(jnp.asarray(x), (3, 2))))
+    kernel = rng.standard_normal((5, 6, 4)).astype(np.float32)  # (K, Ci, Co)
+    want = np.asarray(j_conv.conv_transpose1d(jnp.asarray(x),
+                                              jnp.asarray(kernel), 3))
+    got = t_conv.conv_transpose1d(torch.as_tensor(x), torch.as_tensor(
+        kernel.transpose(1, 2, 0)), 3).numpy()
+    assert got.shape == want.shape == (2, 12 * 3 + 5, 4)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_region_allocator_high_water_matches_jax():
+    from unified_audio_tpu.serve import paged as j_paged
+    from unified_audio_tpu_torch.serve import paged as t_paged
+
+    j, t = j_paged.RegionAllocator(200, 14), t_paged.RegionAllocator(200, 14)
+    assert t.high_water() == j.high_water() == 1
+    held = [(j.alloc(5), t.alloc(5)) for _ in range(4)]
+    j.release(held[3][0])
+    t.release(held[3][1])
+    assert t.high_water() == j.high_water()
+    for bucket in (64, 16):
+        assert t.bounded_high_water(bucket) == j.bounded_high_water(bucket)
+
+
+def test_quantizer_aliases_match_jax():
+    """``codebook_size`` of the FSQs, ``ResidualVQ.get_output_from_indices``
+    (the reference's name for ``decode``) and FlexiCodec's
+    ``DACVectorQuantize.decode_code``."""
+    from unified_audio_tpu.ops import quant as j_quant
+    from unified_audio_tpu_torch.models.hcodec.flexicodec import \
+        DACVectorQuantize
+    from unified_audio_tpu_torch.ops import quant as t_quant
+
+    assert t_quant.FSQ((8, 5, 5)).codebook_size == \
+        j_quant.FSQ(levels=(8, 5, 5)).codebook_size == 200
+    assert t_quant.ResidualFSQ((4, 4, 4), 2, 3).codebook_size == 64
+    rvq = t_quant.ResidualVQ(4, 16, 2)
+    codes = torch.tensor([[[1, 2], [3, -1]]])
+    torch.testing.assert_close(rvq.get_output_from_indices(codes),
+                               rvq.decode(codes))
+    dvq = DACVectorQuantize(8, 16, 4)
+    idx = torch.tensor([[0, 5, 15]])
+    torch.testing.assert_close(dvq.decode_code(idx),
+                               dvq.codebook.weight[idx])

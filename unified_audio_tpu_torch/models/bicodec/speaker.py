@@ -5,14 +5,15 @@ d-vector projection.
 Port of ``unified_audio_tpu/models/bicodec/speaker.py``: ``ConvReluBn``,
 ``Res2ConvReluBn``, ``SEConnect``, ``SERes2Block``, ``ASTP``, ``ECAPATDNN``,
 ``PerceiverRMSNorm``, ``PerceiverAttention``, ``GEGLUFeedForward`` (here
-``geglu_feed_forward``),
-``PerceiverResampler`` and ``SpeakerEncoder`` (``tokenize`` and
-``detokenize``). Channels-last (B, T, C) throughout. The branch is frozen:
-its BatchNorms normalize with their running statistics (eps 1e-5) whenever
-the module is in ``.eval()``, which is how the tokenizer keeps it. The
-decode-only ``SpeakerEncoder`` (``tokenize=False``, what serving builds)
-holds just the FSQ decode and the projection. Submodule names follow the
-reference layout (``speaker_encoder.layer2.se_res2block.1.convs.0``,
+``geglu_feed_forward``), ``PerceiverResampler``, ``SpeakerEncoder``
+(``tokenize`` and ``detokenize``) and the reference's other pooling heads
+``tap_pool``, ``tsdp_pool`` and ``tstp_pool``. Channels-last (B, T, C)
+throughout. The branch is frozen: its BatchNorms normalize with their running
+statistics (eps 1e-5) whenever the module is in ``.eval()``, which is how the
+tokenizer keeps it. The decode-only ``SpeakerEncoder`` (``tokenize=False``,
+what serving builds) holds just the FSQ decode and the projection. Submodule
+names follow the reference layout
+(``speaker_encoder.layer2.se_res2block.1.convs.0``,
 ``perceiver_sampler.layers.0.1.2``, ...), the layout
 ``export_bicodec_state_dict`` writes.
 """
@@ -273,3 +274,23 @@ class SpeakerEncoder(nn.Module):
         """Global tokens (B, token_num, nq) -> d-vector (B, out_dim)."""
         zq = self.quantizer.get_output_from_indices(indices)
         return self.project(self._flatten_cf(zq))
+
+
+# ---------------------------------------------------------------------------
+# The reference's other pooling heads (TAP, TSDP, TSTP; ASTP above)
+# ---------------------------------------------------------------------------
+
+def tap_pool(x):
+    """Temporal average pooling, (B, T, C) -> (B, C)."""
+    return x.mean(dim=-2)
+
+
+def tsdp_pool(x):
+    """Temporal standard-deviation pooling (population variance, + 1e-7
+    under the root), (B, T, C) -> (B, C)."""
+    return torch.sqrt(x.var(dim=-2, correction=0) + 1e-7)
+
+
+def tstp_pool(x):
+    """Temporal statistics pooling, [mean, std], (B, T, C) -> (B, 2C)."""
+    return torch.cat([tap_pool(x), tsdp_pool(x)], dim=-1)

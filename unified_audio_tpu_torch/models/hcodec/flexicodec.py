@@ -105,6 +105,10 @@ class DACVectorQuantize(nn.Module):
         self.out_proj = Conv1d(codebook_dim, input_dim, 1, padding=0, **wn)
         self.codebook = nn.Embedding(codebook_size, codebook_dim)
 
+    def decode_code(self, idx):
+        """Indices (...) -> their codebook rows (..., codebook_dim)."""
+        return self.codebook(idx.long())
+
     def nearest(self, z_e):
         """(B, T, cd) -> (B, T) int64: argmin of ``|e|^2 - 2 e.c + |c|^2``
         over the L2-normalized input and codebook (norms floored at

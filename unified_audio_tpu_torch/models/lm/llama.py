@@ -3,12 +3,13 @@ top-k/top-p sampling.
 
 Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig``,
 ``init_cache``, ``range_mask``, ``LlamaBackbone`` (the decoder stack: the
-uncached causal forward that training runs, and prefill and one-token
-decode over embeddings and a dense cache), ``CodecLM`` (with the
-label-smoothed loss, ``forward_embeds`` and the pretraining objective
-``pretrain_loss``, JAX's ``CodecLM.__call__``), ``sample_logits`` (the
-reference's first-crossing top-p rule) and the per-row
-``sample_logits_vec``.
+uncached causal forward that training runs, prefill and one-token decode
+over embeddings and a dense cache, and ``decode_step_multi``, the
+one-token decode in which each sequence sits at its own depth),
+``CodecLM`` (with the label-smoothed loss, ``forward_embeds``, the
+pretraining objective ``pretrain_loss``, JAX's ``CodecLM.__call__``, and
+``decode_ids_multi``), ``sample_logits`` (the reference's first-crossing
+top-p rule) and the per-row ``sample_logits_vec``.
 
 Parameters use the reference torch layout (``codec_embedding.weight``,
 ``layers.{i}.self_attn.q_proj.weight``, ..., ``norm.weight``,
@@ -131,8 +132,14 @@ class LlamaAttention(nn.Module):
         q, k = apply_rope(q, k, cos, sin)
         if cache is not None:
             idx = cache["index"]
-            cache["k"][li, :, idx:idx + s] = k.to(cache["k"].dtype)
-            cache["v"][li, :, idx:idx + s] = v.to(cache["v"].dtype)
+            if isinstance(idx, torch.Tensor) and idx.dim() == 1:
+                # per-sequence positions (s == 1): row b writes at idx[b]
+                rows = torch.arange(b, device=idx.device)
+                cache["k"][li, rows, idx] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][li, rows, idx] = v[:, 0].to(cache["v"].dtype)
+            else:
+                cache["k"][li, :, idx:idx + s] = k.to(cache["k"].dtype)
+                cache["v"][li, :, idx:idx + s] = v.to(cache["v"].dtype)
             k, v = cache["k"][li], cache["v"][li]
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
         probs = torch.softmax(logits + mask, dim=-1).to(x.dtype)
@@ -219,6 +226,30 @@ class LlamaBackbone(nn.Module):
         for li, layer in enumerate(self.layers):
             x = layer(x, mask, cos, sin, cache, li)
         cache["index"] = idx + s
+        return self.norm(x), cache
+
+    def decode_step_multi(self, embeds, cache):
+        """One-token decode in which each sequence sits at its own depth:
+        embeds (B, 1, D), ``cache["index"]`` a (B,) int tensor on the
+        cache's device. Row b's K/V are written at position index[b], its
+        query is rotated there and sees keys 0..index[b]; the index
+        advances by one. Nothing is read back to the host.
+
+        An index equal to ``max_len`` is out of range: the write raises
+        an IndexError on the CPU and a device-side assert on the card (the
+        JAX package's scatter drops such a write; ROADMAP hazard 30). The
+        caller keeps every index below ``max_len``."""
+        cfg = self.cfg
+        max_len = cache["k"].shape[2]
+        idx = cache["index"]
+        cos, sin = rope_cos_sin(idx[:, None], cfg.head_dim, cfg.rope_theta)
+        key_pos = torch.arange(max_len, device=idx.device)
+        mask = torch.where(key_pos[None] <= idx[:, None], 0.0, NEG_INF)
+        mask = mask[:, None, None]  # (B, 1, 1, max_len) over (B, H, 1, K)
+        x = embeds
+        for li, layer in enumerate(self.layers):
+            x = layer(x, mask, cos, sin, cache, li)
+        cache["index"] = idx + 1
         return self.norm(x), cache
 
 
@@ -311,6 +342,14 @@ class CodecLM(LlamaBackbone):
         """ids (B,) -> (logits (B, V), cache): one decode step."""
         hidden, cache = self.cached_forward(self.embed_codes(ids[:, None]),
                                             cache)
+        return self.head(hidden[:, -1]), cache
+
+    def decode_ids_multi(self, ids, cache):
+        """ids (B,) with per-sequence positions (``cache["index"]`` (B,))
+        -> (logits (B, V), cache): :meth:`decode_step_multi` of their
+        embeddings."""
+        hidden, cache = self.decode_step_multi(
+            self.embed_codes(ids[:, None]), cache)
         return self.head(hidden[:, -1]), cache
 
 

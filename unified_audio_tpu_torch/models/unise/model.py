@@ -3,6 +3,7 @@
 Port of ``unified_audio_tpu/models/unise/model.py``: ``UniSEConfig``,
 ``_segment`` (wrap-pad to 5-s segments), ``_semantic_len``, the WavLM
 feature path (the wav padded by 160 samples on each side, all-layer mean),
+the log-mel frontend ``stft_logmel``,
 ``_decode_tokens``, the offline ``enhance_se`` / ``enhance_tse`` /
 ``separate_ss`` flows over ``LLMSFT.generate``, and the SFT training loss
 ``loss_fn``. ``serve/cascade.py`` serves the SS cascade through the engine.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ...ops import dsp
 from ..bicodec.tokenizer import BiCodecTokenizer
 from ..lm.llama import LlamaConfig
 from ..lm.sft import LLMSFT
@@ -67,6 +69,13 @@ class UniSE:
 
     def extract_semantic_features(self, wav) -> torch.Tensor:
         return self.wavlm_feats(torch.as_tensor(np.asarray(wav, np.float32)))
+
+    def stft_logmel(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, N) waveform -> (B, frames, n_mels) log-mel at the config's
+        STFT sizes (``ops/dsp.py stft_logmel``), on ``wav``'s device."""
+        cfg = self.config
+        return dsp.stft_logmel(wav, cfg.n_fft, cfg.hop_length,
+                               cfg.win_length, cfg.n_mels, cfg.sample_rate)
 
     # --- training ---
 

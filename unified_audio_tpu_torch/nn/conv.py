@@ -1,9 +1,10 @@
 """1-D convolution primitives on channels-last (B, T, C) tensors.
 
-Port of ``unified_audio_tpu/nn/conv.py``: ``conv1d``, ``Conv1d`` (torch-style
-symmetric padding, dilation, groups), ``ConvTranspose1d`` (torch
-padding/output_padding trim) and, for HCodec, the EnCodec padding math
-(``get_extra_padding_for_conv1d``, ``pad1d``), ``SConv1d``,
+Port of ``unified_audio_tpu/nn/conv.py``: ``conv1d``, ``conv_transpose1d``,
+``Conv1d`` (torch-style symmetric padding, dilation, groups),
+``ConvTranspose1d`` (torch padding/output_padding trim) and, for HCodec,
+the EnCodec padding math (``get_extra_padding_for_conv1d``, ``pad1d``,
+``unpad1d``), ``SConv1d``,
 ``SConvTranspose1d``, ``CausalConv1d`` and ``SubPixelConvTranspose1d``, each
 non-causal or causal, with the padding arithmetic unchanged.
 Public functions keep the JAX package's channels-last layout; weights use
@@ -45,6 +46,13 @@ def conv1d(x, weight, bias=None, stride: int = 1, dilation: int = 1,
     y = F.conv1d(y, weight, bias, stride=stride, dilation=dilation,
                  groups=groups)
     return y.transpose(1, 2)
+
+
+def conv_transpose1d(x, weight, stride: int):
+    """Full (padding 0) transposed conv: (B, T, Cin) x weight (Cin, Cout,
+    K) -> (B, (T - 1) * stride + K, Cout)."""
+    return F.conv_transpose1d(x.transpose(1, 2), weight,
+                              stride=stride).transpose(1, 2)
 
 
 class Conv1d(nn.Module):
@@ -168,6 +176,12 @@ def pad1d(x, paddings: Tuple[int, int]):
     if extra:
         y = y[..., :y.shape[-1] - extra]
     return y.transpose(1, 2)
+
+
+def unpad1d(x, paddings: Tuple[int, int]):
+    """Trim ``paddings`` (left, right) from the time axis of (B, T, C)."""
+    left, right = paddings
+    return x[..., left:x.shape[-2] - right, :]
 
 
 class SConv1d(nn.Module):

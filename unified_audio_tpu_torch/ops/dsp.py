@@ -1,12 +1,15 @@
-"""Signal ops of HCodec, of BiCodec's speaker branch and of the CLI's
-input preparation: the periodic Hann window, framing, the STFT,
-overlap-add, the "same"-padded ISTFT, windowed-sinc resampling, the
-slaney/htk mel filterbanks and the slaney mel spectrogram.
+"""Signal ops of HCodec, of BiCodec's speaker branch, of UniSE's log-mel
+frontend and of the CLI's input preparation: the periodic Hann and the
+cosine windows, framing, the STFT, overlap-add, the "same"-padded ISTFT,
+windowed-sinc resampling, the slaney/htk mel filterbanks, the slaney mel
+spectrogram, UniSE's htk log-mel, and the MDCT and its inverse.
 
-Port of ``hann_window``, ``frame``, ``stft``, ``overlap_add``,
-``istft_same``, ``_resample_kernel``, ``resample``, ``_hz_to_mel``,
-``_mel_to_hz``, ``melscale_fbanks`` and ``mel_spectrogram`` in
-``unified_audio_tpu/ops/dsp.py``, in fp32 with the same arithmetic order
+Port of ``hann_window``, ``cosine_window``, ``frame``, ``stft``,
+``overlap_add``, ``istft_same``, ``_resample_kernel``, ``resample``,
+``_hz_to_mel``, ``_mel_to_hz``, ``melscale_fbanks``, ``stft_logmel``,
+``mel_spectrogram``, ``mdct`` and ``imdct`` in
+``unified_audio_tpu/ops/dsp.py``, in fp32 (complex64 for the FFTs, as the
+JAX package casts) with the same arithmetic order
 (overlap-add as r = L / hop shifted adds, in the JAX package's order; the
 resampling lowpass as one strided convolution of the same polyphase
 table, which this module computes with its own numpy copy of the JAX
@@ -27,6 +30,13 @@ def hann_window(win_length: int, device=None) -> torch.Tensor:
     """Periodic Hann window, fp32: 0.5 - 0.5 cos(2 pi n / N)."""
     n = torch.arange(win_length, dtype=torch.float32, device=device)
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / win_length)
+
+
+def cosine_window(win_length: int, device=None) -> torch.Tensor:
+    """Symmetric cosine (sine) window, fp32: sin(pi (n + 0.5) / N)
+    (scipy.signal.windows.cosine)."""
+    n = torch.arange(win_length, dtype=torch.float32, device=device)
+    return torch.sin(math.pi / win_length * (n + 0.5))
 
 
 def frame(x: torch.Tensor, frame_length: int, hop_length: int):
@@ -199,6 +209,23 @@ def melscale_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
     return fb.astype(np.float32)
 
 
+def stft_logmel(x: torch.Tensor, n_fft: int, hop_length: int,
+                win_length: int, n_mels: int, sample_rate: int = 16000,
+                f_max: float = 8000.0) -> torch.Tensor:
+    """UniSE's log-mel frontend, (B, T) -> (B, frames, n_mels): the signal
+    zero-padded to a multiple of the hop plus (win - hop) // 2 on each
+    side, the uncentered STFT's magnitude, the htk mel filterbank without
+    norm (0 Hz to ``f_max``), log(mel + 1e-10)."""
+    t = x.shape[-1]
+    pad_len = -(-t // hop_length) * hop_length - t
+    side = (win_length - hop_length) // 2
+    x = F.pad(x, (side, pad_len + side))
+    mag = stft(x, n_fft, hop_length, win_length, center=False).abs()
+    fb = _fbanks_on(n_fft // 2 + 1, 0.0, f_max, n_mels, sample_rate, None,
+                    "htk", x.device)
+    return torch.log(torch.einsum("bft,fm->btm", mag, fb) + 1e-10)
+
+
 def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
                     win_length: int, hop_length: int, f_min: float,
                     f_max: float, n_mels: int) -> torch.Tensor:
@@ -207,17 +234,71 @@ def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int,
     BiCodec configures it; differentiable, as codec training's multi-scale
     mel loss needs). (B, T) -> (B, n_mels, frames)."""
     mag = stft(x, n_fft, hop_length, win_length, center=True).abs()
-    fb = _slaney_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate,
-                        x.device)
+    fb = _fbanks_on(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate,
+                    "slaney", "slaney", x.device)
     return torch.einsum("bft,fm->bmt", mag, fb.to(mag.dtype))
 
 
 @functools.lru_cache(maxsize=64)
-def _slaney_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
-                   sample_rate: int, device) -> torch.Tensor:
-    """:func:`melscale_fbanks` with slaney scale and norm as a tensor on
-    ``device``, copied there once (a copy from pageable host memory waits
-    for the card)."""
+def _fbanks_on(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+               sample_rate: int, norm: Optional[str], mel_scale: str,
+               device) -> torch.Tensor:
+    """:func:`melscale_fbanks` as a tensor on ``device``, copied there
+    once (a copy from pageable host memory waits for the card)."""
     return torch.as_tensor(melscale_fbanks(
-        n_freqs, f_min, f_max, n_mels, sample_rate, norm="slaney",
-        mel_scale="slaney"), device=device)
+        n_freqs, f_min, f_max, n_mels, sample_rate, norm=norm,
+        mel_scale=mel_scale), device=device)
+
+
+# ---------------------------------------------------------------------------
+# MDCT / IMDCT ("same" or "center" padding)
+# ---------------------------------------------------------------------------
+
+def _mdct_pad(frame_len: int, padding: str) -> int:
+    if padding == "center":
+        return frame_len // 2
+    if padding == "same":
+        return frame_len // 4
+    raise ValueError("padding must be 'center' or 'same'")
+
+
+def mdct(audio: torch.Tensor, frame_len: int,
+         padding: str = "same") -> torch.Tensor:
+    """(B, T) -> (B, L, N) MDCT coefficients, N = frame_len // 2: the
+    signal zero-padded by frame_len // 4 ("same") or // 2 ("center") on
+    each side, cut into frames of ``frame_len`` at hop N, each windowed by
+    :func:`cosine_window` and transformed through one complex64 FFT with
+    pre- and post-twiddles, scaled by sqrt(2 / N)."""
+    pad = _mdct_pad(frame_len, padding)
+    audio = F.pad(audio, (pad, pad))
+    dev, n = audio.device, frame_len // 2
+    x = frame(audio, frame_len, n) * cosine_window(frame_len, dev)
+    k = torch.arange(frame_len, dtype=torch.float32, device=dev)
+    pre = torch.exp(-1j * math.pi * k / frame_len)
+    big_x = torch.fft.fft(x * pre, dim=-1)[..., :n]
+    n0 = (n + 1) / 2
+    j = torch.arange(n, dtype=torch.float32, device=dev)
+    post = torch.exp(-1j * math.pi * n0 * (j + 0.5) / n)
+    res = big_x * post * math.sqrt(1 / n)
+    return res.real * math.sqrt(2)
+
+
+def imdct(coeffs: torch.Tensor, padding: str = "same") -> torch.Tensor:
+    """(B, L, N) -> (B, (L + 1) N - 2 pad) inverse MDCT: each frame's
+    complex64 inverse FFT with twiddles, windowed by :func:`cosine_window`,
+    overlap-added at hop N, the padding of :func:`mdct` trimmed. A
+    ``padding`` other than "same" or "center" raises, as in :func:`mdct`
+    (the JAX package's ``imdct`` takes any other string for "same")."""
+    pad = _mdct_pad(2 * coeffs.shape[-1], padding)
+    n, dev = coeffs.shape[-1], coeffs.device
+    frame_len = 2 * n
+    big_y = torch.cat([coeffs, -torch.flip(coeffs, dims=(-1,))],
+                      dim=-1).to(torch.complex64)
+    n0 = (n + 1) / 2
+    m = torch.arange(frame_len, dtype=torch.float32, device=dev)
+    pre = torch.exp(1j * math.pi * n0 * m / n)
+    post = torch.exp(1j * math.pi * (m + n0) / frame_len)
+    y = torch.fft.ifft(big_y * pre, dim=-1)
+    y = (y * post).real * math.sqrt(n) * math.sqrt(2)
+    audio = overlap_add(y * cosine_window(frame_len, dev), n)
+    return audio[..., pad:-pad]

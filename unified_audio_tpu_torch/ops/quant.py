@@ -3,7 +3,8 @@ at inference and in training.
 
 Port of parts of ``unified_audio_tpu/ops/quant.py``: ``cosine_nearest_code``,
 ``FactorizedVectorQuantize.tokenize`` (the 1x1 ``in_project`` and the cosine
-search) and ``detokenize`` (codebook lookup plus the 1x1 ``out_project``),
+search of ``decode_latents``) and ``detokenize`` (codebook lookup plus the
+1x1 ``out_project``),
 ``FSQ`` (``bound``, ``quantize``, ``codes_to_indices``,
 ``indices_to_codes``), ``ResidualFSQ`` (the residual quantization into
 indices and ``get_output_from_indices``), ``nearest_code``,
@@ -295,6 +296,10 @@ class ResidualVQ(nn.Module):
         codes = vq.rvq_encode_fused(flat, self.fp32_codebooks())
         return codes.reshape(*x.shape[:-1], len(self.layers))
 
+    def get_output_from_indices(self, codes):
+        """The reference's name for :meth:`decode`."""
+        return self.decode(codes)
+
     def decode(self, codes):
         """codes (..., nq) -> (..., D) in the codebooks' dtype (summed in
         bf16 in the bf16 mode, as in the JAX package); a code of -1
@@ -324,9 +329,16 @@ class FactorizedVectorQuantize(nn.Module):
             self.in_project = (nn.Identity() if same else
                                Conv1d(input_dim, codebook_dim, 1, padding=0))
 
+    def decode_latents(self, z_e):
+        """Latents already projected, (B, T, codebook_dim) -> (z_q (B, T,
+        codebook_dim), indices (B, T) int32): the cosine-nearest codebook
+        rows and their indices."""
+        indices = cosine_nearest_code(z_e, self.codebook.weight)
+        return self.codebook(indices.long()), indices
+
     def tokenize(self, z):
         """z (B, T, input_dim) -> indices (B, T) int32."""
-        return cosine_nearest_code(self.in_project(z), self.codebook.weight)
+        return self.decode_latents(self.in_project(z))[1]
 
     def detokenize(self, indices):
         """indices (B, T) -> (B, T, input_dim)."""
@@ -338,6 +350,10 @@ class FSQ:
 
     def __init__(self, levels: Sequence[int]):
         self.levels = tuple(levels)
+
+    @property
+    def codebook_size(self) -> int:
+        return int(np.prod(self.levels))
 
     def _consts(self, dev):
         """(levels, basis, half widths), each (len(levels),) fp32."""
@@ -412,6 +428,10 @@ class ResidualFSQ(nn.Module):
             residual = residual - q * self.scales[i]
             out.append(idx)
         return torch.stack(out, dim=-1)
+
+    @property
+    def codebook_size(self) -> int:
+        return self.fsq.codebook_size
 
     def get_output_from_indices(self, indices):
         """indices (B, T, nq) -> (B, T, dim)."""

@@ -584,6 +584,11 @@ class ContinuousBatchingEngine:
             len(r.global_ids) + 1 + len(r.semantic_ids) for r in out)
         return out
 
+    def admit(self, req: Request) -> bool:
+        """Admit one request (:meth:`admit_many`); True if it got a slot.
+        Sampling draws come from the generator given to :meth:`step`."""
+        return bool(self.admit_many([req]))
+
     @torch.no_grad()
     def admit_many(self, reqs: List[Request]) -> List[int]:
         """Admit as many requests as slots and pool blocks allow; returns

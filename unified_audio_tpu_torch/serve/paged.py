@@ -178,6 +178,17 @@ class RegionAllocator:
         self._allocated_regions.discard(r)
         heapq.heappush(self._free_regions, r)
 
+    def high_water(self) -> int:
+        """1 + the highest block of an allocated region's span (>= 1: the
+        trash block), as BlockAllocator.high_water."""
+        if not self._allocated_regions:
+            return 1
+        return (max(self._allocated_regions) + 1) * self.region_blocks
+
+    def bounded_high_water(self, bucket: int = 64) -> int:
+        b = -(-self.high_water() // bucket) * bucket
+        return min(b, self.num_blocks)
+
 
 def visibility_mask(lmap, index, block_size: int):
     """(S, NB) inverse block map (logical block of each physical block, -1

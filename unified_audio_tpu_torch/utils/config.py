@@ -1,9 +1,9 @@
 """YAML configs, read with PyYAML's ``safe_load``, and their validation
 against dataclasses.
 
-The port's own copy of ``unified_audio_tpu/utils/config.py``: ``load_yaml``
-and ``from_dict`` (unknown keys refused, nested dataclasses built, lists
-made tuples).
+The port's own copy of ``unified_audio_tpu/utils/config.py``: ``load_yaml``,
+``from_dict`` (unknown keys refused, nested dataclasses built, lists
+made tuples), ``load_config`` (the two together) and ``to_dict``.
 """
 from __future__ import annotations
 
@@ -40,3 +40,13 @@ def from_dict(cls: Type[T], data: Dict[str, Any]) -> T:
         else:
             kwargs[name] = value
     return cls(**kwargs)
+
+
+def load_config(path, cls: Type[T]) -> T:
+    """A YAML file -> the dataclass ``cls`` (:func:`from_dict`)."""
+    return from_dict(cls, load_yaml(path))
+
+
+def to_dict(obj) -> Dict[str, Any]:
+    """A (nested) dataclass -> plain dicts."""
+    return dataclasses.asdict(obj)
