@@ -1,0 +1,9 @@
+"""Decoder + ISTFT (`HCodecTokenizer.detokenize`: `CodecDecoder10`,
+`nn/heads.py`, `ops/dsp.py`): mean ms a batch of 16 x 10 s, from the
+benchmark's spans around each call in a traced run (closed by a
+synchronize)."""
+from portbench.harness.readers import ms_per_span
+
+
+def read(rec):
+    return ms_per_span(rec, "decode")

@@ -1,0 +1,8 @@
+"""LM forward and backward (`SFTTrainer.loss_backward`): mean ms a step,
+from the benchmark's spans around each piece of ``train_step`` in a
+traced run (closed by a synchronize)."""
+from portbench.harness.readers import ms_per_span
+
+
+def read(rec):
+    return ms_per_span(rec, "lm_fwd_bwd")

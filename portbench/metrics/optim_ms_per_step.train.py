@@ -1,0 +1,8 @@
+"""Optimizer (`train/optim.py`: clip, AdamW, schedule;
+`SFTTrainer.update`): mean ms a step, from the benchmark's spans around
+each piece of ``train_step`` in a traced run (closed by a synchronize)."""
+from portbench.harness.readers import ms_per_span
+
+
+def read(rec):
+    return ms_per_span(rec, "optim")
