@@ -320,7 +320,7 @@ prints no result. Phases, each fatal on failure:
    there; (g) ``utils/profiling.py`` around UniSE decode steps on an int8
    pool at serving width: ``StepTimer(device="cuda")`` at or above each
    step's CUDA-event time, and ``trace`` of one step whose Chrome trace
-   names K2's kernel and the annotated region; K2 launched 12 times a
+   names K2's kernel and the recorder's spans; K2 launched 12 times a
    step. Prints the phase's time.
 15. The last public callables, fp32 with TF32 off: (a) UniSE's LM
    (``LlamaConfig()``, 512 x 12) with 16 slots prefilled to depths 40 + 37
@@ -4179,8 +4179,9 @@ def traced_decode_check(torch, cli, pa, unise, tmp, gpu):
     """(g) ``utils/profiling.py`` around UniSE decode steps on an int8 pool
     at serving width (16 slots, LM 512 x 12): ``StepTimer(device="cuda")``
     over 6 steps (the first left out) against each step's CUDA-event time,
-    then ``trace`` of one step in an ``annotate`` region; the Chrome trace
-    must name K2's kernel and the region -> K2 launches."""
+    then ``trace`` of one step in a ``span`` (the recorder is on while the
+    profiler runs); the Chrome trace must name K2's kernel, the span and the engine's own
+    ``engine.step`` span, and the recorder must hold both -> K2 launches."""
     from unified_audio_tpu_torch.utils import profiling
 
     k2 = pa.paged_flash_decode_owner_q8
@@ -4205,16 +4206,23 @@ def traced_decode_check(torch, cli, pa, unise, tmp, gpu):
             or not summary["p50_s"] >= ev[len(ev) // 2]:
         fail(f"StepTimer below the CUDA-event time: {timer.times} against "
              f"{events}")
+    profiling.reset()  # on while the profiler runs
     with profiling.trace(tmp / "trace") as prof:
-        with profiling.annotate("unise_decode_step"):
+        with profiling.span("unise_decode_step"):
             eng.step(1, gen)
     torch.cuda.synchronize()
     names = {str(e.get("name")) for e in json.loads(
         Path(prof.trace_path).read_text())["traceEvents"]}
     kernel = CUDA_KERNELS[k2.__name__]
-    if not any(kernel in n for n in names) or "unise_decode_step" not in names:
-        fail(f"the trace of a decode step names no {kernel} or no region: "
-             f"{sorted(names)[:40]}")
+    spans = [profiling.PREFIX + n for n in ("unise_decode_step",
+                                            "engine.step")]
+    recorded = [(s["name"], s["attrs"]) for s in profiling.export()["spans"]
+                if s["parent"] is None or s["name"] == "engine.step"]
+    if not any(kernel in n for n in names) or not set(spans) <= names \
+            or recorded != [("unise_decode_step", {}),
+                            ("engine.step", {"n": 1})]:
+        fail(f"the trace of a decode step names no {kernel} or no span, or "
+             f"the recorder lacks them: {sorted(names)[:40]}, {recorded}")
     steps = 1 + 6 + 1
     if k2.launches != L * steps:
         fail(f"K2 launched {k2.launches} times in {steps} decode steps")
@@ -4222,7 +4230,7 @@ def traced_decode_check(torch, cli, pa, unise, tmp, gpu):
           f"{summary['p50_s'] * 1e3:.3f} ms, p90 {summary['p90_s'] * 1e3:.3f}"
           f" ms, against the CUDA-event median {ev[len(ev) // 2] * 1e3:.3f} "
           f"ms; the trace ({Path(prof.trace_path).stat().st_size} bytes) "
-          f"names {kernel} and the annotated step; K2 launches "
+          f"names {kernel} and the step's spans; K2 launches "
           f"{k2.launches} | {gpu}", flush=True)
     return k2.launches
 

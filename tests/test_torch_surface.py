@@ -42,6 +42,7 @@ RENAMED = {
     "train/optim.py:make_optimizer": "train/optim.py:Optimizer",
     "utils/precision.py:bf16_params": "utils/precision.py:cast_floating",
     "utils/precision.py:f32_params": "utils/precision.py:cast_floating",
+    "utils/profiling.py:annotate": "utils/profiling.py:Recorder.span",
 }
 
 FROM_RANDOM = ("builds the JAX module and initializes its variables; the "

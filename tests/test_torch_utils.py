@@ -5,7 +5,7 @@ high water, the quantizers' aliases) against the JAX package's, on the CPU.
 
 The token maps equal JAX's entry for entry and render token strings
 alike; the watchdog cases mirror ``tests/test_data.py TestWatchdog``;
-``trace`` writes a Chrome trace that names an annotated region and the
+``trace`` writes a Chrome trace that names a recorder span and the
 ops in it, and ``StepTimer`` summarizes its steps as JAX's does. The
 card's half of ``StepTimer`` (it synchronizes the device, so a step's time
 covers the kernels it queued) runs in ``chip_smoke.py`` phase 14.
@@ -73,16 +73,25 @@ def test_watchdog_quiet_while_beating():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     """``trace`` on the CPU: one JSON trace under the log directory, with
-    the annotated region and the matmul inside it."""
+    the recorder's span (``ua:`` and its name) and the matmul inside it;
+    the recorder holds the span."""
     x = torch.randn(64, 64)
-    with profiling.trace(tmp_path / "tb") as prof:
-        with profiling.annotate("decode_step"):
-            (x @ x).sum()
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.trace(tmp_path / "tb") as prof:
+            with profiling.span("decode_step"):
+                (x @ x).sum()
+        recorded = [s["name"] for s in profiling.export()["spans"]]
+    finally:
+        profiling.disable()
+        profiling.reset()
     files = list((tmp_path / "tb").glob("*.json"))
     assert [str(f) for f in files] == [prof.trace_path]
     names = {e.get("name") for e in json.loads(files[0].read_text())
              ["traceEvents"]}
-    assert "decode_step" in names
+    assert profiling.PREFIX + "decode_step" in names
+    assert recorded == ["decode_step"]
     assert any("mm" in str(n) for n in names), sorted(map(str, names))[:20]
 
 

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import simulation
 from .audio_io import read_wav
 
@@ -222,6 +223,12 @@ class TrainDataIterator:
         return wav
 
     def _one_sample(self, fs: int, cut_duration: float, mode: str):
+        """One simulated sample; its worker thread's CPU seconds are the
+        recorder's ``data.loader_cpu_s`` (``utils/profiling.py``)."""
+        with profiling.cpu_time("data.loader_cpu_s"):
+            return self._simulate(fs, cut_duration, mode)
+
+    def _simulate(self, fs: int, cut_duration: float, mode: str):
         rng = self.rng
         spk1, spk2 = rng.sample(self.spk_list, 2)
         speech_info, enroll_info = rng.sample(self.spk2speech[spk1], 2)
@@ -327,19 +334,20 @@ class Prefetcher:
     def _staged(self, stream):
         cuda = self.device.type == "cuda"
         for batch in self.iterator:
-            out = []
-            for x in batch:
-                if isinstance(x, np.ndarray):
-                    x = torch.from_numpy(x)
-                    if cuda:
-                        with torch.cuda.stream(stream):
-                            x = x.pin_memory().to(self.device,
-                                                  non_blocking=True)
-                out.append(x)
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record(stream)
+            with profiling.span("data.stage"):
+                out = []
+                for x in batch:
+                    if isinstance(x, np.ndarray):
+                        x = torch.from_numpy(x)
+                        if cuda:
+                            with torch.cuda.stream(stream):
+                                x = x.pin_memory().to(self.device,
+                                                      non_blocking=True)
+                    out.append(x)
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record(stream)
             yield tuple(out), event
 
     def __iter__(self):
@@ -350,11 +358,20 @@ class Prefetcher:
         threading.Thread(target=_drain_into,
                          args=(q, stop, self._staged(stream)),
                          daemon=True).start()
-        for batch, event in _consume(q, stop):
-            if event is not None:
-                current = torch.cuda.current_stream(self.device)
-                current.wait_event(event)
-                for x in batch:
-                    if isinstance(x, torch.Tensor):
-                        x.record_stream(current)
-            yield batch
+        items = _consume(q, stop)
+        try:
+            while True:
+                with profiling.span("data.wait"):
+                    got = next(items, None)
+                if got is None:
+                    return
+                batch, event = got
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    for x in batch:
+                        if isinstance(x, torch.Tensor):
+                            x.record_stream(current)
+                yield batch
+        finally:
+            items.close()  # tells the producer to stop

@@ -7,7 +7,9 @@ when the input is shorter), ``extract_features`` (the XLSR-53 layers
 {11, 14, 16} / 3), ``tokenize`` and ``detokenize``. Serving builds the
 decode side only; ``tokenize`` needs the XLSR model (``ssl``) and a
 ``BiCodec`` built with ``tokenize=True``. The tokenizer is frozen: it runs
-without gradients and keeps its modules in ``.eval()``.
+without gradients and keeps its modules in ``.eval()``. With the recorder
+of ``utils/profiling.py`` on, ``tokenize`` records ``bicodec.xlsr`` (the
+features) and ``bicodec.tokenize`` (BiCodec's tokenize side).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...utils.profiling import span
 from ..ssl.wav2vec2 import Wav2Vec2Model, xlsr_features
 from .bicodec import BiCodec, BiCodecConfig
 
@@ -65,8 +68,11 @@ class BiCodecTokenizer:
                 getattr(self.model, "encoder", None), nn.Module):
             raise RuntimeError("this tokenizer was built for decoding only "
                                "(no XLSR model or no BiCodec encoder)")
-        semantic, global_ = self.model.tokenize(self.extract_features(wav),
-                                                self.get_ref_clip(wav))
+        with span("bicodec.xlsr"):
+            feat = self.extract_features(wav)
+        with span("bicodec.tokenize"):
+            semantic, global_ = self.model.tokenize(feat,
+                                                    self.get_ref_clip(wav))
         return global_.transpose(-1, -2), semantic
 
     @torch.no_grad()

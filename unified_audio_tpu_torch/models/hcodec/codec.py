@@ -42,6 +42,7 @@ from ...nn.heads import ISTFTHead
 from ...nn.transformer import Transformer
 from ...ops import dsp
 from ...ops.quant import ResidualVQ
+from ...utils.profiling import span
 from .semantic import SemanticDecoder, SemanticEncoder
 
 
@@ -278,9 +279,12 @@ class HCodec(nn.Module):
         return acoustic, self.semantic_encoder(feat)
 
     def encode(self, wav, feat):
-        emb, semantic_emb = self.encode_latents(wav, feat)
-        return (self.quantizer.encode(emb),
-                self.semantic_quantizer.encode(semantic_emb))
+        with span("codec.encode"):
+            with span("codec.encode.latents"):
+                emb, semantic_emb = self.encode_latents(wav, feat)
+            with span("codec.encode.quantize"):
+                return (self.quantizer.encode(emb),
+                        self.semantic_quantizer.encode(semantic_emb))
 
     def decode(self, acoustic_codes, semantic_codes):
         return self.decoder(torch.cat(

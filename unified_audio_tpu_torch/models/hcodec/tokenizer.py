@@ -22,6 +22,7 @@ from torch.nn import functional as F
 
 from ...ops.dsp import resample
 from ...utils.precision import cast_floating
+from ...utils.profiling import span
 from ..ssl.wav2vec2 import Wav2Vec2Model, hubert_features
 from .codec import HCodec
 
@@ -52,9 +53,10 @@ class HCodecTokenizer:
     def extract_features(self, wav):
         """(B, T) at the codec's rate -> (B, T16 / 320, 768) HuBERT features
         of its 16 kHz version (T16 samples)."""
-        wav = resample(wav, self.config.sample_rate, SSL_RATE)
-        return hubert_features(self.ssl(F.pad(wav.to(self.dtype),
-                                              (160, 160))))
+        with span("codec.features"):
+            wav = resample(wav, self.config.sample_rate, SSL_RATE)
+            return hubert_features(self.ssl(F.pad(wav.to(self.dtype),
+                                                  (160, 160))))
 
     @torch.no_grad()
     def latents(self, wav):
@@ -76,5 +78,6 @@ class HCodecTokenizer:
     @torch.no_grad()
     def detokenize(self, acoustic_codes, semantic_codes):
         """(B, nq, T') codes -> waveform (B, T' * hop), fp32."""
-        return self.codec.decode(acoustic_codes.transpose(-1, -2),
-                                 semantic_codes.transpose(-1, -2)).float()
+        with span("codec.decode"):
+            return self.codec.decode(acoustic_codes.transpose(-1, -2),
+                                     semantic_codes.transpose(-1, -2)).float()

@@ -18,6 +18,7 @@ import torch
 from torch.nn import functional as F
 
 from ...ops import dsp
+from ...utils.profiling import span
 from ..bicodec.tokenizer import BiCodecTokenizer
 from ..lm.llama import LlamaConfig
 from ..lm.sft import LLMSFT
@@ -85,14 +86,18 @@ class UniSE:
         encoder) and the WavLM features of ``mix`` and ``enroll`` (None
         for SE), without gradients, the tokenizer and WavLM in ``.eval()``
         -> (enroll_feats, mix_feats, global_ids (B, G), semantic_ids
-        (B, T))."""
-        self.tokenizer.eval()
-        self.wavlm.eval()
-        global_tokens, semantic_tokens = self.tokenizer.tokenize(target)
-        enroll_feats = (self.wavlm_feats(enroll) if enroll is not None
-                        else None)
-        return (enroll_feats, self.wavlm_feats(mix), global_tokens[:, 0, :],
-                semantic_tokens)
+        (B, T)). Spans: ``unise.frozen`` around the tokenizer's
+        ``bicodec.xlsr`` and ``bicodec.tokenize``, and
+        ``unise.frozen.wavlm``."""
+        with span("unise.frozen"):
+            self.tokenizer.eval()
+            self.wavlm.eval()
+            global_tokens, semantic_tokens = self.tokenizer.tokenize(target)
+            with span("unise.frozen.wavlm"):
+                enroll_feats = (self.wavlm_feats(enroll)
+                                if enroll is not None else None)
+                mix_feats = self.wavlm_feats(mix)
+        return enroll_feats, mix_feats, global_tokens[:, 0, :], semantic_tokens
 
     def loss_fn(self, task: str, enroll, mix, target):
         """Single-task SFT loss -> (loss, acc): tokenization and features
@@ -119,11 +124,12 @@ class UniSE:
         return -(-cfg.segment_len // cfg.hop_length)
 
     def _decode_tokens(self, global_ids, semantic_ids, orig_len: int):
-        dev = self.tokenizer.model.quantizer.codebook.weight.device
-        est = self.tokenizer.detokenize(
-            torch.as_tensor(global_ids, device=dev)[:, None, :],
-            torch.as_tensor(semantic_ids, device=dev))
-        return est.float().cpu().numpy().reshape(-1)[:orig_len]
+        with span("unise.detokenize", segments=len(global_ids)):
+            dev = self.tokenizer.model.quantizer.codebook.weight.device
+            est = self.tokenizer.detokenize(
+                torch.as_tensor(global_ids, device=dev)[:, None, :],
+                torch.as_tensor(semantic_ids, device=dev))
+            return est.float().cpu().numpy().reshape(-1)[:orig_len]
 
     def enhance_se(self, wav: np.ndarray,
                    generator: Optional[torch.Generator] = None,

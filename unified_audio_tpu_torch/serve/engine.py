@@ -45,6 +45,7 @@ to both (``serve/unitok_engine.py`` serves UniTok from the same pool).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass, replace
@@ -55,6 +56,7 @@ import torch
 
 from ..models.lm.llama import init_cache, range_mask, sample_logits_vec
 from ..models.lm.sft import LLMSFT
+from ..utils.profiling import span
 from .paged import (TRASH_BLOCK, PoolRef, kernel_mode, open_pool,
                     paged_decode_ids, scatter_prefill)
 
@@ -288,11 +290,22 @@ class ContinuousBatchingEngine:
         self._stats = {"requests_admitted": 0, "requests_completed": 0,
                        "requests_cancelled": 0, "tokens_generated": 0,
                        "decode_steps": 0, "step_dispatches": 0,
-                       "prefill_waves": 0, "stash_fetches": 0}
+                       "prefill_waves": 0, "stash_fetches": 0,
+                       "t_prestage": 0.0, "t_admit": 0.0, "t_step": 0.0,
+                       "t_drain": 0.0, "t_harvest": 0.0}
 
     @property
     def pool(self) -> Dict[str, torch.Tensor]:
         return self._pool_ref.pool
+
+    @contextlib.contextmanager
+    def _clock(self, key: str):
+        """Add the block's host seconds to ``stats()[key]``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._stats[key] += time.perf_counter() - t0
 
     # --- requests ---
 
@@ -477,9 +490,11 @@ class ContinuousBatchingEngine:
         """Start the host-to-device copies of the next wave (the first
         ``num_slots`` of ``reqs`` not yet staged) while earlier decode steps
         run; ``admit_many`` then gathers their rows on the device."""
-        todo = [r for r in reqs[:self.num_slots] if r.uid not in self._staged]
-        if todo:
-            self._stage(todo)
+        with self._clock("t_prestage"), span("engine.prestage"):
+            todo = [r for r in reqs[:self.num_slots]
+                    if r.uid not in self._staged]
+            if todo:
+                self._stage(todo)
 
     def stage_request(self, req: Request, mix_ref=None,
                       enroll_ref=None) -> None:
@@ -595,6 +610,14 @@ class ContinuousBatchingEngine:
         the uids admitted. A slot whose request finished but was not
         harvested is reused without a device read; its outputs go to a
         device-side stash first (:meth:`drain_stashes`)."""
+        with self._clock("t_admit"), span("engine.admit") as sp:
+            waves = self._stats["prefill_waves"]
+            admitted = self._admit_waves(reqs)
+            sp.note(admitted=len(admitted),
+                    waves=self._stats["prefill_waves"] - waves)
+        return admitted
+
+    def _admit_waves(self, reqs: List[Request]) -> List[int]:
         for r in reqs:
             self.validate(r)
         self._reap_host()
@@ -627,7 +650,10 @@ class ContinuousBatchingEngine:
             if not fitting:
                 continue
             wave = [r for r, _, _ in fitting]
-            self._stage([r for r in wave if r.uid not in self._staged])
+            with span("engine.admit.stage"):
+                self._stage([r for r in wave if r.uid not in self._staged])
+                refs = [self._staged.pop(r.uid) for r in wave]
+                self._await_copies()
             b = len(wave)
             tables = np.full((b, self.max_blocks), TRASH_BLOCK, np.int32)
             # per-row metadata in two transfers: slot, task, n_head,
@@ -654,45 +680,48 @@ class ContinuousBatchingEngine:
                 meta_f[i] = (r.temperature, r.top_p)
                 admitted.append(r.uid)
 
-            refs = [self._staged.pop(r.uid) for r in wave]
-            self._await_copies()
-            mix = self._wave_inputs(mk, mix_b, wave, [m for m, _ in refs],
-                                    "mix")
-            enroll = self._wave_inputs(ek, enr_b, wave,
-                                       [e for _, e in refs], "enroll")
-            meta = h2d(meta_i, dev)
-            prompt = self.sft.prompt(meta[:, 1], enroll, mix)  # (B, la, D)
-            # compact the real tokens left: the enroll padding sits between
-            # the enroll and mix segments
-            t = torch.arange(la, device=dev)[None]
-            head = meta[:, 2:3]
-            src = torch.where(t < head, t, t - head + 2 + enr_fb)
-            prompt = torch.gather(prompt, 1, src.clamp(0, la - 1)[
-                ..., None].expand_as(prompt))
-            cache = init_cache(cfg, b, la, dtype=self.kv_dtype, device=dev)
-            self.sft.prefill(prompt, cache)
-            tables_dev = h2d(tables, dev)
-            scatter_prefill(self.pool, tables_dev, cache["k"], cache["v"], bs)
-
-            st = self.state
-            if displaced_slots:
-                self._pending_stashes.append((displaced_uids, self._outputs(
-                    h2d(np.asarray(displaced_slots, np.int64), dev))))
-            rows = meta[:, 0].long()
-            mf = h2d(meta_f, dev)
-            st["block_tables"][rows] = tables_dev
-            st["index"][rows] = meta[:, 3]
-            st["phase"][rows] = PHASE_GLOBAL
-            st["steps_in_phase"][rows] = 0
-            st["global_len"][rows] = meta[:, 4]
-            st["semantic_len"][rows] = meta[:, 5]
-            st["last_ids"][rows] = cfg.global_sos
-            st["do_sample"][rows] = meta[:, 7] != 0
-            st["temperature"][rows] = mf[:, 0]
-            st["top_k"][rows] = meta[:, 6]
-            st["top_p"][rows] = mf[:, 1]
-            st["out_global"][rows] = 0
-            st["out_semantic"][rows] = 0
+            with span("engine.admit.frontend"):
+                mix = self._wave_inputs(mk, mix_b, wave,
+                                        [m for m, _ in refs], "mix")
+                enroll = self._wave_inputs(ek, enr_b, wave,
+                                           [e for _, e in refs], "enroll")
+            with span("engine.admit.prefill"):
+                meta = h2d(meta_i, dev)
+                prompt = self.sft.prompt(meta[:, 1], enroll, mix)  # (B, la, D)
+                # compact the real tokens left: the enroll padding sits
+                # between the enroll and mix segments
+                t = torch.arange(la, device=dev)[None]
+                head = meta[:, 2:3]
+                src = torch.where(t < head, t, t - head + 2 + enr_fb)
+                prompt = torch.gather(prompt, 1, src.clamp(0, la - 1)[
+                    ..., None].expand_as(prompt))
+                cache = init_cache(cfg, b, la, dtype=self.kv_dtype,
+                                   device=dev)
+                self.sft.prefill(prompt, cache)
+            with span("engine.admit.scatter"):
+                tables_dev = h2d(tables, dev)
+                scatter_prefill(self.pool, tables_dev, cache["k"],
+                                cache["v"], bs)
+                st = self.state
+                if displaced_slots:
+                    self._pending_stashes.append((
+                        displaced_uids, self._outputs(h2d(np.asarray(
+                            displaced_slots, np.int64), dev))))
+                rows = meta[:, 0].long()
+                mf = h2d(meta_f, dev)
+                st["block_tables"][rows] = tables_dev
+                st["index"][rows] = meta[:, 3]
+                st["phase"][rows] = PHASE_GLOBAL
+                st["steps_in_phase"][rows] = 0
+                st["global_len"][rows] = meta[:, 4]
+                st["semantic_len"][rows] = meta[:, 5]
+                st["last_ids"][rows] = cfg.global_sos
+                st["do_sample"][rows] = meta[:, 7] != 0
+                st["temperature"][rows] = mf[:, 0]
+                st["top_k"][rows] = meta[:, 6]
+                st["top_p"][rows] = mf[:, 1]
+                st["out_global"][rows] = 0
+                st["out_semantic"][rows] = 0
             self._stats["prefill_waves"] += 1
         self._stats["requests_admitted"] += len(admitted)
         return admitted
@@ -718,13 +747,14 @@ class ContinuousBatchingEngine:
     def drain_stashes(self) -> List[Result]:
         """The outputs of displaced slots, every pending stash fetched in
         one device read."""
-        if not self._pending_stashes:
-            return []
-        uids = [u for us, _ in self._pending_stashes for u in us]
-        packed = torch.cat([s for _, s in self._pending_stashes]).cpu()
-        self._pending_stashes = []
-        self._stats["stash_fetches"] += 1
-        return self._results(uids, packed.numpy())
+        with self._clock("t_drain"), span("engine.drain"):
+            if not self._pending_stashes:
+                return []
+            uids = [u for us, _ in self._pending_stashes for u in us]
+            packed = torch.cat([s for _, s in self._pending_stashes]).cpu()
+            self._pending_stashes = []
+            self._stats["stash_fetches"] += 1
+            return self._results(uids, packed.numpy())
 
     # --- decode ---
 
@@ -741,43 +771,49 @@ class ContinuousBatchingEngine:
         cfg, st = self.cfg, self.state
         phase = st["phase"]
         active = phase != PHASE_DONE
-        logits = paged_decode_ids(
-            cfg, self.sft, self.pool, st["block_tables"], st["index"], active,
-            st["last_ids"], self.block_size, num_active_blocks=nb,
-            use_kernel=self.use_kernel)
+        with span("engine.step.lm"):
+            logits = paged_decode_ids(
+                cfg, self.sft, self.pool, st["block_tables"], st["index"],
+                active, st["last_ids"], self.block_size,
+                num_active_blocks=nb, use_kernel=self.use_kernel)
         in_global = phase == PHASE_GLOBAL
         in_semantic = phase == PHASE_SEMANTIC
-        mask = torch.where(in_global[:, None], self._gmask, self._smask)
-        tokens = sample_logits_vec(
-            generator, logits + mask, st["temperature"], st["top_k"],
-            st["top_p"], st["do_sample"], max_top_k=MAX_TOP_K)
+        with span("engine.step.sample"):
+            mask = torch.where(in_global[:, None], self._gmask, self._smask)
+            tokens = sample_logits_vec(
+                generator, logits + mask, st["temperature"], st["top_k"],
+                st["top_p"], st["do_sample"], max_top_k=MAX_TOP_K)
+        with span("engine.step.update"):
+            steps = st["steps_in_phase"]
+            rows = torch.arange(self.num_slots, device=self.device)
+            # global phase emits global_len + 1 tokens; the last is
+            # discarded (but cached), so only steps < global_len are stored
+            write_g = in_global & (steps < st["global_len"]) & active
+            g_idx = steps.clamp(max=self.max_global - 1).long()
+            st["out_global"][rows, g_idx] = torch.where(
+                write_g, tokens - cfg.global_offset,
+                st["out_global"][rows, g_idx])
+            write_s = in_semantic & active
+            s_idx = steps.clamp(max=self.max_semantic - 1).long()
+            st["out_semantic"][rows, s_idx] = torch.where(
+                write_s, tokens - cfg.semantic_offset,
+                st["out_semantic"][rows, s_idx])
 
-        steps = st["steps_in_phase"]
-        rows = torch.arange(self.num_slots, device=self.device)
-        # global phase emits global_len + 1 tokens; the last is discarded
-        # (but cached), so only steps < global_len are stored
-        write_g = in_global & (steps < st["global_len"]) & active
-        g_idx = steps.clamp(max=self.max_global - 1).long()
-        st["out_global"][rows, g_idx] = torch.where(
-            write_g, tokens - cfg.global_offset, st["out_global"][rows, g_idx])
-        write_s = in_semantic & active
-        s_idx = steps.clamp(max=self.max_semantic - 1).long()
-        st["out_semantic"][rows, s_idx] = torch.where(
-            write_s, tokens - cfg.semantic_offset,
-            st["out_semantic"][rows, s_idx])
-
-        steps_next = steps + 1
-        finish_global = in_global & (steps_next == st["global_len"] + 1)
-        finish_semantic = in_semantic & (steps_next == st["semantic_len"])
-        new_phase = torch.where(finish_global, PHASE_SEMANTIC, phase)
-        new_phase = torch.where(finish_semantic, PHASE_DONE, new_phase)
-        new_steps = torch.where(finish_global, 0, steps_next)
-        # the semantic phase starts from semantic SOS
-        next_ids = torch.where(finish_global, cfg.semantic_sos, tokens)
-        st["last_ids"] = torch.where(active, next_ids, st["last_ids"]).int()
-        st["phase"] = torch.where(active, new_phase, phase).int()
-        st["steps_in_phase"] = torch.where(active, new_steps, steps).int()
-        st["index"] = torch.where(active, st["index"] + 1, st["index"]).int()
+            steps_next = steps + 1
+            finish_global = in_global & (steps_next == st["global_len"] + 1)
+            finish_semantic = in_semantic & (steps_next == st["semantic_len"])
+            new_phase = torch.where(finish_global, PHASE_SEMANTIC, phase)
+            new_phase = torch.where(finish_semantic, PHASE_DONE, new_phase)
+            new_steps = torch.where(finish_global, 0, steps_next)
+            # the semantic phase starts from semantic SOS
+            next_ids = torch.where(finish_global, cfg.semantic_sos, tokens)
+            st["last_ids"] = torch.where(active, next_ids,
+                                         st["last_ids"]).int()
+            st["phase"] = torch.where(active, new_phase, phase).int()
+            st["steps_in_phase"] = torch.where(active, new_steps,
+                                               steps).int()
+            st["index"] = torch.where(active, st["index"] + 1,
+                                      st["index"]).int()
 
     def step(self, n: int = 1, generator: Optional[torch.Generator] = None,
              nb: Optional[int] = None) -> None:
@@ -785,31 +821,33 @@ class ContinuousBatchingEngine:
         pool prefix the plain and stream attention read (default the
         allocator's bucketed high water); the call records it as
         ``stats()["last_nb"]``."""
-        nb = self._block_bound() if nb is None else nb
-        self._stats["last_nb"] = nb
-        for _ in range(n):
-            self._step_one(generator, nb)
-        self._stats["decode_steps"] += n
-        self._stats["step_dispatches"] += 1
-        for i in range(self.num_slots):
-            if self._uids[i] is not None:
-                self._remaining[i] = max(0, self._remaining[i] - n)
+        with self._clock("t_step"), span("engine.step", n=n):
+            nb = self._block_bound() if nb is None else nb
+            self._stats["last_nb"] = nb
+            for _ in range(n):
+                self._step_one(generator, nb)
+            self._stats["decode_steps"] += n
+            self._stats["step_dispatches"] += 1
+            for i in range(self.num_slots):
+                if self._uids[i] is not None:
+                    self._remaining[i] = max(0, self._remaining[i] - n)
 
     def harvest(self) -> List[Result]:
         """Results of the slots whose request finished (one device read);
         frees the slots."""
-        done = [i for i in range(self.num_slots)
-                if self._uids[i] is not None and self._remaining[i] == 0]
-        if not done:
-            return []
-        packed = self._outputs().cpu().numpy()
-        out = self._results([self._uids[i] for i in done], packed[done])
-        for i in done:
-            self._uids[i] = None
-            self.allocator.release(self._slot_blocks[i])
-            self._slot_blocks[i] = []
-            self._done_slots.discard(i)
-        return out
+        with self._clock("t_harvest"), span("engine.harvest"):
+            done = [i for i in range(self.num_slots)
+                    if self._uids[i] is not None and self._remaining[i] == 0]
+            if not done:
+                return []
+            packed = self._outputs().cpu().numpy()
+            out = self._results([self._uids[i] for i in done], packed[done])
+            for i in done:
+                self._uids[i] = None
+                self.allocator.release(self._slot_blocks[i])
+                self._slot_blocks[i] = []
+                self._done_slots.discard(i)
+            return out
 
     def run(self, requests: List[Request],
             generator: Optional[torch.Generator] = None,
@@ -819,9 +857,13 @@ class ContinuousBatchingEngine:
         power-of-two chunks of at most ``poll_interval`` (floored to a
         power of two), the next wave's inputs staged during the first
         chunk, and the stashed outputs drained in one read at the end.
-        Host wall time is kept by phase in
-        ``stats()["t_prestage"|"t_admit"|"t_step"|"t_drain"|"t_harvest"]``
-        (the drain and harvest reads include waiting for the decode)."""
+        The host seconds of each call are in ``stats()["t_prestage"|
+        "t_admit"|"t_step"|"t_drain"|"t_harvest"]``, whoever calls
+        :meth:`prestage`, :meth:`admit_many`, :meth:`step`,
+        :meth:`drain_stashes` and :meth:`harvest` (the drain and harvest
+        reads include waiting for the decode); with the recorder of
+        ``utils/profiling.py`` on, each call is also an ``engine.*``
+        span."""
         poll_interval = 1 << (max(int(poll_interval), 1).bit_length() - 1)
         self._stats["poll_interval"] = poll_interval
         try:
@@ -833,22 +875,14 @@ class ContinuousBatchingEngine:
                             if u in held}
 
     def _run(self, pending, generator, poll_interval):
-        t = self._stats
-        for k in ("t_prestage", "t_admit", "t_step", "t_drain", "t_harvest"):
-            t.setdefault(k, 0.0)
-        clock = time.perf_counter
         results: Dict[int, Result] = {}
         if pending:
-            t0 = clock()
             self.prestage(pending)
-            t["t_prestage"] += clock() - t0
         guard = 0
         while True:
             if pending:
-                t0 = clock()
                 admitted = set(self.admit_many(pending))
                 pending = [r for r in pending if r.uid not in admitted]
-                t["t_admit"] += clock() - t0
             live = [self._remaining[i] for i in range(self.num_slots)
                     if self._uids[i] is not None and self._remaining[i] > 0]
             if not live:
@@ -857,25 +891,17 @@ class ContinuousBatchingEngine:
                                        "too small for any pending request)")
                 break
             for j, c in enumerate(segment_chunks(min(live), poll_interval)):
-                t0 = clock()
                 self.step(c, generator)
-                t["t_step"] += clock() - t0
                 if j == 0 and pending:
                     # the next wave's copies overlap the first chunk
-                    t0 = clock()
                     self.prestage(pending)
-                    t["t_prestage"] += clock() - t0
             guard += 1
             if guard > 400000:
                 raise RuntimeError("engine did not converge")
-        t0 = clock()
         for r in self.drain_stashes():
             results[r.uid] = r
-        t["t_drain"] += clock() - t0
-        t0 = clock()
         for r in self.harvest():
             results[r.uid] = r
-        t["t_harvest"] += clock() - t0
         return results
 
     def stats(self) -> Dict[str, float]:

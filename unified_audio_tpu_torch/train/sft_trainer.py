@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from ..models.unise.model import TASK_MAP, UniSE
 from ..parallel.mesh import axis_group, dp_mean, shard_lm_
+from ..utils.profiling import span
 from .checkpoint import full_training_state, load_full_training_state
 from .optim import Optimizer
 
@@ -80,27 +81,30 @@ class SFTTrainer:
     def loss_backward(self, task: str, frozen):
         """The LM's loss over the frozen inputs, and its gradients ->
         (loss, acc) device scalars."""
-        self.sft.train()
-        self.optimizer.zero_grad()
-        loss, acc = self.lm_loss(task, frozen)
-        loss.backward()
-        return loss.detach(), acc
+        with span("train.loss_backward"):
+            self.sft.train()
+            self.optimizer.zero_grad()
+            loss, acc = self.lm_loss(task, frozen)
+            loss.backward()
+            return loss.detach(), acc
 
     def update(self):
-        self.optimizer.step()
-        self.step += 1
+        with span("train.update"):
+            self.optimizer.step()
+            self.step += 1
 
     def train_step(self, task: str, enroll, mix, target):
         """task in {se, tse, rtse} (enroll None for se); waveforms (B, N),
         numpy or tensors, this rank's share under a mesh -> (loss, acc) as
         floats, averaged over dp."""
-        dev = self.device()
-        frozen = self.unise.frozen_inputs(*(_to(x, dev)
-                                            for x in (enroll, mix, target)))
-        loss, acc = self.loss_backward(task, frozen)
-        self.update()
-        loss, acc = dp_mean(torch.stack([loss, acc]), self.mesh).cpu()
-        return loss.item(), acc.item()
+        with span("train.step", task=task):
+            dev = self.device()
+            frozen = self.unise.frozen_inputs(*(_to(x, dev) for x in (
+                enroll, mix, target)))
+            loss, acc = self.loss_backward(task, frozen)
+            self.update()
+            loss, acc = dp_mean(torch.stack([loss, acc]), self.mesh).cpu()
+            return loss.item(), acc.item()
 
     def state_dict(self) -> dict:
         """What a checkpoint holds: the LM (the reference layout, whole
