@@ -8,6 +8,8 @@ int8 paged pool (JAX prefill, ``scatter_prefill``, ``paged_decode_ids``).
 The attention runs in the owner mode (the K1/K2 plain versions on the CPU),
 the stream mode (the K3/K4 plain versions) and the plain mode.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,8 @@ from unified_audio_tpu.models.lm.llama import init_cache, range_mask
 from unified_audio_tpu.serve import paged as j_paged
 from unified_audio_tpu_torch.serve import profile_step
 from unified_audio_tpu_torch.serve.engine import (ContinuousBatchingEngine,
-                                                  Request)
+                                                  Request, graph_steps_on)
+from unified_audio_tpu_torch.utils import profiling
 
 FD = 12  # feature dim
 GLEN, SLEN, BS = 4, 6, 8
@@ -132,6 +135,73 @@ def test_greedy_int8_pool_matches_paged_reference(lm, int8_ref, mode):
         g, s = int8_ref[r.uid]
         np.testing.assert_array_equal(results[r.uid].global_ids, g)
         np.testing.assert_array_equal(results[r.uid].semantic_ids, s)
+
+
+@pytest.mark.parametrize("mode", ["owner", "stream", ""])
+def test_state_and_pool_keep_their_storage(lm, float_ref, mode):
+    """Every state and pool tensor keeps its storage across admission,
+    steps, a cancel, a displacing admission, the stash drain and harvest
+    (a captured step replays on the same storage), and the greedy tokens
+    stay those of JAX's generate."""
+    eng = _engine(lm[3], use_kernel=mode)
+
+    def storage():
+        return {(part, k): v.data_ptr() for part, d in
+                (("state", eng.state), ("pool", eng.pool))
+                for k, v in d.items()}
+
+    reqs, steps = _requests(), GLEN + 1 + SLEN
+    want = storage()
+    calls = [lambda: eng.admit_many(reqs[:2]), lambda: eng.step(3),
+             lambda: eng.cancel(reqs[1].uid), lambda: eng.step(steps - 3),
+             lambda: eng.admit_many(reqs[2:4]), lambda: eng.step(steps),
+             eng.drain_stashes, eng.harvest,
+             lambda: eng.admit_many(reqs[4:]), lambda: eng.step(steps),
+             eng.harvest]
+    results = {}
+    for call in calls:
+        out = call()
+        if isinstance(out, list) and out and hasattr(out[0], "uid"):
+            results.update((r.uid, r) for r in out)
+        assert storage() == want, call
+    assert sorted(results) == [0, 2, 3, 4]
+    for uid, r in results.items():
+        g, s = float_ref[uid]
+        np.testing.assert_array_equal(r.global_ids, g)
+        np.testing.assert_array_equal(r.semantic_ids, s)
+
+
+def test_steps_replay_only_on_the_card_and_uncut(lm):
+    """The decode step is a CUDA graph replay only on a CUDA device with
+    the LM whole: eager on the CPU (no capture, no replay, no
+    ``engine.graph_steps`` count) and under a tensor-parallel cut."""
+    tsft = lm[3]
+    assert graph_steps_on(torch.device("cuda"), tsft)
+    assert not graph_steps_on(torch.device("cpu"), tsft)
+    cut = copy.deepcopy(tsft)
+    for layer in cut.layers:  # rank 0 of tp = 2, as shard_lm_ cuts it
+        for proj in (layer.self_attn.q_proj, layer.self_attn.k_proj,
+                     layer.self_attn.v_proj):
+            proj.weight.data = proj.weight.data[
+                :proj.weight.shape[0] // 2].contiguous()
+    assert cut.layers[0].self_attn.local_heads == tsft.cfg.num_heads // 2
+    assert not graph_steps_on(torch.device("cuda"), cut)
+
+    eng = _engine(tsft)
+    assert not eng._graphed
+    eng.admit_many(_requests()[:2])
+    profiling.reset()
+    profiling.enable()
+    try:
+        eng.step(4)
+        counts = profiling.export()["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    st = eng.stats()
+    assert (st["decode_steps"], st["graph_captures"],
+            st["graph_replays"]) == (4, 0, 0)
+    assert "engine.graph_steps" not in counts
 
 
 def test_mode_follows_device(lm):

@@ -32,9 +32,13 @@ one block pool (``serve/paged.py``):
   every request is done.
 
 Decode lengths are fixed, so the host knows when each slot finishes and
-reads device state only to fetch outputs. Enroll-less requests ride the
-widest enroll bucket of their mix's kind with their enroll rows compacted
-out, so mixed SE/TSE/rTSE traffic shares one prefill per wave.
+reads device state only to fetch outputs. A step reads no device value and
+writes every tensor in place, so on a CUDA device it is captured once as a
+CUDA graph (per pool bound and generator) and replayed: one graph launch a
+step instead of the ~650 kernel launches of its eager dispatch.
+Enroll-less requests ride the widest enroll bucket of their mix's kind
+with their enroll rows compacted out, so mixed SE/TSE/rTSE traffic shares
+one prefill per wave.
 
 The attention mode is chosen once, from the device of the model: the owner
 kernels (``"owner"``, contiguous regions from a ``RegionAllocator``) on
@@ -56,13 +60,31 @@ import torch
 
 from ..models.lm.llama import init_cache, range_mask, sample_logits_vec
 from ..models.lm.sft import LLMSFT
-from ..utils.profiling import span
+from ..ops.cuda.paged_attention import (paged_flash_decode_owner,
+                                        paged_flash_decode_owner_q8,
+                                        paged_flash_decode_stream_flat,
+                                        paged_flash_decode_stream_flat_q8)
+from ..utils.profiling import count, span
 from .paged import (TRASH_BLOCK, PoolRef, kernel_mode, open_pool,
                     paged_decode_ids, scatter_prefill)
 
 PHASE_GLOBAL, PHASE_SEMANTIC, PHASE_DONE = 0, 1, 2
 MAX_TOP_K = 256  # the widest per-request top_k (one static topk per step)
 FEATS_WIRES = ("bf16", "int8")
+# the kernel wrappers a decode step launches; a graph replay advances their
+# ``.launches`` by the launches its capture made
+STEP_KERNELS = (paged_flash_decode_owner, paged_flash_decode_owner_q8,
+                paged_flash_decode_stream_flat,
+                paged_flash_decode_stream_flat_q8)
+
+
+def graph_steps_on(device: torch.device, lm) -> bool:
+    """Whether an engine over ``lm`` on ``device`` replays its decode steps
+    as CUDA graphs: on a CUDA device, unless ``lm`` is cut under tensor
+    parallelism (a rank then holds fewer heads than the config, and its
+    step holds collectives)."""
+    return (device.type == "cuda"
+            and lm.layers[0].self_attn.local_heads == lm.cfg.num_heads)
 
 
 @dataclass
@@ -152,8 +174,8 @@ def segment_chunks(remaining: int, poll_interval: int) -> List[int]:
     most ``poll_interval`` (a power of two), largest first: one step call
     a chunk, none past the segment. (The JAX engine may round the last
     chunk up, its ``dispatch_overshoot``: there a chunk is one compiled
-    program, while each step of this engine is its own sequence of eager
-    launches, so an overshot step would cost a real step and save no
+    program, while each step of this engine is its own launch, eager or a
+    graph replay, so an overshot step would cost a real step and save no
     dispatch.)"""
     chunks: List[int] = []
     while remaining > 0:
@@ -287,10 +309,15 @@ class ContinuousBatchingEngine:
         self._gmask = range_mask(cfg, cfg.global_offset, cfg.global_size, dev)
         self._smask = range_mask(cfg, cfg.semantic_offset, cfg.semantic_size,
                                  dev)
+        # (nb, generator) -> None after the key's first (eager) step, then
+        # (its captured step, [(kernel wrapper, launches a step)])
+        self._graphs: Dict[tuple, Optional[tuple]] = {}
+        self._graphed = graph_steps_on(self.device, sft)
         self._stats = {"requests_admitted": 0, "requests_completed": 0,
                        "requests_cancelled": 0, "tokens_generated": 0,
                        "decode_steps": 0, "step_dispatches": 0,
                        "prefill_waves": 0, "stash_fetches": 0,
+                       "graph_captures": 0, "graph_replays": 0,
                        "t_prestage": 0.0, "t_admit": 0.0, "t_step": 0.0,
                        "t_drain": 0.0, "t_harvest": 0.0}
 
@@ -807,25 +834,73 @@ class ContinuousBatchingEngine:
             new_steps = torch.where(finish_global, 0, steps_next)
             # the semantic phase starts from semantic SOS
             next_ids = torch.where(finish_global, cfg.semantic_sos, tokens)
-            st["last_ids"] = torch.where(active, next_ids,
-                                         st["last_ids"]).int()
-            st["phase"] = torch.where(active, new_phase, phase).int()
-            st["steps_in_phase"] = torch.where(active, new_steps,
-                                               steps).int()
-            st["index"] = torch.where(active, st["index"] + 1,
-                                      st["index"]).int()
+            # in place: a captured step reads and writes the same storage
+            # at every replay
+            st["last_ids"].copy_(torch.where(active, next_ids,
+                                             st["last_ids"]))
+            st["phase"].copy_(torch.where(active, new_phase, phase))
+            st["steps_in_phase"].copy_(torch.where(active, new_steps, steps))
+            st["index"].copy_(torch.where(active, st["index"] + 1,
+                                          st["index"]))
+
+    def _capture(self, generator, nb: int) -> tuple:
+        """One :meth:`_step_one` captured as a CUDA graph -> (graph,
+        [(kernel wrapper, launches a step)]). Capture runs nothing, so the
+        launches the wrappers counted during it are taken back; each replay
+        adds them again."""
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:  # capture registers the default one
+            # each replay advances the generator's offset: fresh draws
+            graph.register_generator_state(generator)
+        before = [fn.launches for fn in STEP_KERNELS]
+        with torch.cuda.graph(graph):
+            self._step_one(generator, nb)
+        launches = [(fn, fn.launches - b)
+                    for fn, b in zip(STEP_KERNELS, before)]
+        for fn, k in launches:
+            fn.launches -= k
+        self._stats["graph_captures"] += 1
+        return graph, [(fn, k) for fn, k in launches if k]
+
+    def _replay(self, n: int, generator, nb: int) -> None:
+        """``n`` steps as replays of the key's captured step. The key's
+        first step runs eagerly: it warms up what capture cannot do (the
+        cuBLAS handles, the kernels' shared-memory opt-in); the capture
+        follows at its next step."""
+        key = (nb, generator)
+        if key not in self._graphs:
+            self._step_one(generator, nb)
+            self._graphs[key] = None
+            n -= 1
+        if n == 0:
+            return
+        if self._graphs[key] is None:
+            self._graphs[key] = self._capture(generator, nb)
+        graph, launches = self._graphs[key]
+        for _ in range(n):
+            graph.replay()
+        for fn, k in launches:
+            fn.launches += k * n
+        self._stats["graph_replays"] += n
+        count("engine.graph_steps", n)
 
     def step(self, n: int = 1, generator: Optional[torch.Generator] = None,
              nb: Optional[int] = None) -> None:
         """Decode ``n`` tokens for every active slot. ``nb`` overrides the
         pool prefix the plain and stream attention read (default the
         allocator's bucketed high water); the call records it as
-        ``stats()["last_nb"]``."""
+        ``stats()["last_nb"]``. Where :func:`graph_steps_on` holds (a CUDA
+        device, the LM not cut under tensor parallelism) the steps are
+        replays of a CUDA graph captured per ``(nb, generator)``
+        (``stats()["graph_captures"|"graph_replays"]``)."""
         with self._clock("t_step"), span("engine.step", n=n):
             nb = self._block_bound() if nb is None else nb
             self._stats["last_nb"] = nb
-            for _ in range(n):
-                self._step_one(generator, nb)
+            if self._graphed:
+                self._replay(n, generator, nb)
+            else:
+                for _ in range(n):
+                    self._step_one(generator, nb)
             self._stats["decode_steps"] += n
             self._stats["step_dispatches"] += 1
             for i in range(self.num_slots):
