@@ -69,7 +69,10 @@ def test_off_enters_no_range_reads_no_clock_keeps_nothing(monkeypatch):
     """Off (the default): ``span`` and ``cpu_time`` give one shared no-op
     context, ``count`` returns; no profiler range is entered (neither
     ``record_function`` nor the recorder's own) and no clock read;
-    ``export`` is empty."""
+    ``export`` is empty. (The process's recorder starts empty: a test
+    that ran a profiled window before in this worker left what it
+    recorded there.)"""
+    profiling.reset()
     calls = []
     monkeypatch.setattr(torch.profiler, "record_function",
                         lambda *a: calls.append(a))

@@ -7,8 +7,8 @@
     python -m unified_audio_tpu_torch.cli train-codec \
         --config configs/hcodec10.yaml [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli serve --requests R.jsonl \
-        [--kv-quant int8] [--slots 16] [--ckpt LM.pt] [--seed 0] \
-        [--device cuda|cpu]
+        [--config configs/unise_moonlight16b.yaml] [--kv-quant int8] \
+        [--slots 16] [--ckpt LM.pt] [--seed 0] [--device cuda|cpu]
     python -m unified_audio_tpu_torch.cli enhance --mode se|tse|ss \
         --input X.wav --output Y.wav [--enroll E.wav] [--ckpt LM.pt] \
         [--bicodec-ckpt SD.safetensors] [--sample] [--seed 0] \
@@ -77,6 +77,10 @@ its SE phase rides the first engine run with the other lines, and it writes
 ``<output stem>_s1.wav`` and ``<output stem>_s2.wav``. The stack runs at
 full UniSE width: the LM in bf16, the WavLM frontend and the BiCodec decoder
 in fp32. Weights are random unless ``--ckpt`` gives an LM state dict.
+``--config`` names a YAML config whose ``lm`` section replaces the LM's
+stack (``configs/unise_moonlight16b.yaml``: the Moonlight-16B-A3B
+backbone, latent attention over a latent paged pool and routed experts,
+built in bf16); ``train-unise`` reads the same section from its config.
 
 ``enhance`` ports ``cmd_enhance``: one wav through UniSE's offline
 ``enhance_se`` (se), ``enhance_tse`` with ``--enroll`` (tse) or the
@@ -258,7 +262,8 @@ def load_bicodec(bicodec, path, device="cpu"):
 
 
 def _build_unise(ckpt=None, device="cpu", tokenize=False, bicodec_ckpt=None,
-                 seed=WEIGHT_SEED, speaker=False):
+                 seed=WEIGHT_SEED, speaker=False, llm=None,
+                 lm_dtype=torch.float32):
     """Full-size UniSE stack on ``device`` (all fp32; ``serve`` casts the
     LM). Random weights from ``seed`` through an explicit generator, with a
     loud warning, unless ``ckpt`` holds an LM state dict. ``tokenize``
@@ -266,10 +271,12 @@ def _build_unise(ckpt=None, device="cpu", tokenize=False, bicodec_ckpt=None,
     serving does not; ``speaker`` (``eval``'s SPK-SIM) builds BiCodec's
     tokenize side, its mel and speaker encoder among it, without XLSR-53.
     ``bicodec_ckpt`` loads BiCodec from a state dict in the reference
-    layout."""
+    layout. ``llm`` (a config's ``lm`` section, ``lm_config``) replaces
+    UniSE's LM stack, built and initialized in ``lm_dtype`` (a 15-B
+    parameter stack held in fp32 would not leave room on the card)."""
     from .models.bicodec.bicodec import BiCodec, BiCodecConfig
     from .models.bicodec.tokenizer import BiCodecTokenizer
-    from .models.lm.sft import LLMSFT
+    from .models.lm.sft import build_sft
     from .models.ssl.wav2vec2 import (Wav2Vec2Model,
                                       wav2vec2_large_xlsr53_config,
                                       wavlm_base_plus_config)
@@ -278,11 +285,16 @@ def _build_unise(ckpt=None, device="cpu", tokenize=False, bicodec_ckpt=None,
 
     # fp32 means fp32: no TF32 in the frontend's and decoder's matmuls/convs
     _fp32_without_tf32()
-    cfg = UniSEConfig()
+    cfg = UniSEConfig() if llm is None else UniSEConfig(llm=llm)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
-        sft = LLMSFT(cfg.llm, num_tasks=len(TASK_MAP),
-                     feats_dim=cfg.feats_dim)
+        default = torch.get_default_dtype()
+        torch.set_default_dtype(lm_dtype)
+        try:
+            sft = build_sft(cfg.llm, num_tasks=len(TASK_MAP),
+                            feats_dim=cfg.feats_dim)
+        finally:
+            torch.set_default_dtype(default)
         wavlm = Wav2Vec2Model(wavlm_base_plus_config())
         bicodec = BiCodec(BiCodecConfig(), tokenize=tokenize or speaker)
         xlsr = (Wav2Vec2Model(wav2vec2_large_xlsr53_config()) if tokenize
@@ -379,7 +391,8 @@ def cmd_train_unise(args):
     try:
         unise = _build_unise(ckpt=args.ckpt, device=device, tokenize=True,
                              bicodec_ckpt=args.bicodec_ckpt,
-                             seed=cfg.get("seed", WEIGHT_SEED))
+                             seed=cfg.get("seed", WEIGHT_SEED),
+                             **_lm_section(args.config, torch.float32))
         trainer = SFTTrainer(unise, Optimizer(unise.sft.parameters(),
                                               **cfg.get("opt", {})),
                              mesh=mesh)
@@ -668,10 +681,22 @@ def serve(requests_path, unise, slots: int = 16, kv_quant=None,
     return summary
 
 
+def _lm_section(config, lm_dtype):
+    """``_build_unise``'s LM arguments from a YAML config's ``lm`` section
+    (none without a config or a section: UniSE's own LM)."""
+    from .models.unise.model import lm_config
+    from .utils.config import load_yaml
+
+    section = (load_yaml(config) or {}).get("lm") if config else None
+    return {} if not section else {"llm": lm_config(section),
+                                   "lm_dtype": lm_dtype}
+
+
 def cmd_serve(args):
     _read_requests(args.requests)  # fail fast, before the model build
-    _require_files(("--ckpt", args.ckpt))
-    unise = _build_unise(ckpt=args.ckpt, device=_device(args.device))
+    _require_files(("--ckpt", args.ckpt), ("--config", args.config))
+    unise = _build_unise(ckpt=args.ckpt, device=_device(args.device),
+                         **_lm_section(args.config, torch.bfloat16))
     return serve(args.requests, unise, slots=args.slots,
                  kv_quant=args.kv_quant, seed=args.seed)
 
@@ -1070,6 +1095,11 @@ def main(argv=None):
                         "layout, a .pt file as export_custom_llama_state_dict "
                         "writes; orbax checkpoint directories are not "
                         "supported")
+    t.add_argument("--config", default=None,
+                   help="YAML config whose 'lm' section names the LM's "
+                        "stack (configs/unise_moonlight16b.yaml: the "
+                        "Moonlight-16B-A3B backbone, built in bf16); "
+                        "without it UniSE's own LM")
     t.add_argument("--slots", type=int, default=16)
     t.add_argument("--kv-quant", choices=["", "int8"], default="",
                    help="int8 KV block pool (half the pool bytes)")

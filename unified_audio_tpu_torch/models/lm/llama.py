@@ -1,11 +1,13 @@
 """Llama-style AR-LM over the codec vocabulary, with a dense KV cache and
 top-k/top-p sampling.
 
-Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig``,
-``init_cache``, ``range_mask``, ``LlamaBackbone`` (the decoder stack: the
-uncached causal forward that training runs, prefill and one-token decode
-over embeddings and a dense cache, and ``decode_step_multi``, the
-one-token decode in which each sequence sits at its own depth),
+Port of ``unified_audio_tpu/models/lm/llama.py``: ``LlamaConfig`` (its
+codec vocabulary's layout in ``CodecVocab``, which ``moonlight.py``'s
+config shares), ``init_cache``, ``range_mask``, ``LlamaBackbone`` (the
+decoder stack: the uncached causal forward that training runs, prefill
+and one-token decode over embeddings and a dense cache, and
+``decode_step_multi``, the one-token decode in which each sequence sits
+at its own depth),
 ``CodecLM`` (with the label-smoothed loss, ``forward_embeds``, the
 pretraining objective ``pretrain_loss``, JAX's ``CodecLM.__call__``, and
 ``decode_ids_multi``), ``sample_logits`` (the reference's first-crossing
@@ -32,27 +34,10 @@ from ...parallel.mesh import (copy_to_group, gather_from_group,
 NEG_INF = -1e9
 
 
-@dataclass(frozen=True)
-class LlamaConfig:
-    global_size: int = 4096
-    semantic_size: int = 8192
-    hidden_size: int = 512
-    num_layers: int = 12
-    num_heads: int = 8
-    max_position_embeddings: int = 4096
-    label_smoothing: float = 0.1
-    rope_theta: float = 10000.0
-    dropout_p: float = 0.0
+class CodecVocab:
+    """The codec vocabulary's layout, shared by the backbones' configs:
+    [global_sos, semantic_sos, semantic_eos, global ids, semantic ids]."""
 
-    @property
-    def vocab_size(self) -> int:
-        return 3 + self.global_size + self.semantic_size
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
-
-    # special token layout: [global_sos, semantic_sos, semantic_eos, ...]
     @property
     def global_sos(self) -> int:
         return 0
@@ -72,6 +57,44 @@ class LlamaConfig:
     @property
     def semantic_offset(self) -> int:
         return 3 + self.global_size
+
+
+@dataclass(frozen=True)
+class LlamaConfig(CodecVocab):
+    global_size: int = 4096
+    semantic_size: int = 8192
+    hidden_size: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    max_position_embeddings: int = 4096
+    label_smoothing: float = 0.1
+    rope_theta: float = 10000.0
+    dropout_p: float = 0.0
+
+    @property
+    def vocab_size(self) -> int:
+        return 3 + self.global_size + self.semantic_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def rope_dim(self) -> int:
+        """The width RoPE rotates: each head's whole query and key."""
+        return self.head_dim
+
+    @property
+    def cache_rows(self) -> dict:
+        """The cache's row width per entry and position: every head's K
+        and V."""
+        width = self.num_heads * self.head_dim
+        return {"k": width, "v": width}
+
+
+def cache_len(cache) -> int:
+    """Positions a dense cache holds (any backbone's)."""
+    return next(v for k, v in cache.items() if k != "index").shape[2]
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -192,6 +215,11 @@ class LlamaBackbone(nn.Module):
             [LlamaLayer(cfg) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size)
 
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None):
+        """This stack's dense cache (:func:`init_cache`)."""
+        return init_cache(self.cfg, batch, max_len, dtype, device)
+
     def backbone(self, embeds, stack=None):
         """(B, S, D) -> normed hidden states (B, S, D), every position
         attending to itself and the ones before it. ``stack(embeds)``, if
@@ -202,7 +230,7 @@ class LlamaBackbone(nn.Module):
         cfg = self.cfg
         s = embeds.shape[1]
         pos = torch.arange(s, device=embeds.device)
-        cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_cos_sin(pos, cfg.rope_dim, cfg.rope_theta)
         mask = torch.where(pos[None] <= pos[:, None], 0.0, NEG_INF)
         x = embeds
         for li, layer in enumerate(self.layers):
@@ -214,11 +242,11 @@ class LlamaBackbone(nn.Module):
         hidden states (B, S, D) and the cache with its index advanced."""
         cfg = self.cfg
         s = embeds.shape[1]
-        max_len = cache["k"].shape[2]
+        max_len = cache_len(cache)
         idx = cache["index"]
         dev = embeds.device
         positions = idx + torch.arange(s, device=dev)
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_cos_sin(positions, cfg.rope_dim, cfg.rope_theta)
         # key j is visible to query i iff j <= idx + i
         key_pos = torch.arange(max_len, device=dev)[None]
         mask = torch.where(key_pos <= positions[:, None], 0.0, NEG_INF)
@@ -240,9 +268,9 @@ class LlamaBackbone(nn.Module):
         JAX package's scatter drops such a write; ROADMAP hazard 30). The
         caller keeps every index below ``max_len``."""
         cfg = self.cfg
-        max_len = cache["k"].shape[2]
+        max_len = cache_len(cache)
         idx = cache["index"]
-        cos, sin = rope_cos_sin(idx[:, None], cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_cos_sin(idx[:, None], cfg.rope_dim, cfg.rope_theta)
         key_pos = torch.arange(max_len, device=idx.device)
         mask = torch.where(key_pos[None] <= idx[:, None], 0.0, NEG_INF)
         mask = mask[:, None, None]  # (B, 1, 1, max_len) over (B, H, 1, K)

@@ -8,6 +8,11 @@ The SFT loss (``forward``) teacher-forces the codec ids
 [gSOS g sSOS s] against the targets [g sSOS s sEOS]: unlike pretraining,
 the semantic EOS target is kept.
 
+The stack under the conditioning is chosen by the config
+(:func:`build_sft`): ``llama.py``'s for a ``LlamaConfig``, Moonlight's
+(``moonlight.py``, latent attention and routed experts) for a
+``MoonlightConfig`` (:class:`MoonlightSFT`).
+
 Generation runs two phases over a dense KV cache:
 
 * phase 1: ``global_length + 1`` steps restricted to the global-token range;
@@ -22,7 +27,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .llama import CodecLM, LlamaConfig, init_cache, range_mask, sample_logits
+from .llama import CodecLM, LlamaConfig, range_mask, sample_logits
+from .moonlight import MoonlightBackbone, MoonlightConfig
 
 
 class LLMSFT(CodecLM):
@@ -97,7 +103,7 @@ class LLMSFT(CodecLM):
         b, prompt_len, _ = prompt.shape
         dev = prompt.device
         max_len = prompt_len + (global_length + 1) + semantic_length + 1
-        cache = init_cache(cfg, b, max_len, dtype=prompt.dtype, device=dev)
+        cache = self.init_cache(b, max_len, dtype=prompt.dtype, device=dev)
         _, cache = self.prefill(prompt, cache)
 
         def phase(mask, first_id, steps):
@@ -116,3 +122,18 @@ class LLMSFT(CodecLM):
                              dev), cfg.semantic_sos, semantic_length)
         return g[:, :global_length] - cfg.global_offset, \
             s - cfg.semantic_offset
+
+
+class MoonlightSFT(LLMSFT, MoonlightBackbone):
+    """:class:`LLMSFT` over the Moonlight stack: the conditioning, the codec
+    embedding and head of ``LLMSFT``, the layers and the latent cache of
+    ``MoonlightBackbone`` (which stands before ``LlamaBackbone`` in the
+    method order)."""
+
+
+def build_sft(cfg, num_tasks: int = 3, feats_dim: int = 768) -> LLMSFT:
+    """The task-conditioned LM over the stack ``cfg`` names: a
+    ``LlamaConfig`` gives :class:`LLMSFT`, a ``MoonlightConfig``
+    :class:`MoonlightSFT`."""
+    cls = MoonlightSFT if isinstance(cfg, MoonlightConfig) else LLMSFT
+    return cls(cfg, num_tasks=num_tasks, feats_dim=feats_dim)

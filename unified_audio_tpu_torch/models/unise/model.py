@@ -11,7 +11,7 @@ the log-mel frontend ``stft_logmel``,
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ from ...ops import dsp
 from ...utils.profiling import span
 from ..bicodec.tokenizer import BiCodecTokenizer
 from ..lm.llama import LlamaConfig
+from ..lm.moonlight import MoonlightConfig
 from ..lm.sft import LLMSFT
 from ..ssl.wav2vec2 import Wav2Vec2Model, conv_frames, wavlm_features
 
@@ -37,11 +38,25 @@ class UniSEConfig:
     n_mels: int = 80
     feats_dim: int = 768  # WavLM hidden
     global_tokens: int = 32  # speaker token count (BiCodec token_num)
-    llm: LlamaConfig = field(default_factory=LlamaConfig)
+    # the LM's stack (lm_config): UniSE's Llama, or Moonlight's
+    llm: Union[LlamaConfig, MoonlightConfig] = field(
+        default_factory=LlamaConfig)
 
     @property
     def segment_len(self) -> int:
         return int(self.segment_seconds * self.sample_rate)
+
+
+def lm_config(section: dict):
+    """The LM config of a YAML ``lm`` section: ``backbone: moonlight``
+    gives a ``MoonlightConfig`` of the other keys, ``backbone: llama`` (the
+    default) a ``LlamaConfig``."""
+    kw = dict(section)
+    backbone = kw.pop("backbone", "llama")
+    kinds = {"llama": LlamaConfig, "moonlight": MoonlightConfig}
+    if backbone not in kinds:
+        raise ValueError(f"lm backbone {backbone!r}: one of {sorted(kinds)}")
+    return kinds[backbone](**kw)
 
 
 class UniSE:

@@ -4,7 +4,9 @@ HCodec hybrid LSTM-attention transformer.
 Port of ``unified_audio_tpu/nn/transformer.py`` (``rope_cos_sin``,
 ``rotate_half``, ``apply_rope``, ``RMSNorm``, ``GatedMLP``, ``MoE``,
 ``causal_mask``, ``sliding_window_mask``, ``attend``, ``HybridAttention``,
-``TransformerLayer``, ``Transformer``). Layouts follow the JAX package: q/k
+``TransformerLayer``, ``Transformer``), with the port's own
+``grouped_mm`` (the routed experts' grouped GEMM). Layouts follow the JAX
+package: q/k
 are (B, T, H, D). Parameter names follow the reference layout
 (``self_attn.rnn.weight_ih_l0``, ``self_attn.q_proj``, ``mlp.w1``,
 ``input_layernorm.weight``); the routed experts keep the JAX package's
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils.profiling import span
 from .recurrent import LSTM
 
 NEG_INF = -1e9  # additive mask value: a fully masked row stays finite
@@ -40,17 +43,21 @@ def rotate_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
+def rope_rotate(x, cos, sin):
+    """x: (B, T, H, D); cos/sin: (T, D) or (B, T, D), fp32 -> x rotated,
+    in x's dtype (the rotation runs in fp32)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return (x * cos + rotate_half(x) * sin).to(x.dtype)
+
+
 def apply_rope(q, k, cos, sin):
     """q, k: (B, T, H, D); cos/sin: (T, D) or (B, T, D), fp32.
 
     The rotation runs in fp32 and the results are cast back to q/k's dtype,
     so a bf16 model stays bf16 downstream of the attention."""
-    if cos.dim() == 2:
-        cos, sin = cos[None], sin[None]
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    q_out = (q * cos + rotate_half(q) * sin).to(q.dtype)
-    k_out = (k * cos + rotate_half(k) * sin).to(k.dtype)
-    return q_out, k_out
+    return rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -68,6 +75,23 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.eps)
+
+
+def grouped_mm(x, w, ends):
+    """Rows ``x`` (R, K) sorted into G runs times their run's matrix of
+    ``w`` (G, K, N) -> (R, N) in x's dtype; ``ends`` (G,) int32 holds
+    where each run ends (a run may be empty). ``torch._grouped_mm`` (one
+    grouped GEMM, no host read: a CUDA graph captures it) where the build
+    has it for the operands (bf16 on the card, any dtype on the CPU);
+    elsewhere one product per run, the run ends read on the host."""
+    if hasattr(torch, "_grouped_mm") and (
+            not x.is_cuda or x.dtype == torch.bfloat16):
+        return torch._grouped_mm(x, w, offs=ends)
+    out, start = [], 0
+    for j, end in enumerate(ends.tolist()):
+        out.append(x[start:end] @ w[j])
+        start = end
+    return torch.cat(out)
 
 
 class GatedMLP(nn.Module):
@@ -91,22 +115,31 @@ def top_k_indices(scores, k: int):
 
 
 class MoE(nn.Module):
-    """Routed experts plus a shared expert (``GatedMLP``). The gate is a
-    softmax (fp32) or a sigmoid of ``gate_linear``; the top ``n_activated``
-    experts are chosen on the scores plus ``gate_bias``, and weighted by
-    the scores without it (renormalized over the chosen ones for the
-    sigmoid), times ``route_scale``. Dispatch is dense, as in the JAX
-    package: every expert runs on every token, the outputs are combined
-    by one-hot weights.
+    """Routed experts plus a shared expert (``GatedMLP``). The router runs
+    in fp32 whatever the weights' dtype (DeepSeek-V3's ``MoEGate``): the
+    gate is a softmax or a sigmoid of ``gate_linear``; the top
+    ``n_activated`` experts are chosen on the scores plus ``gate_bias``,
+    and weighted by the scores without it (renormalized over the chosen
+    ones for the sigmoid), times ``route_scale``.
+
+    Dispatch is routed: each token runs through its chosen experts only.
+    The (token, expert) pairs are sorted by expert, so each expert's tokens
+    sit in one run of rows; three grouped GEMMs (``grouped_mm``) take
+    every run through its expert at once, in the stack's dtype, with no
+    host read, so prefill and a CUDA-graph-captured decode step share the
+    one path; each token's outputs are summed in fp32 under its weights.
+    The JAX package dispatches densely (every expert on every token,
+    combined by one-hot weights): the same sums, taken in another order.
 
     Expert parallelism: when ``parallel/mesh.py shard_lm_`` has cut the
     expert axis of ``expert_w*`` over tp (``tp_dim`` 0) and set
-    ``tp_group``, a rank runs its E / tp experts on its slice of the
-    combine weights and the partial outputs are summed over the group; the
-    gate and the shared expert run replicated and are added once. The
-    experts' input and the combine weights pass ``copy_to_group``, so the
-    backward sums their partial gradients and every rank holds the whole
-    gradient of the gate and of the input."""
+    ``tp_group``, a rank routes over all the experts, runs its E / tp
+    experts on the rows routed to them (their span read on the host), and
+    the partial outputs are summed over the group; the gate and the shared
+    expert run replicated and are added once. The experts' input and the
+    routing weights pass ``copy_to_group``, so the backward sums their
+    partial gradients and every rank holds the whole gradient of the gate
+    and of the input."""
 
     def __init__(self, dim: int, inter_dim: int, n_routed_experts: int = 3,
                  n_activated_experts: int = 1, n_shared_experts: int = 1,
@@ -128,39 +161,86 @@ class MoE(nn.Module):
         self.shared_expert = GatedMLP(dim, n_shared_experts * inter_dim)
         self.tp_group = None
 
-    def combine_weights(self, x):
-        """(..., E) weights of the experts for each token of x."""
-        scores = self.gate_linear(x)
-        scores = (torch.softmax(scores.float(), dim=-1)
+    def route(self, x):
+        """-> (experts (..., k) long, weights (..., k) fp32) of each token
+        of x: the router in fp32."""
+        scores = F.linear(x.float(), self.gate_linear.weight.float())
+        scores = (torch.softmax(scores, dim=-1)
                   if self.score_func == "softmax" else torch.sigmoid(scores))
-        top = top_k_indices(scores + self.gate_bias, self.top_k)
-        onehot = F.one_hot(top, scores.shape[-1]).to(x.dtype)  # (..., k, E)
-        weights = (onehot * scores[..., None, :].to(x.dtype)).sum(-1)
+        top = top_k_indices(scores + self.gate_bias.float(), self.top_k)
+        weights = scores.gather(-1, top)
         if self.score_func == "sigmoid":
             weights = weights / weights.sum(dim=-1, keepdim=True)
-        weights = weights * self.route_scale
-        return (onehot * weights[..., None]).sum(-2)
+        return top, weights * self.route_scale
+
+    def combine_weights(self, x):
+        """(..., E) weights of the experts for each token of x (zero for
+        the experts not chosen)."""
+        top, weights = self.route(x)
+        e = self.gate_bias.shape[0]
+        return (F.one_hot(top, e) * weights[..., None]).sum(-2)
+
+    def experts(self, xs, counts, first: int = 0):
+        """The rows ``xs`` (R, D), sorted by expert with ``counts`` (E,)
+        int32 rows an expert, through this rank's experts (global indices
+        from ``first``; rows routed to other ranks' experts stay zero) ->
+        (R, D) in xs's dtype."""
+        n, rows = self.expert_w1.shape[0], xs.shape[0]
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        lo = hi = None
+        if n != counts.shape[0]:  # an expert-parallel share
+            lo = int(ends[first - 1]) if first else 0
+            hi = int(ends[first + n - 1])
+            xs, ends = xs[lo:hi], ends[first:first + n] - lo
+        h = F.silu(grouped_mm(xs, self.expert_w1, ends)) * grouped_mm(
+            xs, self.expert_w3, ends)
+        y = grouped_mm(h, self.expert_w2, ends)
+        if lo is None:
+            return y
+        out = y.new_zeros((rows, y.shape[1]))
+        out[lo:hi] = y
+        return out
 
     def forward(self, x):
-        combine = self.combine_weights(x)
-        xe = x
-        split = getattr(self.expert_w1, "tp_dim", None) == 0
-        if split:
-            # parallel/ imports this module: its collectives come late
-            from ..parallel.mesh import copy_to_group, reduce_from_group
+        """x (..., D): the router reads it in fp32, the experts in its
+        dtype (the stack's); the result in x's dtype."""
+        with span("lm.moe"):
+            xe = x.reshape(-1, x.shape[-1])
+            group, first = None, 0
+            with span("lm.moe.route"):
+                top, w = self.route(xe)
+                k = top.shape[-1]
+                if getattr(self.expert_w1, "tp_dim", None) == 0:
+                    # parallel/ imports this module: its collectives come
+                    # late
+                    from ..parallel.mesh import copy_to_group
 
-            n = self.expert_w1.shape[0]
-            r = torch.distributed.get_rank(self.tp_group)
-            xe = copy_to_group(x, self.tp_group)
-            combine = copy_to_group(combine, self.tp_group)[
-                ..., r * n:(r + 1) * n]
-        h = F.silu(torch.einsum("...d,edi->...ei", xe, self.expert_w1)) * \
-            torch.einsum("...d,edi->...ei", xe, self.expert_w3)
-        y_e = torch.einsum("...ei,eid->...ed", h, self.expert_w2)
-        y = torch.einsum("...ed,...e->...d", y_e, combine)
-        if split:
-            y = reduce_from_group(y, self.tp_group)
-        return y + self.shared_expert(x)
+                    group = self.tp_group
+                    first = (self.expert_w1.shape[0]
+                             * torch.distributed.get_rank(group))
+                    # one tensor, so the backward sums both gradients in
+                    # one collective whatever order the rank's own graph
+                    # (its experts' share of the rows) reaches them in
+                    xw = copy_to_group(torch.cat([xe.float(), w], -1), group)
+                    xe, w = xw[:, :-k].to(x.dtype), xw[:, -k:]
+                flat = top.reshape(-1)
+                order = torch.argsort(flat, stable=True)
+                counts = torch.zeros(self.gate_bias.shape[0],
+                                     dtype=torch.int32, device=x.device)
+                counts.index_add_(0, flat, torch.ones_like(
+                    flat, dtype=torch.int32))
+                xs, w = xe[order // k], w.reshape(-1)[order]
+            with span("lm.moe.experts"):
+                ys = self.experts(xs, counts, first).float() * w[:, None]
+                y = torch.empty_like(ys).index_copy_(0, order, ys)
+                y = y.view(-1, k, y.shape[-1]).sum(1).to(x.dtype)
+                if group is not None:
+                    from ..parallel.mesh import reduce_from_group
+
+                    y = reduce_from_group(y, group)
+            with span("lm.moe.shared"):
+                out = y.view(x.shape) + self.shared_expert(x)
+        return out
 
 
 def causal_mask(t: int, dtype=torch.float32, device=None) -> torch.Tensor:

@@ -58,7 +58,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..models.lm.llama import init_cache, range_mask, sample_logits_vec
+from ..models.lm.llama import range_mask, sample_logits_vec
 from ..models.lm.sft import LLMSFT
 from ..ops.cuda.paged_attention import (paged_flash_decode_owner,
                                         paged_flash_decode_owner_q8,
@@ -66,7 +66,7 @@ from ..ops.cuda.paged_attention import (paged_flash_decode_owner,
                                         paged_flash_decode_stream_flat_q8)
 from ..utils.profiling import count, span
 from .paged import (TRASH_BLOCK, PoolRef, kernel_mode, open_pool,
-                    paged_decode_ids, scatter_prefill)
+                    paged_decode_ids, pool_blocks, scatter_cache)
 
 PHASE_GLOBAL, PHASE_SEMANTIC, PHASE_DONE = 0, 1, 2
 MAX_TOP_K = 256  # the widest per-request top_k (one static topk per step)
@@ -268,7 +268,7 @@ class ContinuousBatchingEngine:
             cfg, num_slots, self.max_blocks, block_size, self.use_kernel,
             self.kv_dtype, self.device, kv_quant, pool_ref=pool_ref,
             allocator=allocator)
-        self.num_blocks = self.pool["k"].shape[1]
+        self.num_blocks = pool_blocks(self.pool)
 
         # host-side mirrors: decode lengths are fixed, so the host knows
         # when each slot finishes without reading the device
@@ -722,13 +722,12 @@ class ContinuousBatchingEngine:
                 src = torch.where(t < head, t, t - head + 2 + enr_fb)
                 prompt = torch.gather(prompt, 1, src.clamp(0, la - 1)[
                     ..., None].expand_as(prompt))
-                cache = init_cache(cfg, b, la, dtype=self.kv_dtype,
-                                   device=dev)
+                cache = self.sft.init_cache(b, la, dtype=self.kv_dtype,
+                                            device=dev)
                 self.sft.prefill(prompt, cache)
             with span("engine.admit.scatter"):
                 tables_dev = h2d(tables, dev)
-                scatter_prefill(self.pool, tables_dev, cache["k"],
-                                cache["v"], bs)
+                scatter_cache(self.pool, tables_dev, cache, bs)
                 st = self.state
                 if displaced_slots:
                     self._pending_stashes.append((

@@ -1,10 +1,12 @@
 """Paged KV cache: a block pool shared by all serving slots.
 
 Port of ``unified_audio_tpu/serve/paged.py``: ``init_pool`` (flat
-(L, NB, BS, H*hd) layout; int8 pools carry fp32 per-token scales),
+(L, NB, BS, H*hd) layout; int8 pools carry fp32 per-token scales; the
+Moonlight stack's latent pool, which the JAX package lacks, holds one
+(L, NB, BS, rank + rope) entry),
 ``quantize_kv``, ``BlockAllocator``, ``RegionAllocator``, ``scatter_prefill``,
 ``PoolRef`` and the one-token decode step ``paged_decode_ids`` /
-``paged_decode_embeds``.
+``paged_decode_embeds`` (``latent_decode_embeds`` over a latent pool).
 
 The decode step's attention runs in one of three modes:
 
@@ -48,22 +50,30 @@ OWNER_CHUNK_BLOCKS = 14
 KERNEL_MODES = ("", "owner", "stream")
 
 
-def init_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
+def init_pool(cfg, num_blocks: int, block_size: int,
               dtype=torch.float32, quant: Optional[str] = None,
               device=None, tp: int = 1) -> Dict[str, torch.Tensor]:
-    """KV block pool stored flat: {k, v: (L, NB, BS, H*hd)}. ``quant="int8"``
-    stores symmetric int8 K/V with one fp32 scale per (layer, block, offset)
-    in ``k_scale``/``v_scale`` (L, NB, BS). Under tensor parallelism a rank
+    """Block pool stored flat, one (L, NB, BS, width) entry per entry of
+    the config's ``cache_rows``: {k, v: (L, NB, BS, H*hd)} for the Llama
+    stack, {kv: (L, NB, BS, rank + rope)} (the latent rows) for
+    Moonlight's. ``quant="int8"`` (K/V pools only) stores symmetric int8
+    K/V with one fp32 scale per (layer, block, offset) in
+    ``k_scale``/``v_scale`` (L, NB, BS). Under tensor parallelism a rank
     keeps its H/tp heads: the flat width is H*hd/tp (``tp``)."""
+    rows = cfg.cache_rows
+    if "kv" in rows and (quant is not None or tp != 1):
+        raise ValueError("a latent pool holds bf16/fp32 rows that every "
+                         "head shares: no int8 quant, no tp cut")
     if cfg.num_heads % tp:
         raise ValueError(f"tp={tp} does not divide {cfg.num_heads} heads")
-    shape = (cfg.num_layers, num_blocks, block_size,
-             cfg.num_heads // tp * cfg.head_dim)
+    shapes = {k: (cfg.num_layers, num_blocks, block_size, w // tp)
+              for k, w in rows.items()}
     if quant is None:
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return {k: torch.zeros(shape, dtype=dtype, device=device)
+                for k, shape in shapes.items()}
     if quant != "int8":
         raise ValueError(f"unknown pool quant {quant!r} (int8 or None)")
+    shape = shapes["k"]
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_scale": torch.zeros(shape[:3], device=device),
@@ -216,6 +226,29 @@ def table_visibility(tables, index, num_blocks: int, block_size: int,
     return visibility_mask(lmap[:, :nb], index, block_size)
 
 
+def pool_blocks(pool) -> int:
+    """Blocks of a pool (any stack's)."""
+    return next(iter(pool.values())).shape[1]
+
+
+def _write_targets(tables, index, active, bs: int):
+    """(block, offset) of each slot's new row -> two (S,) long tensors;
+    inactive slots go to the trash block at distinct offsets (slot counts
+    never exceed block_size here)."""
+    s_slots, max_blocks = tables.shape
+    if s_slots > bs:
+        raise ValueError(f"{s_slots} slots exceed block_size {bs}: the "
+                         "trash-block offsets would collide")
+    slot_ids = torch.arange(s_slots, device=tables.device)
+    # an inactive slot's stale index may point past its table: clamp the
+    # lookup (its row is redirected to the trash block anyway)
+    cur = (index // bs).long().clamp(0, max_blocks - 1)
+    blk = torch.gather(tables, 1, cur[:, None])[:, 0]
+    blk = torch.where(active, blk, TRASH_BLOCK).long()
+    off = torch.where(active, index % bs, slot_ids % bs).long()
+    return blk, off
+
+
 def _plain_attention(q, pool, li, mask, nb, x_dtype):
     """The reference attention (mode ""): every slot against the pool
     prefix [0, nb) under ``mask`` (S, 1, 1, nb*BS); int8 pools dequantize
@@ -267,11 +300,10 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
         raise ValueError(f"unknown kernel mode {use_kernel!r}")
     bs = block_size
     s_slots, max_blocks = tables.shape
-    num_blocks = pool["k"].shape[1]
+    num_blocks = pool_blocks(pool)
     nb = num_blocks if num_active_blocks is None \
         else min(int(num_active_blocks), num_blocks)
     h, hd = lm.layers[0].self_attn.local_heads, cfg.head_dim
-    dev = x.device
     quant = "k_scale" in pool
     index = index.int()
     cos, sin = rope_cos_sin(index[:, None], hd, cfg.rope_theta)
@@ -288,18 +320,7 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
             mask = torch.where(vis, 0.0, NEG_INF).reshape(s_slots, 1, 1,
                                                           nb * bs)
 
-    # scatter target of each slot's new row; inactive slots go to the trash
-    # block at distinct offsets (slot counts never exceed block_size here)
-    if s_slots > bs:
-        raise ValueError(f"{s_slots} slots exceed block_size {bs}: the "
-                         "trash-block offsets would collide")
-    slot_ids = torch.arange(s_slots, device=dev)
-    # an inactive slot's stale index may point past its table: clamp the
-    # lookup (its row is redirected to the trash block anyway)
-    cur = (index // bs).long().clamp(0, max_blocks - 1)
-    blk = torch.gather(tables, 1, cur[:, None])[:, 0]
-    blk = torch.where(active, blk, TRASH_BLOCK).long()
-    off = torch.where(active, index % bs, slot_ids % bs).long()
+    blk, off = _write_targets(tables, index, active, bs)
 
     for li, layer in enumerate(lm.layers):
         attn_mod = layer.self_attn
@@ -342,14 +363,53 @@ def paged_decode_embeds(cfg: LlamaConfig, lm, pool, tables, index, active, x,
     return rms_norm(x, lm.norm.weight)[:, 0]
 
 
-def paged_decode_ids(cfg: LlamaConfig, lm, pool, tables, index, active, ids,
+def latent_decode_embeds(cfg, lm, pool, tables, index, active, x,
+                         block_size: int,
+                         num_active_blocks: Optional[int] = None,
+                         use_kernel: str = ""):
+    """One batched decode step of the Moonlight stack over a latent pool
+    {kv: (L, NB, BS, rank + rope)}, per-slot positions; arguments as
+    :func:`paged_decode_embeds`, whose contract it keeps (each active
+    slot's new row written in place, inactive slots' to the trash block;
+    the normed hidden (S, D) returned).
+
+    Each slot attends, in the absorbed form (``moonlight.py``), to the
+    rows of its own blocks gathered through its table: in the owner mode
+    its contiguous region, in the others the blocks its table names; the
+    positions past its index are masked. Plain batched torch, no host
+    read: the step captures as a CUDA graph. ``num_active_blocks`` is not
+    needed (no slot reads past its table)."""
+    if use_kernel not in KERNEL_MODES:
+        raise ValueError(f"unknown kernel mode {use_kernel!r}")
+    bs = block_size
+    s_slots, max_blocks = tables.shape
+    index = index.int()
+    dev = x.device
+    cos, sin = rope_cos_sin(index[:, None], cfg.rope_dim, cfg.rope_theta)
+    blk, off = _write_targets(tables, index, active, bs)
+    gather = (tables.long()[:, :, None] * bs + torch.arange(
+        bs, device=dev)).reshape(s_slots, max_blocks * bs)
+    key_pos = torch.arange(max_blocks * bs, device=dev)
+    mask = torch.where(key_pos[None] <= index[:, None], 0.0, NEG_INF)
+    mask = mask[:, None, None]  # (S, 1, 1, K) over (S, H, 1, K)
+    for li, layer in enumerate(lm.layers):
+        x = x + layer.self_attn.paged(layer.input_layernorm(x), cos, sin,
+                                      pool["kv"][li], blk, off, gather, mask)
+        x = x + layer.mlp(layer.post_attention_layernorm(x))
+    return lm.norm(x)[:, 0]
+
+
+def paged_decode_ids(cfg, lm, pool, tables, index, active, ids,
                      block_size: int, num_active_blocks: Optional[int] = None,
                      use_kernel: str = ""):
     """Token-level decode step: ids (S,) -> (logits (S, V) fp32); the pool
-    is updated in place. Activations follow the embedding's dtype."""
+    is updated in place. Activations follow the embedding's dtype. A
+    latent pool (``kv``) runs :func:`latent_decode_embeds`, a K/V pool
+    :func:`paged_decode_embeds`."""
     x = lm.embed_codes(ids.long())[:, None]
-    hidden = paged_decode_embeds(cfg, lm, pool, tables, index, active, x,
-                                 block_size, num_active_blocks, use_kernel)
+    step = latent_decode_embeds if "kv" in pool else paged_decode_embeds
+    hidden = step(cfg, lm, pool, tables, index, active, x, block_size,
+                  num_active_blocks, use_kernel)
     return lm.head(hidden).float()
 
 
@@ -375,6 +435,21 @@ def scatter_prefill(pool, tables, cache_k, cache_v, block_size: int):
     return pool
 
 
+def scatter_cache(pool, tables, cache, block_size: int):
+    """Write a dense prefilled cache (either stack's ``init_cache``) into
+    the pool, in place: a K/V cache through :func:`scatter_prefill`, a
+    latent cache {kv: (L, B, Lp, rank + rope)} row by row alike."""
+    if "kv" not in cache:
+        return scatter_prefill(pool, tables, cache["k"], cache["v"],
+                               block_size)
+    rows = cache["kv"]
+    pos = torch.arange(rows.shape[2], device=rows.device)
+    blk = tables.long()[:, pos // block_size]  # (B, Lp)
+    pool["kv"][:, blk, (pos % block_size).expand_as(blk)] = rows.to(
+        pool["kv"].dtype)
+    return pool
+
+
 class PoolRef:
     """Shared handle to one physical KV block pool: engines built with the
     same ``PoolRef`` and the same allocator serve from one pool (the
@@ -396,7 +471,7 @@ def kernel_mode(use_kernel: Optional[str], device: torch.device) -> str:
     return use_kernel
 
 
-def open_pool(cfg: LlamaConfig, num_slots: int, max_blocks: int,
+def open_pool(cfg, num_slots: int, max_blocks: int,
               block_size: int, use_kernel: str, dtype, device,
               kv_quant: Optional[str] = None,
               num_blocks: Optional[int] = None,

@@ -24,7 +24,8 @@ optax's ``adamw`` at a constant rate and its default weight decay, 1e-4:
 
 Under a mesh (``mesh``, a ``DeviceMesh`` of ``parallel/mesh.py``) a step
 first averages every gradient over dp, in one flattened all-reduce (what
-GSPMD's gradient psum computes in the JAX package), then clips by the
+GSPMD's gradient psum computes in the JAX package; the recorder's
+``train.grad_allreduce`` span, once a step), then clips by the
 global norm of the whole model: the squared norms of the parameters split
 over tp or pp (``mp_split``) are summed over that group and those of the
 replicated ones counted once, so every rank clips by the same norm.
@@ -39,6 +40,7 @@ import torch.distributed as dist
 
 from ..parallel.mesh import (all_reduce_mean_, axis_group,
                              model_parallel_group, split_params)
+from ..utils.profiling import span
 
 
 def warmup_exp_decay_schedule(peak_lr: float = 5e-4,
@@ -126,8 +128,9 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        all_reduce_mean_([p.grad for p in self.params],
-                         axis_group(self.mesh, "dp"))
+        with span("train.grad_allreduce"):
+            all_reduce_mean_([p.grad for p in self.params],
+                             axis_group(self.mesh, "dp"))
         split, rep = split_params(self.params)
         clip_by_global_norm_([p.grad for p in rep], self.grad_clip,
                              [p.grad for p in split],

@@ -43,7 +43,10 @@ recorder of spans and counters:
   gives the device's side. The spans of the
   serving engine, the SFT step, the data pipeline and the codec are
   named ``engine.*``, ``unise.*``, ``train.*``, ``data.*`` and
-  ``codec.*``.
+  ``codec.*``; those of the LM's layers ``lm.*`` (``lm.mla`` and
+  ``lm.moe`` with ``lm.moe.route``, ``.experts``, ``.shared``: the
+  Moonlight stack's, in eager steps only, since a replayed CUDA graph
+  runs no Python).
 * :func:`trace` records CPU and (when a card is present) CUDA activity and
   writes one Chrome-trace JSON file under ``logdir``; the path is on the
   yielded profiler's ``trace_path``. The program's spans show in it.
