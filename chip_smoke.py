@@ -56,7 +56,19 @@ prints no result. Phases, each fatal on failure:
    in distributed shared memory); before each M a line gives its plan:
    rows a cluster, clusters, the clusters the card holds at once
    (cudaOccupancyMaxActiveClusters) and the L2 bytes a call reads and
-   writes, reckoned from the plan (``vq.l2_bytes``).
+   writes, reckoned from the plan (``vq.l2_bytes``). K8, the latent
+   attention (``csrc/latent_attention.cu``, built beside them), runs at the
+   Moonlight serving cell's shapes (``LATENT``): the decode step's call
+   over a 27-layer bf16 latent pool, warm and cold, and the prefill's over
+   a dense cache of 64 x 504, each against the plain version, held to fp32
+   no further than the plain version plus 2e-3 of the output's scale.
+   Then K8 on its main path: the Moonlight stack's serving engine at
+   published widths (``MOONLIGHT``: 2 layers, bf16, 64 slots of SE and TSE
+   requests, the decode steps replayed as a CUDA graph) with K8's launch
+   count set to 0 before it; it fails unless the count is layers x
+   (prefill waves + steps) and every request completes. Those launches are
+   the kernels line's K8 launches; the timing calls before are printed
+   apart.
 3. UniSE serving: serves synthetic 16 kHz requests (SE, TSE, rTSE; greedy
    and sampled; more 5-s segments than the 16 slots) at full UniSE width
    through ``unified_audio_tpu_torch.cli serve``, once with the int8 pool
@@ -355,8 +367,9 @@ HCodec-1.5 one and 11's causal ones) and phase 11's UniTok
 ``train_loss`` tokenizes, its ``nq16`` entry the times at HCodec-2.0's shapes
 and its ``hcodec15_groups`` entry those at HCodec-1.5's aggregated
 groups; K7's launches are those of the serving paths, 0, and the smoke's
-own check calls are printed on the line before), and as its last line
-the device JSON object.
+own check calls are printed on the line before; K8's are phase 2's
+Moonlight serving run's, its timing calls printed on that line), and as
+its last line the device JSON object.
 """
 import dataclasses
 import itertools
@@ -381,6 +394,19 @@ K7_TPU = "unified_audio_tpu/ops/pallas/paged_attention.py:94"
 K5_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:45"
 K6_TPU = "unified_audio_tpu/ops/pallas/vq_kernel.py:148"
 SOURCE = "unified_audio_tpu_torch/csrc/paged_attention.cu"
+LATENT_SOURCE = "unified_audio_tpu_torch/csrc/latent_attention.cu"
+# K8 at the Moonlight serving cell's shapes: 64 slots, 27 layers, 16 heads
+# over 576-wide latent rows (rank 512), 64-row blocks in 14-block regions;
+# SE prompts of 252 positions, TSE of 504 (a quarter), 0-283 generated; the
+# prefill a wave of 64 x 504 positions
+LATENT = dict(slots=64, layers=27, heads=16, width=576, rank=512, bs=64,
+              region=14, prompts=(252, 504), tse_share=0.25, generated=283,
+              prefill=504)
+# K8's main path: the Moonlight serving engine at published widths, cut to
+# 2 layers (the dense layer 0 and one of routed experts), 64 slots of 5-s
+# mixtures (250 WavLM frames of 768), half of them TSE with an enrollment
+MOONLIGHT = dict(layers=2, slots=64, feats=768, frames=250, max_global=32,
+                 max_semantic=256, steps=32 + 1 + 250)
 VQ_SOURCE = "unified_audio_tpu_torch/csrc/vq.cu"
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 and TF32 tensor and fp32
 # peaks
@@ -402,6 +428,7 @@ CUDA_KERNELS = {"paged_flash_decode_owner": "owner_decode_kernel_tiled",
                 "paged_flash_decode_stream_flat_q8":
                     "stream_decode_kernel_pipelined",
                 "paged_flash_decode": "table_decode_kernel_tiled",
+                "latent_attention": "latent_attention_kernel",
                 "vq": "vq_search_kernel"}
 ITERS = 100  # calls per timed window of a decode kernel (50 for K5/K6)
 PAD_S = 0.02  # idle time at each end of a profiled window
@@ -429,6 +456,185 @@ def gpu_line():
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+
+def latent_case(torch, rng, layers):
+    """K8's decode arguments at the serving cell's shapes: a bf16 pool of
+    ``layers`` layers, owner regions, the cell's contexts -> (q, pool,
+    tables, positions)."""
+    c = LATENT
+    nb = (c["slots"] + 1) * c["region"]
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1e9)))
+    pool = torch.randn((layers, nb, c["bs"], c["width"]), generator=gen,
+                       device="cuda").bfloat16()
+    tables = (c["region"] + torch.arange(c["slots"] * c["region"],
+                                         device="cuda")).view(
+        c["slots"], c["region"]).int()
+    prompt = np.where(rng.random(c["slots"]) < c["tse_share"],
+                      c["prompts"][1], c["prompts"][0])
+    pos = prompt + rng.integers(0, c["generated"] + 1, c["slots"])
+    q = torch.randn((c["slots"], 1, c["heads"], c["width"]), generator=gen,
+                    device="cuda").bfloat16()
+    return q, pool, tables, torch.as_tensor(pos, dtype=torch.int32,
+                                            device="cuda")
+
+
+def latent_phase(torch, la, gpu):
+    """K8 alone at the Moonlight serving cell's shapes (``LATENT``): the
+    decode step's call (64 slots through their tables) warm on one layer
+    and cold with the layer cycling 0..26, and the prefill's (a dense cache
+    of 64 x 504, causal), each against the plain version in turns, with
+    its error against fp32 and its bound: the decode's live rows (and q,
+    the output) over 3.35 TB/s, the prefill's operations over the bf16
+    peak or its bytes (q, cache, output), whichever is larger -> the
+    kernels-line entry."""
+    c = LATENT
+    rng = np.random.default_rng(23)
+    scale = (128 + c["width"] - c["rank"]) ** -0.5
+    rank = c["rank"]
+    q, pool, tables, pos = latent_case(torch, rng, c["layers"])
+    live = int((pos.long() + 1).sum())
+    row = c["width"] * 2
+    io = 2 * q.numel() * 2 + tables.numel() * 4
+    dec_bound = bound(live * row + io,
+                      2 * live * c["heads"] * (c["width"] + rank), "bf16")
+
+    def held(q_, rows, p0, tables_=None):
+        got = la.latent_attention(q_, rows, p0, rank, scale, tables_)
+        plain = la.latent_attention_ref(q_, rows, p0, rank, scale, tables_)
+        exact = la.latent_attention_ref(q_.float(), rows.float(), p0, rank,
+                                        scale, tables_)
+        err = (got.float() - exact).abs().max().item()
+        plain_err = (plain.float() - exact).abs().max().item()
+        top = exact.abs().max().item()
+        if not err <= plain_err + 2e-3 * top:
+            fail(f"K8 max abs err {err} vs fp32, plain {plain_err} "
+                 f"(scale {top})")
+        return err, plain_err
+
+    dec_err = held(q, pool[0], pos, tables)
+    kernel = CUDA_KERNELS["latent_attention"]
+    warm = in_turns(torch, [
+        lambda: la.latent_attention_ref(q, pool[0], pos, rank, scale, tables),
+        lambda: la.latent_attention(q, pool[0], pos, rank, scale, tables)],
+        kernels=[None, kernel])
+    layers = itertools.cycle(range(c["layers"]))
+    cold = in_turns(torch, [
+        lambda: la.latent_attention_ref(q, pool[next(layers)], pos, rank,
+                                        scale, tables),
+        lambda: la.latent_attention(q, pool[next(layers)], pos, rank, scale,
+                                    tables)], kernels=[None, kernel])
+    del pool
+    torch.cuda.empty_cache()
+    b, t = c["slots"], c["prefill"]
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1e9)))
+    cache = torch.randn((b, t, c["width"]), generator=gen,
+                        device="cuda").bfloat16()
+    qp = torch.randn((b, t, c["heads"], c["width"]), generator=gen,
+                     device="cuda").bfloat16()
+    p0 = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    pre_err = held(qp, cache, p0)
+    pairs = b * t * (t + 1) // 2
+    pre_bound = bound(2 * qp.numel() + 2 * cache.numel()
+                      + 2 * b * t * c["heads"] * rank,
+                      2 * pairs * c["heads"] * (c["width"] + rank), "bf16")
+    pre = in_turns(torch, [
+        lambda: la.latent_attention_ref(qp, cache, p0, rank, scale),
+        lambda: la.latent_attention(qp, cache, p0, rank, scale)],
+        iters=10, kernels=[None, kernel])
+    print(f"K8 latent_attention decode at the Moonlight cell's shapes (64 "
+          f"slots, {live} live rows, {live * row / 1e6:.1f} MB): max abs err "
+          f"{dec_err[0]:.3e} vs fp32 (plain {dec_err[1]:.3e}); kernel "
+          f"{warm[1]['ms'] * 1e3:.2f} us warm, {cold[1]['ms'] * 1e3:.2f} us "
+          f"cold (layers 0..26); plain {warm[0]['ms'] * 1e3:.2f} / "
+          f"{cold[0]['ms'] * 1e3:.2f} us; bound {dec_bound[0] * 1e3:.2f} us "
+          f"({dec_bound[1]}); wall with dispatch {warm[1]['wall_ms'] * 1e3:.1f}"
+          f" us | {gpu}", flush=True)
+    print(f"K8 latent_attention prefill of 64 x 504 (causal): max abs err "
+          f"{pre_err[0]:.3e} vs fp32 (plain {pre_err[1]:.3e}); kernel "
+          f"{pre[1]['ms'] * 1e3:.1f} us, plain {pre[0]['ms'] * 1e3:.1f} us, "
+          f"bound {pre_bound[0] * 1e3:.1f} us ({pre_bound[1]}; "
+          f"{2 * pairs * c['heads'] * (c['width'] + rank) / 1e9:.1f} GFLOP) | "
+          f"{gpu}", flush=True)
+    return {"name": la.latent_attention.__name__, "route": "cuda",
+            "source": LATENT_SOURCE,
+            "replaces": "none (the JAX package has no latent attention)",
+            "max_abs_err": dec_err[0], "ms": warm[1]["ms"],
+            "plain_ms": warm[0]["ms"], "bound_ms": dec_bound[0],
+            "bound_by": dec_bound[1], "library_ms": None,
+            "cold_ms": cold[1]["ms"], "cold_plain_ms": cold[0]["ms"],
+            "records": warm[1]["records"] + cold[1]["records"],
+            "prefill": {"ms": pre[1]["ms"], "plain_ms": pre[0]["ms"],
+                        "bound_ms": pre_bound[0], "bound_by": pre_bound[1],
+                        "max_abs_err": pre_err[0]}}
+
+
+def moonlight_phase(torch, la, gpu):
+    """K8 on its main path (``MOONLIGHT``): the Moonlight engine admits
+    64 requests and runs its decode steps, replayed as a CUDA graph after
+    the first, with K8's launch count set to 0 first; fails unless every
+    request completes and the count is layers x (prefill waves + steps)
+    -> that count."""
+    from unified_audio_tpu_torch.models.lm.moonlight import MoonlightConfig
+    from unified_audio_tpu_torch.models.lm.sft import build_sft
+    from unified_audio_tpu_torch.serve.engine import (
+        ContinuousBatchingEngine, Request, segment_chunks)
+    from unified_audio_tpu_torch.utils.initialization import init_random_
+
+    c = MOONLIGHT
+    dev = torch.device("cuda")
+    cfg = MoonlightConfig(num_layers=c["layers"])
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with dev:
+            sft = build_sft(cfg, feats_dim=c["feats"])
+    finally:
+        torch.set_default_dtype(torch.float32)
+    init_random_(sft, torch.Generator(device=dev).manual_seed(3))
+    eng = ContinuousBatchingEngine(sft.eval(), num_slots=c["slots"],
+                                   max_global=c["max_global"],
+                                   max_semantic=c["max_semantic"],
+                                   mix_buckets=(256,))
+    if not eng._graphed or list(eng.pool) != ["kv"]:
+        fail("the Moonlight engine does not replay its steps over a latent "
+             "pool")
+    rng = np.random.default_rng(29)
+
+    def feats():
+        return rng.standard_normal((c["frames"], c["feats"])).astype(
+            np.float32)
+
+    reqs = [Request(task_id=i % 2, mix_feats=feats(),
+                    enroll_feats=feats() if i % 2 else None,
+                    do_sample=i % 4 == 0, uid=i) for i in range(c["slots"])]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    la.latent_attention.launches = 0
+    t0 = time.perf_counter()
+    if len(eng.admit_many(reqs)) != len(reqs):
+        fail("the Moonlight engine did not admit every request")
+    for n in segment_chunks(c["steps"], 256):
+        eng.step(n, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = eng.harvest()
+    stats = eng.stats()
+    launches = la.latent_attention.launches
+    want = cfg.num_layers * (stats["prefill_waves"] + c["steps"])
+    if launches != want or stats["graph_replays"] < c["steps"] - 2:
+        fail(f"K8 launched {launches} times on the Moonlight engine, not "
+             f"{cfg.num_layers} layers x ({stats['prefill_waves']} prefill "
+             f"waves + {c['steps']} steps) = {want}; replays "
+             f"{stats['graph_replays']}")
+    if len(done) != len(reqs):
+        fail(f"the Moonlight engine completed {len(done)} of {len(reqs)}")
+    print(f"Moonlight engine ({cfg.num_layers} layers at published widths, "
+          f"bf16, {c['slots']} slots): {stats['prefill_waves']} prefill "
+          f"waves, {c['steps']} steps ({stats['graph_replays']} replayed) "
+          f"in {wall:.2f} s; K8 launches {launches} = layers x (waves + "
+          f"steps) | {gpu}", flush=True)
+    del eng, sft
+    torch.cuda.empty_cache()
+    return launches
+
 
 def profiled(torch, fn, n, lead_in=True):
     """-> (CUDA records by name, their summed us) of ``n`` calls of ``fn``
@@ -4507,6 +4713,7 @@ def main():
     from unified_audio_tpu_torch import cli
     from unified_audio_tpu_torch.data.audio_io import read_wav, write_wav
     from unified_audio_tpu_torch.models.unise.model import UniSE
+    from unified_audio_tpu_torch.ops.cuda import latent_attention as la
     from unified_audio_tpu_torch.ops.cuda import paged_attention as pa
     from unified_audio_tpu_torch.ops.cuda import vq
     from unified_audio_tpu_torch.ops import dsp
@@ -4524,7 +4731,8 @@ def main():
     # 2. kernels: one nvcc per source, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        list(pool.map(load_library, ("paged_attention.cu", "vq.cu")))
+        list(pool.map(load_library, ("paged_attention.cu", "vq.cu",
+                                     "latent_attention.cu")))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     results = {}
     for name, kernel, ref, quant, check in (
@@ -4557,6 +4765,11 @@ def main():
                   f" {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
                   f"{b_ms * 1e3:.2f} us (3xTF32 at 495 TFLOP/s); L2 bytes "
                   f"{plan['l2_bytes'][nq]} | {gpu}", flush=True)
+    k8_tally = {}
+    with uncounted(k8_tally, la.latent_attention):
+        latent = latent_phase(torch, la, gpu)
+    torch.cuda.empty_cache()
+    k8_launches = moonlight_phase(torch, la, gpu)
 
     # 3. UniSE serving. From here on K7's count holds the serving paths'
     # launches; the smoke's own K7 checks go to ``tally``.
@@ -4782,6 +4995,11 @@ def main():
                                         NQ20)[0], "records": n_rec}
         for m, (_, worst, ms, plain_ms, n_rec) in k6_20.items()}
     kernels[-1]["hcodec15_groups"] = k6_15
+    k8 = la.latent_attention
+    print(f"K8 launches on the Moonlight serving path {k8_launches}; the "
+          f"smoke's own K8 check and timing calls "
+          f"{k8_tally[k8.__name__]}", flush=True)
+    kernels.append({**latent, "launches": k8_launches})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

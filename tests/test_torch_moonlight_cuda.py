@@ -9,7 +9,11 @@
   bf16 rounding; the latent attention over a bf16 latent cache (the
   absorbed form) gives the naive form's output within bf16 rounding;
 * an eager step makes no host sync (``torch.cuda.set_sync_debug_mode``
-  "error" around it).
+  "error" around it);
+* every latent-attention call goes through K8: over a prefill and
+  replayed steps the program counters read ``lm.mla.kernel`` =
+  ``lm.mla.calls``, one call a layer a step, and K8's ``.launches``
+  advance by the layers at each replay.
 
 Needs a CUDA card; imports no JAX:
 
@@ -23,8 +27,10 @@ from torch.nn import functional as F
 from unified_audio_tpu_torch.models.lm.moonlight import MoonlightConfig
 from unified_audio_tpu_torch.models.lm.sft import build_sft
 from unified_audio_tpu_torch.nn.transformer import MoE, rope_cos_sin
+from unified_audio_tpu_torch.ops.cuda.latent_attention import latent_attention
 from unified_audio_tpu_torch.serve.engine import (ContinuousBatchingEngine,
                                                   Request, segment_chunks)
+from unified_audio_tpu_torch.utils import profiling
 from unified_audio_tpu_torch.utils.initialization import init_random_
 
 SLOTS, FEATS, FRAMES = 64, 768, 250
@@ -170,3 +176,28 @@ def test_eager_step_makes_no_host_sync(card, sft):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_every_latent_call_goes_through_k8(card, sft):
+    eng = _engine(sft, graphed=True)
+    gen = torch.Generator(device=card).manual_seed(9)
+    steps = 8
+    profiling.reset()
+    profiling.enable()
+    try:
+        eng.admit_many(_requests())
+        before = latent_attention.launches
+        eng.step(steps, gen)
+        torch.cuda.synchronize()
+        counts = profiling.export()["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    stats = eng.stats()
+    assert stats["graph_captures"] == 1
+    assert stats["graph_replays"] == steps - 1
+    layers = CFG.num_layers
+    calls = layers * (stats["prefill_waves"] + steps)
+    assert counts["lm.mla.calls"] == counts["lm.mla.kernel"] == calls
+    assert latent_attention.launches - before == layers * steps

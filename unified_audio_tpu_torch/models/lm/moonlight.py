@@ -51,6 +51,7 @@ import torch
 from torch import nn
 
 from ...nn.transformer import GatedMLP, MoE, RMSNorm, attend, rope_rotate
+from ...ops.cuda.latent_attention import latent_attention
 from ...utils.profiling import span
 from .llama import CodecVocab, LlamaBackbone
 
@@ -159,19 +160,22 @@ class LatentAttention(nn.Module):
         q = torch.cat([q_nope, q_pe], dim=-1)
         return attend(q, k, v, mask, self.scale).reshape(b, s, -1)
 
-    def absorbed(self, q_nope, q_pe, rows, mask):
+    def absorbed(self, q_nope, q_pe, rows, pos0, tables=None):
         """q_nope (B, S, H, nope), q_pe (B, S, H, rope) over the latent
-        rows (B, T, rank + rope) under the additive ``mask`` (broadcast
-        over (B, H, S, T)) -> (B, S, H * v)."""
+        rows where they lie (``ops/cuda/latent_attention.py``: a dense
+        cache's layer (B, T, rank + rope), or a pool's layer (NB, BS, rank +
+        rope) through ``tables``), query s of row b at position ``pos0[b] +
+        s`` seeing the keys up to it -> (B, S, H * v). Each head's q_nope is
+        taken through its W_uk before and its latent output through its
+        W_uv after the attention (K8 on the card, its plain version on the
+        CPU)."""
         cfg = self.cfg
         r = cfg.kv_lora_rank
         w = self.kv_b_proj.weight.view(cfg.num_heads, -1, r)
         w_uk, w_uv = w.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=1)
         q = torch.cat([torch.einsum("bshn,hnr->bshr", q_nope, w_uk), q_pe],
                       dim=-1)
-        logits = torch.einsum("bshc,btc->bhst", q, rows).float() * self.scale
-        probs = torch.softmax(logits + mask, dim=-1).to(rows.dtype)
-        out = torch.einsum("bhst,btr->bshr", probs, rows[..., :r])
+        out = latent_attention(q, rows, pos0, r, self.scale, tables)
         out = torch.einsum("bshr,hvr->bshv", out, w_uv)
         return out.reshape(*out.shape[:2], -1)
 
@@ -179,8 +183,9 @@ class LatentAttention(nn.Module):
         """x (B, S, D). With a cache,
         the new latent rows are written into ``cache["kv"][li]`` at its
         index, in place (per row where the index is a (B,) tensor), and the
-        attention reads the whole buffer; without one, the naive form over
-        the S new positions."""
+        S queries attend causally over the buffer (``mask`` is the naive
+        form's alone: a cache's is the causal one of its index); without
+        one, the naive form over the S new positions."""
         with span("lm.mla"):
             if cache is None:
                 return self.o_proj(self.naive(x, mask, cos, sin))
@@ -191,23 +196,26 @@ class LatentAttention(nn.Module):
             if isinstance(idx, torch.Tensor) and idx.dim() == 1:
                 cache["kv"][li, torch.arange(b, device=idx.device), idx] = \
                     rows[:, 0]
+                pos0 = idx.int()
             else:
                 cache["kv"][li, :, idx:idx + s] = rows
+                pos0 = torch.full((b,), int(idx), dtype=torch.int32,
+                                  device=x.device)
             return self.o_proj(self.absorbed(q_nope, q_pe, cache["kv"][li],
-                                             mask))
+                                             pos0))
 
-    def paged(self, x, cos, sin, layer_rows, blk, off, gather, mask):
+    def paged(self, x, cos, sin, layer_rows, blk, off, tables, index):
         """The decode step over a latent pool's layer ``layer_rows`` (NB,
         BS, rank + rope): x (S, 1, D); each slot's new row written at
-        (``blk``, ``off``), then its rows gathered by ``gather`` (S, K)
-        (indices into the layer's NB * BS rows) and attended under ``mask``
-        (S, 1, 1, K) -> (S, 1, D)."""
+        (``blk``, ``off``), then attended with the rows its table (S, MB)
+        names up to its ``index`` (S,) int32 (-1: an inactive slot, whose
+        output is zeros) -> (S, 1, D)."""
         with span("lm.mla"):
             q_nope, q_pe = self.queries(x, cos, sin)
             layer_rows[blk, off] = self.latent(x, cos, sin)[:, 0].to(
                 layer_rows.dtype)
-            rows = layer_rows.view(-1, layer_rows.shape[-1])[gather]
-            return self.o_proj(self.absorbed(q_nope, q_pe, rows, mask))
+            return self.o_proj(self.absorbed(q_nope, q_pe, layer_rows, index,
+                                             tables))
 
 
 class MoonlightLayer(nn.Module):

@@ -19,7 +19,9 @@ The kernels are CUDA C++ for sm_90a in ``csrc/paged_attention.cu``, built
 with ``nvcc`` on first use (``ops/cuda/build.py``). Each wrapper launches its
 kernel for CUDA tensors and uses the plain PyTorch version beside it only for
 tensors on the CPU; there is no fallback from a failed launch. Each wrapper
-counts its launches in a plain integer attribute, ``<wrapper>.launches``.
+counts its launches in a plain integer attribute, ``<wrapper>.launches``
+(through ``utils/profiling.py launched``, which a captured CUDA graph's
+step holds back for its replays).
 
 Owner semantics (K1/K2): q (S, H, hd); pools flat (L, NB, BS, H*hd);
 ``start_block`` (S,) int32, the first physical block of each slot's
@@ -60,6 +62,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from ...utils.profiling import launched
 
 NEG_INF = -1e9  # the additive mask value of the plain attention paths
 
@@ -319,7 +323,7 @@ def paged_flash_decode_owner(q, kpool, vpool, start_block, index, li):
             s_slots, h, kpool.shape[1], kpool.shape[2], int(li),
             hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode_owner")
-    paged_flash_decode_owner.launches += 1
+    launched(paged_flash_decode_owner)
     return out
 
 
@@ -348,7 +352,7 @@ def paged_flash_decode_owner_q8(q, kpool, vpool, k_scale, v_scale,
             index.data_ptr(), out.data_ptr(), s_slots, h, nb, bs, int(li),
             hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode_owner_q8")
-    paged_flash_decode_owner_q8.launches += 1
+    launched(paged_flash_decode_owner_q8)
     return out
 
 
@@ -375,7 +379,7 @@ def paged_flash_decode_stream_flat(q, kpool, vpool, vis, li,
             int(li), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode_stream_flat")
-    paged_flash_decode_stream_flat.launches += 1
+    launched(paged_flash_decode_stream_flat)
     return out
 
 
@@ -403,7 +407,7 @@ def paged_flash_decode_stream_flat_q8(q, kpool, vpool, k_scale, v_scale, vis,
             int(li), hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode_stream_flat_q8")
-    paged_flash_decode_stream_flat_q8.launches += 1
+    launched(paged_flash_decode_stream_flat_q8)
     return out
 
 
@@ -450,7 +454,7 @@ def paged_flash_decode(q, kpool, vpool, tables, index, li):
             kpool.shape[1], kpool.shape[2], tables.shape[1], int(li),
             hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_flash_decode")
-    paged_flash_decode.launches += 1
+    launched(paged_flash_decode)
     return out
 
 

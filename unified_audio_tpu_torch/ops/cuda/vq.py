@@ -20,7 +20,8 @@ distributed shared memory. The kernel takes each layer's codebook by its
 pointer, so a caller's codebooks are never copied. Each wrapper launches
 its kernel for CUDA tensors and uses the plain PyTorch version beside it
 only for tensors on the CPU; there is no fallback from a failed launch.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches`` (through
+``utils/profiling.py launched``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ import ctypes
 import functools
 
 import torch
+
+from ...utils.profiling import launched
 
 CLUSTER = 8  # CTAs of a cluster: codebook chunks (kCluster in csrc/vq.cu)
 MAX_LAYERS = 16  # residual layers one launch takes (kMaxLayers)
@@ -173,7 +176,7 @@ def nearest_code(x, codebook):
     _require(codebook.dim() == 2, f"codebook must be (N, D), got "
              f"{tuple(codebook.shape)}")
     out = _search(x, [codebook], "nearest_code").view(-1)
-    nearest_code.launches += 1
+    launched(nearest_code)
     return out
 
 
@@ -186,7 +189,7 @@ def rvq_encode_fused(x, codebooks):
         _require(codebooks.dim() == 3, f"codebooks must be (nq, N, D), got "
                  f"{tuple(codebooks.shape)}")
     out = _search(x, list(codebooks), "rvq_encode_fused")
-    rvq_encode_fused.launches += 1
+    launched(rvq_encode_fused)
     return out
 
 

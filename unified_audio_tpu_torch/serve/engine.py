@@ -60,22 +60,13 @@ import torch
 
 from ..models.lm.llama import range_mask, sample_logits_vec
 from ..models.lm.sft import LLMSFT
-from ..ops.cuda.paged_attention import (paged_flash_decode_owner,
-                                        paged_flash_decode_owner_q8,
-                                        paged_flash_decode_stream_flat,
-                                        paged_flash_decode_stream_flat_q8)
-from ..utils.profiling import count, span
+from ..utils.profiling import count, held, release, span
 from .paged import (TRASH_BLOCK, PoolRef, kernel_mode, open_pool,
                     paged_decode_ids, pool_blocks, scatter_cache)
 
 PHASE_GLOBAL, PHASE_SEMANTIC, PHASE_DONE = 0, 1, 2
 MAX_TOP_K = 256  # the widest per-request top_k (one static topk per step)
 FEATS_WIRES = ("bf16", "int8")
-# the kernel wrappers a decode step launches; a graph replay advances their
-# ``.launches`` by the launches its capture made
-STEP_KERNELS = (paged_flash_decode_owner, paged_flash_decode_owner_q8,
-                paged_flash_decode_stream_flat,
-                paged_flash_decode_stream_flat_q8)
 
 
 def graph_steps_on(device: torch.device, lm) -> bool:
@@ -310,7 +301,7 @@ class ContinuousBatchingEngine:
         self._smask = range_mask(cfg, cfg.semantic_offset, cfg.semantic_size,
                                  dev)
         # (nb, generator) -> None after the key's first (eager) step, then
-        # (its captured step, [(kernel wrapper, launches a step)])
+        # (its captured step, {counter or kernel wrapper: count a step})
         self._graphs: Dict[tuple, Optional[tuple]] = {}
         self._graphed = graph_steps_on(self.device, sft)
         self._stats = {"requests_admitted": 0, "requests_completed": 0,
@@ -844,22 +835,18 @@ class ContinuousBatchingEngine:
 
     def _capture(self, generator, nb: int) -> tuple:
         """One :meth:`_step_one` captured as a CUDA graph -> (graph,
-        [(kernel wrapper, launches a step)]). Capture runs nothing, so the
-        launches the wrappers counted during it are taken back; each replay
-        adds them again."""
+        {counter or kernel wrapper: count a step}). Capture runs nothing,
+        so the program counters and kernel launches its Python made are
+        held back (``utils/profiling.py held``); each replay releases them
+        again."""
         graph = torch.cuda.CUDAGraph()
         if generator is not None:  # capture registers the default one
             # each replay advances the generator's offset: fresh draws
             graph.register_generator_state(generator)
-        before = [fn.launches for fn in STEP_KERNELS]
-        with torch.cuda.graph(graph):
+        with held() as counts, torch.cuda.graph(graph):
             self._step_one(generator, nb)
-        launches = [(fn, fn.launches - b)
-                    for fn, b in zip(STEP_KERNELS, before)]
-        for fn, k in launches:
-            fn.launches -= k
         self._stats["graph_captures"] += 1
-        return graph, [(fn, k) for fn, k in launches if k]
+        return graph, counts
 
     def _replay(self, n: int, generator, nb: int) -> None:
         """``n`` steps as replays of the key's captured step. The key's
@@ -875,11 +862,10 @@ class ContinuousBatchingEngine:
             return
         if self._graphs[key] is None:
             self._graphs[key] = self._capture(generator, nb)
-        graph, launches = self._graphs[key]
+        graph, counts = self._graphs[key]
         for _ in range(n):
             graph.replay()
-        for fn, k in launches:
-            fn.launches += k * n
+        release(counts, n)
         self._stats["graph_replays"] += n
         count("engine.graph_steps", n)
 

@@ -374,27 +374,24 @@ def latent_decode_embeds(cfg, lm, pool, tables, index, active, x,
     the normed hidden (S, D) returned).
 
     Each slot attends, in the absorbed form (``moonlight.py``), to the
-    rows of its own blocks gathered through its table: in the owner mode
-    its contiguous region, in the others the blocks its table names; the
-    positions past its index are masked. Plain batched torch, no host
-    read: the step captures as a CUDA graph. ``num_active_blocks`` is not
-    needed (no slot reads past its table)."""
+    rows of its own blocks where they lie in the pool, through its table
+    (in the owner mode its contiguous region, in the others the blocks its
+    table names), up to its index: K8 (``ops/cuda/latent_attention.py``)
+    on the card, its plain version on the CPU. An inactive slot attends to
+    nothing (its index goes in as -1). No host read: the step captures as a
+    CUDA graph. ``num_active_blocks`` is not needed (no slot reads past its
+    table)."""
     if use_kernel not in KERNEL_MODES:
         raise ValueError(f"unknown kernel mode {use_kernel!r}")
-    bs = block_size
-    s_slots, max_blocks = tables.shape
     index = index.int()
-    dev = x.device
     cos, sin = rope_cos_sin(index[:, None], cfg.rope_dim, cfg.rope_theta)
-    blk, off = _write_targets(tables, index, active, bs)
-    gather = (tables.long()[:, :, None] * bs + torch.arange(
-        bs, device=dev)).reshape(s_slots, max_blocks * bs)
-    key_pos = torch.arange(max_blocks * bs, device=dev)
-    mask = torch.where(key_pos[None] <= index[:, None], 0.0, NEG_INF)
-    mask = mask[:, None, None]  # (S, 1, 1, K) over (S, H, 1, K)
+    blk, off = _write_targets(tables, index, active, block_size)
+    tables = tables.int().contiguous()
+    own_index = torch.where(active, index, -1).int()
     for li, layer in enumerate(lm.layers):
         x = x + layer.self_attn.paged(layer.input_layernorm(x), cos, sin,
-                                      pool["kv"][li], blk, off, gather, mask)
+                                      pool["kv"][li], blk, off, tables,
+                                      own_index)
         x = x + layer.mlp(layer.post_attention_layernorm(x))
     return lm.norm(x)[:, 0]
 

@@ -25,8 +25,9 @@ recorder of spans and counters:
     print(timer.summary())
 
 * :class:`Recorder` keeps one process's spans and counts; the module's
-  ``span``, ``count``, ``cpu_time``, ``enable``, ``disable``, ``reset``
-  and ``export`` are those of its one instance, ``RECORDER``.
+  ``span``, ``count``, ``launched``, ``held``, ``release``,
+  ``cpu_time``, ``enable``, ``disable``, ``reset`` and ``export`` are
+  those of its one instance, ``RECORDER``.
   The recorder is on while enabled and while a ``torch.profiler`` runs in
   the process. Off (the default), ``span`` and ``cpu_time`` return one
   shared no-op context after two flag checks (its own and the profiler's)
@@ -169,7 +170,12 @@ class Recorder:
         return _Span(self, name, attrs)
 
     def count(self, name: str, value=1) -> None:
-        """Add ``value`` to counter ``name`` while the recorder is on."""
+        """Add ``value`` to counter ``name`` while the recorder is on (to
+        the dict of the calling thread's open :meth:`held`, if any)."""
+        held = getattr(self._local, "held", None)
+        if held is not None:
+            held[name] = held.get(name, 0) + value
+            return
         if not (self.enabled or _profiler._is_profiler_enabled):
             return
         with self._lock:
@@ -181,6 +187,39 @@ class Recorder:
         if not (self.enabled or _profiler._is_profiler_enabled):
             return _OFF
         return _CpuTime(self, name)
+
+    def launched(self, wrapper, n=1) -> None:
+        """Add ``n`` to a kernel wrapper's ``.launches``, on or off (to
+        the dict of the calling thread's open :meth:`held`, keyed by the
+        wrapper, if any). Every CUDA kernel wrapper counts through it."""
+        held = getattr(self._local, "held", None)
+        if held is not None:
+            held[wrapper] = held.get(wrapper, 0) + n
+        else:
+            wrapper.launches += n
+
+    @contextlib.contextmanager
+    def held(self):
+        """Hold back the counts and launches the calling thread makes
+        inside the block, on or off: they go to the yielded dict and
+        nowhere else. A CUDA graph's capture runs its step's Python once
+        and each replay none, so the serving engine holds the capture's
+        counts and :meth:`release` adds them at every replay."""
+        held: Dict[object, float] = {}
+        self._local.held = held
+        try:
+            yield held
+        finally:
+            self._local.held = None
+
+    def release(self, held: dict, times=1) -> None:
+        """Make the counts and launches of a :meth:`held` dict ``times``
+        over: counters by :meth:`count`, launches by :meth:`launched`."""
+        for what, n in held.items():
+            if isinstance(what, str):
+                self.count(what, n * times)
+            else:
+                self.launched(what, n * times)
 
     def enable(self) -> None:
         self.enabled = True
@@ -213,6 +252,9 @@ class Recorder:
 RECORDER = Recorder()
 span = RECORDER.span
 count = RECORDER.count
+launched = RECORDER.launched
+held = RECORDER.held
+release = RECORDER.release
 cpu_time = RECORDER.cpu_time
 enable = RECORDER.enable
 disable = RECORDER.disable
